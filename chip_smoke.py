@@ -8,16 +8,21 @@ Run from the repository root on a machine with one NVIDIA H100:
 1. prints the card (``nvidia-smi`` name and power limit), the torch and
    CUDA versions, and builds every kernel of the serving path from
    ``quant_gemm_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel);
-2. kernel phase: each of K1-K4 at the shapes the serving path gives it,
-   against its plain PyTorch version at the stated tolerance, timed with
-   CUDA events (L2 flushed before every timed launch) beside its bound and,
-   where one PyTorch call computes the same function, that call's time;
-3. main path: the q4_0 W4A8 continuous-batching ``Server`` at
+2. kernel phase: each of K1-K5 at the shapes the serving path gives it
+   (K3 and K5 also with the int8 cache and a window of 256), against its
+   plain PyTorch version at the stated tolerance, timed with CUDA events
+   (L2 flushed before every timed launch) beside its bound and, where one
+   PyTorch call computes the same function, that call's time;
+3. main path: the q4_0 W4A8 continuous-batching ``Server(qp, cfg,
+   n_slots=8)`` at its defaults (prefill chunk 128, prompt caching) at
    TinyLlama-1.1B width (22 layers, random weights from a seed, quantized
-   on the card) serves 16 greedy requests; every kernel's launch count must
-   grow; then one prefill chunk and one decode step run through the kernels
-   and through the plain versions from the same hidden state at every
-   layer, and each layer's output and the logits must agree;
+   on the card) serves 16 greedy requests, eight of them opening with a
+   shared 256-token system prompt, with the bf16 cache and again with the
+   int8 cache; each kernel's launches, counted from 0 for each run, must
+   match the path's, and the reused prompt tokens the traffic's; then two
+   128-token prefill chunks and one decode step per cache run through the
+   kernels and through the plain versions from the same hidden state at
+   every layer, and each layer's output and the logits must agree;
 4. prints one JSON line of the kernels, the card, and last the result line.
 
 Exits non-zero, with no result line, when CUDA is unavailable or any phase
@@ -119,7 +124,7 @@ def kernel_phase(dev, timer):
         norm_qkv, norm_qkv_plain)
     from quant_gemm_tpu_torch.kernels.registry import fold_q8_1
     from quant_gemm_tpu_torch.ops.attention import (
-        flash_decode, flash_decode_plain)
+        flash_decode, flash_decode_plain, flash_prefill, flash_prefill_plain)
 
     g = torch.Generator(device=dev).manual_seed(1234)
 
@@ -134,13 +139,16 @@ def kernel_phase(dev, timer):
     weights = {name: weight(n, k) for name, (n, k) in shapes.items()}
     rows = []  # per-shape detail
 
-    def record(kernel, shape, err, check, ms, plain_ms, bnd, lib_ms):
+    def record(kernel, shape, err, check, ms, plain_ms, bnd, lib_ms,
+               main=True):
+        """One row; ``main``: the variant the default server runs (the
+        kernels line sums those, and lists every row)."""
         rows.append({"kernel": kernel, "shape": shape, "max_abs_err": err,
                      "check": check, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bnd[0], "bound_by": bnd[1],
-                     "library_ms": lib_ms})
+                     "library_ms": lib_ms, "main": main})
         lib = "null" if lib_ms is None else f"{lib_ms:.5f}"
-        print(f"  {kernel:13s} {shape:28s} kernel_ms={ms:.5f} "
+        print(f"  {kernel:13s} {shape:50s} kernel_ms={ms:.5f} "
               f"plain_ms={plain_ms:.5f} bound_ms={bnd[0]:.5f} ({bnd[1]}) "
               f"library_ms={lib} max_abs_err={err:.3e} [{check}]",
               flush=True)
@@ -179,44 +187,126 @@ def kernel_phase(dev, timer):
            timer(lambda: norm_qkv_plain(wqkv, x, nw, 1e-5), reps=5),
            bound(nbytes, 2 * m * wqkv.n * DIM, "int8"), None)
 
-    # K3: flash decode, B=8 slots at context 512 over the stacked cache
+    # K3: flash decode, B=8 slots at context 512 over the stacked cache:
+    # bf16, int8 codes with per-token scales, and a window of 256
     b, s, ctx, layer = 8, 2048, 512, 5
-    kc = randn(LAYERS, b, KV_HEADS, s, HD).to(torch.bfloat16)
-    vc = randn(LAYERS, b, KV_HEADS, s, HD).to(torch.bfloat16)
+    shape = (LAYERS, b, KV_HEADS, s, HD)
+    kc = randn(*shape).to(torch.bfloat16)
+    vc = randn(*shape).to(torch.bfloat16)
+    k8, v8 = (torch.randint(-127, 128, shape, generator=g, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    s8 = dict(k_scale=0.005 + 0.025 * torch.rand(
+                  shape[:-1], generator=g, device=dev),
+              v_scale=0.005 + 0.025 * torch.rand(
+                  shape[:-1], generator=g, device=dev))
+    caches = {"bf16": (kc, vc, {}), "int8": (k8, v8, s8)}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    span = torch.arange(s, device=dev)
     q = randn(b, KV_HEADS, REP, HD)
     kcur = randn(b, KV_HEADS, 1, HD).to(torch.bfloat16)
     vcur = randn(b, KV_HEADS, 1, HD).to(torch.bfloat16)
     pos = torch.full((b,), ctx, dtype=torch.int32, device=dev)
-    kw = dict(k_current=kcur, v_current=vcur, layer=layer)
-    got = flash_decode(q, kc, vc, pos, **kw)
-    ref = flash_decode_plain(q, kc, vc, pos, **kw)
-    torch.cuda.synchronize()
-    err = (got - ref).abs().max().item()
-    if not err <= 2e-3:
-        fail(f"K3 flash_decode: max|err| {err} > 2e-3")
-    # yardstick: SDPA over the cache with the current token written at
-    # pos (the same attention), bf16 inputs, boolean mask slots <= pos
-    kl, vl = kc[layer].clone(), vc[layer].clone()
-    kl[:, :, ctx], vl[:, :, ctx] = kcur[:, :, 0], vcur[:, :, 0]
-    qh = q.reshape(b, HEADS, 1, HD).to(torch.bfloat16)
-    mask = (torch.arange(s, device=dev) <= ctx).expand(b, 1, 1, s)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = sdpa(qh, kl, vl, attn_mask=mask, enable_gqa=True)
-    lib_err = (lib.float().reshape(got.shape) - ref).abs().max().item()
-    if not lib_err <= 2e-2:
-        fail(f"K3 yardstick SDPA disagrees: {lib_err}")
-    nbytes = 2 * b * KV_HEADS * ctx * HD * 2 + 2 * b * KV_HEADS * HD * 2 \
-        + 2 * b * HEADS * HD * 4 + b * 4
-    ops = 4 * b * HEADS * (ctx + 1) * HD
-    record("flash_decode", f"B={b} KV={KV_HEADS} rep={REP} hd={HD} "
-           f"S={s} ctx={ctx}", err, "max|err| <= 2e-3",
-           timer(lambda: flash_decode(q, kc, vc, pos, **kw)),
-           timer(lambda: flash_decode_plain(q, kc, vc, pos, **kw), reps=5),
-           bound(nbytes, ops, "bf16"),
-           timer(lambda: sdpa(qh, kl, vl, attn_mask=mask, enable_gqa=True)))
+    for ctype, window in (("bf16", 0), ("int8", 0), ("bf16", 256)):
+        k_, v_, sc = caches[ctype]
+        kw = dict(k_current=kcur, v_current=vcur, layer=layer, window=window,
+                  **sc)
+        got = flash_decode(q, k_, v_, pos, **kw)
+        ref = flash_decode_plain(q, k_, v_, pos, **kw)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        if not err <= 2e-3:
+            fail(f"K3 flash_decode {ctype} window={window}: max|err| {err} "
+                 "> 2e-3")
+        # cache slots attended besides the current token
+        seen = min(ctx, window - 1) if window else ctx
+        elt = 1 if ctype == "int8" else 2
+        nbytes = 2 * b * KV_HEADS * seen * (HD * elt + (4 if sc else 0)) \
+            + 2 * b * KV_HEADS * HD * 2 + 2 * b * HEADS * HD * 4 + b * 4
+        ops = 4 * b * HEADS * (seen + 1) * HD
+        lib_ms = None
+        if not sc:
+            # yardstick: SDPA over the cache with the current token
+            # written at pos (the same attention), bf16, boolean mask
+            kl, vl = kc[layer].clone(), vc[layer].clone()
+            kl[:, :, ctx], vl[:, :, ctx] = kcur[:, :, 0], vcur[:, :, 0]
+            qh = q.reshape(b, HEADS, 1, HD).to(torch.bfloat16)
+            keep = span <= ctx
+            if window:
+                keep = keep & (span > ctx - window)
+            mask = keep.expand(b, 1, 1, s)
+            lib = sdpa(qh, kl, vl, attn_mask=mask, enable_gqa=True)
+            lib_err = (lib.float().reshape(got.shape) - ref).abs().max().item()
+            if not lib_err <= 2e-2:
+                fail(f"K3 yardstick SDPA disagrees: {lib_err}")
+            lib_ms = timer(lambda: sdpa(qh, kl, vl, attn_mask=mask,
+                                        enable_gqa=True))
+        variant = ctype + (f" window={window}" if window else "")
+        record("flash_decode", f"{variant} B={b} KV={KV_HEADS} rep={REP} "
+               f"hd={HD} S={s} ctx={ctx}", err, "max|err| <= 2e-3",
+               timer(lambda: flash_decode(q, k_, v_, pos, **kw)),
+               timer(lambda: flash_decode_plain(q, k_, v_, pos, **kw), reps=5),
+               bound(nbytes, ops, "bf16"), lib_ms,
+               main=(ctype, window) == ("bf16", 0))
 
-    # K4: dequant GEMM at the prefill chunk M = 48
-    m = 48
+    # K5: flash prefill of one 128-token chunk of one slot (the server's
+    # one-slot view of its stacked cache, read in place) at the start of
+    # a prompt and after 384 cached tokens: bf16, int8, window 256
+    t5, slot = 128, 3
+    q5 = randn(1, KV_HEADS, t5 * REP, HD)
+    for ctype, p0, window in (("bf16", 0, 0), ("bf16", 384, 0),
+                              ("int8", 0, 0), ("int8", 384, 0),
+                              ("bf16", 384, 256)):
+        k_, v_, sc = caches[ctype]
+        view = slice(slot, slot + 1)
+        k_, v_ = k_[:, view], v_[:, view]
+        kw = dict(rep=REP, layer=layer, window=window,
+                  **{n: x[:, view] for n, x in sc.items()})
+        pos0 = torch.tensor([p0], dtype=torch.int32, device=dev)
+        got = flash_prefill(q5, k_, v_, pos0, **kw)
+        ref = flash_prefill_plain(q5, k_, v_, pos0, **kw)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        if not err <= 2e-3:
+            fail(f"K5 flash_prefill {ctype} pos0={p0} window={window}: "
+                 f"max|err| {err} > 2e-3")
+        qpos = p0 + np.arange(t5)
+        seen = np.minimum(qpos + 1, window) if window else qpos + 1
+        lo = max(p0 - window + 1, 0) if window else 0
+        seen_rows = p0 + t5 - lo  # cache rows any query row attends
+        elt = 1 if ctype == "int8" else 2
+        nbytes = 2 * q5.numel() * 4 + 4 \
+            + 2 * KV_HEADS * seen_rows * (HD * elt + (4 if sc else 0))
+        ops = 4 * HEADS * HD * int(seen.sum())
+        lib_ms = None
+        if not sc:
+            # yardstick: SDPA over the bf16 cache, boolean causal (and
+            # window) mask, grouped heads
+            qh = (q5.reshape(1, KV_HEADS, t5, REP, HD).transpose(2, 3)
+                  .reshape(1, HEADS, t5, HD).to(torch.bfloat16))
+            kl, vl = k_[layer], v_[layer]
+            qp = torch.as_tensor(qpos, device=dev)[:, None]
+            keep = span[None, :] <= qp
+            if window:
+                keep = keep & (span[None, :] > qp - window)
+            lib = sdpa(qh, kl, vl, attn_mask=keep, enable_gqa=True)
+            lib = (lib.float().reshape(1, KV_HEADS, REP, t5, HD)
+                   .transpose(2, 3).reshape(got.shape))
+            lib_err = (lib - ref).abs().max().item()
+            if not lib_err <= 2e-2:
+                fail(f"K5 yardstick SDPA disagrees: {lib_err}")
+            lib_ms = timer(lambda: sdpa(qh, kl, vl, attn_mask=keep,
+                                        enable_gqa=True))
+        variant = ctype + (f" window={window}" if window else "")
+        record("flash_prefill", f"{variant} B=1 KV={KV_HEADS} rep={REP} "
+               f"hd={HD} S={s} T={t5} pos0={p0}", err, "max|err| <= 2e-3",
+               timer(lambda: flash_prefill(q5, k_, v_, pos0, **kw)),
+               timer(lambda: flash_prefill_plain(q5, k_, v_, pos0, **kw),
+                     reps=5),
+               bound(nbytes, ops, "bf16"), lib_ms,
+               main=(ctype, window) == ("bf16", 0))
+
+    # K4: dequant GEMM at the prefill chunk M = 128
+    m = 128
     for name, w in [("wqkv", wqkv), *weights.items()]:
         a = fold_q8_1(quantize_q8_1(randn(m, w.k)))
         got, ref = gemm_dequant(w, a), gemm_dequant_plain(w, a)
@@ -235,6 +325,35 @@ def kernel_phase(dev, timer):
     return rows
 
 
+def traffic(rng):
+    """16 prompts of 64-512 tokens; requests 4-11 open with one shared
+    256-token system prompt, so that the second wave (8-15, admitted when
+    the first eight finish together) finds it in four freed slots.
+    Returns the prompts and each one's expected reused prefix length."""
+    shared = rng.integers(0, VOCAB, 256).tolist()
+    prompts, reuse = [], []
+    for i in range(16):
+        if 4 <= i < 12:
+            n = int(rng.integers(272, 513))
+            prompts.append(shared + rng.integers(0, VOCAB, n - 256).tolist())
+        else:
+            prompts.append(rng.integers(0, VOCAB,
+                                        int(rng.integers(64, 513))).tolist())
+        reuse.append(256 if 8 <= i < 12 else 0)
+    return prompts, reuse
+
+
+def flash_chunks(prompts, reuse, chunk=128, bucket=16):
+    """Prefill chunks of 64 or more tokens (bucket-padded): the calls
+    that take K5."""
+    n = 0
+    for p, r in zip(prompts, reuse):
+        for off in range(r, len(p), chunk):
+            t = max(bucket, -(-min(chunk, len(p) - off) // bucket) * bucket)
+            n += t >= 64
+    return n
+
+
 def main_path(dev, wrappers):
     from quant_gemm_tpu_torch.kernels import registry
     from quant_gemm_tpu_torch.models import llama, serve
@@ -249,54 +368,60 @@ def main_path(dev, wrappers):
           f"weights built on the card in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    def server():
-        return serve.Server(qp, cfg, n_slots=8, max_prefill_chunk=48,
-                            prefill_bucket=16, cache_qtype="bf16",
-                            cache_prompt=False, device=dev)
-
-    warm = server()  # first-use costs (allocator, cuBLAS handles) off the run
-    warm.submit(list(range(1, 65)), max_new=2)
-    warm.run_until_done()
-    del warm
-
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, VOCAB, int(n)).tolist()
-               for n in rng.integers(64, 513, 16)]
-    srv = server()
-    for p in prompts:
-        srv.submit(p, max_new=32)
-    for w in wrappers.values():
-        w.launches = 0
-    t0 = time.perf_counter()
-    results = srv.run_until_done()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: w.launches for name, w in wrappers.items()}
-    st = srv.stats()
-    if sorted(results) != list(range(16)):
-        fail(f"not every request finished: {sorted(results)}")
-    if any(len(t) != 32 for t in results.values()):
-        fail("a request stopped short of max_new=32")
-    if not all(0 <= t < VOCAB for ts in results.values() for t in ts):
-        fail("a generated token is outside the vocabulary")
-    if not all(launches.values()):
-        fail(f"a kernel of the path never launched: {launches}")
-    print(f"  served 16 requests: {st['prefill_tokens']} prompt tokens, "
-          f"{st['generated_tokens']} generated, {st['decode_steps']} decode "
-          f"steps in {wall:.2f} s", flush=True)
-    print(f"  prefill {st['prefill_tokens'] / st['prefill_seconds']:.1f} "
-          f"tok/s, decode {st['decode_tokens'] / st['decode_seconds']:.1f} "
-          f"tok/s, median decode step {st['decode_step_ms_median']:.3f} ms",
-          flush=True)
-    print(f"  launches: {json.dumps(launches)}", flush=True)
-
-    # every decode step runs K2 and K3 once per layer and K1 for wo, wgu,
-    # w_down and lm_head; prefill (M >= 16) never reaches K1
-    steps = st["decode_steps"]
-    want = {"gemm_exact": steps * (3 * LAYERS + 1),
-            "norm_qkv": steps * LAYERS, "flash_decode": steps * LAYERS}
-    if any(launches[k] != v for k, v in want.items()):
-        fail(f"decode launches {launches} differ from the path's {want}")
+    prompts, reuse = traffic(rng)
+    want_flash = LAYERS * flash_chunks(prompts, reuse)
+    main_launches = None
+    for qtype in ("bf16", "q8"):
+        # the JAX defaults: bucket 16, chunk 128, cache_prompt=True
+        kw = {} if qtype == "bf16" else {"cache_qtype": "q8"}
+        warm = serve.Server(qp, cfg, n_slots=8, device=dev, **kw)
+        warm.submit(list(range(1, 65)), max_new=2)  # first-use costs
+        warm.run_until_done()
+        del warm
+        srv = serve.Server(qp, cfg, n_slots=8, device=dev, **kw)
+        for p in prompts:
+            srv.submit(p, max_new=32)
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        results = srv.run_until_done()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: w.launches for name, w in wrappers.items()}
+        st = srv.stats()
+        name = f"Server(qp, cfg, n_slots=8{', cache_qtype=q8' if kw else ''})"
+        if sorted(results) != list(range(16)):
+            fail(f"{name}: not every request finished: {sorted(results)}")
+        if any(len(t) != 32 for t in results.values()):
+            fail(f"{name}: a request stopped short of max_new=32")
+        if not all(0 <= t < VOCAB for ts in results.values() for t in ts):
+            fail(f"{name}: a generated token is outside the vocabulary")
+        if not all(launches.values()):
+            fail(f"{name}: a kernel of the path never launched: {launches}")
+        if st["cached_prompt_tokens"] != sum(reuse):
+            fail(f"{name}: reused {st['cached_prompt_tokens']} cached "
+                 f"prompt tokens, expected {sum(reuse)}")
+        print(f"  {name}: 16 requests, {st['prefill_tokens']} prompt tokens "
+              f"prefilled and {st['cached_prompt_tokens']} reused from the "
+              f"cache, {st['generated_tokens']} generated, "
+              f"{st['decode_steps']} decode steps in {wall:.2f} s", flush=True)
+        pre = st["prefill_tokens"] / st["prefill_seconds"]
+        dec = st["decode_tokens"] / st["decode_seconds"]
+        print(f"    prefill {pre:.1f} tok/s, decode {dec:.1f} tok/s, median "
+              f"decode step {st['decode_step_ms_median']:.3f} ms", flush=True)
+        print(f"    launches: {json.dumps(launches)}", flush=True)
+        # every decode step runs K2 and K3 once per layer and K1 for wo,
+        # wgu, w_down and lm_head; prefill (M >= 16) never reaches K1, and
+        # every chunk of 64 tokens or more runs K5 once per layer
+        steps = st["decode_steps"]
+        want = {"gemm_exact": steps * (3 * LAYERS + 1),
+                "norm_qkv": steps * LAYERS, "flash_decode": steps * LAYERS,
+                "flash_prefill": want_flash}
+        if any(launches[k] != v for k, v in want.items()):
+            fail(f"{name}: launches {launches} differ from the path's {want}")
+        if qtype == "bf16":  # the default server: the main path
+            main_launches = launches
 
     def layerwise(tokens, cache):
         """Kernels and plain versions from the same hidden state at every
@@ -318,25 +443,32 @@ def main_path(dev, wrappers):
             fail("non-finite logits through the kernels")
         return worst, nmse(lk, llama.head(qp, cfg, x, registry.PLAIN))
 
-    # one prefill chunk (the server's shape, 1 x 48) and one 8-slot decode
-    # step, each also run free through both op sets end to end
-    toks = torch.as_tensor(rng.integers(0, VOCAB, (1, 48)), device=dev)
-    fresh = llama.KVCache.init(cfg, 1, device=dev)
-    pre = layerwise(toks, fresh.clone())
-    free_pre = nmse(llama.forward(qp, cfg, toks, fresh.clone())[0],
-                    llama.forward(qp, cfg, toks, fresh,
+    def check(tokens, cache):
+        """layerwise() and the free run of both op sets end to end."""
+        free = nmse(llama.forward(qp, cfg, tokens, cache.clone())[0],
+                    llama.forward(qp, cfg, tokens, cache.clone(),
                                   ops=registry.PLAIN)[0])
-    cache = llama.KVCache.init(cfg, 8, device=dev)
-    llama.forward(qp, cfg, torch.as_tensor(rng.integers(0, VOCAB, (8, 48)),
-                                           device=dev), cache)
-    cache.pos = torch.tensor([48, 40, 33, 47, 20, 48, 1, 16],
-                             dtype=torch.int32, device=dev)
-    nt = torch.as_tensor(rng.integers(0, VOCAB, (8, 1)), device=dev)
-    dec = layerwise(nt, cache.clone())
-    free_dec = nmse(llama.forward(qp, cfg, nt, cache.clone())[0],
-                    llama.forward(qp, cfg, nt, cache, ops=registry.PLAIN)[0])
-    for name, (layer_e, logit_e), free in (("prefill chunk", pre, free_pre),
-                                           ("decode step", dec, free_dec)):
+        return (*layerwise(tokens, cache.clone()), free)
+
+    cases = []
+    for qtype in ("bf16", "q8"):
+        # two 128-token chunks of one slot (K5 at pos0 0 and 128), then
+        # one 8-slot decode step at ragged positions
+        toks = torch.as_tensor(rng.integers(0, VOCAB, (1, 256)), device=dev)
+        cache = llama.KVCache.init(cfg, 1, qtype, device=dev)
+        cases.append((f"{qtype} chunk 128 at pos0 0",
+                      check(toks[:, :128], cache)))
+        llama.forward(qp, cfg, toks[:, :128], cache)
+        cases.append((f"{qtype} chunk 128 at pos0 128",
+                      check(toks[:, 128:], cache)))
+        cache = llama.KVCache.init(cfg, 8, qtype, device=dev)
+        llama.forward(qp, cfg, torch.as_tensor(
+            rng.integers(0, VOCAB, (8, 48)), device=dev), cache)
+        cache.pos = torch.tensor([48, 40, 33, 47, 20, 48, 1, 16],
+                                 dtype=torch.int32, device=dev)
+        nt = torch.as_tensor(rng.integers(0, VOCAB, (8, 1)), device=dev)
+        cases.append((f"{qtype} decode step", check(nt, cache)))
+    for name, (layer_e, logit_e, free) in cases:
         print(f"  {name}, kernels vs plain versions: worst layer update "
               f"NMSE {layer_e:.3e}, logits NMSE {logit_e:.3e} (limits "
               f"1e-4); run free end to end: logits NMSE {free:.3e} "
@@ -347,7 +479,7 @@ def main_path(dev, wrappers):
         # at this width (PERF.md); a wrong kernel gives order 1
         if not free <= 1e-2:
             fail(f"{name}: the free run through the kernels diverges")
-    return launches
+    return main_launches
 
 
 KERNEL_INFO = {
@@ -359,6 +491,8 @@ KERNEL_INFO = {
                      "quant_gemm_tpu/ops/attention.py:339"),
     "gemm_dequant": ("quant_gemm_tpu_torch/csrc/gemm_dequant.cu",
                      "quant_gemm_tpu/kernels/gemm_pallas.py:660"),
+    "flash_prefill": ("quant_gemm_tpu_torch/csrc/flash_prefill.cu",
+                      "quant_gemm_tpu/ops/attention.py:548"),
 }
 
 
@@ -388,26 +522,32 @@ def main() -> int:
     from quant_gemm_tpu_torch.kernels.gemm_dequant import gemm_dequant
     from quant_gemm_tpu_torch.kernels.gemm_exact import gemm_exact
     from quant_gemm_tpu_torch.kernels.gemm_megalayer import norm_qkv
-    from quant_gemm_tpu_torch.ops.attention import flash_decode
+    from quant_gemm_tpu_torch.ops.attention import flash_decode, flash_prefill
 
     wrappers = {"gemm_exact": gemm_exact, "norm_qkv": norm_qkv,
-                "flash_decode": flash_decode, "gemm_dequant": gemm_dequant}
+                "flash_decode": flash_decode, "gemm_dequant": gemm_dequant,
+                "flash_prefill": flash_prefill}
     launches = main_path(dev, wrappers)
 
     kernels = []
     for name, (src, rep) in KERNEL_INFO.items():
-        mine = [r for r in rows if r["kernel"] == name]
+        every = [r for r in rows if r["kernel"] == name]
+        mine = [r for r in every if r["main"]]
         lib = [r["library_ms"] for r in mine]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "max_abs_err": max(r["max_abs_err"] for r in every),
             "ms": sum(r["ms"] for r in mine),
             "plain_ms": sum(r["plain_ms"] for r in mine),
             "bound_ms": sum(r["bound_ms"] for r in mine),
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in mine)
             else "operations",
-            "library_ms": None if None in lib else sum(lib)})
+            "library_ms": None if None in lib else sum(lib),
+            "variants": [{k: r[k] for k in ("shape", "ms", "plain_ms",
+                                            "bound_ms", "library_ms",
+                                            "max_abs_err")}
+                         for r in every if not r["main"]]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,11 @@ The W4A8 q4_0 continuous-batching server of the JAX package
   quantizers bit-equal to it;
 * ``kernels``  — the q4_0 device layout, the CUDA kernels' wrappers (each
   with its plain PyTorch version and a launch count) and GEMM dispatch;
-* ``ops``      — RMSNorm, RoPE, SiLU (plain torch) and flash-decode;
-* ``models``   — the quantized Llama forward, sampling, the serving loop,
-  and conversion of the JAX package's prepared weights.
+* ``ops``      — RMSNorm, RoPE, SiLU (plain torch), flash-decode and
+  flash-prefill attention over the bf16 or int8 KV cache;
+* ``models``   — the quantized Llama forward, sampling, the serving loop
+  (prefix reuse, chunked prefill), and conversion of the JAX package's
+  prepared weights and KV caches.
 
 The package imports neither ``jax`` nor ``quant_gemm_tpu``.  Entry points
 run on ``device="cuda"`` unless the caller asks for the CPU, where every

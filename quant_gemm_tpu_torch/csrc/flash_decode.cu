@@ -1,97 +1,102 @@
-// K3: flash-decode attention over the stacked bf16 KV cache.
+// K3: flash-decode attention over the stacked KV cache, bf16 or int8.
 //
 // Replaces the Pallas kernel quant_gemm_tpu/ops/attention.py::flash_decode
-// (body _kernel) for the bf16 cache without window or ring.  One query
-// token per slot; the rep = H/KV query rows of a kv head share every K/V
-// tile; per-slot causal length from pos; the current token's k/v (not yet
-// written to the cache) folded in last; the layer indexed inside the full
-// [L, B, KV, S, hd] cache, so no per-layer copy is made.
+// (body _kernel) for the linear cache: bf16, or int8 codes with one f32
+// scale per (slot, head, token); full causal or a sliding window.  One
+// query token per slot; the rep = H/KV query rows of a kv head share every
+// K/V tile; per-slot causal length from pos; the current token's k/v (bf16,
+// not yet written to the cache, even with the int8 cache) folded in last.
+// The wrapper passes one layer's [B, KV, S, hd] view of the stacked cache
+// (base pointer and slot stride), so no per-layer copy is made.
 //
-// Bound on an H100: bytes (each slot's valid K and V rows, read once).
-// Design: one block per (slot, kv head) with one warp per query row.  The
-// block stages TS = 32 cache rows of K and V at a time in shared memory
-// as float32 (16-byte loads of 8 bf16); lane j scores row j, the warp
-// runs the online-softmax recurrence in registers (running max, sum, and
-// hd/32 output dims per lane), all in float32 as the TPU kernel computes
-// it; the plain version's dense softmax sums in another order.  The valid
-// length is min(pos, S) (pos + 1 without a current token), so a stale
-// position of an inactive serving slot can never read out of bounds.
-#include <float.h>
-
-#include "common.cuh"
+// Bound on an H100: bytes (each slot's valid K and V rows, and with int8
+// their scales, read once).  Design: one block per (slot, kv head) with
+// one warp per query row.  The block stages TS = 32 cache rows of K and V
+// at a time in shared memory as float32 (attention.cuh); lane j scores row
+// j, the warp runs the online-softmax recurrence in registers (running
+// max, sum, and hd/32 output dims per lane), all in float32 as the TPU
+// kernel computes it; the plain version's dense softmax sums in another
+// order.  Int8: the k scale multiplies the scores before the mask, p
+// enters the running sum unscaled and p * v_scale the p.V sum.  The cache
+// slots attended are [lo, valid) with valid = min(pos, S) (pos + 1 without
+// a current token) and lo = max(pos - window + 1, 0) under a window, so a
+// stale position of an inactive serving slot never reads out of bounds.
+#include "attention.cuh"
 
 namespace {
 
-constexpr int TS = 32;  // cache rows per tile (one per lane)
+using qgt::TS;
 
-template <int HD>
+template <int HD, bool Q8>
 __global__ void flash_decode_kernel(
-    const float* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
-    const __nv_bfloat16* __restrict__ vc, const int* __restrict__ pos,
+    const float* __restrict__ q, const void* __restrict__ kc,
+    const void* __restrict__ vc, const float* __restrict__ ksc,
+    const float* __restrict__ vsc, const int* __restrict__ pos,
     const __nv_bfloat16* __restrict__ kcur,
-    const __nv_bfloat16* __restrict__ vcur, float* __restrict__ out, int B,
-    int KV, int rep, int S, int layer, int has_current, float scale) {
+    const __nv_bfloat16* __restrict__ vcur, float* __restrict__ out, int KV,
+    int rep, int S, long long kv_bstride, long long sc_bstride,
+    int has_current, int window, float scale) {
   constexpr int KP = HD + 1;  // padded K row: lane j reads row j conflict-free
   constexpr int DL = HD / 32;  // output dims per lane
+  using Elem = typename std::conditional<Q8, int8_t, __nv_bfloat16>::type;
   extern __shared__ __align__(16) float fsm[];
   float* qs = fsm;                // [rep, HD], pre-scaled query rows
-  float* ks = qs + rep * HD;      // [TS, KP]
-  float* vs = ks + TS * KP;       // [TS, HD]
+  float* kt = qs + rep * HD;      // [TS, KP]
+  float* vt = kt + TS * KP;       // [TS, HD]
+  float* kst = vt + TS * HD;      // [TS] k scales (int8 cache)
+  float* vst = kst + TS;          // [TS] v scales
 
   const int b = blockIdx.x / KV, g = blockIdx.x % KV;
   const int r = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t head = (static_cast<size_t>(layer) * B + b) * KV + g;
-  const __nv_bfloat16* kbase = kc + head * S * HD;
-  const __nv_bfloat16* vbase = vc + head * S * HD;
+  const size_t head = static_cast<size_t>(b) * kv_bstride +
+                      static_cast<size_t>(g) * S * HD;
+  const Elem* kbase = static_cast<const Elem*>(kc) + head;
+  const Elem* vbase = static_cast<const Elem*>(vc) + head;
+  const size_t shead = static_cast<size_t>(b) * sc_bstride +
+                       static_cast<size_t>(g) * S;
+  const float* kscale = Q8 ? ksc + shead : nullptr;
+  const float* vscale = Q8 ? vsc + shead : nullptr;
 
   for (int i = threadIdx.x; i < rep * HD; i += blockDim.x)
     qs[i] = q[(static_cast<size_t>(b) * KV + g) * rep * HD + i] * scale;
   __syncthreads();
 
-  int valid = pos[b] + (has_current ? 0 : 1);
+  const int p = pos[b];
+  int valid = p + (has_current ? 0 : 1);
   valid = valid < 0 ? 0 : (valid > S ? S : valid);
+  const int lo = window > 0 ? max(p - window + 1, 0) : 0;
 
   float m_run = -FLT_MAX, l_run = 0.0f;
   float acc[DL];
 #pragma unroll
   for (int i = 0; i < DL; ++i) acc[i] = 0.0f;
 
-  for (int s0 = 0; s0 < valid; s0 += TS) {
+  for (int s0 = lo; s0 < valid; s0 += TS) {
     const int cnt = min(TS, valid - s0);
     __syncthreads();  // previous tile consumed
-    for (int e = threadIdx.x; e < cnt * (HD / 8); e += blockDim.x) {
-      const int j = e / (HD / 8), c8 = (e % (HD / 8)) * 8;
-      const size_t off = static_cast<size_t>(s0 + j) * HD + c8;
-      const uint4 kr = __ldg(reinterpret_cast<const uint4*>(kbase + off));
-      const uint4 vr = __ldg(reinterpret_cast<const uint4*>(vbase + off));
-      const __nv_bfloat16* kh = reinterpret_cast<const __nv_bfloat16*>(&kr);
-      const __nv_bfloat16* vh = reinterpret_cast<const __nv_bfloat16*>(&vr);
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        ks[j * KP + c8 + t] = __bfloat162float(kh[t]);
-        vs[j * HD + c8 + t] = __bfloat162float(vh[t]);
-      }
-    }
+    qgt::stage_kv<HD, Q8>(kbase, vbase, kscale, vscale, s0, cnt, kt, KP, vt,
+                          kst, vst);
     __syncthreads();
     float sc = -FLT_MAX;
     if (lane < cnt) {
       float d = 0.0f;
 #pragma unroll 16
-      for (int t = 0; t < HD; ++t) d = fmaf(qs[r * HD + t], ks[lane * KP + t], d);
-      sc = d;
+      for (int t = 0; t < HD; ++t) d = fmaf(qs[r * HD + t], kt[lane * KP + t], d);
+      sc = Q8 ? d * kst[lane] : d;
     }
     const float m_new = fmaxf(m_run, qgt::warp_max(sc));
     const float alpha = expf(m_run - m_new);
-    const float p = lane < cnt ? expf(sc - m_new) : 0.0f;
-    l_run = l_run * alpha + qgt::warp_sum(p);
+    float pr = lane < cnt ? expf(sc - m_new) : 0.0f;
+    l_run = l_run * alpha + qgt::warp_sum(pr);
     m_run = m_new;
+    if (Q8 && lane < cnt) pr *= vst[lane];  // v scale folds into p
 #pragma unroll
     for (int i = 0; i < DL; ++i) acc[i] *= alpha;
     for (int j = 0; j < cnt; ++j) {
-      const float pj = __shfl_sync(qgt::FULL, p, j);
+      const float pj = __shfl_sync(qgt::FULL, pr, j);
 #pragma unroll
       for (int i = 0; i < DL; ++i)
-        acc[i] = fmaf(pj, vs[j * HD + lane + 32 * i], acc[i]);
+        acc[i] = fmaf(pj, vt[j * HD + lane + 32 * i], acc[i]);
     }
   }
 
@@ -119,47 +124,70 @@ __global__ void flash_decode_kernel(
     o[lane + 32 * i] = acc[i] / l;
 }
 
-template <int HD>
-int launch(const void* q, const void* kc, const void* vc, const void* pos,
-           const void* kcur, const void* vcur, void* out, int B, int KV,
-           int rep, int S, int layer, int has_current, float scale,
-           cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (rep * HD + TS * (HD + 1) + TS * HD);
+template <int HD, bool Q8>
+int launch(const void* q, const void* kc, const void* vc, const void* ksc,
+           const void* vsc, const void* pos, const void* kcur,
+           const void* vcur, void* out, int B, int KV, int rep, int S,
+           long long kv_bstride, long long sc_bstride, int has_current,
+           int window, float scale, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * (rep * HD + TS * (HD + 1) + TS * HD + 2 * TS);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_decode_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        flash_decode_kernel<HD, Q8>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  flash_decode_kernel<HD><<<B * KV, rep * 32, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const __nv_bfloat16*>(kc),
-      static_cast<const __nv_bfloat16*>(vc), static_cast<const int*>(pos),
+  flash_decode_kernel<HD, Q8><<<B * KV, rep * 32, smem, stream>>>(
+      static_cast<const float*>(q), kc, vc, static_cast<const float*>(ksc),
+      static_cast<const float*>(vsc), static_cast<const int*>(pos),
       static_cast<const __nv_bfloat16*>(kcur),
-      static_cast<const __nv_bfloat16*>(vcur), static_cast<float*>(out), B,
-      KV, rep, S, layer, has_current, scale);
+      static_cast<const __nv_bfloat16*>(vcur), static_cast<float*>(out), KV,
+      rep, S, kv_bstride, sc_bstride, has_current, window, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int launch_hd(int quant, const void* q, const void* kc, const void* vc,
+              const void* ksc, const void* vsc, const void* pos,
+              const void* kcur, const void* vcur, void* out, int B, int KV,
+              int rep, int S, long long kv_bstride, long long sc_bstride,
+              int has_current, int window, float scale, cudaStream_t st) {
+  if (quant)
+    return launch<HD, true>(q, kc, vc, ksc, vsc, pos, kcur, vcur, out, B, KV,
+                            rep, S, kv_bstride, sc_bstride, has_current,
+                            window, scale, st);
+  return launch<HD, false>(q, kc, vc, ksc, vsc, pos, kcur, vcur, out, B, KV,
+                           rep, S, kv_bstride, sc_bstride, has_current,
+                           window, scale, st);
 }
 
 }  // namespace
 
-// out f32 [B, KV, rep, hd] = attention of q f32 [B, KV, rep, hd] over
-// layer `layer` of the bf16 caches [L, B, KV, S, hd], slots < pos[b]
-// (<= pos[b] when has_current is 0), plus kcur/vcur bf16 [B, KV, 1, hd].
-QGT_EXPORT int qgt_flash_decode_bf16(const void* q, const void* kc,
-                                     const void* vc, const void* pos,
-                                     const void* kcur, const void* vcur,
-                                     void* out, int B, int KV, int rep,
-                                     int hd, int S, int layer,
-                                     int has_current, float scale,
-                                     void* stream) {
-  if (rep < 1 || rep > 32 || B < 1 || KV < 1 || S < 1)
+// out f32 [B, KV, rep, hd] = attention of q f32 [B, KV, rep, hd] over one
+// layer's cache kc/vc [B, KV, S, hd] (slot b at kc + b * kv_bstride
+// elements; bf16, or int8 with quant = 1 and the f32 scales ksc/vsc [B,
+// KV, S], slot b at ksc + b * sc_bstride), slots < pos[b] (<= pos[b] when
+// has_current is 0) and, with window > 0, > pos[b] - window; plus
+// kcur/vcur bf16 [B, KV, 1, hd].
+QGT_EXPORT int qgt_flash_decode(const void* q, const void* kc, const void* vc,
+                                const void* ksc, const void* vsc,
+                                const void* pos, const void* kcur,
+                                const void* vcur, void* out, int B, int KV,
+                                int rep, int hd, int S, long long kv_bstride,
+                                long long sc_bstride, int has_current,
+                                int quant, int window, float scale,
+                                void* stream) {
+  if (rep < 1 || rep > 32 || B < 1 || KV < 1 || S < 1 || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 64)
-    return launch<64>(q, kc, vc, pos, kcur, vcur, out, B, KV, rep, S, layer,
-                      has_current, scale, st);
+    return launch_hd<64>(quant, q, kc, vc, ksc, vsc, pos, kcur, vcur, out, B,
+                         KV, rep, S, kv_bstride, sc_bstride, has_current,
+                         window, scale, st);
   if (hd == 128)
-    return launch<128>(q, kc, vc, pos, kcur, vcur, out, B, KV, rep, S, layer,
-                       has_current, scale, st);
+    return launch_hd<128>(quant, q, kc, vc, ksc, vsc, pos, kcur, vcur, out, B,
+                          KV, rep, S, kv_bstride, sc_bstride, has_current,
+                          window, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -9,7 +9,8 @@ seconds, against minutes for ``torch.utils.cpp_extension.load``.
 
 Binding rules (every wrapper follows them):
 
-* every pointer and the stream are ``c_void_p``, every size ``c_int``;
+* every pointer and the stream are ``c_void_p``, every size ``c_int``,
+  every element stride ``c_longlong``;
 * kernels launch on ``torch.cuda.current_stream().cuda_stream``;
 * each C entry point returns ``cudaGetLastError()``; :func:`check` raises
   when it is not 0.
@@ -149,6 +150,7 @@ def check(name: str, symbol: str, rc: int) -> None:
 
 P = ctypes.c_void_p  # pointer / stream argument type
 I = ctypes.c_int
+L = ctypes.c_longlong  # element strides
 F = ctypes.c_float
 
 

@@ -12,7 +12,7 @@ cases the slice runs (q4_0 weights, K % 32 == 0):
   without ``quantize_act`` is cast to bf16 for K4; the model only passes
   such activations in bf16 already.
 
-:data:`KERNELS` and :data:`PLAIN` name the four operations of the slice;
+:data:`KERNELS` and :data:`PLAIN` name the five operations of the slice;
 the model takes one of them (``ops=``), so a run can go through the plain
 versions on purpose — on the card too — for a comparison.
 """
@@ -25,7 +25,8 @@ import torch
 
 from ..formats.blocks import Q8_1Tensor
 from ..formats.quant import expand_scale, quantize_q8_1
-from ..ops.attention import flash_decode, flash_decode_plain
+from ..ops.attention import (flash_decode, flash_decode_plain,
+                             flash_prefill, flash_prefill_plain)
 from .gemm_dequant import gemm_dequant, gemm_dequant_plain
 from .gemm_exact import gemm_exact, gemm_exact_plain
 from .gemm_megalayer import norm_qkv, norm_qkv_plain
@@ -36,13 +37,14 @@ class Ops(NamedTuple):
     gemm_dequant: Callable
     norm_qkv: Callable
     flash_decode: Callable
+    flash_prefill: Callable
 
 
 #: the hand-written kernels (plain versions on CPU tensors)
-KERNELS = Ops(gemm_exact, gemm_dequant, norm_qkv, flash_decode)
+KERNELS = Ops(gemm_exact, gemm_dequant, norm_qkv, flash_decode, flash_prefill)
 #: the plain PyTorch versions, on any device
 PLAIN = Ops(gemm_exact_plain, gemm_dequant_plain, norm_qkv_plain,
-            flash_decode_plain)
+            flash_decode_plain, flash_prefill_plain)
 
 # Decode-regime crossover between the exact kernel and the dequant kernel.
 # A placeholder: 12 was measured on a TPU v5e (quant_gemm_tpu registry);

@@ -1,4 +1,8 @@
-"""Carry quantized weights across from the JAX package.
+"""Carry quantized weights and KV caches across from the JAX package.
+
+:func:`cache_from_jax` turns a JAX ``KVCache`` given as numpy arrays into
+the port's :class:`~quant_gemm_tpu_torch.models.llama.KVCache`, so that a
+test can start both forwards from the same cache.
 
 :func:`qparams_from_jax` takes the output of the JAX package's
 ``llama.quantize_params`` with every array as numpy (for example
@@ -25,6 +29,7 @@ import torch
 from ..formats.blocks import QK, Q4_0Tensor
 from ..kernels import layout
 from ..utils import resolve_device
+from .llama import KVCache
 
 
 def planar_from_jax(pw) -> Q4_0Tensor:
@@ -71,4 +76,26 @@ def qparams_from_jax(np_qparams: dict, device="cuda") -> dict:
     return out
 
 
-__all__ = ["planar_from_jax", "qparams_from_jax"]
+def cache_from_jax(cache, device="cuda") -> KVCache:
+    """The port's cache from a JAX ``KVCache`` whose arrays are numpy
+    (for example ``jax.tree_util.tree_map(np.asarray, cache)``): ``k``/``v``
+    bf16 (ml_dtypes) or int8, ``pos`` int32 and, for the q8 cache,
+    ``ks``/``vs`` float32; values are carried over exactly."""
+    dev = resolve_device(device)
+
+    def t(x, dtype):  # a copy: arrays from JAX are read-only
+        x = np.asarray(x)
+        if dtype == torch.bfloat16:  # numpy has no bf16: widen exactly
+            return torch.tensor(x.astype(np.float32), device=dev).to(dtype)
+        return torch.tensor(x, dtype=dtype, device=dev)
+
+    k = np.asarray(cache.k)
+    kv = torch.int8 if k.dtype == np.int8 else torch.bfloat16
+    scales = ()
+    if getattr(cache, "ks", None) is not None:
+        scales = (t(cache.ks, torch.float32), t(cache.vs, torch.float32))
+    return KVCache(t(cache.k, kv), t(cache.v, kv),
+                   t(cache.pos, torch.int32), *scales)
+
+
+__all__ = ["planar_from_jax", "qparams_from_jax", "cache_from_jax"]

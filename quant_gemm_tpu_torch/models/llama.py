@@ -1,36 +1,39 @@
-"""Quantized Llama forward for the serving slice (W4A8, q4_0, bf16 cache).
+"""Quantized Llama forward for the serving slice (W4A8, q4_0).
 
 Counterpart of ``quant_gemm_tpu/models/llama.py`` for what the serving
-slice runs:
+slice runs, with the bf16 or the int8 (``q8``) KV cache and an optional
+sliding window:
 
 * decode (T = 1): RMSNorm + Q8_1 + ``wqkv`` through K2 (``norm_qkv``) when
   the batch is <= 8 and ``dim % 512 == 0``, otherwise RMSNorm then the
   dispatched GEMM; RoPE; K3 (``flash_decode``) over the stacked cache with
-  the current token's k/v as operands; K1 GEMMs for ``wo``, ``wgu``,
-  ``w_down`` and ``lm_head``; the cache write deferred to one all-layer
-  insert after the layer loop;
-* prefill at T < 64: the cache written per layer, then dense masked
-  attention in float32 (plain torch, as the JAX package leaves it to XLA);
-  K4 for GEMMs of more than ``DECODE_M_MAX`` rows.
+  the current token's k/v (bf16, with either cache) as operands; K1 GEMMs
+  for ``wo``, ``wgu``, ``w_down`` and ``lm_head``; the cache write (with
+  the q8 cache: codes and scales) deferred to one all-layer insert after
+  the layer loop;
+* prefill (T > 1): the cache written per layer, then attention: K5
+  (``flash_prefill``) at T >= 64, as the JAX package routes it, and below
+  that dense masked attention in float32 (plain torch, as the JAX package
+  leaves it to XLA); K4 for GEMMs of more than ``DECODE_M_MAX`` rows.
 
-Not ported yet (each raises ``NotImplementedError``): prefill at T >= 64
-(flash prefill), the q8 cache, sliding window and ring cache,
-``w_down_a16`` and other activation modes.
+Not ported yet (each raises ``NotImplementedError``): the ring cache,
+``w_down_a16`` and activation modes other than ``q8_1``.
 
 :func:`forward` is :func:`begin`, :func:`layer` for each layer, :func:`end`
 and :func:`head`; a check can call the pieces to run the kernels and the
 plain versions from the same hidden state at every layer.
 
 Layouts follow the JAX package: weights ``[N, K]``, cache ``[L, B, KV, S,
-hd]``, grouped decode queries ``[B, KV, rep, hd]``.  Unlike JAX, the cache
-is updated in place (saving a full copy of the cache per step);
-:func:`forward` returns the same :class:`KVCache` object.
+hd]`` (q8 scales ``[L, B, KV, S]``), grouped decode queries ``[B, KV, rep,
+hd]``, prefill queries ``[B, KV, T*rep, hd]`` in T-major rows.  Unlike
+JAX, the cache is updated in place (saving a full copy of the cache per
+step); :func:`forward` returns the same :class:`KVCache` object.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -42,12 +45,12 @@ from ..ops.rms_norm import rms_norm
 from ..ops.rope import apply_rope, rope_cache as make_rope_cache
 from ..utils import resolve_device
 
-PREFILL_T_MAX = 63  # longest chunk the dense attention path takes
+FLASH_PREFILL_T_MIN = 64  # prefill chunks from this length take K5
 
 
 class LlamaConfig(NamedTuple):
-    """The JAX ``LlamaConfig``'s fields; ``window``, ``ring`` and
-    ``w_down_a16`` are not ported and must keep their defaults."""
+    """The JAX ``LlamaConfig``'s fields; ``ring`` and ``w_down_a16`` are
+    not ported and must keep their defaults."""
 
     vocab: int = 256
     dim: int = 512
@@ -71,9 +74,10 @@ class LlamaConfig(NamedTuple):
 
 
 def check_config(cfg: LlamaConfig) -> None:
-    if cfg.window or cfg.ring:
-        raise NotImplementedError("sliding-window and ring caches are not "
-                                  "ported")
+    if cfg.ring:
+        raise NotImplementedError("the ring cache is not ported")
+    if cfg.window < 0:
+        raise ValueError(f"window must be >= 0, got {cfg.window}")
     if cfg.w_down_a16:
         raise NotImplementedError("w_down_a16 (W4A16 down projection) is "
                                   "not ported")
@@ -182,29 +186,57 @@ def rope_for(cfg: LlamaConfig, device="cuda"):
 
 @dataclasses.dataclass
 class KVCache:
-    """bf16 KV cache ``[L, B, KV, S, hd]`` and the per-slot count of
-    cached tokens ``pos`` (int32 [B]), updated in place by :func:`forward`."""
+    """KV cache ``[L, B, KV, S, hd]`` and the per-slot count of cached
+    tokens ``pos`` (int32 [B]), updated in place by :func:`forward`.
+
+    ``qtype="q8"`` stores k/v as int8 codes with one float32 scale per
+    (layer, slot, head, token) vector (``ks``/``vs`` [L, B, KV, S]), half
+    the bf16 cache's bytes; the attention kernels apply the scales to the
+    scores and to the softmax weights, never to the codes."""
 
     k: torch.Tensor
     v: torch.Tensor
     pos: torch.Tensor
+    ks: Optional[torch.Tensor] = None
+    vs: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.ks is not None
 
     @staticmethod
     def init(cfg: LlamaConfig, batch: int, qtype: str = "bf16",
              device="cuda") -> "KVCache":
-        if qtype != "bf16":
-            raise NotImplementedError(f"cache qtype {qtype!r} is not ported "
-                                      "(bf16 only)")
+        if qtype not in ("bf16", "q8"):
+            raise ValueError(f"cache qtype must be 'bf16' or 'q8', not "
+                             f"{qtype!r}")
         check_config(cfg)
         dev = resolve_device(device)
         shape = (cfg.n_layers, batch, cfg.n_kv_heads, cfg.max_seq,
                  cfg.head_dim)
+        pos = torch.zeros(batch, dtype=torch.int32, device=dev)
+        if qtype == "q8":
+            return KVCache(
+                torch.zeros(shape, dtype=torch.int8, device=dev),
+                torch.zeros(shape, dtype=torch.int8, device=dev), pos,
+                torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
+                torch.zeros(shape[:-1], dtype=torch.float32, device=dev))
         return KVCache(torch.zeros(shape, dtype=torch.bfloat16, device=dev),
                        torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-                       torch.zeros(batch, dtype=torch.int32, device=dev))
+                       pos)
 
     def clone(self) -> "KVCache":
-        return KVCache(self.k.clone(), self.v.clone(), self.pos.clone())
+        return KVCache(*(None if t is None else t.clone()
+                         for t in (self.k, self.v, self.pos, self.ks,
+                                   self.vs)))
+
+
+def _quant_kv(x: torch.Tensor):
+    """[..., hd] float32 -> (int8 codes, float32 scale [...]): per-vector
+    ``amax / 127``, codes rounded half to even (the JAX ``_quant_kv``)."""
+    scale = x.abs().amax(dim=-1) / 127.0
+    inv = torch.where(scale > 0, 1.0 / scale, torch.zeros_like(scale))
+    return torch.round(x * inv[..., None]).to(torch.int8), scale
 
 
 def _linear(w, x: torch.Tensor, ops) -> torch.Tensor:
@@ -213,22 +245,31 @@ def _linear(w, x: torch.Tensor, ops) -> torch.Tensor:
                              ops=ops)
 
 
-def _attention(q, k_all, v_all, positions):
-    """Dense causal attention in float32 (the JAX CPU numerics).
+def _attention(cfg: LlamaConfig, q, k_all, v_all, positions, ks=None,
+               vs=None):
+    """Dense causal attention in float32 (the JAX CPU numerics), the
+    prefill path below ``FLASH_PREFILL_T_MIN``.
 
-    q: [B, T, H, hd]; k_all/v_all: [B, KV, S, hd] bf16 (the layer's full
-    cache, current chunk already written); positions: [B, T] — the query
-    at position p attends cache slots <= p."""
+    q: [B, T, H, hd]; k_all/v_all: [B, KV, S, hd] (the layer's full
+    cache, current chunk already written); ks/vs: [B, KV, S] int8-cache
+    scales or None; positions: [B, T] — the query at position p attends
+    cache slots <= p (and > p - window)."""
     b, tq, h, hd = q.shape
     kv, s = k_all.shape[1], k_all.shape[2]
     qg = q.reshape(b, tq, kv, h // kv, hd).to(torch.float32)
     scores = torch.einsum("btgrd,bgsd->bgrts", qg, k_all.to(torch.float32)) \
         / float(np.float32(np.sqrt(hd)))
+    if ks is not None:  # int8 cache: the k scale factors out of the hd dot
+        scores = scores * ks[:, :, None, None, :]
     span = torch.arange(s, device=q.device)[None, None, :]
     mask = span <= positions[:, :, None]  # [B, T, S]
+    if cfg.window:
+        mask = mask & (span > positions[:, :, None] - cfg.window)
     scores = torch.where(mask[:, None, None], scores,
                          torch.finfo(torch.float32).min)
     probs = torch.softmax(scores, dim=-1)
+    if vs is not None:  # the v scale folds into the softmax weights
+        probs = probs * vs[:, :, None, None, :]
     out = torch.einsum("bgrts,bgsd->btgrd", probs, v_all.to(torch.float32))
     return out.reshape(b, tq, h * hd)
 
@@ -253,10 +294,6 @@ def begin(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor,
         raise NotImplementedError(f"act_mode {act_mode!r} is not ported "
                                   "(W4A8 q8_1 only)")
     b, t = tokens.shape
-    if t > PREFILL_T_MAX:
-        raise NotImplementedError(
-            f"T={t}: prefill chunks of T >= 64 need flash prefill, which is "
-            "not ported; use chunks of at most 48 tokens")
     dev = cache.k.device
     if rope_cache is None:
         rope_cache = rope_for(cfg, dev)
@@ -276,11 +313,13 @@ def begin(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor,
 def layer(lyr: dict, li: int, cfg: LlamaConfig, x: torch.Tensor,
           cache: KVCache, step: Step, ops: registry.Ops = registry.KERNELS):
     """Decoder layer ``li`` on the hidden state x [B, T, D].  Returns the
-    new hidden state and, at decode, the current token's (k, v) [B, KV, hd]
-    bf16 for :func:`end` to insert; prefill writes the cache here."""
+    new hidden state and, at decode, what :func:`end` inserts for the
+    current token: its (k, v) [B, KV, hd] bf16, or with the q8 cache its
+    (k codes, v codes, k scales, v scales); prefill writes the cache
+    here."""
     b, t, _ = x.shape
     heads, kv_heads, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    nq, nkv = heads * hd, kv_heads * hd
+    nq, nkv, rep = heads * hd, kv_heads * hd, heads // kv_heads
     if step.use_mega:
         qkv = ops.norm_qkv(lyr["wqkv"], x.reshape(b * t, cfg.dim),
                            lyr["attn_norm"], cfg.eps)
@@ -292,25 +331,51 @@ def layer(lyr: dict, li: int, cfg: LlamaConfig, x: torch.Tensor,
     v = qkv[:, nq + nkv:].reshape(b, t, kv_heads, hd)
     q = apply_rope(q, step.positions, step.rope_cache)
     k = apply_rope(k, step.positions, step.rope_cache)
+    scales = (dict(k_scale=cache.ks, v_scale=cache.vs) if cache.quantized
+              else {})
     current = None
     if t == 1:
-        # decode: the current token rides as kernel operands; the cache
-        # write waits for one all-layer insert after the loop
+        # decode: the current token rides as kernel operands in bf16 (with
+        # either cache); the cache write waits for one all-layer insert
+        # after the loop
         k_t = k.transpose(1, 2).to(torch.bfloat16)  # [B, KV, 1, hd]
         v_t = v.transpose(1, 2).to(torch.bfloat16)
-        current = (k_t[:, :, 0], v_t[:, :, 0])
+        if cache.quantized:
+            (kq, kscale), (vq, vscale) = _quant_kv(k[:, 0]), _quant_kv(v[:, 0])
+            current = (kq, vq, kscale, vscale)
+        else:
+            current = (k_t[:, :, 0], v_t[:, :, 0])
         attn = ops.flash_decode(
-            q.reshape(b, kv_heads, heads // kv_heads, hd), cache.k, cache.v,
-            cache.pos, k_current=k_t, v_current=v_t, layer=li,
-        ).reshape(b, t, nq)
+            q.reshape(b, kv_heads, rep, hd), cache.k, cache.v, cache.pos,
+            k_current=k_t, v_current=v_t, layer=li, window=cfg.window,
+            **scales).reshape(b, t, nq)
     else:
         bidx = torch.arange(b, device=x.device)[:, None]
         idx = step.wstart[:, None] + torch.arange(t, device=x.device)[None, :]
         # advanced indices around a slice: the indexed view is [B, T, KV,
         # hd], the layout k/v have before the transpose
-        cache.k[li][bidx, :, idx] = k.to(torch.bfloat16)
-        cache.v[li][bidx, :, idx] = v.to(torch.bfloat16)
-        attn = _attention(q, cache.k[li], cache.v[li], step.positions)
+        if cache.quantized:
+            (kq, kscale), (vq, vscale) = _quant_kv(k), _quant_kv(v)
+            cache.k[li][bidx, :, idx] = kq
+            cache.v[li][bidx, :, idx] = vq
+            cache.ks[li][bidx, :, idx] = kscale
+            cache.vs[li][bidx, :, idx] = vscale
+        else:
+            cache.k[li][bidx, :, idx] = k.to(torch.bfloat16)
+            cache.v[li][bidx, :, idx] = v.to(torch.bfloat16)
+        if t >= FLASH_PREFILL_T_MIN:
+            # T-major grouped rows (row = t*rep + r) for K5
+            qg = (q.reshape(b, t, kv_heads, rep, hd).transpose(1, 2)
+                  .reshape(b, kv_heads, t * rep, hd))
+            attn = ops.flash_prefill(
+                qg, cache.k, cache.v, step.positions[:, 0], rep=rep,
+                window=cfg.window, layer=li, **scales)
+            attn = (attn.reshape(b, kv_heads, t, rep, hd).transpose(1, 2)
+                    .reshape(b, t, nq))
+        else:
+            attn = _attention(
+                cfg, q, cache.k[li], cache.v[li], step.positions,
+                *((cache.ks[li], cache.vs[li]) if cache.quantized else ()))
     o = _linear(lyr["wo"], attn.reshape(b * t, nq), ops)
     x = x + o.reshape(b, t, cfg.dim)
     h = rms_norm(x, lyr["mlp_norm"], cfg.eps)
@@ -321,15 +386,16 @@ def layer(lyr: dict, li: int, cfg: LlamaConfig, x: torch.Tensor,
 
 
 def end(cache: KVCache, step: Step, current: list) -> None:
-    """Insert decode's current tokens of every layer (``current``: the
-    (k, v) of each layer from :func:`layer`) and advance ``cache.pos``."""
+    """Insert decode's current tokens of every layer (``current``: what
+    :func:`layer` returned for each layer) and advance ``cache.pos``."""
     if current:
-        # one insert covers every layer: k[:, bidx, :, wstart] is the
-        # [B, L, KV, hd] view of each slot's write row
+        # one insert per buffer covers every layer: k[:, bidx, :, wstart]
+        # is the [B, L, KV, hd] view of each slot's write row (ks: [B, L,
+        # KV])
         bidx = torch.arange(cache.k.shape[1], device=cache.k.device)
-        ks, vs = zip(*current)
-        cache.k[:, bidx, :, step.wstart] = torch.stack(ks).transpose(0, 1)
-        cache.v[:, bidx, :, step.wstart] = torch.stack(vs).transpose(0, 1)
+        bufs = (cache.k, cache.v, cache.ks, cache.vs)
+        for buf, vals in zip(bufs, zip(*current)):
+            buf[:, bidx, :, step.wstart] = torch.stack(vals).transpose(0, 1)
     cache.pos = (step.positions[:, -1] + 1).to(torch.int32)
 
 
@@ -364,4 +430,4 @@ def forward(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor,
 
 __all__ = ["LlamaConfig", "init_params", "quantize_params", "init_qparams",
            "rope_for", "KVCache", "Step", "begin", "layer", "end", "head",
-           "forward", "PREFILL_T_MAX"]
+           "forward", "FLASH_PREFILL_T_MIN"]

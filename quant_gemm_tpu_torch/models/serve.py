@@ -1,17 +1,21 @@
 """Continuous-batching serving loop over the quantized Llama forward.
 
-Counterpart of ``quant_gemm_tpu/models/serve.py::Server`` for the serving
-slice: a fixed pool of slots whose sequences advance independently; a new
-request is prefilled in bucket-padded chunks while the other slots keep
-decoding, and every decode step runs all slots as one batched T = 1
-forward (M = n_slots in every GEMM).  Inactive slots run masked garbage
-whose cache writes land at their clamped stale position, as in JAX.
+Counterpart of ``quant_gemm_tpu/models/serve.py::Server`` with its
+defaults: a fixed pool of slots whose sequences advance independently; a
+new request is prefilled in bucket-padded chunks of up to
+``prefill_bucket * 8`` tokens (chunks of 64 or more take K5) straight into
+its slot while the other slots keep decoding, and every decode step runs
+all slots as one batched T = 1 forward (M = n_slots in every GEMM).
+Inactive slots run masked garbage whose cache writes land at their
+clamped stale position, as in JAX.  With ``cache_prompt`` (the default, as
+llama.cpp's) a request goes to the free slot whose cache already holds the
+longest prefix of its prompt, and only the rest is prefilled.  The cache
+is bf16 or, with ``cache_qtype="q8"``, int8 with per-token scales; the
+model may have a sliding window.
 
-Options outside the slice raise ``NotImplementedError``: the q8 cache,
-sliding window / ring caches, ``context_shift``, grammar sampling,
-``n_probs``, ``prefill_a16``, ``w_down_a16`` and prompt caching
-(``cache_prompt=True``).  Prefill chunks must stay under 64 tokens (the
-dense-attention path; flash prefill is not ported).
+Options outside the slice raise ``NotImplementedError``: the ring cache,
+``context_shift``, grammar sampling, ``n_probs``, ``prefill_a16`` and
+``w_down_a16``.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ class Request:
     repeat_penalty: float = 1.0
     logit_bias: Optional[dict] = None
     seed: Optional[int] = None
+    cache_prompt: bool = True  # per-request prefix-reuse opt-out
     generated: list = dataclasses.field(default_factory=list)
     done: bool = False
 
@@ -63,7 +68,7 @@ class Server:
         cache_qtype: str = "bf16",
         max_prefill_chunk: Optional[int] = None,
         context_shift: bool = False,
-        cache_prompt: bool = False,
+        cache_prompt: bool = True,
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -71,9 +76,6 @@ class Server:
             raise NotImplementedError("prefill_a16 is not ported")
         if context_shift:
             raise NotImplementedError("context_shift is not ported")
-        if cache_prompt:
-            raise NotImplementedError("cache_prompt (prefix reuse) is not "
-                                      "ported; pass cache_prompt=False")
         if act_mode != "q8_1":
             raise NotImplementedError(f"act_mode {act_mode!r} is not ported")
         llama.check_config(cfg)
@@ -87,11 +89,7 @@ class Server:
         self.bucket = prefill_bucket
         self.eos_id = eos_id
         self.max_chunk = max_prefill_chunk or prefill_bucket * 8
-        if round_up(self.max_chunk, self.bucket) > llama.PREFILL_T_MAX:
-            raise NotImplementedError(
-                f"prefill chunks of {round_up(self.max_chunk, self.bucket)} "
-                "tokens need flash prefill (T >= 64), which is not ported; "
-                "pass max_prefill_chunk=48")
+        self.cache_prompt = cache_prompt
         self.cache = llama.KVCache.init(cfg, n_slots, cache_qtype,
                                         device=self.device)
         self.slots: list[Optional[Request]] = [None] * n_slots
@@ -114,6 +112,10 @@ class Server:
         self._n_tokens = 0
         self._n_decode_tokens = 0
         self._n_prefill_tokens = 0
+        # prompt-prefix cache: per slot, the tokens its cache rows
+        # currently hold from position 0
+        self._history: list[list[int]] = [[] for _ in range(n_slots)]
+        self._n_cached_tokens = 0
         self._prefill_s = 0.0
         # the latest decode steps' host seconds (bounded for long runs)
         self._step_s: collections.deque = collections.deque(maxlen=65536)
@@ -126,8 +128,8 @@ class Server:
                logit_bias: Optional[dict] = None, seed: Optional[int] = None,
                grammar=None, n_probs: int = 0,
                cache_prompt: bool = True) -> int:
-        """Queue a request; returns its id.  ``cache_prompt`` is the
-        per-request opt-out of a server-level option that is off here."""
+        """Queue a request; returns its id.  ``cache_prompt=False`` opts
+        this request out of prefix reuse."""
         if grammar is not None:
             raise NotImplementedError("grammar sampling is not ported")
         if n_probs:
@@ -141,20 +143,24 @@ class Server:
         r = Request(self._next_rid, list(prompt), max_new,
                     temperature=temperature, top_k=top_k, top_p=top_p,
                     min_p=min_p, repeat_penalty=repeat_penalty,
-                    logit_bias=logit_bias, seed=seed)
+                    logit_bias=logit_bias, seed=seed,
+                    cache_prompt=bool(cache_prompt))
         self._next_rid += 1
         self.queue.append(r)
         return r.rid
 
-    def _prefill(self, slot: int, prompt: list) -> torch.Tensor:
-        """Chunked prefill of one request straight into its slot (a view
-        of the server cache: no per-request cache copy); returns the last
+    def _prefill(self, slot: int, prompt: list, start: int = 0):
+        """Chunked prefill of ``prompt[start:]`` straight into its slot (a
+        view of the server cache: no per-request cache copy), whose first
+        ``start`` rows already hold the prompt's prefix; returns the last
         prompt position's logits."""
-        c1 = llama.KVCache(self.cache.k[:, slot:slot + 1],
-                           self.cache.v[:, slot:slot + 1],
-                           torch.zeros(1, dtype=torch.int32,
-                                       device=self.device))
-        off = 0
+        c = self.cache
+        one = slice(slot, slot + 1)
+        c1 = llama.KVCache(
+            c.k[:, one], c.v[:, one],
+            torch.full((1,), start, dtype=torch.int32, device=self.device),
+            *((c.ks[:, one], c.vs[:, one]) if c.quantized else ()))
+        off = start
         while off < len(prompt):
             part = prompt[off: off + self.max_chunk]
             t = max(self.bucket, round_up(len(part), self.bucket))
@@ -173,15 +179,44 @@ class Server:
         self.cache.pos[slot] = len(prompt)
         return last
 
+    @staticmethod
+    def _common_prefix(a: list, b: list) -> int:
+        n = 0
+        for x, y in zip(a, b):
+            if x != y:
+                break
+            n += 1
+        return n
+
+    def _pick_slot(self, prompt: list, want_cache: bool = True):
+        """Free slot with the longest materialized shared prefix (ties ->
+        first free); returns (slot, reuse_len)."""
+        free = [s for s in range(self.n_slots) if self.slots[s] is None]
+        if not free:
+            return None, 0
+        if not (self.cache_prompt and want_cache):
+            return free[0], 0
+        best, best_n = free[0], 0
+        for s in free:
+            # the last prompt token is always evaluated (its logits seed
+            # generation), and reuse below a bucket is not worth it
+            n = min(self._common_prefix(self._history[s], prompt),
+                    len(prompt) - 1)
+            if n > best_n:
+                best, best_n = s, n
+        return best, (best_n if best_n >= self.bucket else 0)
+
     def _admit(self) -> None:
         while self.queue:
-            free = [s for s in range(self.n_slots) if self.slots[s] is None]
-            if not free:
+            r = self.queue[0]
+            s, reuse = self._pick_slot(r.prompt, r.cache_prompt)
+            if s is None:
                 return
-            s = free[0]
-            r = self.queue.pop(0)
+            self.queue.pop(0)
             t0 = time.perf_counter()
-            last_logits = self._prefill(s, r.prompt)
+            last_logits = self._prefill(s, r.prompt, reuse)
+            self._n_cached_tokens += reuse
+            self._history[s] = list(r.prompt)
             gen = torch.Generator(device=self.device)
             gen.manual_seed(r.seed if r.seed is not None else r.rid)
             self._gens[s] = gen
@@ -205,7 +240,7 @@ class Server:
                 self._rpen[sl], self._bias_ids[sl], self._bias_vals[sl])[0])
             self._prefill_s += time.perf_counter() - t0
             r.generated.append(tok)
-            self._n_prefill_tokens += len(r.prompt)
+            self._n_prefill_tokens += len(r.prompt) - reuse
             self._n_tokens += 1
             if (len(r.generated) >= r.max_new
                     or (self.eos_id is not None and tok == self.eos_id)):
@@ -245,6 +280,8 @@ class Server:
             r = self.slots[s]
             tok = int(nxt[s])
             r.generated.append(tok)
+            # the token fed this step was written into the slot's cache
+            self._history[s].append(int(self._pending_tok[s]))
             self._pending_tok[s] = tok
             self._recent[s] = np.roll(self._recent[s], -1)
             self._recent[s, -1] = tok
@@ -256,6 +293,24 @@ class Server:
                 self.finished[r.rid] = r
                 self.slots[s] = None
         return out
+
+    def cancel(self, rid: int) -> bool:
+        """Stop a request early (a stop string matched, or the client went
+        away): it moves to ``finished`` with what it generated so far.
+        Returns False when no running or queued request has this id."""
+        for s in range(self.n_slots):
+            r = self.slots[s]
+            if r is not None and r.rid == rid:
+                r.done = True
+                self.finished[rid] = r
+                self.slots[s] = None
+                return True
+        for i, r in enumerate(self.queue):
+            if r.rid == rid:
+                r.done = True
+                self.finished[rid] = self.queue.pop(i)
+                return True
+        return False
 
     def stats(self) -> dict:
         """Serving counters, plus host-clock seconds spent in prefill
@@ -271,6 +326,7 @@ class Server:
             "tokens_per_step": (self._n_decode_tokens / self._n_steps
                                 if self._n_steps else 0.0),
             "decode_tokens": self._n_decode_tokens,
+            "cached_prompt_tokens": self._n_cached_tokens,
             "prefill_seconds": self._prefill_s,
             "decode_seconds": sum(self._step_s),
             "decode_step_ms_median": (statistics.median(self._step_s) * 1e3

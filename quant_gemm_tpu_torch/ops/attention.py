@@ -1,22 +1,40 @@
-"""K3: flash-decode attention over the stacked bf16 KV cache.
+"""K3 flash-decode and K5 flash-prefill attention over the KV cache.
 
-Replaces the Pallas kernel ``quant_gemm_tpu/ops/attention.py::
-flash_decode`` for the serving slice: bf16 cache, no sliding window, no
-ring, no int8 cache.  One query token per slot; the ``rep`` query rows of
-a kv head share each K/V tile; slot ``b`` attends cache slots
-``< pos[b]`` when the current token's ``k_current``/``v_current`` ride
-along (folded in last), ``<= pos[b]`` otherwise; ``layer=`` indexes the
-full ``[L, B, KV, S, hd]`` cache with no per-layer copy.  The valid range
-is clamped to the cache, so any stale ``pos`` of an inactive slot stays in
-bounds.
+Replace the Pallas kernels ``quant_gemm_tpu/ops/attention.py::
+flash_decode`` and ``::flash_prefill`` for the linear cache: bf16, or int8
+codes with one float32 scale per (layer, slot, head, token) vector (the
+``q8`` cache); full causal or a sliding ``window``.  The ring cache
+(``ring > 0``) is not ported and raises ``NotImplementedError``.
 
-Bound on an H100: bytes (each slot's valid K and V rows read once).  The
-design (``csrc/flash_decode.cu``): one block per (slot, kv head), one warp
-per query row, K/V tiles of 32 rows staged in shared memory, the
-online-softmax recurrence in registers, all in float32.
+* :func:`flash_decode`: one query token per slot, ``q`` [B, KV, rep, hd];
+  slot ``b`` attends cache slots ``< pos[b]`` when the current token's
+  ``k_current``/``v_current`` (bf16, with either cache) ride along, folded
+  in last, ``<= pos[b]`` otherwise; under a window only slots
+  ``> pos[b] - window``.  The valid range is clamped to the cache, so a
+  stale ``pos`` of an inactive slot stays in bounds.
+* :func:`flash_prefill`: ``q`` [B, KV, T*rep, hd] in T-major rows (row
+  ``t*rep + r`` is token ``t`` of group member ``r``); the row of token
+  ``t`` sits at ``pos0[b] + t`` and attends slots up to it (and, under a
+  window, after ``pos0[b] + t - window``); the cache already holds the
+  chunk's own rows.
 
-:func:`flash_decode` launches the kernel for CUDA tensors and runs
-:func:`flash_decode_plain` for CPU tensors; ``flash_decode.launches``
+Both take the cache as ``[L, B, KV, S, hd]`` with ``layer=`` (no per-layer
+copy) or as ``[B, KV, S, hd]``; the int8 cache's ``k_scale``/``v_scale``
+have the cache's shape without ``hd``.  The kernels read one layer's view
+through its base pointer and slot stride, so a one-slot view of a larger
+cache (the server's prefill) is read in place; each slot's [KV, S, hd]
+block must be contiguous.  Int8: the k scale multiplies the scores before
+the mask, the softmax sum takes p unscaled and the p.V sum ``p * v_scale``
+(``attention.py:109-138, 416-445``).
+
+Bound on an H100: bytes (the valid K and V rows, with int8 their scales,
+read once; q and the output).  Designs: ``csrc/flash_decode.cu`` and
+``csrc/flash_prefill.cu``, float32 on the CUDA cores as the TPU kernels
+compute.
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain
+version (``*_plain``, dense masked softmax in float32, the query scaled
+first as the JAX kernels scale it) for CPU tensors; ``<wrapper>.launches``
 counts kernel launches.  :func:`flash_decode_ref` is the counterpart of
 the JAX ``flash_decode_ref``.
 """
@@ -32,27 +50,108 @@ from ..kernels import _build
 NEG_INF = float(torch.finfo(torch.float32).min)
 
 
-def _layer_view(k: torch.Tensor, layer):
-    if k.dim() == 5:
+def _layer_view(k: torch.Tensor, layer, full_rank: int):
+    """One layer of a stacked cache (or scales), or the unstacked one."""
+    if k.dim() == full_rank + 1:
         if layer is None:
-            raise ValueError("a stacked [L, B, KV, S, hd] cache needs layer=")
+            raise ValueError("a stacked [L, B, ...] cache needs layer=")
         return k[layer]
-    if layer is not None:
-        raise ValueError("layer= needs the stacked [L, B, KV, S, hd] cache")
+    if layer is not None or k.dim() != full_rank:
+        raise ValueError(f"layer= needs the stacked cache; got a "
+                         f"{k.dim()}-d cache")
     return k
 
 
-def _check(q, k, v, pos, k_current, v_current, layer):
+def _check_cache(k, v, k_scale, v_scale, ring, window, name):
+    if ring:
+        raise NotImplementedError(f"{name}: the ring cache is not ported")
+    if window < 0:
+        raise ValueError(f"{name}: window must be >= 0, got {window}")
+    if v.shape != k.shape or v.dtype != k.dtype:
+        raise ValueError(f"{name}: k {tuple(k.shape)} {k.dtype} and v "
+                         f"{tuple(v.shape)} {v.dtype} differ")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{name}: pass both k_scale and v_scale, or neither")
+    if k_scale is None:
+        if k.dtype != torch.bfloat16:
+            raise ValueError(f"{name}: the cache is bf16, or int8 with "
+                             f"scales; got {k.dtype}")
+        return
+    if k.dtype != torch.int8:
+        raise ValueError(f"{name}: scales come with the int8 cache, not "
+                         f"{k.dtype}")
+    for s in (k_scale, v_scale):
+        if s.shape != k.shape[:-1] or s.dtype != torch.float32:
+            raise ValueError(f"{name}: scales must be float32 "
+                             f"{tuple(k.shape[:-1])}, got {tuple(s.shape)} "
+                             f"{s.dtype}")
+
+
+def _plain_cache(k, v, k_scale, v_scale, layer):
+    """One layer's K/V as float32 and its scales (or None)."""
+    f32 = torch.float32
+    kl = _layer_view(k, layer, 4).to(f32)
+    vl = _layer_view(v, layer, 4).to(f32)
+    if k_scale is None:
+        return kl, vl, None, None
+    return (kl, vl, _layer_view(k_scale, layer, 3),
+            _layer_view(v_scale, layer, 3))
+
+
+def _on_cpu(name, tensors) -> bool:
+    """True when every operand is on the CPU (the plain version runs);
+    False when all are on one CUDA device (the kernel runs)."""
+    devs = {t.device for t in tensors if t is not None}
+    if devs == {torch.device("cpu")}:
+        return True
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        raise ValueError(f"{name}: all operands must be on one CUDA device "
+                         "(or all on the CPU)")
+    return False
+
+
+def _kernel_view(t, layer, full_rank, name):
+    """One layer's view for a kernel: pointer and slot stride (elements),
+    each slot's block contiguous; K/V rows are read in 16-byte loads."""
+    tl = _layer_view(t, layer, full_rank)
+    inner = 1
+    for dim in range(full_rank - 1, 0, -1):
+        if tl.stride(dim) != inner:
+            raise ValueError(f"{name} reads the cache in place: each slot's "
+                             f"{tuple(tl.shape[1:])} block must be contiguous")
+        inner *= tl.shape[dim]
+    slot_bytes = tl.stride(0) * tl.element_size()
+    if full_rank == 4 and (tl.data_ptr() % 16 or slot_bytes % 16):
+        raise ValueError(f"{name}: the cache's slots must be 16-byte aligned")
+    return _build.ptr(tl), tl.stride(0)
+
+
+def _kernel_cache(k, v, k_scale, v_scale, layer, name):
+    """The cache operands of a kernel: (k, v, k_scale, v_scale) pointers
+    (null scales for bf16), the K/V slot stride and the scales' one."""
+    (kp, kstride), (vp, vstride) = (_kernel_view(t, layer, 4, name)
+                                    for t in (k, v))
+    if vstride != kstride:
+        raise ValueError(f"{name}: k and v strides differ")
+    if k_scale is None:
+        return kp, vp, _build.P(None), _build.P(None), kstride, 0
+    (ksp, sstride), (vsp, vsstride) = (_kernel_view(t, layer, 3, name)
+                                       for t in (k_scale, v_scale))
+    if vsstride != sstride:
+        raise ValueError(f"{name}: k_scale and v_scale strides differ")
+    return kp, vp, ksp, vsp, kstride, sstride
+
+
+def _check_decode(q, k, v, pos, k_current, v_current, k_scale, v_scale,
+                  layer, window, ring):
+    _check_cache(k, v, k_scale, v_scale, ring, window, "flash_decode")
     if (k_current is None) != (v_current is None):
         raise ValueError("pass both k_current and v_current, or neither")
-    kl = _layer_view(k, layer)
+    kl = _layer_view(k, layer, 4)
     b, kv, rep, hd = q.shape
-    if kl.shape[:2] != (b, kv) or kl.shape[3] != hd or v.shape != k.shape:
+    if kl.shape[:2] != (b, kv) or kl.shape[3] != hd:
         raise ValueError(f"q {tuple(q.shape)} does not match cache "
                          f"{tuple(k.shape)}")
-    if k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
-        raise NotImplementedError("flash_decode: only the bf16 cache is "
-                                  "ported")
     if pos.shape != (b,):
         raise ValueError(f"pos must be [B={b}], got {tuple(pos.shape)}")
     if k_current is not None and k_current.shape != (b, kv, 1, hd):
@@ -60,72 +159,164 @@ def _check(q, k, v, pos, k_current, v_current, layer):
 
 
 def flash_decode_plain(q, k, v, pos, *, k_current=None, v_current=None,
-                       layer=None) -> torch.Tensor:
+                       k_scale=None, v_scale=None, layer=None, window=0,
+                       ring=0) -> torch.Tensor:
     """Plain PyTorch version: dense masked softmax in float32 over the
-    valid cache slots plus the current token, the query scaled first as
-    the JAX kernel scales it."""
-    _check(q, k, v, pos, k_current, v_current, layer)
+    valid cache slots plus the current token."""
+    _check_decode(q, k, v, pos, k_current, v_current, k_scale, v_scale,
+                  layer, window, ring)
     f32 = torch.float32
-    kl = _layer_view(k, layer).to(f32)
-    vl = _layer_view(v, layer).to(f32)
+    kl, vl, ks, vs = _plain_cache(k, v, k_scale, v_scale, layer)
     hd = q.shape[-1]
     s = kl.shape[2]
     qs = q.to(f32) * (1.0 / math.sqrt(hd))
     scores = torch.einsum("bgrd,bgsd->bgrs", qs, kl)
+    if ks is not None:
+        scores = scores * ks[:, :, None, :]
     has_cur = k_current is not None
-    valid = (pos.to(torch.int64) + (0 if has_cur else 1)).clamp(0, s)
-    mask = torch.arange(s, device=q.device)[None, :] < valid[:, None]
+    p = pos.to(torch.int64)
+    valid = (p + (0 if has_cur else 1)).clamp(0, s)
+    span = torch.arange(s, device=q.device)[None, :]
+    mask = span < valid[:, None]
+    if window:
+        mask = mask & (span >= (p - window + 1).clamp(min=0)[:, None])
     scores = torch.where(mask[:, None, None], scores, NEG_INF)
     if not has_cur:
-        return torch.einsum("bgrs,bgsd->bgrd", torch.softmax(scores, -1), vl)
-    cur = (qs * k_current.to(f32)).sum(-1, keepdim=True)
-    probs = torch.softmax(torch.cat([scores, cur], dim=-1), dim=-1)
-    return (torch.einsum("bgrs,bgsd->bgrd", probs[..., :s], vl)
-            + probs[..., s:] * v_current.to(f32))
+        probs = torch.softmax(scores, -1)
+    else:
+        cur = (qs * k_current.to(f32)).sum(-1, keepdim=True)
+        probs = torch.softmax(torch.cat([scores, cur], dim=-1), dim=-1)
+    pc = probs[..., :s]
+    if vs is not None:
+        pc = pc * vs[:, :, None, :]
+    out = torch.einsum("bgrs,bgsd->bgrd", pc, vl)
+    if has_cur:
+        out = out + probs[..., s:] * v_current.to(f32)
+    return out
 
 
 def flash_decode(q, k, v, pos, *, k_current=None, v_current=None,
-                 layer=None) -> torch.Tensor:
-    """Causal decode attention; ``q`` [B, KV, rep, hd] float32, cache
-    bf16 ``[L, B, KV, S, hd]`` with ``layer=`` (or ``[B, KV, S, hd]``),
-    ``pos`` int [B]; returns float32 [B, KV, rep, hd]."""
-    _check(q, k, v, pos, k_current, v_current, layer)
+                 k_scale=None, v_scale=None, layer=None, window=0,
+                 ring=0) -> torch.Tensor:
+    """Causal decode attention; ``q`` [B, KV, rep, hd] float32, the cache
+    ``[L, B, KV, S, hd]`` with ``layer=`` (or ``[B, KV, S, hd]``), bf16 or
+    int8 with ``k_scale``/``v_scale``; ``pos`` int [B]; returns float32
+    [B, KV, rep, hd]."""
+    _check_decode(q, k, v, pos, k_current, v_current, k_scale, v_scale,
+                  layer, window, ring)
+    kw = dict(k_current=k_current, v_current=v_current, k_scale=k_scale,
+              v_scale=v_scale, layer=layer, window=window)
+    if _on_cpu("flash_decode", [q, k, v, pos, k_current, v_current,
+                                k_scale, v_scale]):
+        return flash_decode_plain(q, k, v, pos, **kw)
     dev = q.device
-    ops = [k, v, pos] + ([k_current, v_current] if k_current is not None
-                         else [])
-    if dev.type == "cpu" and all(t.device.type == "cpu" for t in ops):
-        return flash_decode_plain(q, k, v, pos, k_current=k_current,
-                                  v_current=v_current, layer=layer)
-    if dev.type != "cuda" or any(t.device != dev for t in ops):
-        raise ValueError("flash_decode: all operands must be on one CUDA "
-                         "device (or all on the CPU)")
     b, kv, rep, hd = q.shape
-    if not k.is_contiguous() or not v.is_contiguous():
-        raise ValueError("flash_decode reads the cache in place: it must be "
-                         "contiguous")
     s = k.shape[-2]
+    kp, vp, ksp, vsp, kstride, sstride = _kernel_cache(
+        k, v, k_scale, v_scale, layer, "flash_decode")
+    null = _build.P(None)
     qf = q.to(torch.float32).contiguous()
     pos32 = pos.to(torch.int32).contiguous()
     has_cur = k_current is not None
     kcur = k_current.to(torch.bfloat16).contiguous() if has_cur else None
     vcur = v_current.to(torch.bfloat16).contiguous() if has_cur else None
     out = torch.empty(b, kv, rep, hd, dtype=torch.float32, device=dev)
+    P, I, L = _build.P, _build.I, _build.L
     fn = _build.function(
-        "flash_decode", "qgt_flash_decode_bf16",
-        [_build.P] * 7 + [_build.I] * 7 + [_build.F, _build.P])
-    null = _build.P(None)
+        "flash_decode", "qgt_flash_decode",
+        [P] * 9 + [I] * 5 + [L, L] + [I] * 3 + [_build.F, P])
     with torch.cuda.device(dev):
-        rc = fn(_build.ptr(qf), _build.ptr(k), _build.ptr(v),
-                _build.ptr(pos32), _build.ptr(kcur) if has_cur else null,
+        rc = fn(_build.ptr(qf), kp, vp, ksp, vsp, _build.ptr(pos32),
+                _build.ptr(kcur) if has_cur else null,
                 _build.ptr(vcur) if has_cur else null, _build.ptr(out),
-                b, kv, rep, hd, s, 0 if layer is None else int(layer),
-                int(has_cur), 1.0 / math.sqrt(hd), _build.stream(dev))
-    _build.check("flash_decode", "qgt_flash_decode_bf16", rc)
+                b, kv, rep, hd, s, kstride, sstride, int(has_cur),
+                int(k_scale is not None), int(window), 1.0 / math.sqrt(hd),
+                _build.stream(dev))
+    _build.check("flash_decode", "qgt_flash_decode", rc)
     flash_decode.launches += 1
     return out
 
 
 flash_decode.launches = 0
+
+
+def _check_prefill(q, k, v, pos0, rep, k_scale, v_scale, layer, window,
+                   ring):
+    _check_cache(k, v, k_scale, v_scale, ring, window, "flash_prefill")
+    kl = _layer_view(k, layer, 4)
+    b, kv, rows, hd = q.shape
+    if rep < 1 or rows % rep:
+        raise ValueError(f"flash_prefill: {rows} query rows are not T x "
+                         f"rep={rep}")
+    if kl.shape[:2] != (b, kv) or kl.shape[3] != hd:
+        raise ValueError(f"q {tuple(q.shape)} does not match cache "
+                         f"{tuple(k.shape)}")
+    if pos0.shape != (b,):
+        raise ValueError(f"pos0 must be [B={b}], got {tuple(pos0.shape)}")
+
+
+def flash_prefill_plain(q, k, v, pos0, *, rep, k_scale=None, v_scale=None,
+                        window=0, ring=0, layer=None) -> torch.Tensor:
+    """Plain PyTorch version: dense masked softmax in float32 over the
+    whole cache, every row masked by its own position."""
+    _check_prefill(q, k, v, pos0, rep, k_scale, v_scale, layer, window,
+                   ring)
+    kl, vl, ks, vs = _plain_cache(k, v, k_scale, v_scale, layer)
+    rows, hd = q.shape[2], q.shape[3]
+    s = kl.shape[2]
+    qs = q.to(torch.float32) * (1.0 / math.sqrt(hd))
+    scores = torch.einsum("bgqd,bgsd->bgqs", qs, kl)
+    if ks is not None:
+        scores = scores * ks[:, :, None, :]
+    qpos = (pos0.to(torch.int64)[:, None]
+            + torch.arange(rows, device=q.device)[None, :] // rep)
+    span = torch.arange(s, device=q.device)[None, None, :]
+    mask = span <= qpos[:, :, None]  # [B, rows, S]
+    if window:
+        mask = mask & (span > qpos[:, :, None] - window)
+    scores = torch.where(mask[:, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    if vs is not None:
+        probs = probs * vs[:, :, None, :]
+    return torch.einsum("bgqs,bgsd->bgqd", probs, vl)
+
+
+def flash_prefill(q, k, v, pos0, *, rep, k_scale=None, v_scale=None,
+                  window=0, ring=0, layer=None) -> torch.Tensor:
+    """Causal prefill attention; ``q`` [B, KV, T*rep, hd] float32 in
+    T-major rows, the cache ``[L, B, KV, S, hd]`` with ``layer=`` (or
+    ``[B, KV, S, hd]``), bf16 or int8 with ``k_scale``/``v_scale``,
+    holding the chunk's own rows; ``pos0`` int [B], each slot's first
+    query position; returns float32 [B, KV, T*rep, hd]."""
+    _check_prefill(q, k, v, pos0, rep, k_scale, v_scale, layer, window,
+                   ring)
+    kw = dict(rep=rep, k_scale=k_scale, v_scale=v_scale, window=window,
+              layer=layer)
+    if _on_cpu("flash_prefill", [q, k, v, pos0, k_scale, v_scale]):
+        return flash_prefill_plain(q, k, v, pos0, **kw)
+    dev = q.device
+    b, kv, rows, hd = q.shape
+    s = k.shape[-2]
+    kp, vp, ksp, vsp, kstride, sstride = _kernel_cache(
+        k, v, k_scale, v_scale, layer, "flash_prefill")
+    qf = q.to(torch.float32).contiguous()
+    pos32 = pos0.to(torch.int32).contiguous()
+    out = torch.empty(b, kv, rows, hd, dtype=torch.float32, device=dev)
+    P, I, L = _build.P, _build.I, _build.L
+    fn = _build.function(
+        "flash_prefill", "qgt_flash_prefill",
+        [P] * 7 + [I] * 6 + [L, L] + [I] * 2 + [_build.F, P])
+    with torch.cuda.device(dev):
+        rc = fn(_build.ptr(qf), kp, vp, ksp, vsp, _build.ptr(pos32),
+                _build.ptr(out), b, kv, rows, rep, hd, s, kstride, sstride,
+                int(k_scale is not None), int(window), 1.0 / math.sqrt(hd),
+                _build.stream(dev))
+    _build.check("flash_prefill", "qgt_flash_prefill", rc)
+    flash_prefill.launches += 1
+    return out
+
+
+flash_prefill.launches = 0
 
 
 def flash_decode_ref(q, k, v, pos) -> torch.Tensor:
@@ -134,5 +325,5 @@ def flash_decode_ref(q, k, v, pos) -> torch.Tensor:
     return flash_decode_plain(q, k, v, pos)
 
 
-__all__ = ["flash_decode", "flash_decode_plain", "flash_decode_ref",
-           "NEG_INF"]
+__all__ = ["flash_decode", "flash_decode_plain", "flash_prefill",
+           "flash_prefill_plain", "flash_decode_ref", "NEG_INF"]

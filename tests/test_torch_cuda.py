@@ -2,17 +2,16 @@
 
 Every test here needs an NVIDIA GPU with nvcc and skips elsewhere.  The
 file imports neither JAX nor the JAX package, so it runs on a machine that
-has only PyTorch.  ``tests/conftest.py`` imports JAX unless
-``QGT_TEST_TPU`` is set; that variable means "run the JAX suite on a TPU",
-and here it is set only to skip that import:
+has only PyTorch; ``--noconftest`` keeps pytest from loading
+``tests/conftest.py``, which imports JAX for the rest of the suite:
 
-    QGT_TEST_TPU=1 python -m pytest tests/test_torch_cuda.py -m cuda -q
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Tolerances (those of chip_smoke.py): K1 ``1e-4 * max|C|`` (float32
 summation order), K2 ``2e-3 * max|C|`` (a Q8_1 code can also move across a
-.5 rounding tie), K3 ``atol=2e-3``, K4 NMSE <= 1e-4; through the model,
-with both op sets started from the same hidden state at every layer, each
-layer's update and the logits NMSE <= 1e-4.
+.5 rounding tie), K3 and K5 ``atol=2e-3``, K4 NMSE <= 1e-4; through the
+model, with both op sets started from the same hidden state at every
+layer, each layer's update and the logits NMSE <= 1e-4.
 """
 
 import numpy as np
@@ -28,7 +27,10 @@ from quant_gemm_tpu_torch.kernels.gemm_exact import (gemm_exact,
 from quant_gemm_tpu_torch.kernels.gemm_megalayer import (norm_qkv,
                                                          norm_qkv_plain)
 from quant_gemm_tpu_torch.models import llama, serve
-from quant_gemm_tpu_torch.ops.attention import flash_decode, flash_decode_plain
+from quant_gemm_tpu_torch.ops.attention import (flash_decode,
+                                                flash_decode_plain,
+                                                flash_prefill,
+                                                flash_prefill_plain)
 
 N, K, EPS = 768, 1024, 1e-5  # N not a multiple of the kernels' tiles
 
@@ -82,10 +84,21 @@ def test_gemm_dequant(weight, dev, m):
     assert ((got - ref) ** 2).sum() <= 1e-4 * (ref ** 2).sum()
 
 
+def _int8_cache(rng, shape, dev):
+    codes = [_t(rng.integers(-127, 128, shape).astype(np.int8), dev)
+             for _ in range(2)]
+    scales = [_t(rng.uniform(0.005, 0.03, shape[:-1]).astype(np.float32),
+                 dev) for _ in range(2)]
+    return codes, dict(k_scale=scales[0], v_scale=scales[1])
+
+
+@pytest.mark.parametrize("quant, window", [(False, 0), (True, 0),
+                                           (False, 40), (True, 40)])
 @pytest.mark.parametrize("hd, rep", [(64, 8), (128, 4)])
-def test_flash_decode(dev, hd, rep):
+def test_flash_decode(dev, hd, rep, quant, window):
     """Stacked cache via layer=, GQA, ragged positions including 0 (only
-    the current token) and a stale position past the cache end."""
+    the current token) and a stale position past the cache end; bf16 or
+    int8 cache, full causal or a window of 40 (not a tile multiple)."""
     rng = np.random.default_rng(5)
     b, kv, s, layers = 5, 2, 300, 3
 
@@ -93,30 +106,76 @@ def test_flash_decode(dev, hd, rep):
         return _t(rng.standard_normal(shape).astype(np.float32), dev)
 
     q = f(b, kv, rep, hd)
-    kc = f(layers, b, kv, s, hd).to(torch.bfloat16)
-    vc = f(layers, b, kv, s, hd).to(torch.bfloat16)
-    kw = dict(k_current=f(b, kv, 1, hd).to(torch.bfloat16),
-              v_current=f(b, kv, 1, hd).to(torch.bfloat16), layer=2)
+    shape = (layers, b, kv, s, hd)
+    if quant:
+        (kc, vc), kw = _int8_cache(rng, shape, dev)
+    else:
+        kc, vc, kw = f(*shape).to(torch.bfloat16), \
+            f(*shape).to(torch.bfloat16), {}
+    kw.update(k_current=f(b, kv, 1, hd).to(torch.bfloat16),
+              v_current=f(b, kv, 1, hd).to(torch.bfloat16), layer=2,
+              window=window)
     pos = torch.tensor([0, 31, 33, s - 1, 10_000], dtype=torch.int32,
                        device=dev)
+    before = flash_decode.launches
     got = flash_decode(q, kc, vc, pos, **kw)
     ref = flash_decode_plain(q, kc, vc, pos, **kw)
+    assert flash_decode.launches == before + 1
     assert torch.isfinite(got).all()
     assert (got - ref).abs().max() <= 2e-3
 
 
-def test_model_and_server_through_kernels(dev):
+@pytest.mark.parametrize("quant, window", [(False, 0), (True, 0),
+                                           (False, 40), (True, 40)])
+@pytest.mark.parametrize("hd, rep, t", [(64, 8, 72), (128, 4, 37)])
+def test_flash_prefill(dev, hd, rep, t, quant, window):
+    """Ragged start positions (a chunk that ends at the cache's last
+    slot, one at 0), T * rep rows that do not divide the 64-row tile, the
+    layer of a stacked cache, and a one-slot view of a wider cache read in
+    place (the server's prefill)."""
+    rng = np.random.default_rng(6)
+    b, kv, s, layers = 3, 2, 300, 2
+    q = _t(rng.standard_normal((b, kv, t * rep, hd)).astype(np.float32), dev)
+    shape = (layers, b + 1, kv, s, hd)
+    if quant:
+        (kc, vc), kw = _int8_cache(rng, shape, dev)
+    else:
+        kc, vc = (_t(rng.standard_normal(shape).astype(np.float32),
+                     dev).to(torch.bfloat16) for _ in range(2))
+        kw = {}
+    # slots 1..b of the wider cache: a strided view, as the server's
+    kc, vc = kc[:, 1:], vc[:, 1:]
+    kw = {n: x[:, 1:] for n, x in kw.items()}
+    kw.update(rep=rep, window=window, layer=1)
+    pos0 = torch.tensor([0, 113, s - t], dtype=torch.int32, device=dev)
+    before = flash_prefill.launches
+    got = flash_prefill(q, kc, vc, pos0, **kw)
+    ref = flash_prefill_plain(q, kc, vc, pos0, **kw)
+    assert flash_prefill.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 2e-3
+
+
+@pytest.mark.parametrize("qtype, window", [("bf16", 0), ("q8", 0),
+                                           ("bf16", 24)])
+def test_model_and_server_through_kernels(dev, qtype, window):
+    """Prefill chunks on the dense path (T = 48) and through K5 (T = 64),
+    then a decode step, each layer through the kernels and the plain
+    versions from the same hidden state; then the default Server (chunk
+    128, prompt caching) through the kernels, reusing a prefix."""
     cfg = llama.LlamaConfig(vocab=256, dim=512, n_layers=2, n_heads=8,
-                            n_kv_heads=2, d_ff=1024, max_seq=128)
+                            n_kv_heads=2, d_ff=1024, max_seq=256,
+                            window=window)
     qp = llama.init_qparams(cfg, seed=1, device=dev)
-    toks = torch.randint(0, 256, (2, 48), device=dev,
+    toks = torch.randint(0, 256, (2, 112), device=dev,
                          generator=torch.Generator(device=dev).manual_seed(2))
 
     def nmse(got, ref):
         return ((got - ref) ** 2).sum() / (ref ** 2).sum()
 
-    cache = llama.KVCache.init(cfg, 2, device=dev)
-    for tokens in (toks, toks[:, :1]):  # prefill, then a decode step
+    cache = llama.KVCache.init(cfg, 2, qtype, device=dev)
+    before = flash_prefill.launches
+    for tokens in (toks[:, :48], toks[:, 48:], toks[:, :1]):
         cache_p = cache.clone()
         x, step = llama.begin(qp, cfg, tokens, cache)
         current = []
@@ -131,9 +190,13 @@ def test_model_and_server_through_kernels(dev):
         assert nmse(llama.head(qp, cfg, x),
                     llama.head(qp, cfg, x, registry.PLAIN)) <= 1e-4
         llama.end(cache, step, current)
-    srv = serve.Server(qp, cfg, n_slots=2, max_prefill_chunk=48, device=dev)
-    rids = [srv.submit(list(range(1, 70)), max_new=5),
-            srv.submit([7, 8, 9], max_new=3)]
+    assert flash_prefill.launches == before + cfg.n_layers
+    srv = serve.Server(qp, cfg, n_slots=2, cache_qtype=qtype, device=dev)
+    prompt = list(range(1, 101))
+    rids = [srv.submit(prompt, max_new=5), srv.submit([7, 8, 9], max_new=3)]
     res = srv.run_until_done()
-    assert [len(res[r]) for r in rids] == [5, 3]
+    rids.append(srv.submit(prompt + res[rids[0]][:4] + [5], max_new=4))
+    res = srv.run_until_done()
+    assert [len(res[r]) for r in rids] == [5, 3, 4]
     assert all(0 <= t < 256 for r in rids for t in res[r])
+    assert srv.stats()["cached_prompt_tokens"] == 104

@@ -128,3 +128,26 @@ def test_cpu_entry_points_run_when_asked(no_gpu):
     assert logits.shape == (2, 3, 64) and bool(torch.isfinite(logits).all())
     assert cache.pos.tolist() == [3, 3]
     assert np.isfinite(logits.numpy()).all()
+
+
+@pytest.mark.parametrize("qtype", ["bf16", "q8"])
+def test_cpu_flash_prefill_route_runs_when_asked(no_gpu, qtype):
+    """A 64-token chunk takes flash_prefill, and a step decode with either
+    cache; on CPU tensors every kernel wrapper runs its plain version and
+    counts no launch."""
+    from quant_gemm_tpu_torch.kernels import registry
+    from quant_gemm_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(vocab=64, dim=64, n_layers=1, n_heads=2,
+                            n_kv_heads=2, d_ff=128, max_seq=80, window=40)
+    qp = llama.init_qparams(cfg, seed=1, device="cpu")
+    cache = llama.KVCache.init(cfg, 2, qtype, device="cpu")
+    before = [f.launches for f in registry.KERNELS]
+    for t in (64, 1):
+        logits, cache = llama.forward(
+            qp, cfg, torch.ones(2, t, dtype=torch.long), cache)
+        assert logits.shape == (2, t, 64)
+        assert bool(torch.isfinite(logits).all())
+    assert cache.pos.tolist() == [65, 65]
+    assert cache.quantized == (qtype == "q8")
+    assert [f.launches for f in registry.KERNELS] == before

@@ -7,12 +7,13 @@ prints, as JSON lines:
 
 * ``free``: max|delta| / max|logits| and NMSE of the port's forward against
   the JAX forward, each side quantizing its own activations, over 6 seeds
-  x (prefill T=16, prefill T=48, three decode steps after the T=48
-  prefill) = 30 cases;
+  x 2 caches (bf16, q8) x (prefill T=16, T=48, T=128 through flash
+  prefill, three decode steps after the T=48 prefill) = 72 cases, with the
+  largest of each per route;
 * ``jax_codes``: the same for prefill with every Q8_1 activation of the
   JAX forward recorded and fed to the port, and the number of codes that
   the port's own quantizer would have set differently (by at most one) at
-  each quantizer call;
+  each quantizer call (T=16, 48 and 128);
 * ``server``: the greedy transcripts of the JAX and the port ``Server`` on
   the test's two interleaved requests, whether they are equal, and the
   smallest top-1/top-2 margin along them, relative to max|logits|.
@@ -59,25 +60,29 @@ def gap(got, want):
 
 def free_run(qj, qt):
     rows = []
-    for seed in range(6):
-        for t in (16, 48):
-            tokens = np.random.default_rng(100 * seed + t).integers(
-                0, 256, (2, t)).astype(np.int32)
-            lj, cj = jl.jit_forward(qj, JCFG, jnp.asarray(tokens),
-                                    jl.KVCache.init(JCFG, 2))
-            lt, ct = tl.forward(qt, TCFG, torch.from_numpy(tokens),
-                                tl.KVCache.init(TCFG, 2, device="cpu"))
-            rows.append({"case": f"prefill T={t} seed={seed}",
-                         **gap(lt, lj)})
-            if t != 48:
-                continue
-            rng = np.random.default_rng(seed)
-            for step in range(3):
-                nt = rng.integers(0, 256, (2, 1)).astype(np.int32)
-                dj, cj = jl.jit_forward(qj, JCFG, jnp.asarray(nt), cj)
-                dt, ct = tl.forward(qt, TCFG, torch.from_numpy(nt), ct)
-                rows.append({"case": f"decode step {step} seed={seed}",
-                             **gap(dt, dj)})
+    for qtype in ("bf16", "q8"):
+        for seed in range(6):
+            for t in (16, 48, 128):
+                tokens = np.random.default_rng(100 * seed + t).integers(
+                    0, 256, (2, t)).astype(np.int32)
+                lj, cj = jl.jit_forward(qj, JCFG, jnp.asarray(tokens),
+                                        jl.KVCache.init(JCFG, 2, qtype))
+                lt, ct = tl.forward(qt, TCFG, torch.from_numpy(tokens),
+                                    tl.KVCache.init(TCFG, 2, qtype,
+                                                    device="cpu"))
+                rows.append({"case": f"{qtype} prefill T={t} seed={seed}",
+                             "route": f"{qtype} prefill T={t}",
+                             **gap(lt, lj)})
+                if t != 48:
+                    continue
+                rng = np.random.default_rng(seed)
+                for step in range(3):
+                    nt = rng.integers(0, 256, (2, 1)).astype(np.int32)
+                    dj, cj = jl.jit_forward(qj, JCFG, jnp.asarray(nt), cj)
+                    dt, ct = tl.forward(qt, TCFG, torch.from_numpy(nt), ct)
+                    rows.append({"case": f"{qtype} decode step {step} "
+                                         f"seed={seed}",
+                                 "route": f"{qtype} decode", **gap(dt, dj)})
     return rows
 
 
@@ -151,10 +156,16 @@ def main():
     free = free_run(qj, qt)
     for row in free:
         print(json.dumps({"free": row}))
+    for route in dict.fromkeys(r["route"] for r in free):
+        mine = [r for r in free if r["route"] == route]
+        print(json.dumps({"free_max": {
+            "route": route, "max_rel": max(r["max_rel"] for r in mine),
+            "nmse": max(r["nmse"] for r in mine), "cases": len(mine),
+            "below_2e-7": sum(r["max_rel"] < 2e-7 for r in mine)}}))
     print(json.dumps({"free_max": {
-        "max_rel": max(r["max_rel"] for r in free),
+        "route": "all", "max_rel": max(r["max_rel"] for r in free),
         "nmse": max(r["nmse"] for r in free), "cases": len(free)}}))
-    for t in (16, 48):
+    for t in (16, 48, 128):
         print(json.dumps({"jax_codes": with_jax_codes(qj, qt, t)}))
     for row in servers(qj, qt):
         print(json.dumps({"server": row}))

@@ -8,11 +8,15 @@ Run from the repository root on a machine with one NVIDIA H100:
 1. prints the card (``nvidia-smi`` name and power limit), the torch and
    CUDA versions, and builds every kernel of the serving path from
    ``quant_gemm_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel);
-2. kernel phase: each of K1-K5 at the shapes the serving path gives it
-   (K3 and K5 also with the int8 cache and a window of 256), against its
-   plain PyTorch version at the stated tolerance, timed with CUDA events
-   (L2 flushed before every timed launch) beside its bound and, where one
-   PyTorch call computes the same function, that call's time;
+2. kernel phase: each of K1-K5 and K7 at the shapes the serving paths
+   give it (K3 and K5 also with the int8 cache and a window of 256; K1
+   and K4 also with q4_K weights in their effective form at the Q4_K_M
+   shapes; K7 with q6_K at its three shapes and with q3_K and q2_K at the
+   lm_head's), against its plain PyTorch version at the stated tolerance,
+   timed with CUDA events (L2 flushed before every timed launch) beside
+   its bound (K-quant weights at their GGUF block bytes, the bound over
+   the port's larger layout beside it) and, where one PyTorch call
+   computes the same function, that call's time;
 3. main path: the q4_0 W4A8 continuous-batching ``Server(qp, cfg,
    n_slots=8)`` at its defaults (prefill chunk 128, prompt caching) at
    TinyLlama-1.1B width (22 layers, random weights from a seed, quantized
@@ -23,7 +27,21 @@ Run from the repository root on a machine with one NVIDIA H100:
    128-token prefill chunks and one decode step per cache run through the
    kernels and through the plain versions from the same hidden state at
    every layer, and each layer's output and the logits must agree;
-4. prints one JSON line of the kernels, the card, and last the result line.
+4. Q4_K_M path: a GGUF file in llama.cpp's Q4_K_M mix at TinyLlama-1.1B
+   width (random valid blocks from a seed, written to a temporary
+   directory and removed) is loaded with ``gguf_loader.load_llama`` onto
+   the card and serves the same 16 requests with ``Server(qp, cfg,
+   n_slots=8)``: K1 and K4 on its q4_K weights, K7 and the plain float32
+   prefill matmul on its q6_K ones, counted against the path's launches;
+   then the layer-by-layer check for a 128-token chunk and a decode step,
+   and a ``torch.profiler`` breakdown of one decode step and one chunk
+   (device time by kernel group, idle share; it fails when the profiler
+   sees no hand kernel);
+5. foreign bytes: ``tests/golden/tiny_llama_q4km.gguf`` (written by an
+   independent generator) loads onto the card, and its pinned greedy
+   transcript, teacher-forced through the kernels, must be the argmax at
+   every step or a printed near-tie;
+6. prints one JSON line of the kernels, the card, and last the result line.
 
 Exits non-zero, with no result line, when CUDA is unavailable or any phase
 fails.  TF32 is off for every float32 product (``allow_tf32 = False``), so
@@ -36,6 +54,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -108,21 +127,58 @@ def q4_bytes(n: int, k: int) -> int:
     return n * k // 2 + n * (k // 32) * 2
 
 
+# bytes of one GGUF block of 256 weights (ggml-common.h block_q*_K): what
+# a K-quant weight holds, and what bound_ms counts for it
+KQ_BLOCK_BYTES = {"q4_K": 144, "q6_K": 210, "q3_K": 110, "q2_K": 84}
+
+
+def kq_bytes(qtype: str, n: int, k: int) -> int:
+    return n * k // 256 * KQ_BLOCK_BYTES[qtype]
+
+
+def q4k_layout_bytes(n: int, k: int) -> int:
+    """q4_k as the port stores it: codes plus f32 d' and m' per 32."""
+    return n * k // 2 + n * (k // 32) * 8
+
+
+def k16_layout_bytes(w) -> int:
+    """A K16 weight as the port stores it: int8 codes plus f32 scp (and
+    q2_K's mp) per 16."""
+    return w.n * w.k + w.n * (w.k // 16) * 4 * (2 if w.mp is not None else 1)
+
+
+# llama.cpp's Q4_K_M mix (llama_tensor_get_type) at TinyLlama-1.1B width:
+# attn_v and ffn_down are q6_K in the use_more_bits layers (i < n/8, i >=
+# 7n/8, or (i - n/8) % 3 == 2), output is q6_K, every other linear and the
+# embedding q4_K
+MORE_BITS = [i for i in range(LAYERS) if i < LAYERS // 8
+             or i >= 7 * LAYERS // 8 or (i - LAYERS // 8) % 3 == 2]
+Q4KM_Q4K_SHAPES = {"wqkv": (HEADS * HD + 2 * KV_HEADS * HD, DIM),
+                   "wq, wo": (HEADS * HD, DIM), "wk": (KV_HEADS * HD, DIM),
+                   "wgu": (2 * D_FF, DIM), "w_down": (DIM, D_FF)}
+Q4KM_Q6K_SHAPES = {"attn_v": (KV_HEADS * HD, DIM), "ffn_down": (DIM, D_FF),
+                   "output": (VOCAB, DIM)}
+
+
 def nmse(got, ref) -> float:
     got, ref = got.double(), ref.double()
     return ((got - ref).pow(2).sum() / ref.pow(2).sum()).item()
 
 
 def kernel_phase(dev, timer):
+    from quant_gemm_tpu_torch.formats import kquants
     from quant_gemm_tpu_torch.formats.quant import quantize_q4_0, quantize_q8_1
     from quant_gemm_tpu_torch.kernels import layout
     from quant_gemm_tpu_torch.kernels.gemm_dequant import (
         gemm_dequant, gemm_dequant_plain)
     from quant_gemm_tpu_torch.kernels.gemm_exact import (
         gemm_exact, gemm_exact_plain)
+    from quant_gemm_tpu_torch.kernels.gemm_exact_k16 import (
+        gemm_exact_k16, gemm_exact_k16_plain)
     from quant_gemm_tpu_torch.kernels.gemm_megalayer import (
         norm_qkv, norm_qkv_plain)
-    from quant_gemm_tpu_torch.kernels.registry import fold_q8_1
+    from quant_gemm_tpu_torch.kernels.registry import (fold_q8_1,
+                                                       k16_dequant_gemm)
     from quant_gemm_tpu_torch.ops.attention import (
         flash_decode, flash_decode_plain, flash_prefill, flash_prefill_plain)
 
@@ -140,17 +196,22 @@ def kernel_phase(dev, timer):
     rows = []  # per-shape detail
 
     def record(kernel, shape, err, check, ms, plain_ms, bnd, lib_ms,
-               main=True):
+               main=True, layout_bnd=None):
         """One row; ``main``: the variant the default server runs (the
-        kernels line sums those, and lists every row)."""
+        kernels line sums those, and lists every row).  ``layout_bnd``:
+        the bound over the bytes of the port's layout where it holds more
+        than the format (a note; ``bnd`` counts the format's bytes)."""
         rows.append({"kernel": kernel, "shape": shape, "max_abs_err": err,
                      "check": check, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bnd[0], "bound_by": bnd[1],
-                     "library_ms": lib_ms, "main": main})
+                     "library_ms": lib_ms, "main": main,
+                     "layout_bound_ms": layout_bnd and layout_bnd[0]})
         lib = "null" if lib_ms is None else f"{lib_ms:.5f}"
+        lay = "" if layout_bnd is None else \
+            f" layout_bound_ms={layout_bnd[0]:.5f}"
         print(f"  {kernel:13s} {shape:50s} kernel_ms={ms:.5f} "
-              f"plain_ms={plain_ms:.5f} bound_ms={bnd[0]:.5f} ({bnd[1]}) "
-              f"library_ms={lib} max_abs_err={err:.3e} [{check}]",
+              f"plain_ms={plain_ms:.5f} bound_ms={bnd[0]:.5f} ({bnd[1]})"
+              f"{lay} library_ms={lib} max_abs_err={err:.3e} [{check}]",
               flush=True)
 
     # K1: exact decode GEMM at M = 8
@@ -322,6 +383,91 @@ def kernel_phase(dev, timer):
                timer(lambda: gemm_dequant_plain(w, a), reps=5),
                bound(nbytes, 2 * m * w.n * w.k, "bf16"),
                timer(lambda: torch.matmul(a, wb.T)))
+
+    # the Q4_K_M path's GEMMs: K1 (M = 8) and K4 (M = 128) on q4_K weights
+    # in their effective form (f32 d' and m' planes), K7 (M = 8) on q6_K
+    # at its three shapes and on q3_K / q2_K at the lm_head's
+    def kquant(qtype, n, k):
+        return kquants.random_blocks(qtype, n, k, k ** -0.5, g)
+
+    q4k = {name: layout.prepare(kquants.to_effective(kquant("q4_K", n, k)))
+           for name, (n, k) in Q4KM_Q4K_SHAPES.items()}
+    for name, w in q4k.items():
+        m = 8
+        a = quantize_q8_1(randn(m, w.k))
+        got, ref = gemm_exact(w, a), gemm_exact_plain(w, a)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        tol = 1e-5 * ref.abs().max().item()
+        if not err <= tol:
+            fail(f"K1 gemm_exact q4_k {name}: max|err| {err} > {tol}")
+        act = m * w.k + 2 * m * (w.k // 32) * 2 + m * w.n * 4
+        ops = 2 * m * w.n * w.k
+        record("gemm_exact", f"q4_k {name} M={m} N={w.n} K={w.k}", err,
+               f"max|err| <= {tol:.3e}", timer(lambda: gemm_exact(w, a)),
+               timer(lambda: gemm_exact_plain(w, a), reps=5),
+               bound(kq_bytes("q4_K", w.n, w.k) + act, ops, "int8"), None,
+               main=False,
+               layout_bnd=bound(q4k_layout_bytes(w.n, w.k) + act, ops,
+                                "int8"))
+    for name, w in q4k.items():
+        m = 128
+        a = fold_q8_1(quantize_q8_1(randn(m, w.k)))
+        got, ref = gemm_dequant(w, a), gemm_dequant_plain(w, a)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        e = nmse(got, ref)
+        tol = 1e-5 * ref.abs().max().item()
+        if not (e <= 1e-4 and err <= tol):
+            fail(f"K4 gemm_dequant q4_k {name}: NMSE {e} > 1e-4 or "
+                 f"max|err| {err} > {tol}")
+        wb = layout.dequantize(w, torch.bfloat16)
+        act = m * w.k * 2 + m * w.n * 4
+        ops = 2 * m * w.n * w.k
+        record("gemm_dequant", f"q4_k {name} M={m} N={w.n} K={w.k}", err,
+               f"NMSE {e:.3e} <= 1e-4, max|err| <= {tol:.3e}",
+               timer(lambda: gemm_dequant(w, a)),
+               timer(lambda: gemm_dequant_plain(w, a), reps=5),
+               bound(kq_bytes("q4_K", w.n, w.k) + act, ops, "bf16"),
+               timer(lambda: torch.matmul(a, wb.T)), main=False,
+               layout_bnd=bound(q4k_layout_bytes(w.n, w.k) + act, ops,
+                                "bf16"))
+    k16_cases = [("q6_K", name, n, k) for name, (n, k) in
+                 Q4KM_Q6K_SHAPES.items()]
+    k16_cases += [(q, "output", VOCAB, DIM) for q in ("q3_K", "q2_K")]
+    for qtype, name, n, k in k16_cases:
+        m = 8
+        w = layout.prepare_k16(kquant(qtype, n, k))
+        a = quantize_q8_1(randn(m, k))
+        got, ref = gemm_exact_k16(w, a), gemm_exact_k16_plain(w, a)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        tol = 1e-5 * ref.abs().max().item()
+        if not err <= tol:
+            fail(f"K7 gemm_exact_k16 {qtype} {name}: max|err| {err} > {tol}")
+        act = m * k + m * (k // 32) * 2 + m * n * 4  # codes, d_a, out
+        record("gemm_exact_k16", f"{qtype} {name} M={m} N={n} K={k}", err,
+               f"max|err| <= {tol:.3e}", timer(lambda: gemm_exact_k16(w, a)),
+               timer(lambda: gemm_exact_k16_plain(w, a), reps=5),
+               bound(kq_bytes(qtype, n, k) + act, 2 * m * n * k, "int8"),
+               None, main=qtype == "q6_K",
+               layout_bnd=bound(k16_layout_bytes(w) + act, 2 * m * n * k,
+                                "int8"))
+        if qtype == "q6_K":
+            # the prefill route of the same weight (M = 128): dequantize
+            # to float32 and multiply, plain torch, not a kernel of the
+            # port (as the JAX package leaves it to XLA)
+            m = 128
+            x = randn(m, k)
+            ms = timer(lambda: k16_dequant_gemm(w, x))
+            b = bound(kq_bytes(qtype, n, k) + m * k * 4 + m * n * 4,
+                      2 * m * n * k, "f32")
+            rows.append({"kernel": "k16_dequant_gemm", "shape":
+                         f"{qtype} {name} M={m} N={n} K={k}", "ms": ms,
+                         "bound_ms": b[0], "bound_by": b[1], "main": False})
+            print(f"  {'plain K16 prefill route':13s} {qtype} {name} M={m} "
+                  f"N={n} K={k}: ms={ms:.5f} bound_ms={b[0]:.5f} ({b[1]})",
+                  flush=True)
     return rows
 
 
@@ -343,131 +489,105 @@ def traffic(rng):
     return prompts, reuse
 
 
-def flash_chunks(prompts, reuse, chunk=128, bucket=16):
-    """Prefill chunks of 64 or more tokens (bucket-padded): the calls
-    that take K5."""
-    n = 0
+def chunks(prompts, reuse, chunk=128, bucket=16):
+    """The bucket-padded length of every prefill chunk the server runs
+    (chunks of 64 or more tokens take K5)."""
+    out = []
     for p, r in zip(prompts, reuse):
         for off in range(r, len(p), chunk):
-            t = max(bucket, -(-min(chunk, len(p) - off) // bucket) * bucket)
-            n += t >= 64
-    return n
+            out.append(max(bucket,
+                           -(-min(chunk, len(p) - off) // bucket) * bucket))
+    return out
 
 
-def main_path(dev, wrappers):
-    from quant_gemm_tpu_torch.kernels import registry
-    from quant_gemm_tpu_torch.models import llama, serve
+def serve_traffic(name, qp, cfg, dev, prompts, reuse, counters, **kw):
+    """A warm-up request, then the 16 requests through ``Server(qp, cfg,
+    n_slots=8, **kw)`` with every counter set to 0 just before and read
+    just after.  Checks what every run must show; returns (launches,
+    stats)."""
+    from quant_gemm_tpu_torch.models import serve
 
-    cfg = llama.LlamaConfig(vocab=VOCAB, dim=DIM, n_layers=LAYERS,
-                            n_heads=HEADS, n_kv_heads=KV_HEADS, d_ff=D_FF,
-                            max_seq=2048, rope_base=10000.0, eps=1e-5)
+    warm = serve.Server(qp, cfg, n_slots=8, device=dev, **kw)
+    warm.submit(list(range(1, 65)), max_new=2)  # first-use costs
+    warm.run_until_done()
+    del warm
+    srv = serve.Server(qp, cfg, n_slots=8, device=dev, **kw)
+    for p in prompts:
+        srv.submit(p, max_new=32)
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
     t0 = time.perf_counter()
-    qp = llama.init_qparams(cfg, seed=0, device=dev)
+    results = srv.run_until_done()
     torch.cuda.synchronize()
-    print(f"main path: TinyLlama-1.1B width, {LAYERS} layers, random q4_0 "
-          f"weights built on the card in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    wall = time.perf_counter() - t0
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    st = srv.stats()
+    if sorted(results) != list(range(16)):
+        fail(f"{name}: not every request finished: {sorted(results)}")
+    if any(len(t) != 32 for t in results.values()):
+        fail(f"{name}: a request stopped short of max_new=32")
+    if not all(0 <= t < VOCAB for ts in results.values() for t in ts):
+        fail(f"{name}: a generated token is outside the vocabulary")
+    if st["cached_prompt_tokens"] != sum(reuse):
+        fail(f"{name}: reused {st['cached_prompt_tokens']} cached "
+             f"prompt tokens, expected {sum(reuse)}")
+    print(f"  {name}: 16 requests, {st['prefill_tokens']} prompt tokens "
+          f"prefilled and {st['cached_prompt_tokens']} reused from the "
+          f"cache, {st['generated_tokens']} generated, "
+          f"{st['decode_steps']} decode steps in {wall:.2f} s", flush=True)
+    pre = st["prefill_tokens"] / st["prefill_seconds"]
+    dec = st["decode_tokens"] / st["decode_seconds"]
+    print(f"    prefill {pre:.1f} tok/s, decode {dec:.1f} tok/s, median "
+          f"decode step {st['decode_step_ms_median']:.3f} ms", flush=True)
+    print(f"    launches: {json.dumps(launches)}", flush=True)
+    return launches, st
 
-    rng = np.random.default_rng(0)
-    prompts, reuse = traffic(rng)
-    want_flash = LAYERS * flash_chunks(prompts, reuse)
-    main_launches = None
-    for qtype in ("bf16", "q8"):
-        # the JAX defaults: bucket 16, chunk 128, cache_prompt=True
-        kw = {} if qtype == "bf16" else {"cache_qtype": "q8"}
-        warm = serve.Server(qp, cfg, n_slots=8, device=dev, **kw)
-        warm.submit(list(range(1, 65)), max_new=2)  # first-use costs
-        warm.run_until_done()
-        del warm
-        srv = serve.Server(qp, cfg, n_slots=8, device=dev, **kw)
-        for p in prompts:
-            srv.submit(p, max_new=32)
-        for w in wrappers.values():
-            w.launches = 0
-        t0 = time.perf_counter()
-        results = srv.run_until_done()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {name: w.launches for name, w in wrappers.items()}
-        st = srv.stats()
-        name = f"Server(qp, cfg, n_slots=8{', cache_qtype=q8' if kw else ''})"
-        if sorted(results) != list(range(16)):
-            fail(f"{name}: not every request finished: {sorted(results)}")
-        if any(len(t) != 32 for t in results.values()):
-            fail(f"{name}: a request stopped short of max_new=32")
-        if not all(0 <= t < VOCAB for ts in results.values() for t in ts):
-            fail(f"{name}: a generated token is outside the vocabulary")
-        if not all(launches.values()):
-            fail(f"{name}: a kernel of the path never launched: {launches}")
-        if st["cached_prompt_tokens"] != sum(reuse):
-            fail(f"{name}: reused {st['cached_prompt_tokens']} cached "
-                 f"prompt tokens, expected {sum(reuse)}")
-        print(f"  {name}: 16 requests, {st['prefill_tokens']} prompt tokens "
-              f"prefilled and {st['cached_prompt_tokens']} reused from the "
-              f"cache, {st['generated_tokens']} generated, "
-              f"{st['decode_steps']} decode steps in {wall:.2f} s", flush=True)
-        pre = st["prefill_tokens"] / st["prefill_seconds"]
-        dec = st["decode_tokens"] / st["decode_seconds"]
-        print(f"    prefill {pre:.1f} tok/s, decode {dec:.1f} tok/s, median "
-              f"decode step {st['decode_step_ms_median']:.3f} ms", flush=True)
-        print(f"    launches: {json.dumps(launches)}", flush=True)
-        # every decode step runs K2 and K3 once per layer and K1 for wo,
-        # wgu, w_down and lm_head; prefill (M >= 16) never reaches K1, and
-        # every chunk of 64 tokens or more runs K5 once per layer
-        steps = st["decode_steps"]
-        want = {"gemm_exact": steps * (3 * LAYERS + 1),
-                "norm_qkv": steps * LAYERS, "flash_decode": steps * LAYERS,
-                "flash_prefill": want_flash}
-        if any(launches[k] != v for k, v in want.items()):
-            fail(f"{name}: launches {launches} differ from the path's {want}")
-        if qtype == "bf16":  # the default server: the main path
-            main_launches = launches
 
-    def layerwise(tokens, cache):
-        """Kernels and plain versions from the same hidden state at every
-        layer (the kernels'): the largest NMSE of a layer's update
-        (output - input) and the NMSE of the logits of the last state.
-        A last-bit difference that moves a Q8_1 code across a .5 rounding
-        tie then shows in its own layer only, not compounded over all."""
-        cache_p = cache.clone()
-        x, step = llama.begin(qp, cfg, tokens, cache)
-        worst = 0.0
-        for li, lyr in enumerate(qp["layers"]):
-            xk, _ = llama.layer(lyr, li, cfg, x, cache, step)
-            xp, _ = llama.layer(lyr, li, cfg, x, cache_p, step,
-                                registry.PLAIN)
-            worst = max(worst, nmse(xk - x, xp - x))
-            x = xk
-        lk = llama.head(qp, cfg, x)
-        if not bool(torch.isfinite(lk).all()):
-            fail("non-finite logits through the kernels")
-        return worst, nmse(lk, llama.head(qp, cfg, x, registry.PLAIN))
+def check_launches(name, launches, want):
+    """Every kernel of the path launched, each exactly as often as the
+    path says."""
+    never = [k for k, v in want.items() if v and not launches[k]]
+    if never:
+        fail(f"{name}: kernels of the path never launched: {never}")
+    if any(launches[k] != v for k, v in want.items()):
+        fail(f"{name}: launches {launches} differ from the path's {want}")
 
-    def check(tokens, cache):
-        """layerwise() and the free run of both op sets end to end."""
-        free = nmse(llama.forward(qp, cfg, tokens, cache.clone())[0],
-                    llama.forward(qp, cfg, tokens, cache.clone(),
-                                  ops=registry.PLAIN)[0])
-        return (*layerwise(tokens, cache.clone()), free)
 
-    cases = []
-    for qtype in ("bf16", "q8"):
-        # two 128-token chunks of one slot (K5 at pos0 0 and 128), then
-        # one 8-slot decode step at ragged positions
-        toks = torch.as_tensor(rng.integers(0, VOCAB, (1, 256)), device=dev)
-        cache = llama.KVCache.init(cfg, 1, qtype, device=dev)
-        cases.append((f"{qtype} chunk 128 at pos0 0",
-                      check(toks[:, :128], cache)))
-        llama.forward(qp, cfg, toks[:, :128], cache)
-        cases.append((f"{qtype} chunk 128 at pos0 128",
-                      check(toks[:, 128:], cache)))
-        cache = llama.KVCache.init(cfg, 8, qtype, device=dev)
-        llama.forward(qp, cfg, torch.as_tensor(
-            rng.integers(0, VOCAB, (8, 48)), device=dev), cache)
-        cache.pos = torch.tensor([48, 40, 33, 47, 20, 48, 1, 16],
-                                 dtype=torch.int32, device=dev)
-        nt = torch.as_tensor(rng.integers(0, VOCAB, (8, 1)), device=dev)
-        cases.append((f"{qtype} decode step", check(nt, cache)))
+def layerwise(qp, cfg, tokens, cache):
+    """Kernels and plain versions from the same hidden state at every
+    layer (the kernels'): the largest NMSE of a layer's update (output -
+    input) and the NMSE of the logits of the last state.  A last-bit
+    difference that moves a Q8_1 code across a .5 rounding tie then shows
+    in its own layer only, not compounded over all."""
+    from quant_gemm_tpu_torch.kernels import registry
+    from quant_gemm_tpu_torch.models import llama
+
+    cache_p = cache.clone()
+    x, step = llama.begin(qp, cfg, tokens, cache)
+    worst = 0.0
+    for li, lyr in enumerate(qp["layers"]):
+        xk, _ = llama.layer(lyr, li, cfg, x, cache, step)
+        xp, _ = llama.layer(lyr, li, cfg, x, cache_p, step, registry.PLAIN)
+        worst = max(worst, nmse(xk - x, xp - x))
+        x = xk
+    lk = llama.head(qp, cfg, x)
+    if not bool(torch.isfinite(lk).all()):
+        fail("non-finite logits through the kernels")
+    return worst, nmse(lk, llama.head(qp, cfg, x, registry.PLAIN))
+
+
+def check(qp, cfg, tokens, cache):
+    """layerwise() and the free run of both op sets end to end."""
+    from quant_gemm_tpu_torch.kernels import registry
+    from quant_gemm_tpu_torch.models import llama
+
+    free = nmse(llama.forward(qp, cfg, tokens, cache.clone())[0],
+                llama.forward(qp, cfg, tokens, cache.clone(),
+                              ops=registry.PLAIN)[0])
+    return (*layerwise(qp, cfg, tokens, cache.clone()), free)
+
+
+def report_cases(cases):
     for name, (layer_e, logit_e, free) in cases:
         print(f"  {name}, kernels vs plain versions: worst layer update "
               f"NMSE {layer_e:.3e}, logits NMSE {logit_e:.3e} (limits "
@@ -479,7 +599,304 @@ def main_path(dev, wrappers):
         # at this width (PERF.md); a wrong kernel gives order 1
         if not free <= 1e-2:
             fail(f"{name}: the free run through the kernels diverges")
-    return main_launches
+
+
+def decode_case(qp, cfg, rng, dev, qtype="bf16"):
+    """One 8-slot decode step at ragged positions after a 48-token
+    prefill."""
+    from quant_gemm_tpu_torch.models import llama
+
+    cache = llama.KVCache.init(cfg, 8, qtype, device=dev)
+    llama.forward(qp, cfg, torch.as_tensor(
+        rng.integers(0, VOCAB, (8, 48)), device=dev), cache)
+    cache.pos = torch.tensor([48, 40, 33, 47, 20, 48, 1, 16],
+                             dtype=torch.int32, device=dev)
+    nt = torch.as_tensor(rng.integers(0, VOCAB, (8, 1)), device=dev)
+    return check(qp, cfg, nt, cache)
+
+
+KERNEL_GROUPS = [("K7 gemm_exact_k16", "gemm_exact_k16_kernel"),
+                 ("K1 gemm_exact", "gemm_exact_kernel"),
+                 ("K2 norm_qkv", "norm_qkv"),
+                 ("K3 flash_decode", "flash_decode"),
+                 ("K4 gemm_dequant", "gemm_dequant_kernel"),
+                 ("K5 flash_prefill", "flash_prefill")]
+
+
+def _group(name: str) -> str:
+    for label, key in KERNEL_GROUPS:
+        if key in name:
+            return label
+    low = name.lower()
+    if "gemm" in low or "xmma" in low or "cutlass" in low:
+        return "library matmul (plain K16 prefill route)"
+    if low.startswith(("memcpy", "memset")):
+        return "memcpy/memset"
+    return "other (eager element ops, reductions, copies)"
+
+
+def device_breakdown(label, fn):
+    """One call of ``fn`` under ``torch.profiler`` (after one untraced
+    call): the device's busy time by kernel group, and its idle share
+    between the first kernel's start and the last one's end.  Fails when
+    the profiler traced no device activity, or none of a hand kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        fail(f"{label}: torch.profiler traced no device activity")
+    span = (max(e.time_range.end for e in kern)
+            - min(e.time_range.start for e in kern)) / 1e3
+    groups: dict = {}
+    for e in kern:
+        g = groups.setdefault(_group(e.name), [0.0, 0])
+        g[0] += e.time_range.elapsed_us() / 1e3
+        g[1] += 1
+    if not any(k.startswith("K") for k in groups):
+        fail(f"{label}: torch.profiler traced none of the hand kernels")
+    busy = sum(g[0] for g in groups.values())
+    out = {"host_ms": host_ms, "device_span_ms": span, "busy_ms": busy,
+           "idle_share": 1.0 - busy / span if span > 0 else 0.0,
+           "groups": {k: {"ms": v[0], "n": v[1]} for k, v in
+                      sorted(groups.items(), key=lambda kv: -kv[1][0])}}
+    print(f"  {label} (torch.profiler): host {host_ms:.3f} ms with the "
+          f"profiler on, device span {span:.3f} ms, busy {busy:.3f} ms, "
+          f"idle share {out['idle_share']:.3f}", flush=True)
+    for k, v in out["groups"].items():
+        print(f"    {k}: {v['ms']:.3f} ms in {v['n']} launches", flush=True)
+    return out
+
+
+def breakdowns(name, qp, cfg, dev, rng):
+    """Device breakdown of one 8-slot decode step and one 128-token
+    prefill chunk of one slot."""
+    from quant_gemm_tpu_torch.models import llama
+
+    cache = llama.KVCache.init(cfg, 8, device=dev)
+    llama.forward(qp, cfg, torch.as_tensor(
+        rng.integers(0, VOCAB, (8, 48)), device=dev), cache)
+    nt = torch.as_tensor(rng.integers(0, VOCAB, (8, 1)), device=dev)
+    device_breakdown(f"{name} decode step, 8 slots at 49 cached tokens",
+                     lambda: llama.forward(qp, cfg, nt, cache))
+    c1 = llama.KVCache.init(cfg, 1, device=dev)
+    toks = torch.as_tensor(rng.integers(0, VOCAB, (1, 128)), device=dev)
+    device_breakdown(f"{name} prefill chunk of 128 tokens at pos0 128",
+                     lambda: llama.forward(qp, cfg, toks, c1))
+
+
+def tinyllama_cfg():
+    from quant_gemm_tpu_torch.models import llama
+
+    return llama.LlamaConfig(vocab=VOCAB, dim=DIM, n_layers=LAYERS,
+                             n_heads=HEADS, n_kv_heads=KV_HEADS, d_ff=D_FF,
+                             max_seq=2048, rope_base=10000.0, eps=1e-5)
+
+
+def main_path(dev, counters, prompts, reuse):
+    """The q4_0 server with both caches; returns each run's launches."""
+    from quant_gemm_tpu_torch.models import llama
+
+    cfg = tinyllama_cfg()
+    t0 = time.perf_counter()
+    qp = llama.init_qparams(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"main path: TinyLlama-1.1B width, {LAYERS} layers, random q4_0 "
+          f"weights built on the card in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    n_chunks = chunks(prompts, reuse)
+    by_run = {}
+    for qtype in ("bf16", "q8"):
+        # the JAX defaults: bucket 16, chunk 128, cache_prompt=True
+        kw = {} if qtype == "bf16" else {"cache_qtype": "q8"}
+        name = f"Server(qp, cfg, n_slots=8{', cache_qtype=q8' if kw else ''})"
+        launches, st = serve_traffic(name, qp, cfg, dev, prompts, reuse,
+                                     counters, **kw)
+        # every decode step runs K2 and K3 once per layer and K1 for wo,
+        # wgu, w_down and lm_head; prefill (M >= 16) never reaches K1, and
+        # every chunk of 64 tokens or more runs K5 once per layer
+        steps = st["decode_steps"]
+        check_launches(name, launches, {
+            "gemm_exact": steps * (3 * LAYERS + 1),
+            "norm_qkv": steps * LAYERS, "flash_decode": steps * LAYERS,
+            "gemm_dequant": len(n_chunks) * (4 * LAYERS + 1),
+            "flash_prefill": LAYERS * sum(t >= 64 for t in n_chunks),
+            "gemm_exact_k16": 0})
+        by_run[f"q4_0 {qtype}"] = launches
+
+    rng = np.random.default_rng(1)
+    cases = []
+    for qtype in ("bf16", "q8"):
+        # two 128-token chunks of one slot (K5 at pos0 0 and 128), then
+        # one 8-slot decode step at ragged positions
+        toks = torch.as_tensor(rng.integers(0, VOCAB, (1, 256)), device=dev)
+        cache = llama.KVCache.init(cfg, 1, qtype, device=dev)
+        cases.append((f"{qtype} chunk 128 at pos0 0",
+                      check(qp, cfg, toks[:, :128], cache)))
+        llama.forward(qp, cfg, toks[:, :128], cache)
+        cases.append((f"{qtype} chunk 128 at pos0 128",
+                      check(qp, cfg, toks[:, 128:], cache)))
+        cases.append((f"{qtype} decode step",
+                      decode_case(qp, cfg, rng, dev, qtype)))
+    report_cases(cases)
+    return by_run
+
+
+def write_q4_k_m(path, dev, seed=0):
+    """A GGUF file in llama.cpp's Q4_K_M mix at TinyLlama-1.1B width:
+    random valid blocks drawn on the card from a ``torch.Generator``
+    seed, each weight at about the scale 1/sqrt(K) (the embedding 0.02),
+    f32 norms of 1, TinyLlama's metadata."""
+    from quant_gemm_tpu_torch.formats import kquants
+    from quant_gemm_tpu_torch.formats.gguf_file import write_gguf
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def lin(qtype, n, k, std=None):
+        return kquants.random_blocks(qtype, n, k, std or k ** -0.5, g)
+
+    ones = torch.ones(DIM, device=dev)
+    tensors = {"token_embd.weight": lin("q4_K", VOCAB, DIM, 0.02),
+               "output_norm.weight": ones}
+    for i in range(LAYERS):
+        big = "q6_K" if i in MORE_BITS else "q4_K"
+        blk = f"blk.{i}."
+        tensors.update({
+            blk + "attn_norm.weight": ones,
+            blk + "attn_q.weight": lin("q4_K", HEADS * HD, DIM),
+            blk + "attn_k.weight": lin("q4_K", KV_HEADS * HD, DIM),
+            blk + "attn_v.weight": lin(big, KV_HEADS * HD, DIM),
+            blk + "attn_output.weight": lin("q4_K", DIM, HEADS * HD),
+            blk + "ffn_norm.weight": ones,
+            blk + "ffn_gate.weight": lin("q4_K", D_FF, DIM),
+            blk + "ffn_up.weight": lin("q4_K", D_FF, DIM),
+            blk + "ffn_down.weight": lin(big, DIM, D_FF),
+        })
+    tensors["output.weight"] = lin("q6_K", VOCAB, DIM)
+    metadata = {
+        "general.architecture": "llama",
+        "general.name": "TinyLlama-1.1B width, Q4_K_M mix, random blocks",
+        "general.file_type": 15,  # LLAMA_FTYPE_MOSTLY_Q4_K_M
+        "llama.vocab_size": VOCAB, "llama.embedding_length": DIM,
+        "llama.block_count": LAYERS, "llama.feed_forward_length": D_FF,
+        "llama.attention.head_count": HEADS,
+        "llama.attention.head_count_kv": KV_HEADS,
+        "llama.context_length": 2048, "llama.rope.freq_base": 10000.0,
+        "llama.attention.layer_norm_rms_epsilon": 1e-5,
+    }
+    write_gguf(path, tensors, metadata)
+
+
+def device_bytes(qp) -> int:
+    """Bytes of every tensor the parameters hold."""
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            return x.numel() * x.element_size()
+        if isinstance(x, dict):
+            return sum(walk(v) for v in x.values())
+        if isinstance(x, (list, tuple)):
+            return sum(walk(v) for v in x)
+        return 0
+    return walk(qp)
+
+
+def q4_k_m_path(dev, counters, prompts, reuse):
+    """Write, load and serve the Q4_K_M file; returns its run's launches."""
+    from quant_gemm_tpu_torch.models import gguf_loader, llama
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "tinyllama-1.1b-q4_k_m-random.gguf"
+        t0 = time.perf_counter()
+        write_q4_k_m(path, dev)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        qp, cfg = gguf_loader.load_llama(path, device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        size = path.stat().st_size
+    print(f"Q4_K_M path: {size} bytes of GGUF ({LAYERS} layers, q6_K "
+          f"attn_v/ffn_down in layers {MORE_BITS} and output) written in "
+          f"{t_write:.1f} s, loaded onto the card in {t_load:.1f} s, "
+          f"{device_bytes(qp)} bytes on the card", flush=True)
+    if cfg != tinyllama_cfg():
+        fail(f"config from the file's metadata differs: {cfg}")
+    split = [i for i, ly in enumerate(qp["layers"])
+             if isinstance(ly["wqkv"], llama.SplitLinear)]
+    if split != MORE_BITS or qp["lm_head"].qtype != "q6_k":
+        fail(f"unexpected structure: SplitLinear wqkv in layers {split}")
+
+    n_chunks = chunks(prompts, reuse)
+    name = "Server(qp, cfg, n_slots=8) on the Q4_K_M file"
+    launches, st = serve_traffic(name, qp, cfg, dev, prompts, reuse,
+                                 counters)
+    # a decode step: K1 on the q4_K linears (fused wqkv, or q and k of a
+    # split one; wo, wgu; w_down unless q6_K), 4 per layer; K7 on the
+    # q6_K attn_v and ffn_down of the more-bits layers and the lm_head;
+    # K3 per layer.  A prefill chunk: K4 on the same q4_K linears, the
+    # plain float32 matmul on the q6_K ones and the lm_head, K5 per layer
+    # for chunks of 64 or more tokens
+    steps, n_q6 = st["decode_steps"], 2 * len(MORE_BITS) + 1
+    check_launches(name, launches, {
+        "gemm_exact": steps * 4 * LAYERS, "gemm_exact_k16": steps * n_q6,
+        "flash_decode": steps * LAYERS, "norm_qkv": 0,
+        "gemm_dequant": len(n_chunks) * 4 * LAYERS,
+        "flash_prefill": LAYERS * sum(t >= 64 for t in n_chunks),
+        "k16_dequant_gemm": len(n_chunks) * n_q6})
+    print(f"    per decode step: K1 {4 * LAYERS}, K7 {n_q6}, K3 {LAYERS}, "
+          f"K2 0; per prefill chunk: K4 {4 * LAYERS}, plain K16 matmul "
+          f"{n_q6}, K5 {LAYERS} at 64 tokens or more", flush=True)
+
+    rng = np.random.default_rng(2)
+    toks = torch.as_tensor(rng.integers(0, VOCAB, (1, 128)), device=dev)
+    cache = llama.KVCache.init(cfg, 1, device=dev)
+    report_cases([("Q4_K_M chunk 128 at pos0 0", check(qp, cfg, toks, cache)),
+                  ("Q4_K_M decode step", decode_case(qp, cfg, rng, dev))])
+    breakdowns("Q4_K_M", qp, cfg, dev, rng)
+    return launches
+
+
+FIXTURE = ROOT / "tests" / "golden" / "tiny_llama_q4km.gguf"
+PROMPT_IDS = [0, 262, 312, 311, 292]  # tests/test_gguf_interop.py
+GREEDY_CONT = [252, 44, 79, 306, 79, 306]
+
+
+def foreign_bytes(dev):
+    """The independent generator's Q4_K_M file on the card: prefill and
+    six greedy steps through the kernels, teacher-forced along the pinned
+    transcript.  Each pinned token must be the argmax, or within 2 x 2e-2
+    x max|logits| of it (the near-tie rule of the CPU server tests)."""
+    from quant_gemm_tpu_torch.models import gguf_loader, llama
+
+    qp, cfg = gguf_loader.load_llama(FIXTURE, device=dev)
+    cache = llama.KVCache.init(cfg, 1, device=dev)
+    feed = [PROMPT_IDS] + [[t] for t in GREEDY_CONT[:-1]]
+    own, margins = [], []
+    for want, toks in zip(GREEDY_CONT, feed):
+        logits, cache = llama.forward(
+            qp, cfg, torch.tensor([toks], device=dev), cache)
+        last = logits[0, -1]
+        own.append(int(last.argmax()))
+        slack = float(last.max() - last[want])
+        margins.append(slack / float(last.abs().max()))
+        if own[-1] != want:
+            print(f"  near-tie at step {len(own) - 1}: pinned {want}, "
+                  f"argmax {own[-1]}, margin {margins[-1]:.3e} x "
+                  "max|logits|", flush=True)
+        if slack > 4e-2 * float(last.abs().max()):
+            fail(f"fixture transcript: step {len(own) - 1} picks {own[-1]}, "
+                 f"pinned {want} is {margins[-1]:.3e} x max|logits| below")
+    print(f"foreign bytes: {FIXTURE.name} on the card, greedy (teacher-"
+          f"forced) {own}, pinned {GREEDY_CONT}: "
+          f"{'equal' if own == GREEDY_CONT else 'near-tie'}", flush=True)
 
 
 KERNEL_INFO = {
@@ -493,6 +910,8 @@ KERNEL_INFO = {
                      "quant_gemm_tpu/kernels/gemm_pallas.py:660"),
     "flash_prefill": ("quant_gemm_tpu_torch/csrc/flash_prefill.cu",
                       "quant_gemm_tpu/ops/attention.py:548"),
+    "gemm_exact_k16": ("quant_gemm_tpu_torch/csrc/gemm_exact_k16.cu",
+                       "quant_gemm_tpu/kernels/gemm_exact.py:1187"),
 }
 
 
@@ -519,24 +938,29 @@ def main() -> int:
     timer = Timer(dev)
     print("kernel phase:", flush=True)
     rows = kernel_phase(dev, timer)
-    from quant_gemm_tpu_torch.kernels.gemm_dequant import gemm_dequant
-    from quant_gemm_tpu_torch.kernels.gemm_exact import gemm_exact
-    from quant_gemm_tpu_torch.kernels.gemm_megalayer import norm_qkv
-    from quant_gemm_tpu_torch.ops.attention import flash_decode, flash_prefill
+    from quant_gemm_tpu_torch.kernels import registry
 
-    wrappers = {"gemm_exact": gemm_exact, "norm_qkv": norm_qkv,
-                "flash_decode": flash_decode, "gemm_dequant": gemm_dequant,
-                "flash_prefill": flash_prefill}
-    launches = main_path(dev, wrappers)
+    # every kernel's launch count, and the K16 prefill route's calls
+    counters = {name: (fn, "launches")
+                for name, fn in registry.KERNELS._asdict().items()}
+    counters["k16_dequant_gemm"] = (registry.k16_dequant_gemm, "calls")
+    prompts, reuse = traffic(np.random.default_rng(0))
+    by_run = main_path(dev, counters, prompts, reuse)
+    by_run["Q4_K_M bf16"] = q4_k_m_path(dev, counters, prompts, reuse)
+    foreign_bytes(dev)
 
     kernels = []
     for name, (src, rep) in KERNEL_INFO.items():
         every = [r for r in rows if r["kernel"] == name]
         mine = [r for r in every if r["main"]]
         lib = [r["library_ms"] for r in mine]
+        # launches: the default q4_0 server's run, or for K7 (on no q4_0
+        # path) the Q4_K_M server's
+        run = "Q4_K_M bf16" if name == "gemm_exact_k16" else "q4_0 bf16"
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches[name],
+            "launches": by_run[run][name],
+            "launches_by_run": {r: n[name] for r, n in by_run.items()},
             "max_abs_err": max(r["max_abs_err"] for r in every),
             "ms": sum(r["ms"] for r in mine),
             "plain_ms": sum(r["plain_ms"] for r in mine),
@@ -545,7 +969,8 @@ def main() -> int:
             else "operations",
             "library_ms": None if None in lib else sum(lib),
             "variants": [{k: r[k] for k in ("shape", "ms", "plain_ms",
-                                            "bound_ms", "library_ms",
+                                            "bound_ms", "bound_by",
+                                            "layout_bound_ms", "library_ms",
                                             "max_abs_err")}
                          for r in every if not r["main"]]})
     print(json.dumps({"kernels": kernels}), flush=True)

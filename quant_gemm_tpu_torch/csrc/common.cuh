@@ -1,5 +1,6 @@
-// Shared device code of the port's q4_0 x Q8_1 exact kernels
-// (gemm_exact.cu, norm_qkv.cu).  Plain C interface, no PyTorch headers.
+// Shared device code of the port's per-32 exact kernels, q4_0 and q4_k
+// weights x Q8_1 activations (gemm_exact.cu, norm_qkv.cu).  Plain C
+// interface, no PyTorch headers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -66,29 +67,56 @@ __device__ __forceinline__ float q4_0_term(float dw, float da, float sa,
                                  __fmul_rn(8.0f, sa)));
 }
 
+// The per-32 weight formats of the exact kernels: where a block's scales
+// are and its epilogue (ref/gemm.py::gemm_wxa8 order, each step rounded
+// on its own).
+struct Q4_0W {  // d f16 [N, nb]: d_w * (d_a * sumi - 8 * s_a)
+  const __half* d;
+  __device__ __forceinline__ float2 scales(size_t i) const {
+    return make_float2(__half2float(d[i]), 0.0f);
+  }
+  __device__ __forceinline__ static float term(float2 w, float da, float sa,
+                                               int sumi) {
+    return q4_0_term(w.x, da, sa, sumi);
+  }
+};
+
+struct Q4_KW {  // effective d', m' f32 [N, nb]: d' * d_a * sumi + m' * s_a
+  const float* d;
+  const float* m;
+  __device__ __forceinline__ float2 scales(size_t i) const {
+    return make_float2(d[i], m[i]);
+  }
+  __device__ __forceinline__ static float term(float2 w, float da, float sa,
+                                               int sumi) {
+    return __fadd_rn(__fmul_rn(__fmul_rn(w.x, da), static_cast<float>(sumi)),
+                     __fmul_rn(w.y, sa));
+  }
+};
+
 // Partial sums acc[c][m] of C[m, n0 + c] over the blocks b = b0, b0 +
 // bstride, ... < nb, for NC consecutive weight rows (columns of C), the
 // block terms summed in float32 as the TPU kernel sums them.
-// Weights: qs uint8 [N, nb*16], d f16 [N, nb].  Activations (global or
-// shared memory): qa int8 [M, nb*32], da/sa [M, nb] of ScaleT.
-template <int NC, typename ScaleT>
+// Weights: qs uint8 [N, nb*16] and the scales of format W.  Activations
+// (global or shared memory): qa int8 [M, nb*32], da/sa [M, nb] of ScaleT.
+template <int NC, typename ScaleT, typename W>
 __device__ __forceinline__ void exact_partial(
-    const uint8_t* __restrict__ wq, const __half* __restrict__ wd, int n0,
-    int N, int nb, const int8_t* qa, const ScaleT* da, const ScaleT* sa,
-    int M, int b0, int bstride, float (&acc)[NC][MMAX]) {
+    const uint8_t* __restrict__ wq, const W fmt, int n0, int N, int nb,
+    const int8_t* qa, const ScaleT* da, const ScaleT* sa, int M, int b0,
+    int bstride, float (&acc)[NC][MMAX]) {
   const int K = nb * QK;
   for (int b = b0; b < nb; b += bstride) {
     uint4 w[NC];
-    float dw[NC];
+    float2 sw[NC];
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       if (n0 + c < N) {
         const size_t row = static_cast<size_t>(n0 + c);
         w[c] = __ldg(reinterpret_cast<const uint4*>(wq + row * nb * 16) + b);
-        dw[c] = __half2float(wd[row * nb + b]);
+        sw[c] = fmt.scales(row * nb + b);
       } else {
         w[c] = make_uint4(0u, 0u, 0u, 0u);
-        dw[c] = 0.0f;
+        sw[c] = make_float2(0.0f, 0.0f);
       }
     }
 #pragma unroll
@@ -104,7 +132,7 @@ __device__ __forceinline__ void exact_partial(
 #pragma unroll
         for (int c = 0; c < NC; ++c)
           acc[c][m] = __fadd_rn(
-              acc[c][m], q4_0_term(dw[c], dam, sam, dot_q4_0_q8(w[c], a0, a1)));
+              acc[c][m], W::term(sw[c], dam, sam, dot_q4_0_q8(w[c], a0, a1)));
       }
     }
   }

@@ -78,8 +78,8 @@ __global__ void norm_qkv_q4_0_kernel(const float* __restrict__ x,
   for (int c = 0; c < NC; ++c)
 #pragma unroll
     for (int m = 0; m < qgt::MMAX; ++m) acc[c][m] = 0.0f;
-  qgt::exact_partial<NC, float>(wq, wd, n0, N, nb, qa, da, sa, M, lane, 32,
-                                acc);
+  qgt::exact_partial<NC, float, qgt::Q4_0W>(wq, qgt::Q4_0W{wd}, n0, N, nb,
+                                            qa, da, sa, M, lane, 32, acc);
 #pragma unroll
   for (int c = 0; c < NC; ++c)
 #pragma unroll

@@ -148,6 +148,15 @@ def check(name: str, symbol: str, rc: int) -> None:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {rc} ({msg})")
 
 
+def check_aligned(name: str, *tensors) -> None:
+    """The kernels load 16 bytes at a time: raise for a tensor whose data
+    does not start on a 16-byte boundary (a view at an odd offset)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: operand at {t.data_ptr():#x} is not "
+                             "16-byte aligned")
+
+
 P = ctypes.c_void_p  # pointer / stream argument type
 I = ctypes.c_int
 L = ctypes.c_longlong  # element strides
@@ -164,5 +173,5 @@ def stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-__all__ = ["build", "load", "function", "check", "source_names",
-           "BUILD_DIR", "BUILD_LOG"]
+__all__ = ["build", "load", "function", "check", "check_aligned",
+           "source_names", "BUILD_DIR", "BUILD_LOG"]

@@ -1,16 +1,22 @@
-"""K1: exact W4A8 decode GEMM (q4_0 weights x Q8_1 activations, M <= 12).
+"""K1: exact W4A8 decode GEMM (q4_0 or q4_k weights x Q8_1 activations,
+M <= 12).
 
 Replaces the Pallas kernel ``quant_gemm_tpu/kernels/gemm_exact.py::
 gemm_exact``.  Per 32-block, the exact int32 dot ``sumi`` of the raw 0..15
-weight codes and the int8 activation codes, then the golden's epilogue
-``d_w * (d_a * sumi - 8 * s_a)`` in float32 (``gemm_reference.h:175-222``,
-not the TPU kernel's fused-compensation order), the block terms summed in
-float32 as the TPU kernel sums them.  Kernel and plain version sum in
-different orders, so they agree to float32 rounding, not bit for bit.
+weight codes and the int8 activation codes, then the golden's epilogue in
+float32 (``ref/gemm.py::gemm_wxa8``, not the TPU kernel's fused-
+compensation order): q4_0 ``d_w * (d_a * sumi - 8 * s_a)``
+(``gemm_reference.h:175-222``); q4_k, a q4_K tensor in its effective q4_1
+form, ``d' * d_a * sumi + m' * s_a`` with ``s_a`` the stored f16 ``s =
+d_a * sum(q)`` of Q8_1, not the float sum of the activations.  The block
+terms are summed in float32 as the TPU kernel sums them.  Kernel and
+plain version sum in different orders, so they agree to float32 rounding,
+not bit for bit.
 
-Bound on an H100: bytes — the weight stream (``N*K*9/16`` bytes) at
-3.35 TB/s; the design (``csrc/gemm_exact.cu``) streams whole q4_0 blocks
-with 16-byte loads, eight ``__dp4a`` each, over a grid of ``N/4`` blocks.
+Bound on an H100: bytes — the weight stream (``N*K*9/16`` bytes for q4_0,
+``N*K*3/4`` for q4_k with its f32 d' and m' planes) at 3.35 TB/s; the
+design (``csrc/gemm_exact.cu``) streams whole blocks with 16-byte loads,
+eight ``__dp4a`` each, over a grid of ``N/4`` blocks.
 
 :func:`gemm_exact` launches the CUDA kernel for CUDA tensors and runs
 :func:`gemm_exact_plain` for CPU tensors; ``gemm_exact.launches`` counts
@@ -29,7 +35,7 @@ MMAX = 12  # most activation rows the kernel takes
 
 
 def _check(w: PreparedWeight, a: Q8_1Tensor, mmax: int = MMAX) -> None:
-    if w.qtype != "q4_0":
+    if w.qtype not in ("q4_0", "q4_k"):
         raise NotImplementedError(f"gemm_exact: {w.qtype} is not ported")
     m, k = a.qs.shape
     if k != w.k:
@@ -57,29 +63,37 @@ def gemm_exact_plain(w: PreparedWeight, a: Q8_1Tensor) -> torch.Tensor:
     dw = w.d.to(torch.float32)[None]
     da = a.d.to(torch.float32)[:, None]
     sa = a.s.to(torch.float32)[:, None]
-    terms = dw * (da * sumi - 8.0 * sa)
+    if w.qtype == "q4_0":
+        terms = dw * (da * sumi - 8.0 * sa)
+    else:
+        terms = dw * da * sumi + w.m[None] * sa
     return terms.sum(dim=-1)
 
 
 def gemm_exact(w: PreparedWeight, a: Q8_1Tensor) -> torch.Tensor:
-    """``C[M, N]`` float32 of q4_0 ``w`` [N, K] and Q8_1 ``a`` [M, K]."""
+    """``C[M, N]`` float32 of q4_0 or q4_k ``w`` [N, K] and Q8_1 ``a``
+    [M, K]."""
     _check(w, a)
     dev = w.qs.device
+    planes = (w.d,) if w.m is None else (w.d, w.m)
     if dev.type == "cpu" and a.qs.device.type == "cpu":
         return gemm_exact_plain(w, a)
-    if dev.type != "cuda" or any(t.device != dev for t in (*a, w.d)):
+    if dev.type != "cuda" or any(t.device != dev for t in (*a, *planes)):
         raise ValueError("gemm_exact: all operands must be on one CUDA "
                          "device (or all on the CPU)")
     m, k = a.qs.shape
     qa, da, sa = (t.contiguous() for t in a)
+    _build.check_aligned("gemm_exact", w.qs, qa)
     out = torch.empty(m, w.n, dtype=torch.float32, device=dev)
-    fn = _build.function("gemm_exact", "qgt_gemm_exact_q4_0",
-                         [_build.P] * 6 + [_build.I] * 3 + [_build.P])
+    symbol = f"qgt_gemm_exact_{w.qtype}"
+    fn = _build.function("gemm_exact", symbol,
+                         [_build.P] * (5 + len(planes)) + [_build.I] * 3
+                         + [_build.P])
     with torch.cuda.device(dev):
-        rc = fn(_build.ptr(w.qs), _build.ptr(w.d), _build.ptr(qa),
+        rc = fn(_build.ptr(w.qs), *map(_build.ptr, planes), _build.ptr(qa),
                 _build.ptr(da), _build.ptr(sa), _build.ptr(out), m, w.n, k,
                 _build.stream(dev))
-    _build.check("gemm_exact", "qgt_gemm_exact_q4_0", rc)
+    _build.check("gemm_exact", symbol, rc)
     gemm_exact.launches += 1
     return out
 

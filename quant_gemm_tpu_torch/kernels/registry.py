@@ -1,18 +1,36 @@
 """GEMM dispatch of the serving slice, and the kernel / plain op sets.
 
 Counterpart of ``quant_gemm_tpu/kernels/registry.py::dispatch`` for the
-cases the slice runs (q4_0 weights, K % 32 == 0):
+weights the port serves:
 
-* a float activation with ``quantize_act=True`` is quantized to Q8_1 by
-  the torch twin (``formats.quant.quantize_q8_1``);
-* a Q8_1 activation of M <= :data:`DECODE_M_MAX` rows takes K1
-  (``gemm_exact``);
-* anything else is folded to bf16 (``qs * d``, as ``gemm_pallas.py:
-  554-562``) and takes K4 (``gemm_dequant``).  A float activation passed
-  without ``quantize_act`` is cast to bf16 for K4; the model only passes
-  such activations in bf16 already.
+* per-32 weights (``layout.PreparedWeight``: q4_0, and q4_k, a q4_K
+  tensor in its effective q4_1 form), K % 32 == 0:
 
-:data:`KERNELS` and :data:`PLAIN` name the five operations of the slice;
+  - a float activation with ``quantize_act=True`` is quantized to Q8_1 by
+    the torch twin (``formats.quant.quantize_q8_1``);
+  - a Q8_1 activation of M <= :data:`DECODE_M_MAX` rows takes K1
+    (``gemm_exact``);
+  - anything else is folded to bf16 (``qs * d``, as ``gemm_pallas.py:
+    554-562``) and takes K4 (``gemm_dequant``).  A float activation passed
+    without ``quantize_act`` is cast to bf16 for K4; the model only passes
+    such activations in bf16 already;
+
+* per-16 K-quant weights (``layout.PreparedK16``: q6_K, q3_K, q2_K), as
+  ``registry.py:177-195`` routes them:
+
+  - at M <= :data:`DECODE_M_MAX` the activation is quantized to Q8_1 (if
+    it is not already) and takes K7 (``gemm_exact_k16``);
+  - at M > :data:`DECODE_M_MAX` (prefill), or for a float activation
+    without ``quantize_act``, a Q8_1 activation is dequantized to float32
+    (``qs * d``, keeping the A8 rounding; not K4's bf16 fold), a float one
+    is used as it is, even with ``quantize_act``, and
+    :func:`k16_dequant_gemm` multiplies it by the dequantized weight in
+    float32 plain torch, the matmul the JAX package leaves to XLA
+    (``_k16_dequant_gemm``).
+
+Any other weight type raises: nothing falls back to a plain version.
+
+:data:`KERNELS` and :data:`PLAIN` name the six operations of the slice;
 the model takes one of them (``ops=``), so a run can go through the plain
 versions on purpose — on the card too — for a comparison.
 """
@@ -29,7 +47,9 @@ from ..ops.attention import (flash_decode, flash_decode_plain,
                              flash_prefill, flash_prefill_plain)
 from .gemm_dequant import gemm_dequant, gemm_dequant_plain
 from .gemm_exact import gemm_exact, gemm_exact_plain
+from .gemm_exact_k16 import gemm_exact_k16, gemm_exact_k16_plain
 from .gemm_megalayer import norm_qkv, norm_qkv_plain
+from .layout import PreparedK16, PreparedWeight, dequantize_k16
 
 
 class Ops(NamedTuple):
@@ -38,15 +58,17 @@ class Ops(NamedTuple):
     norm_qkv: Callable
     flash_decode: Callable
     flash_prefill: Callable
+    gemm_exact_k16: Callable
 
 
 #: the hand-written kernels (plain versions on CPU tensors)
-KERNELS = Ops(gemm_exact, gemm_dequant, norm_qkv, flash_decode, flash_prefill)
+KERNELS = Ops(gemm_exact, gemm_dequant, norm_qkv, flash_decode, flash_prefill,
+              gemm_exact_k16)
 #: the plain PyTorch versions, on any device
 PLAIN = Ops(gemm_exact_plain, gemm_dequant_plain, norm_qkv_plain,
-            flash_decode_plain, flash_prefill_plain)
+            flash_decode_plain, flash_prefill_plain, gemm_exact_k16_plain)
 
-# Decode-regime crossover between the exact kernel and the dequant kernel.
+# Decode-regime crossover between the exact kernels and the dequant route.
 # A placeholder: 12 was measured on a TPU v5e (quant_gemm_tpu registry);
 # the H100 crossover has not been measured.
 DECODE_M_MAX = 12
@@ -57,17 +79,41 @@ def fold_q8_1(act: Q8_1Tensor) -> torch.Tensor:
     return (act.qs.to(torch.float32) * expand_scale(act.d)).to(torch.bfloat16)
 
 
+def k16_dequant_gemm(w: PreparedK16, a: torch.Tensor) -> torch.Tensor:
+    """The per-16 K-quants' prefill route: ``a`` float32 [M, K] times the
+    float32-dequantized weight (plain torch; TF32 off on a card).
+    ``k16_dequant_gemm.calls`` counts its calls."""
+    k16_dequant_gemm.calls += 1
+    return a.to(torch.float32) @ dequantize_k16(w).T
+
+
+k16_dequant_gemm.calls = 0
+
+
 def dispatch(w, act, quantize_act: bool = False, ops: Ops = KERNELS):
     """``C[M, N] = act @ dequant(w)^T`` float32 through the slice's
     kernels (or the plain versions with ``ops=PLAIN``)."""
+    m = (act.qs if isinstance(act, Q8_1Tensor) else act).shape[0]
+    if isinstance(w, PreparedK16):
+        a8 = quantize_act or isinstance(act, Q8_1Tensor)
+        if m > DECODE_M_MAX or not a8:
+            if isinstance(act, Q8_1Tensor):
+                act = act.qs.to(torch.float32) * expand_scale(act.d)
+            return k16_dequant_gemm(w, act)
+        if not isinstance(act, Q8_1Tensor):
+            act = quantize_q8_1(act.to(torch.float32))
+        return ops.gemm_exact_k16(w, act)
+    if not isinstance(w, PreparedWeight):
+        raise TypeError(f"dispatch: no kernel serves {type(w).__name__} "
+                        "weights")
     if quantize_act and not isinstance(act, Q8_1Tensor):
         act = quantize_q8_1(act.to(torch.float32))
     if isinstance(act, Q8_1Tensor):
-        if act.qs.shape[0] <= DECODE_M_MAX:
+        if m <= DECODE_M_MAX:
             return ops.gemm_exact(w, act)
         return ops.gemm_dequant(w, fold_q8_1(act))
     return ops.gemm_dequant(w, act.to(torch.bfloat16))
 
 
 __all__ = ["Ops", "KERNELS", "PLAIN", "DECODE_M_MAX", "fold_q8_1",
-           "dispatch"]
+           "k16_dequant_gemm", "dispatch"]

@@ -4,21 +4,27 @@
 the port's :class:`~quant_gemm_tpu_torch.models.llama.KVCache`, so that a
 test can start both forwards from the same cache.
 
-:func:`qparams_from_jax` takes the output of the JAX package's
-``llama.quantize_params`` with every array as numpy (for example
+:func:`qparams_from_jax` takes the parameters of the JAX package's
+``llama.quantize_params`` (q4_0, q4_k, q6_k, ...) or ``gguf_loader.
+load_llama`` with every array as numpy (for example
 ``jax.tree_util.tree_map(np.asarray, qparams)``, which keeps each
-``PreparedWeight`` with numpy planes) and returns the port's parameters.
-It reads only attributes and arrays, so it needs neither JAX nor the JAX
-package.
+``PreparedWeight``, ``PreparedK16`` and ``SplitLinear`` with numpy
+planes) and returns the port's parameters.  It reads only attributes and
+arrays, so it needs neither JAX nor the JAX package.
 
-The TPU layout of a q4_0 ``PreparedWeight`` is undone step by step:
+The TPU layout of a q4_0 or q4_k ``PreparedWeight`` is undone step by
+step:
 
 * ``packed_t`` int8 ``[K/2 (padded), N (padded)]`` -> transpose, drop
   the N padding, undo the XOR 0x80 ("x8") byte encoding, drop the K
   padding: the planar row-major bytes of the SoA container;
-* ``d_t`` ``[K/32 (padded per half), N (padded)]`` float32, or int16
-  holding float16 bits -> transpose, drop the per-half K padding: f16;
+* ``d_t`` (and q4_k's ``m_t``) ``[K/32 (padded per half), N (padded)]``
+  float32, or int16 holding float16 bits -> transpose, drop the per-half
+  K padding: f16 for q4_0, the effective f32 scale and min for q4_k;
 * then the port's own ``layout.prepare``.
+
+A ``PreparedK16``'s ``qs_t`` / ``scp_t`` / ``mp_t`` ``[K (padded) or K/16,
+N (padded)]`` are transposed and cropped into ``layout.PreparedK16``.
 """
 
 from __future__ import annotations
@@ -27,38 +33,66 @@ import numpy as np
 import torch
 
 from ..formats.blocks import QK, Q4_0Tensor
+from ..formats.kquants import EffectiveQ41
 from ..kernels import layout
 from ..utils import resolve_device
-from .llama import KVCache
+from .llama import KVCache, SplitLinear
 
 
-def planar_from_jax(pw) -> Q4_0Tensor:
-    """The planar Q4_0 container (numpy) behind a JAX q4_0
-    ``PreparedWeight`` whose planes are numpy arrays."""
-    if pw.qtype != "q4_0":
-        raise NotImplementedError(f"only q4_0 weights are ported, not "
-                                  f"{pw.qtype}")
+def planar_from_jax(pw):
+    """The planar container (numpy) behind a JAX q4_0 or q4_k
+    ``PreparedWeight`` whose planes are numpy arrays: a ``Q4_0Tensor``
+    (f16 ``d``) or an ``EffectiveQ41`` (f32 ``d`` and ``m``)."""
+    if pw.qtype not in ("q4_0", "q4_k"):
+        raise NotImplementedError(f"{pw.qtype} weights are not ported "
+                                  "(q4_0 and q4_k are)")
     n, k = int(pw.n), int(pw.k)
     khalf, nbh = k // 2, k // 64
     packed_t = np.asarray(pw.packed_t)
     packed = (packed_t.view(np.uint8).T[:n, :khalf] ^ 0x80).astype(np.uint8)
-    d_t = np.asarray(pw.d_t)
-    d_all = (d_t.view(np.float16) if d_t.dtype == np.int16
-             else d_t.astype(np.float16)).T[:n]
-    nbh_p = d_all.shape[1] // 2  # each K half padded to nbh_p blocks
-    d = np.concatenate([d_all[:, :nbh], d_all[:, nbh_p:nbh_p + nbh]], axis=1)
-    assert d.shape == (n, k // QK)
-    return Q4_0Tensor(np.ascontiguousarray(packed), np.ascontiguousarray(d))
+    dtype = np.float16 if pw.qtype == "q4_0" else np.float32
+
+    def plane(x_t):
+        x_t = np.asarray(x_t)
+        x = (x_t.view(np.float16) if x_t.dtype == np.int16 else x_t)
+        x = x.astype(dtype).T[:n]
+        nbh_p = x.shape[1] // 2  # each K half padded to nbh_p blocks
+        x = np.concatenate([x[:, :nbh], x[:, nbh_p:nbh_p + nbh]], axis=1)
+        assert x.shape == (n, k // QK)
+        return np.ascontiguousarray(x)
+
+    packed = np.ascontiguousarray(packed)
+    if pw.qtype == "q4_0":
+        return Q4_0Tensor(packed, plane(pw.d_t))
+    return EffectiveQ41(packed, plane(pw.d_t), plane(pw.m_t))
 
 
-def _prepared(pw, dev) -> layout.PreparedWeight:
+def _k16_from_jax(pw, dev) -> layout.PreparedK16:
+    n, k = int(pw.n), int(pw.k)
+
+    def t(x_t, cols):
+        return torch.tensor(np.ascontiguousarray(np.asarray(x_t).T[:n, :cols]),
+                            device=dev)
+
+    mp = None if pw.mp_t is None else t(pw.mp_t, k // 16)
+    return layout.PreparedK16(pw.qtype, n, k, t(pw.qs_t, k),
+                              t(pw.scp_t, k // 16), mp)
+
+
+def _prepared(pw, dev):
+    """The port's weight for one JAX weight slot: a ``PreparedWeight``,
+    ``PreparedK16`` or ``SplitLinear`` of them."""
+    if hasattr(pw, "parts"):  # the JAX SplitLinear
+        return SplitLinear(tuple(_prepared(p, dev) for p in pw.parts))
+    if hasattr(pw, "scp_t"):  # the JAX PreparedK16
+        return _k16_from_jax(pw, dev)
     p = planar_from_jax(pw)
-    return layout.prepare(Q4_0Tensor(torch.tensor(p.packed, device=dev),
-                                     torch.tensor(p.d, device=dev)))
+    return layout.prepare(type(p)(*(torch.tensor(x, device=dev) for x in p)))
 
 
 def qparams_from_jax(np_qparams: dict, device="cuda") -> dict:
-    """Port parameters from the JAX ``quantize_params`` output (numpy)."""
+    """Port parameters from the JAX ``quantize_params`` or ``load_llama``
+    output (numpy)."""
     dev = resolve_device(device)
 
     def f32(x):  # a copy: arrays from JAX are read-only
@@ -68,11 +102,15 @@ def qparams_from_jax(np_qparams: dict, device="cuda") -> dict:
     out = {"embed": f32(embed.astype(np.float32)).to(torch.bfloat16),
            "final_norm": f32(np_qparams["final_norm"]), "layers": []}
     for lyr in np_qparams["layers"]:
+        if "bqkv" in lyr:
+            raise NotImplementedError("QKV biases (qwen2) are not ported")
         q = {k: f32(v) for k, v in lyr.items() if k.endswith("norm")}
         for name in ("wqkv", "wo", "wgu", "w_down"):
             q[name] = _prepared(lyr[name], dev)
         out["layers"].append(q)
     out["lm_head"] = _prepared(np_qparams["lm_head"], dev)
+    if np_qparams.get("rope_inv_freq") is not None:
+        out["rope_inv_freq"] = f32(np_qparams["rope_inv_freq"])
     return out
 
 

@@ -1,0 +1,188 @@
+"""Load a llama.cpp GGUF checkpoint into the port's serving parameters.
+
+Counterpart of ``quant_gemm_tpu/models/gguf_loader.py::load_llama`` and
+``config_from_metadata``: a file with llama.cpp's tensor names
+(``token_embd.weight``, ``blk.{i}.attn_q.weight``, ..., ``output.weight``)
+and ``<arch>.*`` metadata loads into the parameters
+:func:`~.llama.forward` and :class:`~.serve.Server` take.  Every tensor's
+bytes are moved to the target device and decoded there:
+
+* q4_0 weights and q4_K weights (in their effective q4_1 form,
+  ``kquants.to_effective``) become ``layout.PreparedWeight`` (K1/K4);
+  q6_K, q3_K and q2_K weights become ``layout.PreparedK16`` (K7); a float
+  tensor in a weight slot is quantized to q4_0, as in JAX;
+* q/k/v and gate/up are fused into ``wqkv`` / ``wgu`` when their parts
+  share a format (block quantization is row-local, so the concatenation
+  is bit-identical), and kept as a :class:`~.llama.SplitLinear` when they
+  do not (a Q4_K_M file's q6_K ``attn_v``);
+* the embedding is dequantized to bf16; a file without ``output.weight``
+  (tied embeddings) serves ``lm_head`` from ``token_embd``;
+* ``rope_freqs.weight`` becomes ``params["rope_inv_freq"]`` (llama.cpp's
+  per-dimension divisors of the base spectrum).
+
+Not ported: ``export_gguf``, the tokenizer, and QKV biases (qwen2), which
+raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..formats import kquants
+from ..formats import quant as tq
+from ..formats.blocks import Q4_0Tensor, Q8_0Tensor
+from ..formats.gguf_file import GGUFFile
+from ..kernels import layout
+from ..utils import resolve_device
+from . import llama
+
+# llama.cpp tensor-name convention
+_EMBED = "token_embd.weight"
+_OUT_NORM = "output_norm.weight"
+_OUTPUT = "output.weight"
+_BLK = {
+    "attn_norm": "blk.{i}.attn_norm.weight",
+    "wq": "blk.{i}.attn_q.weight",
+    "wk": "blk.{i}.attn_k.weight",
+    "wv": "blk.{i}.attn_v.weight",
+    "wo": "blk.{i}.attn_output.weight",
+    "mlp_norm": "blk.{i}.ffn_norm.weight",
+    "w_gate": "blk.{i}.ffn_gate.weight",
+    "w_up": "blk.{i}.ffn_up.weight",
+    "w_down": "blk.{i}.ffn_down.weight",
+}
+
+# llama-architecture family: the same graph, config keys prefixed by
+# general.architecture
+SUPPORTED_ARCHS = ("llama", "qwen2", "mistral")
+
+
+def config_from_metadata(md: dict) -> llama.LlamaConfig:
+    """A :class:`~.llama.LlamaConfig` from ``<arch>.*`` GGUF metadata."""
+    arch = md.get("general.architecture", "llama")
+    if arch not in SUPPORTED_ARCHS:
+        raise ValueError(
+            f"general.architecture={arch!r} is not a supported llama-family "
+            f"architecture (known: {SUPPORTED_ARCHS})")
+
+    def get(key, default=None):
+        v = md.get(f"{arch}.{key}", default)
+        if v is None:
+            raise KeyError(f"GGUF metadata missing {arch}.{key}")
+        return v
+
+    n_heads = int(get("attention.head_count"))
+    return llama.LlamaConfig(
+        vocab=int(get("vocab_size",
+                      md.get("tokenizer.ggml.tokens_count", 32000))),
+        dim=int(get("embedding_length")),
+        n_layers=int(get("block_count")),
+        n_heads=n_heads,
+        n_kv_heads=int(get("attention.head_count_kv", n_heads)),
+        d_ff=int(get("feed_forward_length")),
+        max_seq=int(get("context_length", 2048)),
+        rope_base=float(get("rope.freq_base", 10000.0)),
+        eps=float(get("attention.layer_norm_rms_epsilon", 1e-5)),
+        window=int(get("attention.sliding_window", 0)),
+        rope_scale=_rope_scale_from_metadata(md, arch),
+        head_dim_override=int(get("attention.key_length", 0)),
+    )
+
+
+def _rope_scale_from_metadata(md: dict, arch: str = "llama") -> float:
+    """llama.cpp's LINEAR rope scaling divides positions by ``factor``;
+    other scaling types (yarn, ...) are refused rather than served with
+    every token mispositioned."""
+    factor = float(md.get(f"{arch}.rope.scaling.factor", 1.0))
+    stype = md.get(f"{arch}.rope.scaling.type", "linear")
+    if factor in (0.0, 1.0):
+        return 1.0
+    if stype != "linear":
+        raise ValueError(
+            f"unsupported rope scaling type {stype!r} (factor {factor}); "
+            "only linear scaling is implemented")
+    return 1.0 / factor
+
+
+def _concat(parts):
+    """Concatenate containers of one format on the out-feature axis, or
+    None when their formats differ (the caller keeps a SplitLinear)."""
+    t0 = parts[0]
+    if any(type(p) is not type(t0) for p in parts):
+        return None
+    if isinstance(t0, torch.Tensor):
+        return torch.cat(parts, dim=0)
+    return type(t0)(*(torch.cat(f, dim=0) for f in zip(*parts)))
+
+
+def _prep(t):
+    """A loaded tensor in a weight slot -> the port's kernel weight."""
+    if isinstance(t, torch.Tensor):  # float tensor in a quantized slot
+        return layout.prepare(tq.quantize_q4_0(t.to(torch.float32)))
+    if isinstance(t, kquants.Q4_KTensor):
+        return layout.prepare(kquants.to_effective(t))
+    if isinstance(t, kquants.K16_TENSORS):
+        return layout.prepare_k16(t)
+    return layout.prepare(t)  # q4_0; q8_0 weights raise there
+
+
+def _dequantize(t) -> torch.Tensor:
+    if isinstance(t, torch.Tensor):
+        return t.to(torch.float32)
+    if isinstance(t, (Q4_0Tensor, Q8_0Tensor)):
+        return tq.dequantize(t)
+    return kquants.DEQUANT[type(t)](t)
+
+
+def load_llama(path, device="cuda") -> tuple[dict, llama.LlamaConfig]:
+    """A GGUF file (path or open :class:`GGUFFile`) -> (params, config),
+    the parameters on ``device``."""
+    dev = resolve_device(device)
+    if isinstance(path, GGUFFile):
+        return _load(path, dev)
+    with GGUFFile(path) as gf:
+        return _load(gf, dev)
+
+
+def _load(gf: GGUFFile, dev: torch.device):
+    cfg = config_from_metadata(gf.metadata)
+
+    def load(name):
+        return gf.load(name, dev)
+
+    def f32(name):
+        return load(name).to(torch.float32)
+
+    out = {"embed": _dequantize(load(_EMBED)).to(torch.bfloat16),
+           "final_norm": f32(_OUT_NORM), "layers": []}
+    for i in range(cfg.n_layers):
+        names = {k: v.format(i=i) for k, v in _BLK.items()}
+        if f"blk.{i}.attn_q.bias" in gf.tensors:
+            raise NotImplementedError("QKV biases (qwen2) are not ported")
+        lyr = {"attn_norm": f32(names["attn_norm"]),
+               "mlp_norm": f32(names["mlp_norm"])}
+        for slot, keys in (("wqkv", ("wq", "wk", "wv")),
+                           ("wgu", ("w_gate", "w_up"))):
+            parts = [load(names[k]) for k in keys]
+            fused = _concat(parts)
+            lyr[slot] = (llama.SplitLinear(tuple(_prep(p) for p in parts))
+                         if fused is None else _prep(fused))
+        lyr["wo"] = _prep(load(names["wo"]))
+        lyr["w_down"] = _prep(load(names["w_down"]))
+        out["layers"].append(lyr)
+    # tied word embeddings: llama.cpp falls back to token_embd
+    out["lm_head"] = _prep(load(_OUTPUT if _OUTPUT in gf.tensors else _EMBED))
+    if "rope_freqs.weight" in gf.tensors:
+        # llama.cpp's per-dimension DIVISORS of the base spectrum (ggml
+        # rope_ext: theta = theta_base / freq_factor)
+        factors = gf.load("rope_freqs.weight", "cpu").to(torch.float32)
+        base_inv = 1.0 / (cfg.rope_base ** (
+            np.arange(0, cfg.head_dim, 2, dtype=np.float64) / cfg.head_dim))
+        out["rope_inv_freq"] = torch.tensor(
+            base_inv.astype(np.float32) / factors.numpy().reshape(-1),
+            device=dev)
+    return out, cfg
+
+
+__all__ = ["load_llama", "config_from_metadata", "SUPPORTED_ARCHS"]

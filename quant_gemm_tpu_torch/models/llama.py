@@ -1,8 +1,12 @@
-"""Quantized Llama forward for the serving slice (W4A8, q4_0).
+"""Quantized Llama forward for the serving slice (W4A8).
 
 Counterpart of ``quant_gemm_tpu/models/llama.py`` for what the serving
 slice runs, with the bf16 or the int8 (``q8``) KV cache and an optional
-sliding window:
+sliding window.  Weights are q4_0 (:func:`quantize_params`,
+:func:`init_qparams`) or the mix of a llama.cpp GGUF file
+(``models/gguf_loader.py``): q4_0 or q4_K (effective q4_1) per-32 weights
+and q6_K / q3_K / q2_K per-16 weights, with a :class:`SplitLinear` where
+the parts of ``wqkv`` or ``wgu`` differ in format:
 
 * decode (T = 1): RMSNorm + Q8_1 + ``wqkv`` through K2 (``norm_qkv``) when
   the batch is <= 8 and ``dim % 512 == 0``, otherwise RMSNorm then the
@@ -10,11 +14,13 @@ sliding window:
   the current token's k/v (bf16, with either cache) as operands; K1 GEMMs
   for ``wo``, ``wgu``, ``w_down`` and ``lm_head``; the cache write (with
   the q8 cache: codes and scales) deferred to one all-layer insert after
-  the layer loop;
+  the layer loop; per-16 weights take K7 (``gemm_exact_k16``) instead of
+  K1, and K2 only runs when every layer's ``wqkv`` is one q4_0 weight;
 * prefill (T > 1): the cache written per layer, then attention: K5
   (``flash_prefill``) at T >= 64, as the JAX package routes it, and below
   that dense masked attention in float32 (plain torch, as the JAX package
-  leaves it to XLA); K4 for GEMMs of more than ``DECODE_M_MAX`` rows.
+  leaves it to XLA); K4 for GEMMs of more than ``DECODE_M_MAX`` rows, and
+  the plain float32 matmul for per-16 weights there.
 
 Not ported yet (each raises ``NotImplementedError``): the ring cache,
 ``w_down_a16`` and activation modes other than ``q8_1``.
@@ -178,10 +184,25 @@ def init_qparams(cfg: LlamaConfig, seed: int = 0, device="cuda") -> dict:
     return out
 
 
-def rope_for(cfg: LlamaConfig, device="cuda"):
+def rope_for(cfg: LlamaConfig, params: Optional[dict] = None,
+             device="cuda"):
+    """The model's RoPE tables on ``device``: cfg's base/linear-scale
+    spectrum, or the per-dimension inverse frequencies a loader attached to
+    the parameters (``params["rope_inv_freq"]``, GGUF
+    ``rope_freqs.weight``)."""
+    inv = params.get("rope_inv_freq") if isinstance(params, dict) else None
     return make_rope_cache(cfg.max_seq, cfg.head_dim, cfg.rope_base,
                            freq_scale=cfg.rope_scale,
-                           device=resolve_device(device))
+                           device=resolve_device(device), inv_freq=inv)
+
+
+class SplitLinear(NamedTuple):
+    """A fused slot (``wqkv`` / ``wgu``) whose parts carry different block
+    formats and so stay unfused, e.g. a Q4_K_M file's q6_K ``attn_v``
+    beside q4_K ``attn_q``/``attn_k``: one GEMM per part, the outputs
+    concatenated on N (llama.cpp never fuses them either)."""
+
+    parts: tuple
 
 
 @dataclasses.dataclass
@@ -240,7 +261,10 @@ def _quant_kv(x: torch.Tensor):
 
 
 def _linear(w, x: torch.Tensor, ops) -> torch.Tensor:
-    """y[M, N] = x[M, K] @ W^T, W4A8: x quantized to Q8_1 in dispatch."""
+    """y[M, N] = x[M, K] @ W^T, W4A8: x quantized to Q8_1 in dispatch; a
+    :class:`SplitLinear` runs one GEMM per part, concatenated on N."""
+    if isinstance(w, SplitLinear):
+        return torch.cat([_linear(p, x, ops) for p in w.parts], dim=-1)
     return registry.dispatch(w, x.to(torch.float32), quantize_act=True,
                              ops=ops)
 
@@ -296,13 +320,16 @@ def begin(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor,
     b, t = tokens.shape
     dev = cache.k.device
     if rope_cache is None:
-        rope_cache = rope_for(cfg, dev)
+        rope_cache = rope_for(cfg, qparams, dev)
     pos0 = cache.pos.to(torch.int64)
     positions = pos0[:, None] + torch.arange(t, device=dev)[None, :]
     # a cache write starts at pos, clamped so the T-row update fits (the
     # start clamp of JAX's dynamic_update_slice, which overflowing and
     # inactive slots rely on)
     wstart = pos0.clamp(0, cache.k.shape[3] - t)
+    # the port's K2 serves q4_0 only, so any q4_k or SplitLinear wqkv
+    # turns it off for the whole model; JAX's K2 also takes q4_k, and
+    # only a SplitLinear turns it off there (ROADMAP Queue 1)
     use_mega = t == 1 and all(
         gemm_megalayer.supported(ly["wqkv"], cfg.dim, b)
         for ly in qparams["layers"])
@@ -429,5 +456,5 @@ def forward(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor,
 
 
 __all__ = ["LlamaConfig", "init_params", "quantize_params", "init_qparams",
-           "rope_for", "KVCache", "Step", "begin", "layer", "end", "head",
-           "forward", "FLASH_PREFILL_T_MIN"]
+           "rope_for", "SplitLinear", "KVCache", "Step", "begin", "layer",
+           "end", "head", "forward", "FLASH_PREFILL_T_MIN"]

@@ -96,7 +96,7 @@ class Server:
         self.queue: list[Request] = []
         self.finished: dict[int, Request] = {}
         self._next_rid = 0
-        self._rope = llama.rope_for(cfg, self.device)
+        self._rope = llama.rope_for(cfg, qparams, self.device)
         self._pending_tok = np.zeros(n_slots, np.int64)
         self._hpos = np.zeros(n_slots, np.int64)  # host mirror of cache.pos
         self._temps = np.zeros(n_slots, np.float32)

@@ -15,10 +15,19 @@ DEFAULT_BASE = 10000.0
 
 
 def rope_cache(max_pos: int, head_dim: int, base: float = DEFAULT_BASE,
-               freq_scale: float = 1.0, device="cpu"):
-    """cos/sin tables ``float32 [max_pos, head_dim/2]`` on ``device``."""
-    inv_freq = 1.0 / (base ** (np.arange(0, head_dim, 2, dtype=np.float64)
-                               / head_dim))
+               freq_scale: float = 1.0, device="cpu", inv_freq=None):
+    """cos/sin tables ``float32 [max_pos, head_dim/2]`` on ``device``.
+
+    ``inv_freq``: optional per-dimension inverse frequencies [head_dim/2]
+    (a tensor or array) that replace the ``base**(-2i/d)`` spectrum, such
+    as a GGUF file's ``rope_freqs.weight`` divisors applied by the loader;
+    its float32 values are widened to float64 for the phases, as in JAX."""
+    if inv_freq is None:
+        inv_freq = 1.0 / (base ** (np.arange(0, head_dim, 2, dtype=np.float64)
+                                   / head_dim))
+    elif isinstance(inv_freq, torch.Tensor):
+        inv_freq = inv_freq.detach().cpu().numpy()
+    inv_freq = np.asarray(inv_freq, np.float64)
     t = np.arange(max_pos, dtype=np.float64)[:, None] * inv_freq[None, :] \
         * freq_scale
     return (torch.tensor(np.cos(t), dtype=torch.float32, device=device),

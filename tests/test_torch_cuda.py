@@ -8,25 +8,31 @@ has only PyTorch; ``--noconftest`` keeps pytest from loading
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Tolerances (those of chip_smoke.py): K1 ``1e-4 * max|C|`` (float32
-summation order), K2 ``2e-3 * max|C|`` (a Q8_1 code can also move across a
-.5 rounding tie), K3 and K5 ``atol=2e-3``, K4 NMSE <= 1e-4; through the
-model, with both op sets started from the same hidden state at every
-layer, each layer's update and the logits NMSE <= 1e-4.
+summation order; q4_k and K7 ``1e-5 * max|C|``), K2 ``2e-3 * max|C|`` (a
+Q8_1 code can also move across a .5 rounding tie), K3 and K5
+``atol=2e-3``, K4 NMSE <= 1e-4; through the model, with both op sets
+started from the same hidden state at every layer, each layer's update
+and the logits NMSE <= 1e-4.
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from quant_gemm_tpu_torch.formats import kquants
 from quant_gemm_tpu_torch.formats import quant as tq
 from quant_gemm_tpu_torch.kernels import layout, registry
 from quant_gemm_tpu_torch.kernels.gemm_dequant import (gemm_dequant,
                                                        gemm_dequant_plain)
 from quant_gemm_tpu_torch.kernels.gemm_exact import (gemm_exact,
                                                      gemm_exact_plain)
+from quant_gemm_tpu_torch.kernels.gemm_exact_k16 import (
+    gemm_exact_k16, gemm_exact_k16_plain)
 from quant_gemm_tpu_torch.kernels.gemm_megalayer import (norm_qkv,
                                                          norm_qkv_plain)
-from quant_gemm_tpu_torch.models import llama, serve
+from quant_gemm_tpu_torch.models import gguf_loader, llama, serve
 from quant_gemm_tpu_torch.ops.attention import (flash_decode,
                                                 flash_decode_plain,
                                                 flash_prefill,
@@ -82,6 +88,77 @@ def test_gemm_dequant(weight, dev, m):
     a = registry.fold_q8_1(tq.quantize_q8_1(_act(m, 4, dev)))
     got, ref = gemm_dequant(weight, a), gemm_dequant_plain(weight, a)
     assert ((got - ref) ** 2).sum() <= 1e-4 * (ref ** 2).sum()
+
+
+def _kquant(qtype, n, k, dev, seed=21):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return kquants.random_blocks(qtype, n, k, k ** -0.5, g)
+
+
+@pytest.mark.parametrize("m", [1, 8, 12])
+@pytest.mark.parametrize("qtype", ["q6_K", "q3_K", "q2_K"])
+def test_gemm_exact_k16(dev, qtype, m):
+    """K7 for each per-16 format; N = 774 is not a multiple of the four
+    rows a block owns."""
+    w = layout.prepare_k16(_kquant(qtype, 774, K, dev))
+    a = tq.quantize_q8_1(_act(m, 1, dev))
+    before = gemm_exact_k16.launches
+    got, ref = gemm_exact_k16(w, a), gemm_exact_k16_plain(w, a)
+    assert gemm_exact_k16.launches == before + 1
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("m", [1, 8, 12, 16, 100])
+def test_q4_k_kernels(dev, m):
+    """K1 (M <= 12) or K4 (M > 12) on a q4_K weight in its effective
+    form, through dispatch."""
+    w = layout.prepare(kquants.to_effective(_kquant("q4_K", 774, K, dev)))
+    x = _act(m, 2, dev)
+    got = registry.dispatch(w, x, quantize_act=True)
+    ref = registry.dispatch(w, x, quantize_act=True, ops=registry.PLAIN)
+    if m <= registry.DECODE_M_MAX:
+        assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+    else:
+        assert ((got - ref) ** 2).sum() <= 1e-4 * (ref ** 2).sum()
+
+
+FIXTURE = Path(__file__).parent / "golden" / "tiny_llama_q4km.gguf"
+PROMPT_IDS = [0, 262, 312, 311, 292]  # tests/test_gguf_interop.py
+GREEDY_CONT = [252, 44, 79, 306, 79, 306]
+
+
+def test_load_llama_fixture_on_the_card(dev):
+    """The foreign Q4_K_M file decodes on the card to what it decodes to
+    on the CPU, and its greedy transcript runs through K1, K3, K4 and K7
+    (the fixture's prompt is 5 tokens: the dense prefill path)."""
+    qp, cfg = gguf_loader.load_llama(FIXTURE, device=dev)
+    qc, _ = gguf_loader.load_llama(FIXTURE, device="cpu")
+    for a, b in zip(qp["layers"], qc["layers"]):
+        for name in ("wqkv", "wo", "wgu", "w_down"):
+            pa = getattr(a[name], "parts", (a[name],))
+            pb = getattr(b[name], "parts", (b[name],))
+            for x, y in zip(pa, pb):
+                assert type(x) is type(y) and x.qtype == y.qtype
+                assert all(torch.equal(u.cpu(), v) for u, v in zip(x, y)
+                           if isinstance(u, torch.Tensor))
+    assert qp["lm_head"].qtype == "q6_k"
+    # the pinned transcript teacher-forced: at every step its token is the
+    # argmax, or (a near-tie broken the other way by another float32
+    # summation order) within 2 * 2e-2 * max|logits| of it
+    before = (gemm_exact.launches, gemm_exact_k16.launches)
+    cache = llama.KVCache.init(cfg, 1, device=dev)
+    feed = [PROMPT_IDS] + [[t] for t in GREEDY_CONT]
+    for i, toks in enumerate(feed[:-1]):
+        logits, cache = llama.forward(qp, cfg, torch.tensor([toks],
+                                                            device=dev), cache)
+        last = logits[0, -1]
+        slack = float(last.max() - last[GREEDY_CONT[i]])
+        assert slack <= 4e-2 * float(last.abs().max()), (i, slack)
+    # per forward (M <= 12: prefill of 5 tokens too): layer 0 fused q4_k
+    # wqkv, wo, wgu, w_down on K1; layer 1 q4_k q and k, wo, wgu, w_down on
+    # K1, its q6_K attn_v and the q6_K lm_head on K7
+    assert gemm_exact.launches - before[0] == len(GREEDY_CONT) * 9
+    assert gemm_exact_k16.launches - before[1] == len(GREEDY_CONT) * 2
 
 
 def _int8_cache(rng, shape, dev):

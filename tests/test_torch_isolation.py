@@ -26,7 +26,10 @@ def test_importing_every_module_pulls_in_no_jax():
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'quant_gemm_tpu' or "
         "m.startswith('quant_gemm_tpu.'))\n"
-        "assert len(mods) >= 15, mods\n"
+        "assert len(mods) >= 19, mods\n"
+        "new = {'formats.kquants', 'formats.gguf_file', "
+        "'kernels.gemm_exact_k16', 'models.gguf_loader'}\n"
+        "assert {p.__name__ + '.' + n for n in new} <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -68,6 +71,14 @@ def test_default_device_raises_without_gpu(no_gpu):
     qp = llama.quantize_params(params, device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         serve.Server(qp, cfg, max_prefill_chunk=48)
+    from quant_gemm_tpu_torch.formats.gguf_file import GGUFFile
+    from quant_gemm_tpu_torch.models import gguf_loader
+
+    fixture = ROOT / "tests" / "golden" / "tiny_llama_q4km.gguf"
+    with pytest.raises(RuntimeError, match="cuda"):
+        gguf_loader.load_llama(fixture)
+    with pytest.raises(RuntimeError, match="cuda"):
+        GGUFFile(fixture).load("output.weight")
 
 
 def test_kernel_build_raises_without_toolchain(no_gpu, monkeypatch):

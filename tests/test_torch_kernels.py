@@ -4,9 +4,13 @@ Inputs are made with numpy from a seed and fed to both the JAX function
 (Pallas in interpret mode, as the JAX tests run it) and the port's wrapper,
 which on CPU tensors runs its kernel's plain PyTorch version.  Tolerances:
 
-* K1 ``gemm_exact`` and K4 ``gemm_dequant``: ``rtol=1e-5,
-  atol=1e-5 * max|C|`` — the integer dots and the dequantized weights are
-  exact and both sum in float32, so only the summation order differs;
+* K1 ``gemm_exact`` and K4 ``gemm_dequant`` (q4_0, and q4_k: a q4_K
+  weight in its effective form), K7 ``gemm_exact_k16`` (q6_K, q3_K,
+  q2_K): ``rtol=1e-5, atol=1e-5 * max|C|`` — the integer dots and the
+  dequantized weights are the same float32 values and both sum in
+  float32, so only the summation order differs; also against the JAX
+  package's float64-summed goldens (``ref.gemm.gemm_wxa8``,
+  ``kquants.gemm_k16_ref``);
 * K2 ``norm_qkv``: ``atol=2e-3 * max|C|`` — a last-ulp difference in the
   normalised activation can move a Q8_1 code across a .5 rounding tie;
 * K3 ``flash_decode``: ``atol=1e-5`` — both compute in float32 from the
@@ -22,13 +26,18 @@ import pytest
 import torch
 
 from quant_gemm_tpu.formats import jax_quant as jq
+from quant_gemm_tpu.formats import kquants as jk
 from quant_gemm_tpu.formats import numpy_ref as jnr
+from quant_gemm_tpu.formats.blocks import Q4_1Tensor
+from quant_gemm_tpu.kernels.gemm_exact import gemm_exact_k16 as j_gemm_k16
+from quant_gemm_tpu.kernels.gemm_exact import prepare_k16 as j_prepare_k16
 from quant_gemm_tpu.kernels import gemm_megalayer as jmega
 from quant_gemm_tpu.kernels.gemm_exact import gemm_exact as j_gemm_exact
 from quant_gemm_tpu.kernels.gemm_pallas import gemm as j_gemm
 from quant_gemm_tpu.kernels.gemm_pallas import prepare as j_prepare
 from quant_gemm_tpu.ops import attention as jattn
-from quant_gemm_tpu.ref.gemm import gemm_w4a8
+from quant_gemm_tpu.ref.gemm import gemm_w4a8, gemm_wxa8
+from quant_gemm_tpu_torch.formats import kquants as tk
 from quant_gemm_tpu_torch.formats import quant as tq
 from quant_gemm_tpu_torch.formats.blocks import Q8_1Tensor
 from quant_gemm_tpu_torch.kernels import layout, registry
@@ -36,6 +45,8 @@ from quant_gemm_tpu_torch.kernels.gemm_dequant import (gemm_dequant,
                                                        gemm_dequant_plain)
 from quant_gemm_tpu_torch.kernels.gemm_exact import (gemm_exact,
                                                      gemm_exact_plain)
+from quant_gemm_tpu_torch.kernels.gemm_exact_k16 import (
+    gemm_exact_k16, gemm_exact_k16_plain)
 from quant_gemm_tpu_torch.kernels.gemm_megalayer import (norm_qkv,
                                                          norm_qkv_plain)
 from quant_gemm_tpu_torch.ops.rms_norm import rms_norm
@@ -106,6 +117,110 @@ def test_gemm_dequant_matches_jax(weight, m):
     a_np, a_t = _q8_1(_act(m, 4))
     got = gemm_dequant(pw, registry.fold_q8_1(a_t)).numpy()
     _close_rel(got, j_gemm(jw, jq.device_put(a_np)), 1e-5)
+
+
+def _to_torch(container, cls):
+    return cls(*(torch.from_numpy(np.ascontiguousarray(np.asarray(f)))
+                 for f in container))
+
+
+@pytest.fixture(scope="module")
+def weight_q4_k():
+    """A q4_K weight (the JAX encoder, with its scale search) in its
+    effective form, for both packages."""
+    w = np.random.default_rng(13).normal(0, 0.05, (N, K)).astype(np.float32)
+    jq4k = jk.quantize_q4_k(w)
+    eff = jk.to_effective(jq4k)
+    return eff, j_prepare(eff), layout.prepare(tk.to_effective(
+        _to_torch(jq4k, tk.Q4_KTensor)))
+
+
+@pytest.mark.parametrize("m", [8, 3])
+def test_gemm_exact_q4_k_matches_jax(weight_q4_k, m):
+    """K1's min-form epilogue d' d_a sumi + m' s_a (s_a the stored Q8_1
+    s)."""
+    eff, jw, pw = weight_q4_k
+    assert pw.qtype == "q4_k" and pw.d.dtype == torch.float32
+    a_np, a_t = _q8_1(_act(m, 14))
+    got = gemm_exact(pw, a_t).numpy()
+    _close_rel(got, j_gemm_exact(jw, jq.device_put(a_np)), 1e-5)
+    golden = gemm_wxa8(Q4_1Tensor(eff.packed, eff.d, eff.m), a_np)
+    _close_rel(got, golden, 1e-5)
+
+
+@pytest.mark.parametrize("m", [16, 5])
+def test_gemm_dequant_q4_k_matches_jax(weight_q4_k, m):
+    _, jw, pw = weight_q4_k
+    a_np, a_t = _q8_1(_act(m, 15))
+    got = gemm_dequant(pw, registry.fold_q8_1(a_t)).numpy()
+    _close_rel(got, j_gemm(jw, jq.device_put(a_np)), 1e-5)
+
+
+K16_QUANTIZE = {"q6_K": (jk.quantize_q6_k, tk.Q6_KTensor),
+                "q3_K": (jk.quantize_q3_k, tk.Q3_KTensor),
+                "q2_K": (jk.quantize_q2_k, tk.Q2_KTensor)}
+
+
+@pytest.fixture(scope="module")
+def k16_weights():
+    w = np.random.default_rng(16).normal(0, 0.05, (N, K)).astype(np.float32)
+    out = {}
+    for qt, (quantize, cls) in K16_QUANTIZE.items():
+        jt = quantize(w)
+        out[qt] = (jt, j_prepare_k16(jt),
+                   layout.prepare_k16(_to_torch(jt, cls)))
+    return out
+
+
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("qt", list(K16_QUANTIZE))
+def test_gemm_exact_k16_matches_jax(k16_weights, qt, m):
+    """K7: the per-16 terms, with q2_K's min term, against the Pallas
+    kernel (interpret mode) and the golden ``gemm_k16_ref``."""
+    jt, jw, pw = k16_weights[qt]
+    assert pw.qtype == qt.lower() and (pw.mp is None) == (qt != "q2_K")
+    a_np, a_t = _q8_1(_act(m, 17))
+    got = gemm_exact_k16(pw, a_t).numpy()
+    _close_rel(got, j_gemm_k16(jw, jq.device_put(a_np), interpret=True),
+               1e-5)
+    _close_rel(got, jk.gemm_k16_ref(jt, a_np), 1e-5)
+    if qt == "q6_K":
+        _close_rel(got, jk.gemm_q6k_ref(jt, a_np), 1e-5)
+
+
+@pytest.mark.parametrize("m, route", [(1, "gemm_exact_k16"),
+                                      (12, "gemm_exact_k16"),
+                                      (13, "k16_dequant_gemm"),
+                                      (48, "k16_dequant_gemm")])
+def test_dispatch_routes_k16_by_rows(k16_weights, m, route):
+    """Decode rows take K7; prefill rows take the plain float32 matmul
+    with the float activation unquantized (JAX routes a float activation
+    with quantize_act there as it is, registry.py:182-190), and a Q8_1
+    activation dequantized to float32."""
+    _, _, pw = k16_weights["q2_K"]
+    rec = _Recorder()
+    x = torch.from_numpy(_act(m, 18))
+    calls = registry.k16_dequant_gemm.calls
+    got = registry.dispatch(pw, x, quantize_act=True, ops=rec.ops())
+    if route == "gemm_exact_k16":
+        assert [c[0] for c in rec.calls] == [route]
+        want = gemm_exact_k16_plain(pw, tq.quantize_q8_1(x))
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        return
+    assert rec.calls == [] and registry.k16_dequant_gemm.calls == calls + 1
+    deq = layout.dequantize_k16(pw)
+    torch.testing.assert_close(got, x @ deq.T, rtol=0, atol=0)
+    a8 = tq.quantize_q8_1(x)
+    got8 = registry.dispatch(pw, a8, ops=rec.ops())
+    x8 = a8.qs.to(torch.float32) * tq.expand_scale(a8.d)
+    torch.testing.assert_close(got8, x8 @ deq.T, rtol=0, atol=0)
+
+
+def test_dispatch_refuses_weights_without_a_kernel():
+    """An unprepared container reaches no plain version: it raises."""
+    w = tq.quantize_q4_0(torch.from_numpy(_act(4, 19)))
+    with pytest.raises(TypeError, match="Q4_0Tensor"):
+        registry.dispatch(w, torch.zeros(2, K), quantize_act=True)
 
 
 def _attn_inputs(seed=5, layers=3, b=4, kv=2, rep=4, hd=64, s=256):
@@ -207,16 +322,15 @@ def test_dispatch_routes_by_rows(weight, m, route):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-def test_cpu_tensors_never_count_as_launches(weight):
+def test_cpu_tensors_never_count_as_launches(weight, k16_weights):
     _, _, pw = weight
-    before = (gemm_exact.launches, gemm_dequant.launches, norm_qkv.launches,
-              flash_decode.launches)
+    before = [f.launches for f in registry.KERNELS]
     x = torch.from_numpy(_act(4, 9))
     registry.dispatch(pw, x, quantize_act=True)
     registry.dispatch(pw, torch.cat([x] * 4), quantize_act=True)
+    registry.dispatch(k16_weights["q6_K"][2], x, quantize_act=True)
     norm_qkv(pw, x, torch.ones(K), EPS)
-    assert (gemm_exact.launches, gemm_dequant.launches, norm_qkv.launches,
-            flash_decode.launches) == before
+    assert [f.launches for f in registry.KERNELS] == before
 
 
 def test_wrappers_raise_off_cpu_and_cuda(weight):
@@ -231,3 +345,9 @@ def test_wrappers_raise_off_cpu_and_cuda(weight):
     with pytest.raises(ValueError):
         gemm_dequant(meta, torch.zeros(2, K, dtype=torch.bfloat16,
                                        device="meta"))
+    w16 = layout.prepare_k16(tk.random_blocks(
+        "q6_K", 8, K, 0.05, torch.Generator().manual_seed(0)))
+    with pytest.raises(ValueError):
+        gemm_exact_k16(layout.PreparedK16(
+            w16.qtype, w16.n, w16.k, w16.qs.to("meta"), w16.scp.to("meta")),
+            Q8_1Tensor(*(t.to("meta") for t in a)))

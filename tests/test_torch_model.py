@@ -5,7 +5,9 @@ megakernel (dim 512) and GQA (8 heads over 2 kv heads).
 Tolerances:
 
 * ``qparams_from_jax``: bit-equal to quantizing the same float weights in
-  the port (both are exact integer / f16 results);
+  the port (both are exact integer / f16 results); JAX's q4_k and q6_k
+  weights carried across serve the same logits as JAX's forward, within
+  the free-run bounds below;
 * logits with JAX's Q8_1 activation codes fed to the port (every
   quantizer call of the JAX forward recorded and replayed): ``max|delta|
   <= 1e-5 * max|logits|`` — only the float32 summation order differs;
@@ -39,7 +41,7 @@ from quant_gemm_tpu.formats import jax_quant as jq
 from quant_gemm_tpu.models import llama as jl
 from quant_gemm_tpu.models import serve as js
 from quant_gemm_tpu_torch.formats.blocks import Q8_1Tensor
-from quant_gemm_tpu_torch.kernels import registry
+from quant_gemm_tpu_torch.kernels import layout, registry
 from quant_gemm_tpu_torch.models import convert
 from quant_gemm_tpu_torch.models import llama as tl
 from quant_gemm_tpu_torch.models import serve as ts
@@ -86,6 +88,32 @@ def test_qparams_from_jax_bit_equal(models):
     for a, b in pairs:
         assert (a.n, a.k) == (b.n, b.k)
         assert torch.equal(a.qs, b.qs) and torch.equal(a.d, b.d)
+
+
+@pytest.mark.parametrize("qtype", ["q4_k", "q6_k"])
+def test_qparams_from_jax_kquants_match_jax_forward(models, qtype):
+    """JAX's K-quant weights (q4_k: effective q4_1 planes through K1/K4;
+    q6_k: per-16 weights through K7 and, at prefill, the plain float32
+    matmul) carried across: a 16-token prefill and a decode step."""
+    params, _, _ = models
+    qj = jl.quantize_params(params, qtype)
+    qc = convert.qparams_from_jax(jax.tree_util.tree_map(np.asarray, qj),
+                                  device="cpu")
+    kind = layout.PreparedK16 if qtype == "q6_k" else layout.PreparedWeight
+    assert all(isinstance(ly[n], kind) and ly[n].qtype == qtype
+               for ly in qc["layers"] for n in ("wqkv", "wo", "wgu",
+                                                "w_down"))
+    rng = np.random.default_rng(20)
+    tokens = rng.integers(0, 256, (2, 16)).astype(np.int32)
+    lj, cj = jl.jit_forward(qj, JCFG, jnp.asarray(tokens),
+                            jl.KVCache.init(JCFG, 2))
+    lt, ct = tl.forward(qc, TCFG, torch.from_numpy(tokens),
+                        tl.KVCache.init(TCFG, 2, device="cpu"))
+    _assert_logits_close(lt, lj)
+    nt = rng.integers(0, 256, (2, 1)).astype(np.int32)
+    lj, _ = jl.jit_forward(qj, JCFG, jnp.asarray(nt), cj)
+    lt, _ = tl.forward(qc, TCFG, torch.from_numpy(nt), ct)
+    _assert_logits_close(lt, lj)
 
 
 def _prefill_both(models, tokens):

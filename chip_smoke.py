@@ -8,15 +8,21 @@ Run from the repository root on a machine with one NVIDIA H100:
 1. prints the card (``nvidia-smi`` name and power limit), the torch and
    CUDA versions, and builds every kernel of the serving path from
    ``quant_gemm_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel);
-2. kernel phase: each of K1-K5 and K7 at the shapes the serving paths
-   give it (K3 and K5 also with the int8 cache and a window of 256; K1
-   and K4 also with q4_K weights in their effective form at the Q4_K_M
-   shapes; K7 with q6_K at its three shapes and with q3_K and q2_K at the
-   lm_head's), against its plain PyTorch version at the stated tolerance,
-   timed with CUDA events (L2 flushed before every timed launch) beside
-   its bound (K-quant weights at their GGUF block bytes, the bound over
-   the port's larger layout beside it) and, where one PyTorch call
-   computes the same function, that call's time;
+2. kernel phase: each of K1-K8 at the shapes the serving paths give it
+   (K3 and K5 also with the int8 cache and a window of 256; K1 and K4
+   also with q4_K weights in their effective form at the Q4_K_M shapes;
+   K7 with q6_K at its three shapes and with q3_K and q2_K at the
+   lm_head's; K6 on q4_0 at the q4_0 decode shapes and on q4_K at the
+   Q4_K_M ones, each equal bit for bit to quantize_q8_1 + K1, also on
+   zero and f16-saturating blocks; K8 at M = 8 and 1, and its wo and
+   w_down stages bit for bit on inputs that make the glue exact), against
+   its plain PyTorch version at the stated tolerance, timed with CUDA
+   events (L2
+   flushed before every timed launch) beside its bound (K-quant weights
+   at their GGUF block bytes, the bound over the port's larger layout
+   beside it) and, where one PyTorch call computes the same function,
+   that call's time (K6 and K8 also beside the unfused kernel chain they
+   replace);
 3. main path: the q4_0 W4A8 continuous-batching ``Server(qp, cfg,
    n_slots=8)`` at its defaults (prefill chunk 128, prompt caching) at
    TinyLlama-1.1B width (22 layers, random weights from a seed, quantized
@@ -27,6 +33,14 @@ Run from the repository root on a machine with one NVIDIA H100:
    128-token prefill chunks and one decode step per cache run through the
    kernels and through the plain versions from the same hidden state at
    every layer, and each layer's output and the logits must agree;
+   then the decode fusions, each switch set around its run and restored:
+   (a) ``registry.FUSED_DECODE`` serves the same 16 requests with K6 in
+   place of K1 (K6 67 launches per decode step, K1 none) and must give
+   the default run's 16 transcripts token for token; (b) with
+   ``gemm_megalayer.ENABLE_TAIL`` too, K8 once per layer and K6 for the
+   lm_head (the transcripts' agreement with the default run is printed),
+   then the layer-by-layer decode check and a ``torch.profiler``
+   breakdown of its decode step beside the default step's;
 4. Q4_K_M path: a GGUF file in llama.cpp's Q4_K_M mix at TinyLlama-1.1B
    width (random valid blocks from a seed, written to a temporary
    directory and removed) is loaded with ``gguf_loader.load_llama`` onto
@@ -36,7 +50,9 @@ Run from the repository root on a machine with one NVIDIA H100:
    then the layer-by-layer check for a 128-token chunk and a decode step,
    and a ``torch.profiler`` breakdown of one decode step and one chunk
    (device time by kernel group, idle share; it fails when the profiler
-   sees no hand kernel);
+   sees no hand kernel); then (c) ``FUSED_DECODE`` on this file: K6 on
+   its q4_K decode GEMMs (88 per step), K7 unchanged, and the
+   layer-by-layer decode check;
 5. foreign bytes: ``tests/golden/tiny_llama_q4km.gguf`` (written by an
    independent generator) loads onto the card, and its pinned greedy
    transcript, teacher-forced through the kernels, must be the argmax at
@@ -50,6 +66,7 @@ the plain versions are full float32.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -91,10 +108,11 @@ def card_line() -> str:
 class Timer:
     """Median device time of single launches, L2 flushed before each.
 
-    The card first spins for a few tens of milliseconds (``_sleep``) while
-    the host enqueues every rep (flush, event, launch, event) behind it,
-    so each pair of events brackets device work only, never a wait for
-    the host to enqueue the next launch."""
+    The card first spins (``_sleep``) for twice the host's time to
+    enqueue every rep (flush, event, launch, event), at least 25 ms,
+    while the host enqueues them behind it, so each pair of events
+    brackets device work only, never a wait for the host to enqueue the
+    next launch, also for a chain of many eager ops."""
 
     def __init__(self, dev):
         self.flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
@@ -103,7 +121,13 @@ class Timer:
         for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
-        torch.cuda._sleep(50_000_000)  # cycles: ~25 ms at the H100's clock
+        t0 = time.perf_counter()
+        fn()  # one enqueue on the host clock: a chain of eager ops is long
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        # spin for twice the enqueue of every rep, and at least 25 ms, at
+        # the H100's clock of about 2e9 cycles a second
+        torch.cuda._sleep(int(max(50e6, 2 * reps * (host_s + 20e-6) * 2e9)))
         marks = []
         for _ in range(reps):
             self.flush.zero_()
@@ -172,15 +196,18 @@ def kernel_phase(dev, timer):
     from quant_gemm_tpu_torch.kernels.gemm_dequant import (
         gemm_dequant, gemm_dequant_plain)
     from quant_gemm_tpu_torch.kernels.gemm_exact import (
-        gemm_exact, gemm_exact_plain)
+        gemm_exact, gemm_exact_fused, gemm_exact_fused_plain,
+        gemm_exact_plain)
     from quant_gemm_tpu_torch.kernels.gemm_exact_k16 import (
         gemm_exact_k16, gemm_exact_k16_plain)
     from quant_gemm_tpu_torch.kernels.gemm_megalayer import (
-        norm_qkv, norm_qkv_plain)
+        attn_tail, attn_tail_plain, norm_qkv, norm_qkv_plain)
     from quant_gemm_tpu_torch.kernels.registry import (fold_q8_1,
                                                        k16_dequant_gemm)
+    from quant_gemm_tpu_torch.ops.activations import silu_mul
     from quant_gemm_tpu_torch.ops.attention import (
         flash_decode, flash_decode_plain, flash_prefill, flash_prefill_plain)
+    from quant_gemm_tpu_torch.ops.rms_norm import rms_norm
 
     g = torch.Generator(device=dev).manual_seed(1234)
 
@@ -468,6 +495,109 @@ def kernel_phase(dev, timer):
             print(f"  {'plain K16 prefill route':13s} {qtype} {name} M={m} "
                   f"N={n} K={k}: ms={ms:.5f} bound_ms={b[0]:.5f} ({b[1]})",
                   flush=True)
+
+    def unfused(label, ms):
+        """The time of the unfused kernel chain a fused row replaces."""
+        rows[-1]["unfused_ms"] = ms
+        print(f"  {'':13s} unfused ({label}): {ms:.5f} ms", flush=True)
+
+    # K6: K1 with the Q8_1 quantization of a float32 x inside, M = 8, on
+    # the q4_0 decode shapes (run (a)) and the Q4_K_M q4_K ones (run (c));
+    # bit-identical to quantize_q8_1 + K1, also where a block is all zero
+    # (d = 0) or its amax / 127 saturates f16
+    m = 8
+    for label, w, main in ([(f"q4_0 {n}", w, True) for n, w in weights.items()]
+                           + [(f"q4_k {n}", w, False) for n, w in q4k.items()]):
+        x = randn(m, w.k)
+        odd = x.clone()
+        odd[0, :32], odd[-1, 32:64], odd[m // 2, 64:96] = 0.0, 7e8, -7e8
+        for xx in (odd, x):  # max_abs_err and tol: the plain input's
+            got = gemm_exact_fused(w, xx)
+            want = gemm_exact(w, quantize_q8_1(xx))
+            ref = gemm_exact_fused_plain(w, xx)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"K6 gemm_exact_fused {label}: differs from "
+                     "quantize_q8_1 + K1")
+            err = (got - ref).abs().max().item()
+            tol = (1e-4 if w.m is None else 1e-5) * ref.abs().max().item()
+            if not err <= tol:
+                fail(f"K6 gemm_exact_fused {label}: max|err| {err} > {tol}")
+        act = m * w.k * 4 + m * w.n * 4
+        ops = 2 * m * w.n * w.k
+        wbytes = (q4_bytes(w.n, w.k) if w.m is None
+                  else kq_bytes("q4_K", w.n, w.k))
+        record("gemm_exact_fused", f"{label} M={m} N={w.n} K={w.k}", err,
+               f"== quantize_q8_1 + K1, max|err| <= {tol:.3e}",
+               timer(lambda: gemm_exact_fused(w, x)),
+               timer(lambda: gemm_exact_fused_plain(w, x), reps=5),
+               bound(wbytes + act, ops, "int8"), None, main=main,
+               layout_bnd=None if w.m is None else bound(
+                   q4k_layout_bytes(w.n, w.k) + act, ops, "int8"))
+        unfused("quantize_q8_1 + K1",
+                timer(lambda: gemm_exact(w, quantize_q8_1(x))))
+
+    # K8: the layer tail wo .. w_down in one launch, M = 8 (the serving
+    # batch, run (b)) and 1, against its plain chain on the layer update
+    wo, wgu, wd = weights["wo"], weights["wgu"], weights["w_down"]
+    nw = 1.0 + 0.1 * randn(DIM)
+
+    def tail_kernels(attn, x):
+        """The same chain through the unfused kernels (K1 and eager
+        quantize, RMSNorm, SiLU)."""
+        xm = x + gemm_exact(wo, quantize_q8_1(attn))
+        gu = gemm_exact(wgu, quantize_q8_1(rms_norm(xm, nw, 1e-5)))
+        ff = silu_mul(gu[:, :D_FF], gu[:, D_FF:])
+        return xm + gemm_exact(wd, quantize_q8_1(ff))
+
+    for m in (8, 1):
+        attn, x = randn(m, DIM), randn(m, DIM, scale=3.0)
+        args = (attn, x, nw, wo, wgu, wd, 1e-5, D_FF)
+        got, ref = attn_tail(*args), attn_tail_plain(*args)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        tol = 2e-3 * (ref - x).abs().max().item()
+        if not err <= tol:
+            fail(f"K8 attn_tail M={m}: max|err| {err} > {tol}")
+        nbytes = sum(q4_bytes(w.n, w.k) for w in (wo, wgu, wd)) \
+            + 3 * m * DIM * 4 + DIM * 4
+        ops = 2 * m * sum(w.n * w.k for w in (wo, wgu, wd))
+        record("attn_tail", f"M={m} dim={DIM} d_ff={D_FF}", err,
+               f"max|err| <= {tol:.3e} (2e-3 x max|update|)",
+               timer(lambda: attn_tail(*args)),
+               timer(lambda: attn_tail_plain(*args), reps=5),
+               bound(nbytes, ops, "int8"), None, main=m == 8)
+        unfused("3 x (quantize_q8_1 + K1), RMSNorm, SiLU",
+                timer(lambda: tail_kernels(attn, x)))
+
+    # K8's GEMM stages equal quantize_q8_1 + K1 bit for bit.  With x = 0
+    # and w_down's scales 0, out is the wo stage; with wo's scales 0, rows
+    # of mostly +1 (an exact RMSNorm at eps 0) and positive gate weights
+    # (gate outputs far above 17, where SiLU is the identity in float32),
+    # out is x + the w_down stage
+    def zero_scales(w):
+        return w._replace(d=torch.zeros_like(w.d))
+
+    m = 8
+    attn = randn(m, DIM)
+    got = attn_tail(attn, torch.zeros(m, DIM, device=dev), nw, wo, wgu,
+                    zero_scales(wd), 1e-5, D_FF)
+    if not torch.equal(got, gemm_exact(wo, quantize_q8_1(attn))):
+        fail("K8 attn_tail: its wo stage differs from quantize_q8_1 + K1")
+    gate = 0.5 + 0.5 * torch.rand(D_FF, DIM, generator=g, device=dev)
+    wgu_pos = layout.prepare(quantize_q4_0(torch.cat(
+        [gate, randn(D_FF, DIM, scale=DIM ** -0.5)])))
+    x = torch.where(torch.rand(m, DIM, generator=g, device=dev) < 0.1,
+                    -1.0, 1.0)
+    got = attn_tail(attn, x, nw.abs(), zero_scales(wo), wgu_pos, wd, 0.0,
+                    D_FF)
+    gu = gemm_exact(wgu_pos, quantize_q8_1(rms_norm(x, nw.abs(), 0.0)))
+    want = x + gemm_exact(wd, quantize_q8_1(silu_mul(gu[:, :D_FF],
+                                                     gu[:, D_FF:])))
+    if not (gu[:, :D_FF].min() > 100.0 and torch.equal(got, want)):
+        fail("K8 attn_tail: its w_down stage differs from quantize_q8_1 + K1")
+    print(f"  {'attn_tail':13s} wo and w_down stages at M={m}: equal to "
+          "quantize_q8_1 + K1", flush=True)
     return rows
 
 
@@ -504,7 +634,7 @@ def serve_traffic(name, qp, cfg, dev, prompts, reuse, counters, **kw):
     """A warm-up request, then the 16 requests through ``Server(qp, cfg,
     n_slots=8, **kw)`` with every counter set to 0 just before and read
     just after.  Checks what every run must show; returns (launches,
-    stats)."""
+    stats, {request id: generated tokens})."""
     from quant_gemm_tpu_torch.models import serve
 
     warm = serve.Server(qp, cfg, n_slots=8, device=dev, **kw)
@@ -540,7 +670,26 @@ def serve_traffic(name, qp, cfg, dev, prompts, reuse, counters, **kw):
     print(f"    prefill {pre:.1f} tok/s, decode {dec:.1f} tok/s, median "
           f"decode step {st['decode_step_ms_median']:.3f} ms", flush=True)
     print(f"    launches: {json.dumps(launches)}", flush=True)
-    return launches, st
+    return launches, st, results
+
+
+@contextlib.contextmanager
+def switches(fused: bool, tail: bool = False):
+    """``registry.FUSED_DECODE`` and ``gemm_megalayer.ENABLE_TAIL`` set
+    for the block, restored after it."""
+    from quant_gemm_tpu_torch.kernels import gemm_megalayer, registry
+
+    old = registry.FUSED_DECODE, gemm_megalayer.ENABLE_TAIL
+    registry.FUSED_DECODE, gemm_megalayer.ENABLE_TAIL = fused, tail
+    try:
+        yield
+    finally:
+        registry.FUSED_DECODE, gemm_megalayer.ENABLE_TAIL = old
+
+
+RUN_A = "q4_0 FUSED_DECODE"
+RUN_B = "q4_0 FUSED_DECODE+ENABLE_TAIL"
+RUN_C = "Q4_K_M FUSED_DECODE"
 
 
 def check_launches(name, launches, want):
@@ -615,7 +764,9 @@ def decode_case(qp, cfg, rng, dev, qtype="bf16"):
     return check(qp, cfg, nt, cache)
 
 
-KERNEL_GROUPS = [("K7 gemm_exact_k16", "gemm_exact_k16_kernel"),
+KERNEL_GROUPS = [("K6 gemm_exact_fused", "gemm_exact_fused_kernel"),
+                 ("K8 attn_tail", "attn_tail_kernel"),
+                 ("K7 gemm_exact_k16", "gemm_exact_k16_kernel"),
                  ("K1 gemm_exact", "gemm_exact_kernel"),
                  ("K2 norm_qkv", "norm_qkv"),
                  ("K3 flash_decode", "flash_decode"),
@@ -670,15 +821,16 @@ def device_breakdown(label, fn):
                       sorted(groups.items(), key=lambda kv: -kv[1][0])}}
     print(f"  {label} (torch.profiler): host {host_ms:.3f} ms with the "
           f"profiler on, device span {span:.3f} ms, busy {busy:.3f} ms, "
-          f"idle share {out['idle_share']:.3f}", flush=True)
+          f"idle share {out['idle_share']:.3f}, {len(kern)} device "
+          "activities", flush=True)
     for k, v in out["groups"].items():
         print(f"    {k}: {v['ms']:.3f} ms in {v['n']} launches", flush=True)
     return out
 
 
-def breakdowns(name, qp, cfg, dev, rng):
-    """Device breakdown of one 8-slot decode step and one 128-token
-    prefill chunk of one slot."""
+def decode_breakdown(name, qp, cfg, dev, rng):
+    """Device breakdown of one 8-slot decode step after a 48-token
+    prefill."""
     from quant_gemm_tpu_torch.models import llama
 
     cache = llama.KVCache.init(cfg, 8, device=dev)
@@ -687,6 +839,14 @@ def breakdowns(name, qp, cfg, dev, rng):
     nt = torch.as_tensor(rng.integers(0, VOCAB, (8, 1)), device=dev)
     device_breakdown(f"{name} decode step, 8 slots at 49 cached tokens",
                      lambda: llama.forward(qp, cfg, nt, cache))
+
+
+def breakdowns(name, qp, cfg, dev, rng):
+    """Device breakdown of one 8-slot decode step and one 128-token
+    prefill chunk of one slot."""
+    from quant_gemm_tpu_torch.models import llama
+
+    decode_breakdown(name, qp, cfg, dev, rng)
     c1 = llama.KVCache.init(cfg, 1, device=dev)
     toks = torch.as_tensor(rng.integers(0, VOCAB, (1, 128)), device=dev)
     device_breakdown(f"{name} prefill chunk of 128 tokens at pos0 128",
@@ -702,7 +862,8 @@ def tinyllama_cfg():
 
 
 def main_path(dev, counters, prompts, reuse):
-    """The q4_0 server with both caches; returns each run's launches."""
+    """The q4_0 server with both caches, then with the decode fusions;
+    returns each run's launches."""
     from quant_gemm_tpu_torch.models import llama
 
     cfg = tinyllama_cfg()
@@ -714,13 +875,16 @@ def main_path(dev, counters, prompts, reuse):
           flush=True)
 
     n_chunks = chunks(prompts, reuse)
+    prefill = {"gemm_dequant": len(n_chunks) * (4 * LAYERS + 1),
+               "flash_prefill": LAYERS * sum(t >= 64 for t in n_chunks),
+               "gemm_exact_k16": 0}
     by_run = {}
     for qtype in ("bf16", "q8"):
         # the JAX defaults: bucket 16, chunk 128, cache_prompt=True
         kw = {} if qtype == "bf16" else {"cache_qtype": "q8"}
         name = f"Server(qp, cfg, n_slots=8{', cache_qtype=q8' if kw else ''})"
-        launches, st = serve_traffic(name, qp, cfg, dev, prompts, reuse,
-                                     counters, **kw)
+        launches, st, results = serve_traffic(name, qp, cfg, dev, prompts,
+                                              reuse, counters, **kw)
         # every decode step runs K2 and K3 once per layer and K1 for wo,
         # wgu, w_down and lm_head; prefill (M >= 16) never reaches K1, and
         # every chunk of 64 tokens or more runs K5 once per layer
@@ -728,10 +892,10 @@ def main_path(dev, counters, prompts, reuse):
         check_launches(name, launches, {
             "gemm_exact": steps * (3 * LAYERS + 1),
             "norm_qkv": steps * LAYERS, "flash_decode": steps * LAYERS,
-            "gemm_dequant": len(n_chunks) * (4 * LAYERS + 1),
-            "flash_prefill": LAYERS * sum(t >= 64 for t in n_chunks),
-            "gemm_exact_k16": 0})
+            "gemm_exact_fused": 0, "attn_tail": 0, **prefill})
         by_run[f"q4_0 {qtype}"] = launches
+        if qtype == "bf16":
+            default = results
 
     rng = np.random.default_rng(1)
     cases = []
@@ -748,6 +912,55 @@ def main_path(dev, counters, prompts, reuse):
         cases.append((f"{qtype} decode step",
                       decode_case(qp, cfg, rng, dev, qtype)))
     report_cases(cases)
+
+    # the decode fusions, bf16 cache.  (a) FUSED_DECODE: K6 takes every
+    # decode GEMM K1 took (wo, wgu, w_down per layer and the lm_head) and
+    # is bit-identical to it, so the transcripts are the default run's
+    with switches(fused=True):
+        launches, st, results = serve_traffic(
+            f"{RUN_A}: Server(qp, cfg, n_slots=8)", qp, cfg, dev, prompts,
+            reuse, counters)
+        steps = st["decode_steps"]
+        check_launches(RUN_A, launches, {
+            "gemm_exact_fused": steps * (3 * LAYERS + 1), "gemm_exact": 0,
+            "norm_qkv": steps * LAYERS, "flash_decode": steps * LAYERS,
+            "attn_tail": 0, **prefill})
+        by_run[RUN_A] = launches
+        if results != default:
+            fail(f"{RUN_A}: the transcripts differ from the default run's")
+        print(f"    per decode step: K6 {3 * LAYERS + 1}, K2 {LAYERS}, K3 "
+              f"{LAYERS}, K1 0; all 16 transcripts equal the default "
+              "run's", flush=True)
+    # (b) and ENABLE_TAIL: K8 per layer, K6 for the lm_head; K8's RMSNorm
+    # and SiLU round in its own float32 order, so a transcript may leave
+    # the default's at a near-tie
+    with switches(fused=True, tail=True):
+        launches, st, results = serve_traffic(
+            f"{RUN_B}: Server(qp, cfg, n_slots=8)", qp, cfg, dev, prompts,
+            reuse, counters)
+        steps = st["decode_steps"]
+        check_launches(RUN_B, launches, {
+            "attn_tail": steps * LAYERS, "gemm_exact_fused": steps,
+            "norm_qkv": steps * LAYERS, "flash_decode": steps * LAYERS,
+            "gemm_exact": 0, **prefill})
+        by_run[RUN_B] = launches
+        first = {rid: next((i for i, (a, b) in enumerate(
+            zip(results[rid], default[rid])) if a != b), None)
+            for rid in sorted(default)}
+        same = sum(f is None for f in first.values())
+        print(f"    per decode step: K8 {LAYERS}, K6 1, K2 {LAYERS}, K3 "
+              f"{LAYERS}, K1 0; {same} of 16 transcripts equal the default "
+              f"run's; first differing step by request: "
+              f"{json.dumps({r: f for r, f in first.items() if f is not None})}",
+              flush=True)
+        report_cases([(f"{RUN_B} decode step",
+                       decode_case(qp, cfg, rng, dev))])
+
+    # the device's view of one 8-slot decode step, unfused and fused
+    for name, sw in (("q4_0", {"fused": False}), (RUN_A, {"fused": True}),
+                     (RUN_B, {"fused": True, "tail": True})):
+        with switches(**sw):
+            decode_breakdown(name, qp, cfg, dev, np.random.default_rng(3))
     return by_run
 
 
@@ -810,7 +1023,8 @@ def device_bytes(qp) -> int:
 
 
 def q4_k_m_path(dev, counters, prompts, reuse):
-    """Write, load and serve the Q4_K_M file; returns its run's launches."""
+    """Write, load and serve the Q4_K_M file, at the defaults and with
+    FUSED_DECODE; returns each run's launches."""
     from quant_gemm_tpu_torch.models import gguf_loader, llama
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -836,8 +1050,8 @@ def q4_k_m_path(dev, counters, prompts, reuse):
 
     n_chunks = chunks(prompts, reuse)
     name = "Server(qp, cfg, n_slots=8) on the Q4_K_M file"
-    launches, st = serve_traffic(name, qp, cfg, dev, prompts, reuse,
-                                 counters)
+    launches, st, _ = serve_traffic(name, qp, cfg, dev, prompts, reuse,
+                                    counters)
     # a decode step: K1 on the q4_K linears (fused wqkv, or q and k of a
     # split one; wo, wgu; w_down unless q6_K), 4 per layer; K7 on the
     # q6_K attn_v and ffn_down of the more-bits layers and the lm_head;
@@ -845,12 +1059,13 @@ def q4_k_m_path(dev, counters, prompts, reuse):
     # plain float32 matmul on the q6_K ones and the lm_head, K5 per layer
     # for chunks of 64 or more tokens
     steps, n_q6 = st["decode_steps"], 2 * len(MORE_BITS) + 1
+    prefill = {"gemm_dequant": len(n_chunks) * 4 * LAYERS,
+               "flash_prefill": LAYERS * sum(t >= 64 for t in n_chunks),
+               "k16_dequant_gemm": len(n_chunks) * n_q6}
     check_launches(name, launches, {
         "gemm_exact": steps * 4 * LAYERS, "gemm_exact_k16": steps * n_q6,
         "flash_decode": steps * LAYERS, "norm_qkv": 0,
-        "gemm_dequant": len(n_chunks) * 4 * LAYERS,
-        "flash_prefill": LAYERS * sum(t >= 64 for t in n_chunks),
-        "k16_dequant_gemm": len(n_chunks) * n_q6})
+        "gemm_exact_fused": 0, "attn_tail": 0, **prefill})
     print(f"    per decode step: K1 {4 * LAYERS}, K7 {n_q6}, K3 {LAYERS}, "
           f"K2 0; per prefill chunk: K4 {4 * LAYERS}, plain K16 matmul "
           f"{n_q6}, K5 {LAYERS} at 64 tokens or more", flush=True)
@@ -861,7 +1076,22 @@ def q4_k_m_path(dev, counters, prompts, reuse):
     report_cases([("Q4_K_M chunk 128 at pos0 0", check(qp, cfg, toks, cache)),
                   ("Q4_K_M decode step", decode_case(qp, cfg, rng, dev))])
     breakdowns("Q4_K_M", qp, cfg, dev, rng)
-    return launches
+
+    # (c) FUSED_DECODE: K6 takes the 88 q4_K decode GEMMs of a step, the
+    # per-16 weights keep quantize + K7, K8 does not apply (q4_K)
+    with switches(fused=True):
+        fused, st, _ = serve_traffic(f"{RUN_C}: Server(qp, cfg, n_slots=8)",
+                                     qp, cfg, dev, prompts, reuse, counters)
+        steps = st["decode_steps"]
+        check_launches(RUN_C, fused, {
+            "gemm_exact_fused": steps * 4 * LAYERS, "gemm_exact": 0,
+            "gemm_exact_k16": steps * n_q6, "flash_decode": steps * LAYERS,
+            "norm_qkv": 0, "attn_tail": 0, **prefill})
+        print(f"    per decode step: K6 {4 * LAYERS}, K7 {n_q6}, K3 "
+              f"{LAYERS}, K1 0", flush=True)
+        report_cases([(f"{RUN_C} decode step",
+                       decode_case(qp, cfg, rng, dev))])
+    return {"Q4_K_M bf16": launches, RUN_C: fused}
 
 
 FIXTURE = ROOT / "tests" / "golden" / "tiny_llama_q4km.gguf"
@@ -912,7 +1142,15 @@ KERNEL_INFO = {
                       "quant_gemm_tpu/ops/attention.py:548"),
     "gemm_exact_k16": ("quant_gemm_tpu_torch/csrc/gemm_exact_k16.cu",
                        "quant_gemm_tpu/kernels/gemm_exact.py:1187"),
+    "gemm_exact_fused": ("quant_gemm_tpu_torch/csrc/gemm_exact_fused.cu",
+                         "quant_gemm_tpu/kernels/gemm_exact.py:995"),
+    "attn_tail": ("quant_gemm_tpu_torch/csrc/attn_tail.cu",
+                  "quant_gemm_tpu/kernels/gemm_megalayer.py:494"),
 }
+# the run whose launches the kernels line reports: the default q4_0
+# server's, or the first run that takes the kernel
+LAUNCH_RUN = {"gemm_exact_k16": "Q4_K_M bf16", "gemm_exact_fused": RUN_A,
+              "attn_tail": RUN_B}
 
 
 def main() -> int:
@@ -946,7 +1184,7 @@ def main() -> int:
     counters["k16_dequant_gemm"] = (registry.k16_dequant_gemm, "calls")
     prompts, reuse = traffic(np.random.default_rng(0))
     by_run = main_path(dev, counters, prompts, reuse)
-    by_run["Q4_K_M bf16"] = q4_k_m_path(dev, counters, prompts, reuse)
+    by_run.update(q4_k_m_path(dev, counters, prompts, reuse))
     foreign_bytes(dev)
 
     kernels = []
@@ -954,9 +1192,7 @@ def main() -> int:
         every = [r for r in rows if r["kernel"] == name]
         mine = [r for r in every if r["main"]]
         lib = [r["library_ms"] for r in mine]
-        # launches: the default q4_0 server's run, or for K7 (on no q4_0
-        # path) the Q4_K_M server's
-        run = "Q4_K_M bf16" if name == "gemm_exact_k16" else "q4_0 bf16"
+        run = LAUNCH_RUN.get(name, "q4_0 bf16")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": by_run[run][name],
@@ -968,11 +1204,12 @@ def main() -> int:
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in mine)
             else "operations",
             "library_ms": None if None in lib else sum(lib),
-            "variants": [{k: r[k] for k in ("shape", "ms", "plain_ms",
-                                            "bound_ms", "bound_by",
-                                            "layout_bound_ms", "library_ms",
-                                            "max_abs_err")}
-                         for r in every if not r["main"]]})
+            "variants": [{k: r.get(k) for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "layout_bound_ms", "library_ms", "max_abs_err",
+                "unfused_ms")} for r in every if not r["main"]]})
+        if any("unfused_ms" in r for r in mine):
+            kernels[-1]["unfused_ms"] = sum(r["unfused_ms"] for r in mine)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,8 @@
 // rows and splits their K blocks over its threads, so every lane issues
 // 16-byte loads of whole q4_0 blocks and the grid has N/4 blocks (8000
 // for the 32000-row lm_head, 512 at N = 2048) to cover all SMs; warp
-// shuffles and one shared-memory pass reduce the partial sums.
+// shuffles and one shared-memory pass reduce the partial sums.  That
+// order is common.cuh::k1_rows, which K6 and K8 share.
 #include "common.cuh"
 
 namespace {
@@ -30,39 +31,14 @@ __global__ void gemm_exact_kernel(const uint8_t* __restrict__ wq, const W fmt,
                                   const __half* __restrict__ sa,
                                   float* __restrict__ out, int M, int N,
                                   int K) {
-  const int nb = K / qgt::QK;
   const int n0 = blockIdx.x * NC;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  float acc[NC][qgt::MMAX];
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int m = 0; m < qgt::MMAX; ++m) acc[c][m] = 0.0f;
-
-  qgt::exact_partial<NC, __half, W>(wq, fmt, n0, N, nb, qa, da, sa, M,
-                                    threadIdx.x, blockDim.x, acc);
-
   __shared__ float red[MAX_WARPS][NC][qgt::MMAX];
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int m = 0; m < qgt::MMAX; ++m) {
-      if (m < M) {
-        const float v = qgt::warp_sum(acc[c][m]);
-        if (lane == 0) red[warp][c][m] = v;
-      }
-    }
-  __syncthreads();
-  // NC * M outputs, up to 48: more than one warp's threads
-  for (int t = threadIdx.x; t < NC * M; t += blockDim.x) {
-    const int c = t / M, m = t % M;
-    if (n0 + c < N) {
-      float s = 0.0f;
-      for (int w = 0; w < nwarps; ++w) s += red[w][c][m];
-      out[static_cast<size_t>(m) * N + n0 + c] = s;
-    }
-  }
+  qgt::k1_rows<NC, __half, W>(
+      wq, fmt, n0, N, K / qgt::QK, qa, da, sa, M, threadIdx.x, blockDim.x,
+      red, [] { __syncthreads(); },
+      [&](int c, int m, float s) {
+        out[static_cast<size_t>(m) * N + n0 + c] = s;
+      });
 }
 
 template <typename W>
@@ -70,9 +46,7 @@ int launch(const void* wq, const W fmt, const void* qa, const void* da,
            const void* sa, void* out, int M, int N, int K, void* stream) {
   if (M < 1 || M > qgt::MMAX || K % qgt::QK || N < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int nb = K / qgt::QK;
-  // enough warps that each thread keeps at least one block to itself
-  const int nwarps = nb >= 128 ? 4 : (nb >= 64 ? 2 : 1);
+  const int nwarps = qgt::k1_warps(K / qgt::QK);
   const dim3 grid((N + NC - 1) / NC);
   gemm_exact_kernel<W><<<grid, nwarps * 32, 0,
                          static_cast<cudaStream_t>(stream)>>>(

@@ -41,6 +41,7 @@ __global__ void norm_qkv_q4_0_kernel(const float* __restrict__ x,
   for (int m = warp; m < M; m += NWARPS) {
     const float* xr = x + static_cast<size_t>(m) * K;
     float s = 0.0f;
+#pragma unroll 8
     for (int i = lane; i < K; i += 32) s = __fadd_rn(s, __fmul_rn(xr[i], xr[i]));
     s = qgt::warp_sum(s);
     if (lane == 0)
@@ -48,26 +49,13 @@ __global__ void norm_qkv_q4_0_kernel(const float* __restrict__ x,
   }
   __syncthreads();
 
-  // 2. h = x * rinv * w, then Q8_1 per 32-block: one warp per (row, block)
-  for (int p = warp; p < M * nb; p += NWARPS) {
-    const int m = p / nb, b = p % nb, i = b * qgt::QK + lane;
-    const float h =
-        __fmul_rn(__fmul_rn(x[static_cast<size_t>(m) * K + i], rinv[m]), nw[i]);
-    const float amax = qgt::warp_max(fabsf(h));
-    const float d = __half2float(
-        __float2half_rn(fminf(__fdiv_rn(amax, 127.0f), 65504.0f)));
-    const float inv = d > 0.0f ? __fdiv_rn(1.0f, d) : 0.0f;
-    const float qf = fminf(fmaxf(rintf(__fmul_rn(h, inv)), -127.0f), 127.0f);
-    const int q = static_cast<int>(qf);
-    qa[m * K + i] = static_cast<int8_t>(q);
-    const int sumq = qgt::warp_sum_int(q);
-    if (lane == 0) {
-      const float s = fminf(fmaxf(__fmul_rn(static_cast<float>(sumq), d),
-                                  -65504.0f), 65504.0f);
-      da[m * nb + b] = d;
-      sa[m * nb + b] = __half2float(__float2half_rn(s));
-    }
-  }
+  // 2. h = x * rinv * w, then Q8_1 per 32-block (the shared quantizer)
+  qgt::quantize_rows<4>(
+      [&](int m, int i) {
+        return __fmul_rn(__fmul_rn(x[static_cast<size_t>(m) * K + i], rinv[m]),
+                         nw[i]);
+      },
+      M, K, qa, da, sa, warp, NWARPS, lane);
   __syncthreads();
 
   // 3. K1's inner loop on this warp's NC rows, lanes split the K blocks

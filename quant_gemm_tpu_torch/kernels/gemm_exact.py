@@ -1,5 +1,6 @@
 """K1: exact W4A8 decode GEMM (q4_0 or q4_k weights x Q8_1 activations,
-M <= 12).
+M <= 12), and K6, the same GEMM with the Q8_1 quantization of a float
+activation inside the kernel.
 
 Replaces the Pallas kernel ``quant_gemm_tpu/kernels/gemm_exact.py::
 gemm_exact``.  Per 32-block, the exact int32 dot ``sumi`` of the raw 0..15
@@ -21,6 +22,20 @@ eight ``__dp4a`` each, over a grid of ``N/4`` blocks.
 :func:`gemm_exact` launches the CUDA kernel for CUDA tensors and runs
 :func:`gemm_exact_plain` for CPU tensors; ``gemm_exact.launches`` counts
 kernel launches.
+
+K6 :func:`gemm_exact_fused` replaces ``quant_gemm_tpu/kernels/
+gemm_exact.py::gemm_exact_fused``: ``gemm_exact(w, quantize_q8_1(x))``
+for a float32 ``x`` [M <= 12, K], **bit-identical** to quantizing first
+and running K1 (the JAX contract, ``tests/test_kernels.py::
+test_fused_exact_bit_identical`` / ``test_fused_exact_degenerate_blocks``):
+the in-kernel quantizer is ``quantize_q8_1`` step for step and the sums
+follow K1's order (``csrc/gemm_exact_fused.cu``).  Its plain version is
+that unfused chain on the plain K1.  Bound: bytes, K1's weight stream plus
+``M*K*4`` bytes of ``x``; the kernel quantizes ``x`` once per block of a
+persistent grid into shared memory, so its ``M*K*9/8`` bytes of codes
+and scales must fit one block's 227 KB (the launch raises otherwise).
+The q8_0 form of the JAX kernel waits for the port's q8_0 weights.
+``gemm_exact_fused.launches`` counts launches.
 """
 
 from __future__ import annotations
@@ -28,6 +43,7 @@ from __future__ import annotations
 import torch
 
 from ..formats.blocks import QK, Q8_1Tensor
+from ..formats.quant import quantize_q8_1
 from . import _build, layout
 from .layout import PreparedWeight
 
@@ -100,4 +116,51 @@ def gemm_exact(w: PreparedWeight, a: Q8_1Tensor) -> torch.Tensor:
 
 gemm_exact.launches = 0
 
-__all__ = ["gemm_exact", "gemm_exact_plain", "MMAX"]
+
+def _check_fused(w: PreparedWeight, x: torch.Tensor) -> None:
+    if w.qtype not in ("q4_0", "q4_k"):
+        raise NotImplementedError(f"gemm_exact_fused: {w.qtype} is not "
+                                  "ported")
+    if x.dim() != 2 or x.shape[1] != w.k or not 1 <= x.shape[0] <= MMAX:
+        raise ValueError(f"gemm_exact_fused takes x [1..{MMAX}, {w.k}], "
+                         f"got {tuple(x.shape)}")
+
+
+def gemm_exact_fused_plain(w: PreparedWeight, x: torch.Tensor
+                           ) -> torch.Tensor:
+    """Plain PyTorch version: ``quantize_q8_1`` then the plain K1."""
+    _check_fused(w, x)
+    return gemm_exact_plain(w, quantize_q8_1(x.to(torch.float32)))
+
+
+def gemm_exact_fused(w: PreparedWeight, x: torch.Tensor) -> torch.Tensor:
+    """``C[M, N]`` float32 ``= gemm_exact(w, quantize_q8_1(x))`` for a
+    float ``x`` [M <= 12, K], with the quantization inside the kernel."""
+    _check_fused(w, x)
+    dev = w.qs.device
+    planes = (w.d,) if w.m is None else (w.d, w.m)
+    if dev.type == "cpu" and x.device.type == "cpu":
+        return gemm_exact_fused_plain(w, x)
+    if dev.type != "cuda" or any(t.device != dev for t in (x, *planes)):
+        raise ValueError("gemm_exact_fused: all operands must be on one "
+                         "CUDA device (or all on the CPU)")
+    m, k = x.shape
+    x = x.to(torch.float32).contiguous()
+    _build.check_aligned("gemm_exact_fused", w.qs)
+    out = torch.empty(m, w.n, dtype=torch.float32, device=dev)
+    symbol = f"qgt_gemm_exact_fused_{w.qtype}"
+    fn = _build.function("gemm_exact_fused", symbol,
+                         [_build.P] * (3 + len(planes)) + [_build.I] * 3
+                         + [_build.P])
+    with torch.cuda.device(dev):
+        rc = fn(_build.ptr(w.qs), *map(_build.ptr, planes), _build.ptr(x),
+                _build.ptr(out), m, w.n, k, _build.stream(dev))
+    _build.check("gemm_exact_fused", symbol, rc)
+    gemm_exact_fused.launches += 1
+    return out
+
+
+gemm_exact_fused.launches = 0
+
+__all__ = ["gemm_exact", "gemm_exact_plain", "gemm_exact_fused",
+           "gemm_exact_fused_plain", "MMAX"]

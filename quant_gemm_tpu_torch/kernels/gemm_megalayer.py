@@ -1,18 +1,42 @@
-"""K2: RMSNorm + Q8_1 quantize + exact q4_0 GEMM on ``wqkv`` in one launch.
+"""The decode-layer fusions of ``quant_gemm_tpu/kernels/gemm_megalayer.py``.
 
-Replaces the Pallas kernel ``quant_gemm_tpu/kernels/gemm_megalayer.py::
-norm_qkv``.  Its plain version is exactly ``rms_norm -> quantize_q8_1 ->
-gemm_exact_plain``, the equivalence the JAX docstring states.  The kernel
-normalises in another float32 summation order, and a last-ulp difference
-can move a Q8_1 code across a .5 rounding tie, so kernel and plain version
-agree to a tolerance (``2e-3 * max|C|``), not bit for bit.
+K2 :func:`norm_qkv`: RMSNorm + Q8_1 quantize + exact q4_0 GEMM on
+``wqkv`` in one launch.  Replaces the Pallas kernel ``norm_qkv``.  Its
+plain version is exactly ``rms_norm -> quantize_q8_1 -> gemm_exact_plain``,
+the equivalence the JAX docstring states.  The kernel normalises in
+another float32 summation order, and a last-ulp difference can move a
+Q8_1 code across a .5 rounding tie, so kernel and plain version agree to
+a tolerance (``2e-3 * max|C|``), not bit for bit.  Bound on an H100:
+bytes (the ``wqkv`` stream); every block of ``csrc/norm_qkv.cu``
+recomputes the M <= 8 rows' norm and codes in shared memory and then runs
+K1's inner loop on 16 weight rows.
 
-Bound on an H100: bytes (the ``wqkv`` stream); every block of
-``csrc/norm_qkv.cu`` recomputes the M <= 8 rows' norm and codes in shared
-memory and then runs K1's inner loop on 16 weight rows.
+K8 :func:`attn_tail`: everything after attention (``wo`` + residual +
+RMSNorm + Q8_1 + ``wgu`` + SiLU*gate + Q8_1 + ``w_down`` + residual) in
+one cooperative launch, q4_0, M <= 8.  Replaces the Pallas kernel
+``attn_tail``.  Its plain version is exactly the unfused chain of
+``models/llama.py::layer`` through the plain functions, so on the CPU it
+is bit-identical to the unfused layer tail.  On the card each of the
+kernel's three GEMM stages equals ``quantize_q8_1`` + K1 bit for bit for
+the same float input (the JAX kernel's "bit-identical GEMM stages": K1's
+summation order, ``csrc/common.cuh::k1_rows``); the RMSNorm and the SiLU
+round in the kernel's own float32 order, so a Q8_1 code can flip at a .5
+tie against the plain chain: the two are compared on the layer update
+``out - x`` (``2e-3 * max|out - x|``, K2's rule).  Bound on an H100:
+bytes, the three weights (21.8 MB per TinyLlama-1.1B layer, 0.0065 ms at
+3.35 TB/s); ``csrc/attn_tail.cu`` runs the three stages across the grid
+with three grid barriers.  The wrapper raises where the card refuses the
+cooperative launch; it never falls back to the unfused chain.
 
-:func:`norm_qkv` launches the kernel for CUDA tensors and runs
-:func:`norm_qkv_plain` for CPU tensors; ``norm_qkv.launches`` counts
+:data:`ENABLE_TAIL` is the JAX package's switch for K8, off by default
+as there (it measured a loss on the TPU, ``gemm_megalayer.py:68-75``);
+:func:`tail_supported` reads it per call.  The JAX package's other two
+switches (``ENABLED``, ``ENABLE_QKV``) serve its ``bench_serve.py
+--mega`` only and are not ported: K2 is taken wherever
+:func:`supported` allows it.
+
+:func:`norm_qkv` and :func:`attn_tail` launch their kernels for CUDA
+tensors and run the plain versions for CPU tensors; ``.launches`` counts
 kernel launches.
 """
 
@@ -21,19 +45,38 @@ from __future__ import annotations
 import torch
 
 from ..formats.quant import quantize_q8_1
+from ..ops.activations import silu_mul
 from ..ops.rms_norm import rms_norm
 from . import _build
 from .gemm_exact import gemm_exact_plain
 from .layout import PreparedWeight
 
-MMAX = 8  # rows the fused kernel takes (the serving batch)
+MMAX = 8  # rows the fused kernels take (the serving batch)
+
+ENABLE_TAIL = False  # K8 attn_tail, the JAX default
+
+
+def _q4_0(w, k: int, n: int = 0) -> bool:
+    return (isinstance(w, PreparedWeight) and w.qtype == "q4_0"
+            and w.k == k and (not n or w.n == n))
 
 
 def supported(w, dim: int, m: int) -> bool:
     """True when a decode step of ``m`` rows can take :func:`norm_qkv`
     (the JAX ``qkv_supported`` rule: M <= 8, dim % 512 == 0, q4_0)."""
-    return (isinstance(w, PreparedWeight) and w.qtype == "q4_0"
-            and w.k == dim and dim % 512 == 0 and m <= MMAX)
+    return _q4_0(w, dim) and dim % 512 == 0 and m <= MMAX
+
+
+def tail_supported(lyr: dict, cfg, m: int) -> bool:
+    """True when a decode step of ``m`` rows of this layer can take
+    :func:`attn_tail` (the JAX rule: ENABLE_TAIL, M <= 8, dim and d_ff %
+    512 == 0, ``wo`` [dim, dim], ``wgu`` [2 d_ff, dim] and ``w_down``
+    [dim, d_ff] all q4_0)."""
+    dim, dff = cfg.dim, cfg.d_ff
+    return (ENABLE_TAIL and m <= MMAX and dim % 512 == 0
+            and dff % 512 == 0 and _q4_0(lyr.get("wo"), dim, dim)
+            and _q4_0(lyr.get("wgu"), dim, 2 * dff)
+            and _q4_0(lyr.get("w_down"), dff, dim))
 
 
 def _check(w: PreparedWeight, x: torch.Tensor, norm_w: torch.Tensor) -> None:
@@ -84,4 +127,79 @@ def norm_qkv(w: PreparedWeight, x: torch.Tensor, norm_w: torch.Tensor,
 
 norm_qkv.launches = 0
 
-__all__ = ["norm_qkv", "norm_qkv_plain", "supported", "MMAX"]
+
+def _check_tail(attn, x, norm_w, wo, wgu, w_down, d_ff) -> None:
+    for name, w in (("wo", wo), ("wgu", wgu), ("w_down", w_down)):
+        if not isinstance(w, PreparedWeight) or w.qtype != "q4_0":
+            raise NotImplementedError(f"attn_tail: {name} must be a q4_0 "
+                                      "PreparedWeight")
+    dim = x.shape[-1]
+    if (x.dim() != 2 or attn.shape != x.shape
+            or not 1 <= x.shape[0] <= MMAX):
+        raise ValueError(f"attn_tail takes attn and x [1..{MMAX}, dim], got "
+                         f"{tuple(attn.shape)} and {tuple(x.shape)}")
+    if ((wo.n, wo.k) != (dim, dim) or (wgu.n, wgu.k) != (2 * d_ff, dim)
+            or (w_down.n, w_down.k) != (dim, d_ff) or dim % 32
+            or d_ff % 32):
+        raise ValueError(f"attn_tail: weights wo {(wo.n, wo.k)}, wgu "
+                         f"{(wgu.n, wgu.k)}, w_down {(w_down.n, w_down.k)} "
+                         f"do not fit dim {dim}, d_ff {d_ff}")
+    if norm_w.shape != (dim,):
+        raise ValueError(f"norm weight {tuple(norm_w.shape)} != ({dim},)")
+
+
+def attn_tail_plain(attn: torch.Tensor, x: torch.Tensor,
+                    norm_w: torch.Tensor, wo: PreparedWeight,
+                    wgu: PreparedWeight, w_down: PreparedWeight, eps: float,
+                    d_ff: int) -> torch.Tensor:
+    """Plain PyTorch version: the unfused chain."""
+    _check_tail(attn, x, norm_w, wo, wgu, w_down, d_ff)
+    x = x.to(torch.float32)
+    xm = x + gemm_exact_plain(wo, quantize_q8_1(attn.to(torch.float32)))
+    h = rms_norm(xm, norm_w, eps)
+    gu = gemm_exact_plain(wgu, quantize_q8_1(h))
+    ff = silu_mul(gu[:, :d_ff], gu[:, d_ff:])
+    return xm + gemm_exact_plain(w_down, quantize_q8_1(ff))
+
+
+def attn_tail(attn: torch.Tensor, x: torch.Tensor, norm_w: torch.Tensor,
+              wo: PreparedWeight, wgu: PreparedWeight,
+              w_down: PreparedWeight, eps: float, d_ff: int) -> torch.Tensor:
+    """The layer's new hidden state float32 [M, dim] from the attention
+    output ``attn`` and the residual ``x`` (both [M <= 8, dim])."""
+    _check_tail(attn, x, norm_w, wo, wgu, w_down, d_ff)
+    dev = wo.qs.device
+    operands = (attn, x, norm_w, *wo, *wgu, *w_down)
+    tensors = [t for t in operands if isinstance(t, torch.Tensor)]
+    if all(t.device.type == "cpu" for t in tensors):
+        return attn_tail_plain(attn, x, norm_w, wo, wgu, w_down, eps, d_ff)
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("attn_tail: all operands must be on one CUDA "
+                         "device (or all on the CPU)")
+    m, dim = x.shape
+    attn, x, nw = (t.to(torch.float32).contiguous()
+                   for t in (attn, x, norm_w))
+    _build.check_aligned("attn_tail", wo.qs, wgu.qs, w_down.qs)
+    size = _build.function("attn_tail", "qgt_attn_tail_workspace",
+                           [_build.I] * 3)
+    ws = torch.empty(size(m, dim, d_ff), dtype=torch.uint8, device=dev)
+    out = torch.empty(m, dim, dtype=torch.float32, device=dev)
+    fn = _build.function(
+        "attn_tail", "qgt_attn_tail_q4_0",
+        [_build.P] * 3 + [_build.F] + [_build.P] * 8 + [_build.I] * 3
+        + [_build.P])
+    with torch.cuda.device(dev):
+        rc = fn(_build.ptr(attn), _build.ptr(x), _build.ptr(nw), float(eps),
+                *(_build.ptr(t) for w in (wo, wgu, w_down)
+                  for t in (w.qs, w.d)),
+                _build.ptr(ws), _build.ptr(out), m, dim, d_ff,
+                _build.stream(dev))
+    _build.check("attn_tail", "qgt_attn_tail_q4_0", rc)
+    attn_tail.launches += 1
+    return out
+
+
+attn_tail.launches = 0
+
+__all__ = ["norm_qkv", "norm_qkv_plain", "attn_tail", "attn_tail_plain",
+           "supported", "tail_supported", "ENABLE_TAIL", "MMAX"]

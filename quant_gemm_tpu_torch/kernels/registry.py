@@ -6,8 +6,12 @@ weights the port serves:
 * per-32 weights (``layout.PreparedWeight``: q4_0, and q4_k, a q4_K
   tensor in its effective q4_1 form), K % 32 == 0:
 
-  - a float activation with ``quantize_act=True`` is quantized to Q8_1 by
-    the torch twin (``formats.quant.quantize_q8_1``);
+  - a float activation with ``quantize_act=True`` of M <=
+    :data:`DECODE_M_MAX` rows takes K6 (``gemm_exact_fused``: the Q8_1
+    quantization inside the kernel, bit-identical to the unfused route)
+    when :data:`FUSED_DECODE` is True, as ``registry.py:199-205`` routes
+    it; otherwise, and at any M, it is quantized to Q8_1 by the torch
+    twin (``formats.quant.quantize_q8_1``);
   - a Q8_1 activation of M <= :data:`DECODE_M_MAX` rows takes K1
     (``gemm_exact``);
   - anything else is folded to bf16 (``qs * d``, as ``gemm_pallas.py:
@@ -30,7 +34,7 @@ weights the port serves:
 
 Any other weight type raises: nothing falls back to a plain version.
 
-:data:`KERNELS` and :data:`PLAIN` name the six operations of the slice;
+:data:`KERNELS` and :data:`PLAIN` name the eight operations of the port;
 the model takes one of them (``ops=``), so a run can go through the plain
 versions on purpose — on the card too — for a comparison.
 """
@@ -46,9 +50,11 @@ from ..formats.quant import expand_scale, quantize_q8_1
 from ..ops.attention import (flash_decode, flash_decode_plain,
                              flash_prefill, flash_prefill_plain)
 from .gemm_dequant import gemm_dequant, gemm_dequant_plain
-from .gemm_exact import gemm_exact, gemm_exact_plain
+from .gemm_exact import (gemm_exact, gemm_exact_fused,
+                         gemm_exact_fused_plain, gemm_exact_plain)
 from .gemm_exact_k16 import gemm_exact_k16, gemm_exact_k16_plain
-from .gemm_megalayer import norm_qkv, norm_qkv_plain
+from .gemm_megalayer import (attn_tail, attn_tail_plain, norm_qkv,
+                             norm_qkv_plain)
 from .layout import PreparedK16, PreparedWeight, dequantize_k16
 
 
@@ -59,19 +65,29 @@ class Ops(NamedTuple):
     flash_decode: Callable
     flash_prefill: Callable
     gemm_exact_k16: Callable
+    gemm_exact_fused: Callable
+    attn_tail: Callable
 
 
 #: the hand-written kernels (plain versions on CPU tensors)
 KERNELS = Ops(gemm_exact, gemm_dequant, norm_qkv, flash_decode, flash_prefill,
-              gemm_exact_k16)
+              gemm_exact_k16, gemm_exact_fused, attn_tail)
 #: the plain PyTorch versions, on any device
 PLAIN = Ops(gemm_exact_plain, gemm_dequant_plain, norm_qkv_plain,
-            flash_decode_plain, flash_prefill_plain, gemm_exact_k16_plain)
+            flash_decode_plain, flash_prefill_plain, gemm_exact_k16_plain,
+            gemm_exact_fused_plain, attn_tail_plain)
 
 # Decode-regime crossover between the exact kernels and the dequant route.
 # A placeholder: 12 was measured on a TPU v5e (quant_gemm_tpu registry);
 # the H100 crossover has not been measured.
 DECODE_M_MAX = 12
+
+# Decode W4A8 with a float activation: quantize inside the exact kernel
+# (K6, True) or quantize with the torch twin and run K1 (False).  Both are
+# bit-identical.  False is the JAX default: the fused kernel measured 4-10
+# us slower per GEMM on a TPU v5e (quant_gemm_tpu registry); its H100
+# times are in PERF.md.
+FUSED_DECODE = False
 
 
 def fold_q8_1(act: Q8_1Tensor) -> torch.Tensor:
@@ -107,6 +123,8 @@ def dispatch(w, act, quantize_act: bool = False, ops: Ops = KERNELS):
         raise TypeError(f"dispatch: no kernel serves {type(w).__name__} "
                         "weights")
     if quantize_act and not isinstance(act, Q8_1Tensor):
+        if FUSED_DECODE and m <= DECODE_M_MAX:
+            return ops.gemm_exact_fused(w, act.to(torch.float32))
         act = quantize_q8_1(act.to(torch.float32))
     if isinstance(act, Q8_1Tensor):
         if m <= DECODE_M_MAX:
@@ -115,5 +133,5 @@ def dispatch(w, act, quantize_act: bool = False, ops: Ops = KERNELS):
     return ops.gemm_dequant(w, act.to(torch.bfloat16))
 
 
-__all__ = ["Ops", "KERNELS", "PLAIN", "DECODE_M_MAX", "fold_q8_1",
-           "k16_dequant_gemm", "dispatch"]
+__all__ = ["Ops", "KERNELS", "PLAIN", "DECODE_M_MAX", "FUSED_DECODE",
+           "fold_q8_1", "k16_dequant_gemm", "dispatch"]

@@ -16,6 +16,12 @@ the parts of ``wqkv`` or ``wgu`` differ in format:
   the q8 cache: codes and scales) deferred to one all-layer insert after
   the layer loop; per-16 weights take K7 (``gemm_exact_k16``) instead of
   K1, and K2 only runs when every layer's ``wqkv`` is one q4_0 weight;
+  with ``registry.FUSED_DECODE`` the per-32 decode GEMMs take K6
+  (``gemm_exact_fused``, bit-identical to quantize + K1), and with
+  ``gemm_megalayer.ENABLE_TAIL`` everything after attention (``wo`` to
+  the second residual) is one K8 (``attn_tail``) launch when every layer
+  is ``tail_supported`` (q4_0, batch <= 8) — both switches off by
+  default, as in the JAX package;
 * prefill (T > 1): the cache written per layer, then attention: K5
   (``flash_prefill``) at T >= 64, as the JAX package routes it, and below
   that dense masked attention in float32 (plain torch, as the JAX package
@@ -301,12 +307,13 @@ def _attention(cfg: LlamaConfig, q, k_all, v_all, positions, ks=None,
 class Step(NamedTuple):
     """What every layer of one forward call shares: each slot's token
     positions [B, T], the clamped cache-write start [B], the rope tables
-    and whether decode takes K2 (``norm_qkv``)."""
+    and whether decode takes K2 (``norm_qkv``) and K8 (``attn_tail``)."""
 
     positions: torch.Tensor
     wstart: torch.Tensor
     rope_cache: tuple
     use_mega: bool
+    use_mega_tail: bool
 
 
 def begin(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor,
@@ -333,8 +340,10 @@ def begin(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor,
     use_mega = t == 1 and all(
         gemm_megalayer.supported(ly["wqkv"], cfg.dim, b)
         for ly in qparams["layers"])
+    use_mega_tail = t == 1 and all(
+        gemm_megalayer.tail_supported(ly, cfg, b) for ly in qparams["layers"])
     x = qparams["embed"][tokens.to(dev)].to(torch.float32)
-    return x, Step(positions, wstart, rope_cache, use_mega)
+    return x, Step(positions, wstart, rope_cache, use_mega, use_mega_tail)
 
 
 def layer(lyr: dict, li: int, cfg: LlamaConfig, x: torch.Tensor,
@@ -403,6 +412,11 @@ def layer(lyr: dict, li: int, cfg: LlamaConfig, x: torch.Tensor,
             attn = _attention(
                 cfg, q, cache.k[li], cache.v[li], step.positions,
                 *((cache.ks[li], cache.vs[li]) if cache.quantized else ()))
+    if step.use_mega_tail:
+        x = ops.attn_tail(attn.reshape(b * t, nq), x.reshape(b * t, cfg.dim),
+                          lyr["mlp_norm"], lyr["wo"], lyr["wgu"],
+                          lyr["w_down"], cfg.eps, cfg.d_ff)
+        return x.reshape(b, t, cfg.dim), current
     o = _linear(lyr["wo"], attn.reshape(b * t, nq), ops)
     x = x + o.reshape(b, t, cfg.dim)
     h = rms_norm(x, lyr["mlp_norm"], cfg.eps)

@@ -10,9 +10,14 @@ has only PyTorch; ``--noconftest`` keeps pytest from loading
 Tolerances (those of chip_smoke.py): K1 ``1e-4 * max|C|`` (float32
 summation order; q4_k and K7 ``1e-5 * max|C|``), K2 ``2e-3 * max|C|`` (a
 Q8_1 code can also move across a .5 rounding tie), K3 and K5
-``atol=2e-3``, K4 NMSE <= 1e-4; through the model, with both op sets
-started from the same hidden state at every layer, each layer's update
-and the logits NMSE <= 1e-4.
+``atol=2e-3``, K4 NMSE <= 1e-4, K8 ``2e-3 * max|out - x|`` on the layer
+update (K2's rule), and its wo and w_down stages bit for bit equal to
+``quantize_q8_1`` + K1 on inputs where the glue between them is exact;
+through the model, with both op sets started from the same hidden state
+at every layer, each layer's update and the logits NMSE <= 1e-4.  Exact: K6 equals ``quantize_q8_1`` + K1 bit for bit, and
+K2 equals its own summation order replayed in float32 where its RMSNorm
+is exact (rows of +-1, eps 0), which pins its in-kernel Q8_1 codes to
+``quantize_q8_1``'s.
 """
 
 from pathlib import Path
@@ -26,17 +31,24 @@ from quant_gemm_tpu_torch.formats import quant as tq
 from quant_gemm_tpu_torch.kernels import layout, registry
 from quant_gemm_tpu_torch.kernels.gemm_dequant import (gemm_dequant,
                                                        gemm_dequant_plain)
+from quant_gemm_tpu_torch.kernels import gemm_megalayer
 from quant_gemm_tpu_torch.kernels.gemm_exact import (gemm_exact,
+                                                     gemm_exact_fused,
+                                                     gemm_exact_fused_plain,
                                                      gemm_exact_plain)
 from quant_gemm_tpu_torch.kernels.gemm_exact_k16 import (
     gemm_exact_k16, gemm_exact_k16_plain)
-from quant_gemm_tpu_torch.kernels.gemm_megalayer import (norm_qkv,
+from quant_gemm_tpu_torch.kernels.gemm_megalayer import (attn_tail,
+                                                         attn_tail_plain,
+                                                         norm_qkv,
                                                          norm_qkv_plain)
 from quant_gemm_tpu_torch.models import gguf_loader, llama, serve
+from quant_gemm_tpu_torch.ops.activations import silu_mul
 from quant_gemm_tpu_torch.ops.attention import (flash_decode,
                                                 flash_decode_plain,
                                                 flash_prefill,
                                                 flash_prefill_plain)
+from quant_gemm_tpu_torch.ops.rms_norm import rms_norm
 
 N, K, EPS = 768, 1024, 1e-5  # N not a multiple of the kernels' tiles
 
@@ -81,6 +93,141 @@ def test_norm_qkv(weight, dev, m):
     nw = _t(np.random.default_rng(3).normal(1, .1, K).astype(np.float32), dev)
     got, ref = norm_qkv(weight, x, nw, EPS), norm_qkv_plain(weight, x, nw, EPS)
     assert (got - ref).abs().max() <= 2e-3 * ref.abs().max()
+
+
+def _k2_order(terms):
+    """K2's float32 sum of the per-block terms [M, N, nb]: lane l adds
+    blocks l, l + 32, ... in turn, then the xor-butterfly over 32 lanes
+    (``csrc/norm_qkv.cu``, ``common.cuh::warp_sum``)."""
+    nb = terms.shape[-1]
+    t = torch.nn.functional.pad(terms, (0, -nb % 32))
+    t = t.reshape(*terms.shape[:-1], -1, 32)
+    acc = torch.zeros_like(t[..., 0, :])
+    for i in range(t.shape[-2]):
+        acc = acc + t[..., i, :]
+    lanes = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., lanes ^ o]
+    return acc[..., 0]
+
+
+@pytest.mark.parametrize("m", [1, 8])
+def test_norm_qkv_codes_exact(weight, dev, m):
+    """Rows of +-1 and eps 0 make K2's RMSNorm exact (h = x * w), so its
+    output must equal, bit for bit, the q4_0 terms of quantize_q8_1(h)
+    summed in K2's order: the shared in-kernel quantizer gives
+    quantize_q8_1's codes and scales."""
+    rng = np.random.default_rng(31)
+    x = np.where(rng.random((m, K)) < 0.5, -1.0, 1.0).astype(np.float32)
+    nw = rng.normal(1, 0.3, K).astype(np.float32)
+    got = norm_qkv(weight, _t(x, dev), _t(nw, dev), 0.0).cpu()
+    a = tq.quantize_q8_1(torch.from_numpy(x * nw))
+    w = layout.PreparedWeight(*(t.cpu() if isinstance(t, torch.Tensor)
+                                else t for t in weight))
+    nb = K // 32
+    qw = layout.codes(w).to(torch.float64).reshape(N, nb, 32)
+    qa = a.qs.to(torch.float64).reshape(m, nb, 32)
+    sumi = torch.einsum("mbk,nbk->mnb", qa, qw).to(torch.float32)
+    terms = w.d.float()[None] * (a.d.float()[:, None] * sumi
+                                 - 8.0 * a.s.float()[:, None])
+    assert torch.equal(got, _k2_order(terms))
+
+
+def _degenerate(x):
+    """Zero blocks (d = 0, codes 0) and blocks whose amax / 127 saturates
+    f16, as tests/test_kernels.py::test_fused_exact_degenerate_blocks."""
+    x = x.clone()
+    x[0, 0:32] = 0.0
+    x[-1, 32:64] = 7e8
+    x[x.shape[0] // 2, 64:96] = -7e8
+    return x
+
+
+@pytest.mark.parametrize("k", [2048, 5632])
+@pytest.mark.parametrize("m", [1, 8, 12])
+@pytest.mark.parametrize("qtype", ["q4_0", "q4_k"])
+def test_gemm_exact_fused(dev, qtype, m, k):
+    """K6 equals quantize_q8_1 + K1 bit for bit, degenerate blocks
+    included; N = 774 is not a multiple of K1's four rows."""
+    g = torch.Generator(device=dev).manual_seed(41)
+    if qtype == "q4_0":
+        w = layout.prepare(tq.quantize_q4_0(
+            torch.randn(774, k, generator=g, device=dev) * k ** -0.5))
+    else:
+        w = layout.prepare(kquants.to_effective(_kquant("q4_K", 774, k, dev)))
+    for x in (torch.randn(m, k, generator=g, device=dev),
+              _degenerate(torch.randn(m, k, generator=g, device=dev))):
+        before = gemm_exact_fused.launches
+        got = gemm_exact_fused(w, x)
+        assert gemm_exact_fused.launches == before + 1
+        assert torch.equal(got, gemm_exact(w, tq.quantize_q8_1(x)))
+        assert torch.isfinite(got).all()
+        ref = gemm_exact_fused_plain(w, x)
+        assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.parametrize("m", [1, 8])
+def test_attn_tail(dev, m):
+    """K8 against its plain chain on the layer update out - x."""
+    dim, dff = 1024, 2048
+    g = torch.Generator(device=dev).manual_seed(43)
+
+    def lin(n, k):
+        return layout.prepare(tq.quantize_q4_0(
+            torch.randn(n, k, generator=g, device=dev) * k ** -0.5))
+
+    wo, wgu, wd = lin(dim, dim), lin(2 * dff, dim), lin(dim, dff)
+    attn = torch.randn(m, dim, generator=g, device=dev)
+    x = torch.randn(m, dim, generator=g, device=dev) * 3.0
+    nw = 1.0 + 0.1 * torch.randn(dim, generator=g, device=dev)
+    before = attn_tail.launches
+    got = attn_tail(attn, x, nw, wo, wgu, wd, EPS, dff)
+    assert attn_tail.launches == before + 1
+    ref = attn_tail_plain(attn, x, nw, wo, wgu, wd, EPS, dff)
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 2e-3 * (ref - x).abs().max()
+
+
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("stage", ["wo", "w_down"])
+def test_attn_tail_stages_exact(dev, stage, m):
+    """K8's GEMM stages equal quantize_q8_1 + K1 bit for bit, at
+    TinyLlama-1.1B width (K1's 2 warps for K = dim, 4 for K = d_ff).
+    wo: x = 0 and w_down's scales 0, so out is the wo stage.  w_down:
+    wo's scales 0 (xm = x), rows of mostly +1 and a few -1 with eps 0 (the
+    RMSNorm is exact) and positive gate weights, so every gate output is
+    far above 17, where SiLU is the identity in float32; ff is then
+    exact and out = x + the w_down stage."""
+    dim, dff = 2048, 5632
+    g = torch.Generator(device=dev).manual_seed(47)
+
+    def lin(n, k, w=None):
+        w = torch.randn(n, k, generator=g, device=dev) * k ** -0.5 \
+            if w is None else w
+        return layout.prepare(tq.quantize_q4_0(w))
+
+    def zero_scales(w):
+        return w._replace(d=torch.zeros_like(w.d))
+
+    gate = 0.5 + 0.5 * torch.rand(dff, dim, generator=g, device=dev)
+    up = torch.randn(dff, dim, generator=g, device=dev) * dim ** -0.5
+    wo, wgu, wd = lin(dim, dim), lin(2 * dff, dim, torch.cat([gate, up])), \
+        lin(dim, dff)
+    attn = torch.randn(m, dim, generator=g, device=dev)
+    nw = 0.5 + torch.rand(dim, generator=g, device=dev)
+    if stage == "wo":
+        x = torch.zeros(m, dim, device=dev)
+        got = attn_tail(attn, x, nw, wo, wgu, zero_scales(wd), EPS, dff)
+        want = gemm_exact(wo, tq.quantize_q8_1(attn))
+    else:
+        x = torch.where(torch.rand(m, dim, generator=g, device=dev) < 0.1,
+                        -1.0, 1.0)
+        got = attn_tail(attn, x, nw, zero_scales(wo), wgu, wd, 0.0, dff)
+        gu = gemm_exact(wgu, tq.quantize_q8_1(rms_norm(x, nw, 0.0)))
+        assert gu[:, :dff].min() > 100.0
+        ff = silu_mul(gu[:, :dff], gu[:, dff:])
+        want = x + gemm_exact(wd, tq.quantize_q8_1(ff))
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("m", [16, 48, 100])
@@ -277,3 +424,47 @@ def test_model_and_server_through_kernels(dev, qtype, window):
     assert [len(res[r]) for r in rids] == [5, 3, 4]
     assert all(0 <= t < 256 for r in rids for t in res[r])
     assert srv.stats()["cached_prompt_tokens"] == 104
+
+
+@pytest.mark.parametrize("fused, tail", [(True, False), (False, True),
+                                         (True, True)])
+def test_fused_decode_through_kernels(dev, monkeypatch, fused, tail):
+    """A decode step with the switches of the JAX package set: every
+    layer through the kernels (K6 and/or K8) and through the plain
+    versions from the same hidden state, each layer's update and the
+    logits NMSE <= 1e-4; the switches route every GEMM as the JAX
+    package does (K1 never runs with FUSED_DECODE)."""
+    monkeypatch.setattr(registry, "FUSED_DECODE", fused)
+    monkeypatch.setattr(gemm_megalayer, "ENABLE_TAIL", tail)
+    cfg = llama.LlamaConfig(vocab=256, dim=512, n_layers=2, n_heads=8,
+                            n_kv_heads=2, d_ff=1024, max_seq=128)
+    qp = llama.init_qparams(cfg, seed=1, device=dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    cache = llama.KVCache.init(cfg, 3, device=dev)
+    llama.forward(qp, cfg, torch.randint(0, 256, (3, 20), device=dev,
+                                         generator=g), cache)
+    tokens = torch.randint(0, 256, (3, 1), device=dev, generator=g)
+
+    def nmse(got, ref):
+        return ((got - ref) ** 2).sum() / (ref ** 2).sum()
+
+    kernels = registry.KERNELS
+    before = {n: f.launches for n, f in kernels._asdict().items()}
+    cache_p = cache.clone()
+    x, step = llama.begin(qp, cfg, tokens, cache)
+    assert step.use_mega_tail == tail
+    for li, lyr in enumerate(qp["layers"]):
+        xk, _ = llama.layer(lyr, li, cfg, x, cache, step)
+        xp, _ = llama.layer(lyr, li, cfg, x, cache_p, step, registry.PLAIN)
+        assert nmse(xk - x, xp - x) <= 1e-4
+        x = xk
+    assert nmse(llama.head(qp, cfg, x),
+                llama.head(qp, cfg, x, registry.PLAIN)) <= 1e-4
+    n = {k: f.launches - before[k] for k, f in kernels._asdict().items()}
+    layers = cfg.n_layers
+    assert n["attn_tail"] == (layers if tail else 0)
+    assert n["gemm_exact_fused"] == (1 + (0 if tail else 3 * layers)
+                                     if fused else 0)
+    assert n["gemm_exact"] == (0 if fused else 1 + (0 if tail else
+                                                    3 * layers))
+    assert n["norm_qkv"] == n["flash_decode"] == layers

@@ -9,7 +9,8 @@ Run from the repository root on a machine with one NVIDIA H100:
    CUDA versions, and builds every kernel of the serving path from
    ``quant_gemm_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel);
 2. kernel phase: each of K1-K8 at the shapes the serving paths give it
-   (K3 and K5 also with the int8 cache and a window of 256; K1 and K4
+   (K3 and K5 also with the int8 cache and a window of 256, and on the
+   Mistral path's ring; K1 and K4
    also with q4_K weights in their effective form at the Q4_K_M shapes;
    K7 with q6_K at its three shapes and with q3_K and q2_K at the
    lm_head's; K6 on q4_0 at the q4_0 decode shapes and on q4_K at the
@@ -57,7 +58,26 @@ Run from the repository root on a machine with one NVIDIA H100:
    independent generator) loads onto the card, and its pinned greedy
    transcript, teacher-forced through the kernels, must be the argmax at
    every step or a printed near-tie;
-6. prints one JSON line of the kernels, the card, and last the result line.
+6. Mistral path, at Mistral-7B-v0.1 width (32 layers, hidden 4096, 8 KV
+   heads of 128, window 4096; random q4_0 weights from a seed, built on
+   the card) on the ring KV cache (``ring_chunk`` 256, R = 4608 slots):
+   (m1) ``Server(qp, cfg, n_slots=8)`` serves four greedy requests
+   (prompts of 4600, 4800, 5100 and 300 tokens, 64 new each: the first
+   crosses the ring's edge decoding, the next two wrap it in prefill),
+   each kernel's launches counted from 0 against the path's, the cache
+   ``[32, 8, 8, 4608, 128]``, no prompt reuse; (m2) kernels against plain
+   versions layer by layer on the ring (a 128-token chunk across the edge
+   at pos0 R - 64, an 8-slot decode step on both sides of R; bf16 and
+   q8), and the ring against a linear window-4096 cache holding the same
+   random rows (each layer's update NMSE <= 1e-4); (m3) the linear
+   windowed cache at max_seq 4608 with ``context_shift=True``: a
+   4600-token prompt generates 64 tokens, shifted at 4607 to the window's
+   4096, then one decode step from a shifted cache against an unshifted
+   one, layer by layer (``SHIFT_TOL``); ``torch.profiler`` breakdowns of
+   a ring decode step past R and of a chunk; the kernel phase holds K3
+   and K5 on the ring and K1, K2, K4 at these shapes;
+7. prints one JSON line of the kernels, the card, and last the result
+   line; each phase's seconds on its own line.
 
 Exits non-zero, with no result line, when CUDA is unavailable or any phase
 fails.  TF32 is off for every float32 product (``allow_tf32 = False``), so
@@ -91,6 +111,25 @@ PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 DIM, D_FF, LAYERS, HEADS, KV_HEADS, VOCAB = 2048, 5632, 22, 32, 4, 32000
 HD = DIM // HEADS
 REP = HEADS // KV_HEADS
+
+# Mistral-7B-v0.1 (huggingface.co/mistralai/Mistral-7B-v0.1 config.json):
+# hidden 4096, intermediate 14336, 32 layers, 32 heads, 8 KV heads, vocab
+# 32000, rope_theta 10000, rms_norm_eps 1e-5, sliding_window 4096,
+# max_position_embeddings 32768; served on the ring cache with ring_chunk
+# 256, so R = 4608 slots (LlamaConfig.ring_capacity)
+M_DIM, M_D_FF, M_LAYERS, M_HEADS, M_KV = 4096, 14336, 32, 32, 8
+M_WINDOW, M_MAX_SEQ, M_RING_CHUNK, M_RING = 4096, 32768, 256, 4608
+M_HD = M_DIM // M_HEADS
+M_REP = M_HEADS // M_KV
+M_LIN_SEQ = 4736  # the linear caches compared with the ring and the shift
+M_SHIFT_PROMPT = 4600  # (m3): reaches max_seq - 1 = 4607 after 7 steps
+# m3: the shifted cache's step and the unshifted one's, layer by layer,
+# max|delta| / max|reference| of each layer's update and of the logits.
+# Measured on the H100 (PERF.md): 1.52e-2 (worst layer) and 3.5e-3
+# (logits), the shifted keys rounded to bf16 again after their rotation;
+# the limit is twice the worst reading, JAX's own rel max
+# (tests/test_model.py:277)
+SHIFT_TOL = 3e-2
 
 
 def fail(msg: str) -> None:
@@ -220,6 +259,12 @@ def kernel_phase(dev, timer):
     shapes = {"wo": (DIM, DIM), "wgu": (2 * D_FF, DIM),
               "w_down": (DIM, D_FF), "lm_head": (VOCAB, DIM)}
     weights = {name: weight(n, k) for name, (n, k) in shapes.items()}
+    # the Mistral path's GEMMs (M_DIM wide), rows beside the main ones
+    m_shapes = {"wo": (M_DIM, M_DIM), "wgu": (2 * M_D_FF, M_DIM),
+                "w_down": (M_DIM, M_D_FF), "lm_head": (VOCAB, M_DIM)}
+    m_weights = {f"Mistral {name}": weight(n, k)
+                 for name, (n, k) in m_shapes.items()}
+    m_wqkv = weight(M_HEADS * M_HD + 2 * M_KV * M_HD, M_DIM)
     rows = []  # per-shape detail
 
     def record(kernel, shape, err, check, ms, plain_ms, bnd, lib_ms,
@@ -243,7 +288,7 @@ def kernel_phase(dev, timer):
 
     # K1: exact decode GEMM at M = 8
     m = 8
-    for name, w in weights.items():
+    for name, w in [*weights.items(), *m_weights.items()]:
         a = quantize_q8_1(randn(m, w.k))
         got, ref = gemm_exact(w, a), gemm_exact_plain(w, a)
         torch.cuda.synchronize()
@@ -256,24 +301,27 @@ def kernel_phase(dev, timer):
         record("gemm_exact", f"{name} M={m} N={w.n} K={w.k}", err,
                f"max|err| <= {tol:.3e}", timer(lambda: gemm_exact(w, a)),
                timer(lambda: gemm_exact_plain(w, a), reps=5),
-               bound(nbytes, 2 * m * w.n * w.k, "int8"), None)
+               bound(nbytes, 2 * m * w.n * w.k, "int8"), None,
+               main=name in weights)
 
     # K2: norm + quantize + wqkv at M = 8
     wqkv = weight(HEADS * HD + 2 * KV_HEADS * HD, DIM)
-    x = randn(m, DIM, scale=3.0)
-    nw = 1.0 + 0.1 * randn(DIM)
-    got, ref = norm_qkv(wqkv, x, nw, 1e-5), norm_qkv_plain(wqkv, x, nw, 1e-5)
-    torch.cuda.synchronize()
-    err = (got - ref).abs().max().item()
-    tol = 2e-3 * ref.abs().max().item()
-    if not err <= tol:
-        fail(f"K2 norm_qkv: max|err| {err} > {tol}")
-    nbytes = q4_bytes(wqkv.n, DIM) + m * DIM * 4 + DIM * 4 + m * wqkv.n * 4
-    record("norm_qkv", f"wqkv M={m} N={wqkv.n} K={DIM}", err,
-           f"max|err| <= {tol:.3e}",
-           timer(lambda: norm_qkv(wqkv, x, nw, 1e-5)),
-           timer(lambda: norm_qkv_plain(wqkv, x, nw, 1e-5), reps=5),
-           bound(nbytes, 2 * m * wqkv.n * DIM, "int8"), None)
+    for name, w in (("wqkv", wqkv), ("Mistral wqkv", m_wqkv)):
+        x = randn(m, w.k, scale=3.0)
+        nw = 1.0 + 0.1 * randn(w.k)
+        got, ref = norm_qkv(w, x, nw, 1e-5), norm_qkv_plain(w, x, nw, 1e-5)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        tol = 2e-3 * ref.abs().max().item()
+        if not err <= tol:
+            fail(f"K2 norm_qkv {name}: max|err| {err} > {tol}")
+        nbytes = q4_bytes(w.n, w.k) + m * w.k * 4 + w.k * 4 + m * w.n * 4
+        record("norm_qkv", f"{name} M={m} N={w.n} K={w.k}", err,
+               f"max|err| <= {tol:.3e}",
+               timer(lambda: norm_qkv(w, x, nw, 1e-5)),
+               timer(lambda: norm_qkv_plain(w, x, nw, 1e-5), reps=5),
+               bound(nbytes, 2 * m * w.n * w.k, "int8"), None,
+               main=w is wqkv)
 
     # K3: flash decode, B=8 slots at context 512 over the stacked cache:
     # bf16, int8 codes with per-token scales, and a window of 256
@@ -395,7 +443,8 @@ def kernel_phase(dev, timer):
 
     # K4: dequant GEMM at the prefill chunk M = 128
     m = 128
-    for name, w in [("wqkv", wqkv), *weights.items()]:
+    m_weights["Mistral wqkv"] = m_wqkv
+    for name, w in [("wqkv", wqkv), *weights.items(), *m_weights.items()]:
         a = fold_q8_1(quantize_q8_1(randn(m, w.k)))
         got, ref = gemm_dequant(w, a), gemm_dequant_plain(w, a)
         torch.cuda.synchronize()
@@ -409,7 +458,9 @@ def kernel_phase(dev, timer):
                f"NMSE {e:.3e} <= 1e-4", timer(lambda: gemm_dequant(w, a)),
                timer(lambda: gemm_dequant_plain(w, a), reps=5),
                bound(nbytes, 2 * m * w.n * w.k, "bf16"),
-               timer(lambda: torch.matmul(a, wb.T)))
+               timer(lambda: torch.matmul(a, wb.T)),
+               main=name in weights or name == "wqkv")
+    del m_weights, m_wqkv, wb
 
     # the Q4_K_M path's GEMMs: K1 (M = 8) and K4 (M = 128) on q4_K weights
     # in their effective form (f32 d' and m' planes), K7 (M = 8) on q6_K
@@ -598,7 +649,141 @@ def kernel_phase(dev, timer):
         fail("K8 attn_tail: its w_down stage differs from quantize_q8_1 + K1")
     print(f"  {'attn_tail':13s} wo and w_down stages at M={m}: equal to "
           "quantize_q8_1 + K1", flush=True)
+    mistral_kernel_rows(dev, timer, record, randn, g)
     return rows
+
+
+def ring_keep(pos, n_slots, window):
+    """[B, R] bool: the ring slots a decode query at ``pos`` attends with
+    its current token written at slot ``pos % R``: ages (pos - slot) mod R
+    below min(window, pos + 1)."""
+    span = torch.arange(n_slots, device=pos.device)
+    p = pos.long()[:, None]
+    return torch.remainder(p - span, n_slots) < torch.clamp(p + 1,
+                                                            max=window)
+
+
+def ring_prefill_keep(pos0, t, n_slots, window):
+    """[T, R] bool: the slots a chunk's query rows attend on the ring (by
+    the global position g each slot holds)."""
+    span = torch.arange(n_slots, device=pos0.device)[None, :]
+    p_cache = int(pos0) + t - 1
+    g = p_cache - torch.remainder(p_cache - span, n_slots)
+    qpos = (int(pos0) + torch.arange(t, device=pos0.device))[:, None]
+    return (g <= qpos) & (g >= 0) & (g > qpos - window)
+
+
+def mistral_kernel_rows(dev, timer, record, randn, g):
+    """K3 on the ring at Mistral-7B-v0.1's shapes (B = 8, positions past
+    R) and K5 on it (a 128-token chunk at pos0 R - 64, across the ring's
+    edge), bf16 and int8, each against its plain version, SDPA with the
+    ring's boolean mask beside the bf16 rows."""
+    from quant_gemm_tpu_torch.ops.attention import (
+        flash_decode, flash_decode_plain, flash_prefill, flash_prefill_plain)
+
+    # the ring: R = 4608 slots of a 2-layer stacked cache, all written
+    b, layer, ring = 8, 1, M_RING
+    shape = (2, b, M_KV, ring, M_HD)
+    kc = randn(*shape).to(torch.bfloat16)
+    vc = randn(*shape).to(torch.bfloat16)
+    k8, v8 = (torch.randint(-127, 128, shape, generator=g, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    s8 = dict(k_scale=0.005 + 0.025 * torch.rand(
+                  shape[:-1], generator=g, device=dev),
+              v_scale=0.005 + 0.025 * torch.rand(
+                  shape[:-1], generator=g, device=dev))
+    caches = {"bf16": (kc, vc, {}), "int8": (k8, v8, s8)}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q = randn(b, M_KV, M_REP, M_HD)
+    kcur = randn(b, M_KV, 1, M_HD).to(torch.bfloat16)
+    vcur = randn(b, M_KV, 1, M_HD).to(torch.bfloat16)
+    # every slot past the ring's first lap, the first just past its edge
+    pos = torch.tensor([4609, 4700, 5000, 6000, 8703, 9216, 12000, 32000],
+                       dtype=torch.int32, device=dev)
+    seen = min(M_WINDOW - 1, int(pos.min()))  # cached slots per query
+    for ctype in ("bf16", "int8"):
+        k_, v_, sc = caches[ctype]
+        kw = dict(k_current=kcur, v_current=vcur, layer=layer,
+                  window=M_WINDOW, ring=ring, **sc)
+        got = flash_decode(q, k_, v_, pos, **kw)
+        ref = flash_decode_plain(q, k_, v_, pos, **kw)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        if not err <= 2e-3:
+            fail(f"K3 flash_decode ring {ctype}: max|err| {err} > 2e-3")
+        elt = 1 if ctype == "int8" else 2
+        nbytes = 2 * b * M_KV * seen * (M_HD * elt + (4 if sc else 0)) \
+            + 2 * b * M_KV * M_HD * 2 + 2 * b * M_HEADS * M_HD * 4 + b * 4
+        ops = 4 * b * M_HEADS * (seen + 1) * M_HD
+        lib_ms = None
+        if not sc:
+            # yardstick: SDPA over the ring with the current token written
+            # at its slot pos % R (the slot end() writes), bf16, the ring's
+            # boolean mask by age
+            kl, vl = kc[layer].clone(), vc[layer].clone()
+            slot = pos.long() % ring
+            bi = torch.arange(b, device=dev)
+            kl[bi, :, slot], vl[bi, :, slot] = kcur[:, :, 0], vcur[:, :, 0]
+            qh = q.reshape(b, M_HEADS, 1, M_HD).to(torch.bfloat16)
+            mask = ring_keep(pos, ring, M_WINDOW)[:, None, None, :]
+            lib = sdpa(qh, kl, vl, attn_mask=mask, enable_gqa=True)
+            lib_err = (lib.float().reshape(got.shape) - ref).abs().max().item()
+            if not lib_err <= 2e-2:
+                fail(f"K3 ring yardstick SDPA disagrees: {lib_err}")
+            lib_ms = timer(lambda: sdpa(qh, kl, vl, attn_mask=mask,
+                                        enable_gqa=True))
+        record("flash_decode", f"Mistral ring {ctype} window={M_WINDOW} "
+               f"B={b} KV={M_KV} rep={M_REP} hd={M_HD} R={ring} "
+               f"pos={int(pos.min())}..{int(pos.max())}", err,
+               "max|err| <= 2e-3",
+               timer(lambda: flash_decode(q, k_, v_, pos, **kw)),
+               timer(lambda: flash_decode_plain(q, k_, v_, pos, **kw), reps=5),
+               bound(nbytes, ops, "bf16"), lib_ms, main=False)
+
+    # K5: one 128-token chunk of one slot at pos0 R - 64, across the edge
+    t5, slot, p0 = 128, 3, ring - 64
+    q5 = randn(1, M_KV, t5 * M_REP, M_HD)
+    pos0 = torch.tensor([p0], dtype=torch.int32, device=dev)
+    qpos = p0 + np.arange(t5)
+    seen5 = np.minimum(qpos + 1, M_WINDOW)
+    rows5 = p0 + t5 - max(p0 - M_WINDOW + 1, 0)  # slots any row attends
+    for ctype in ("bf16", "int8"):
+        k_, v_, sc = caches[ctype]
+        view = slice(slot, slot + 1)
+        k_, v_ = k_[:, view], v_[:, view]
+        kw = dict(rep=M_REP, layer=layer, window=M_WINDOW, ring=ring,
+                  **{n: x[:, view] for n, x in sc.items()})
+        got = flash_prefill(q5, k_, v_, pos0, **kw)
+        ref = flash_prefill_plain(q5, k_, v_, pos0, **kw)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        if not err <= 2e-3:
+            fail(f"K5 flash_prefill ring {ctype}: max|err| {err} > 2e-3")
+        elt = 1 if ctype == "int8" else 2
+        nbytes = 2 * q5.numel() * 4 + 4 \
+            + 2 * M_KV * rows5 * (M_HD * elt + (4 if sc else 0))
+        ops = 4 * M_HEADS * M_HD * int(seen5.sum())
+        lib_ms = None
+        if not sc:
+            qh = (q5.reshape(1, M_KV, t5, M_REP, M_HD).transpose(2, 3)
+                  .reshape(1, M_HEADS, t5, M_HD).to(torch.bfloat16))
+            kl, vl = k_[layer], v_[layer]
+            keep = ring_prefill_keep(pos0, t5, ring, M_WINDOW)
+            lib = sdpa(qh, kl, vl, attn_mask=keep, enable_gqa=True)
+            lib = (lib.float().reshape(1, M_KV, M_REP, t5, M_HD)
+                   .transpose(2, 3).reshape(got.shape))
+            lib_err = (lib - ref).abs().max().item()
+            if not lib_err <= 2e-2:
+                fail(f"K5 ring yardstick SDPA disagrees: {lib_err}")
+            lib_ms = timer(lambda: sdpa(qh, kl, vl, attn_mask=keep,
+                                        enable_gqa=True))
+        record("flash_prefill", f"Mistral ring {ctype} window={M_WINDOW} "
+               f"B=1 KV={M_KV} rep={M_REP} hd={M_HD} R={ring} T={t5} "
+               f"pos0={p0}", err, "max|err| <= 2e-3",
+               timer(lambda: flash_prefill(q5, k_, v_, pos0, **kw)),
+               timer(lambda: flash_prefill_plain(q5, k_, v_, pos0, **kw),
+                     reps=5),
+               bound(nbytes, ops, "bf16"), lib_ms, main=False)
 
 
 def traffic(rng):
@@ -1094,6 +1279,270 @@ def q4_k_m_path(dev, counters, prompts, reuse):
     return {"Q4_K_M bf16": launches, RUN_C: fused}
 
 
+def mistral_cfg(ring=True, max_seq=M_MAX_SEQ):
+    from quant_gemm_tpu_torch.models import llama
+
+    return llama.LlamaConfig(vocab=VOCAB, dim=M_DIM, n_layers=M_LAYERS,
+                             n_heads=M_HEADS, n_kv_heads=M_KV, d_ff=M_D_FF,
+                             max_seq=max_seq, rope_base=10000.0, eps=1e-5,
+                             window=M_WINDOW, ring=ring,
+                             ring_chunk=M_RING_CHUNK)
+
+
+def random_rows(cache, g):
+    """Fill every slot of ``cache`` with random k/v rows (bf16 normal, or
+    int8 codes with scales of 0.005-0.03), in place."""
+    if cache.quantized:
+        for t in (cache.k, cache.v):
+            t.copy_(torch.randint(-127, 128, t.shape, generator=g,
+                                  device=t.device, dtype=torch.int8))
+        for t in (cache.ks, cache.vs):
+            t.copy_(0.005 + 0.025 * torch.rand(t.shape, generator=g,
+                                               device=t.device))
+    else:
+        for t in (cache.k, cache.v):
+            t.copy_(torch.randn(t.shape, generator=g, device=t.device))
+
+
+def ring_from_linear(ring_cache, lin, ring):
+    """Write the newest ``ring`` rows below each slot's position of the
+    linear cache ``lin`` into the ring at slot g % ring; both get lin's
+    positions."""
+    for b, p in enumerate(lin.pos.tolist()):
+        gs = torch.arange(max(p - ring, 0), p, device=lin.k.device)
+        for dst, src in ((ring_cache.k, lin.k), (ring_cache.v, lin.v),
+                         (ring_cache.ks, lin.ks), (ring_cache.vs, lin.vs)):
+            if dst is not None:
+                dst[:, b, :, gs % ring] = src[:, b, :, gs]
+    ring_cache.pos = lin.pos.clone()
+
+
+def pair_layerwise(qp, tokens, a, b):
+    """Two (cfg, cache) runs of the same tokens through the kernels from
+    the same hidden state (b's) at every layer: per layer and for the
+    logits, (NMSE, max|delta| / max|b's|) of a's update against b's."""
+    from quant_gemm_tpu_torch.models import llama
+
+    (cfg_a, cache_a), (cfg_b, cache_b) = a, b
+    x, step_a = llama.begin(qp, cfg_a, tokens, cache_a)
+    _, step_b = llama.begin(qp, cfg_b, tokens, cache_b)
+    worst_nmse = worst_rel = 0.0
+    for li, lyr in enumerate(qp["layers"]):
+        xa, _ = llama.layer(lyr, li, cfg_a, x, cache_a, step_a)
+        xb, _ = llama.layer(lyr, li, cfg_b, x, cache_b, step_b)
+        da, db = xa - x, xb - x
+        worst_nmse = max(worst_nmse, nmse(da, db))
+        worst_rel = max(worst_rel, ((da - db).abs().max()
+                                    / db.abs().max()).item())
+        x = xb
+    la, lb = llama.head(qp, cfg_a, xa), llama.head(qp, cfg_b, xb)
+    if not bool(torch.isfinite(la).all() and torch.isfinite(lb).all()):
+        fail("non-finite logits through the kernels")
+    return (worst_nmse, worst_rel, nmse(la, lb),
+            ((la - lb).abs().max() / lb.abs().max()).item())
+
+
+RUN_M1 = "Mistral ring bf16"
+M_PROMPTS = (4600, 4800, 5100, 300)
+M_DECODE_POS = [4000, 4500, 4606, 4607, 4608, 4609, 4660, 4720]
+
+
+def mistral_path(dev, counters):
+    """Mistral-7B-v0.1 width on the ring cache: (m1) the ring Server,
+    (m2) kernels against plain versions on the ring and the ring against
+    the linear windowed cache, (m3) context_shift on the linear cache,
+    and the profiler's view of a decode step and a chunk.  Returns m1's
+    launches."""
+    from quant_gemm_tpu_torch.models import llama, serve
+
+    cfg = mistral_cfg()
+    ring = cfg.ring_capacity
+    if ring != M_RING:
+        fail(f"Mistral ring capacity {ring}, expected {M_RING}")
+    t0 = time.perf_counter()
+    qp = llama.init_qparams(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    cache_bytes = 2 * M_LAYERS * 8 * M_KV * ring * M_HD * 2
+    print(f"Mistral path: Mistral-7B-v0.1 width, {M_LAYERS} layers, random "
+          f"q4_0 weights built on the card in {time.perf_counter() - t0:.1f}"
+          f" s, {device_bytes(qp)} bytes on the card; ring of {ring} slots "
+          f"(window {M_WINDOW} + ring_chunk {M_RING_CHUNK}), bf16 cache of 8 "
+          f"slots {cache_bytes} bytes (a linear cache at max_seq "
+          f"{M_MAX_SEQ}: {cache_bytes * M_MAX_SEQ // ring})", flush=True)
+
+    # (m1) the ring Server at its defaults: chunk 128 (within ring_chunk),
+    # prompt caching off; 4600 crosses the edge decoding, 4800 and 5100
+    # wrap the ring in prefill
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, VOCAB, n).tolist() for n in M_PROMPTS]
+    warm = serve.Server(qp, cfg, n_slots=8, device=dev)
+    warm.submit(list(range(1, 200)), max_new=2)  # first-use costs
+    warm.run_until_done()
+    del warm
+    torch.cuda.empty_cache()
+    srv = serve.Server(qp, cfg, n_slots=8, device=dev)
+    if (srv.max_chunk, srv.cache_prompt) != (min(128, M_RING_CHUNK), False):
+        fail(f"ring Server: chunk {srv.max_chunk}, cache_prompt "
+             f"{srv.cache_prompt}; expected 128, False")
+    if tuple(srv.cache.k.shape) != (M_LAYERS, 8, M_KV, ring, M_HD):
+        fail(f"ring Server cache {tuple(srv.cache.k.shape)}")
+    for pr in prompts:
+        srv.submit(pr, max_new=64)
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    results = srv.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    st = srv.stats()
+    if sorted(results) != [0, 1, 2, 3] or any(
+            len(t) != 64 for t in results.values()):
+        fail(f"m1: not every request finished with 64 tokens: "
+             f"{ {r: len(t) for r, t in results.items()} }")
+    if not all(0 <= t < VOCAB for ts in results.values() for t in ts):
+        fail("m1: a generated token is outside the vocabulary")
+    if st["cached_prompt_tokens"] != 0:
+        fail(f"m1: reused {st['cached_prompt_tokens']} prompt tokens")
+    n_chunks = chunks(prompts, [0] * len(prompts), srv.max_chunk)
+    steps = st["decode_steps"]
+    check_launches(RUN_M1, launches, {
+        "gemm_exact": steps * (3 * M_LAYERS + 1),
+        "norm_qkv": steps * M_LAYERS, "flash_decode": steps * M_LAYERS,
+        "gemm_dequant": len(n_chunks) * (4 * M_LAYERS + 1),
+        "flash_prefill": M_LAYERS * sum(t >= 64 for t in n_chunks),
+        "gemm_exact_fused": 0, "attn_tail": 0, "gemm_exact_k16": 0,
+        "k16_dequant_gemm": 0})
+    print(f"  (m1) Server(qp, cfg, n_slots=8) on the ring: 4 requests "
+          f"(prompts {list(M_PROMPTS)}), {st['prefill_tokens']} prompt "
+          f"tokens in {len(n_chunks)} chunks, {st['generated_tokens']} "
+          f"generated, {steps} decode steps in {wall:.2f} s, cache "
+          f"{list(srv.cache.k.shape)}, 0 reused", flush=True)
+    print(f"    prefill {st['prefill_tokens'] / st['prefill_seconds']:.1f} "
+          f"tok/s, decode {st['decode_tokens'] / st['decode_seconds']:.1f} "
+          f"tok/s, median decode step {st['decode_step_ms_median']:.3f} ms",
+          flush=True)
+    print(f"    per decode step: K2 {M_LAYERS}, K3 {M_LAYERS}, K1 "
+          f"{3 * M_LAYERS + 1}; per chunk: K4 {4 * M_LAYERS + 1}, K5 "
+          f"{M_LAYERS} at 64 tokens or more; K6, K7, K8 0", flush=True)
+    print(f"    launches: {json.dumps(launches)}", flush=True)
+    del srv
+    torch.cuda.empty_cache()
+
+    # (m2) kernels against plain versions on the ring: a 128-token chunk
+    # at pos0 R - 64 (across the edge) and an 8-slot decode step at
+    # positions on both sides of R, both caches; then the same tokens on
+    # the ring and on a linear window-4096 cache holding the same rows
+    g = torch.Generator(device=dev).manual_seed(7)
+    lin_cfg = mistral_cfg(ring=False, max_seq=M_LIN_SEQ)
+    cases, pairs = [], []
+    for qtype in ("bf16", "q8"):
+        for b, pos, t in ((1, [ring - 64], 128), (8, M_DECODE_POS, 1)):
+            what = (f"{qtype} chunk {t} at pos0 {ring - 64}" if t > 1 else
+                    f"{qtype} decode step at {M_DECODE_POS}")
+            lin = llama.KVCache.init(lin_cfg, b, qtype, device=dev)
+            random_rows(lin, g)
+            lin.pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+            rc = llama.KVCache.init(cfg, b, qtype, device=dev)
+            random_rows(rc, g)
+            ring_from_linear(rc, lin, ring)
+            toks = torch.randint(0, VOCAB, (b, t), generator=g, device=dev)
+            cases.append((f"ring {what}", check(qp, cfg, toks, rc)))
+            pairs.append((what, pair_layerwise(qp, toks, (cfg, rc),
+                                               (lin_cfg, lin))))
+            del lin, rc
+            torch.cuda.empty_cache()
+    report_cases(cases)
+    for what, (layer_e, layer_rel, logit_e, logit_rel) in pairs:
+        print(f"  ring vs linear window {M_WINDOW} (same rows), {what}: "
+              f"worst layer update NMSE {layer_e:.3e} (rel max "
+              f"{layer_rel:.3e}), logits NMSE {logit_e:.3e} (rel max "
+              f"{logit_rel:.3e}) (limits: NMSE 1e-4)", flush=True)
+        if not (layer_e <= 1e-4 and logit_e <= 1e-4):
+            fail(f"ring vs linear, {what}: the ring disagrees")
+
+    mistral_shift(qp, dev, rng)
+
+    # the device's view of one ring decode step past R and one chunk,
+    # with the model's RoPE tables made once, as the Server makes them
+    # (at max_seq 32768 a forward without them builds 16 MB of tables)
+    rope = llama.rope_for(cfg, qp, dev)
+    cache = llama.KVCache.init(cfg, 8, device=dev)
+    random_rows(cache, g)
+    cache.pos = torch.tensor(M_DECODE_POS, dtype=torch.int32, device=dev)
+    nt = torch.randint(0, VOCAB, (8, 1), generator=g, device=dev)
+    device_breakdown(f"Mistral ring decode step, 8 slots at "
+                     f"{M_DECODE_POS}", lambda: llama.forward(
+                         qp, cfg, nt, cache, rope_cache=rope))
+    del cache
+    c1 = llama.KVCache.init(cfg, 1, device=dev)
+    random_rows(c1, g)
+    c1.pos = torch.tensor([ring - 64], dtype=torch.int32, device=dev)
+    toks = torch.randint(0, VOCAB, (1, 128), generator=g, device=dev)
+    device_breakdown(f"Mistral ring prefill chunk of 128 tokens at pos0 "
+                     f"{ring - 64} (then {ring + 64})",
+                     lambda: llama.forward(qp, cfg, toks, c1,
+                                           rope_cache=rope))
+    return launches
+
+
+def mistral_shift(qp, dev, rng):
+    """(m3) context_shift on the linear windowed cache at max_seq 4608: a
+    4600-token prompt generates 64 tokens, its slot shifted to the
+    window's 4096 tokens at 4607; then one decode step from a shifted
+    cache against the same step from an unshifted one (max_seq 4736),
+    layer by layer."""
+    from quant_gemm_tpu_torch.models import llama, serve
+
+    cfg = mistral_cfg(ring=False, max_seq=M_RING)
+    srv = serve.Server(qp, cfg, n_slots=8, context_shift=True, device=dev)
+    rid = srv.submit(rng.integers(0, VOCAB, M_SHIFT_PROMPT).tolist(),
+                     max_new=64)
+    trace = []
+    while srv.queue or any(s is not None for s in srv.slots):
+        srv.step()
+        trace.append(int(srv.cache.pos[0]))
+    toks = srv.finished[rid].generated
+    low = min(trace)
+    if len(toks) != 64 or not all(0 <= t < VOCAB for t in toks):
+        fail(f"m3: {len(toks)} tokens generated, expected 64 in the vocab")
+    if not (max(trace) == M_RING - 1 and low == M_WINDOW + 1
+            and trace[-1] > low):
+        fail(f"m3: the slot did not shift to {M_WINDOW} and grow: "
+             f"positions {trace}")
+    print(f"  (m3) Server(qp, cfg, n_slots=8, context_shift=True), max_seq "
+          f"{M_RING}: 64 tokens generated from a {M_SHIFT_PROMPT}-token "
+          f"prompt; "
+          f"position after each step {trace[0]}..{max(trace)}, shifted to "
+          f"{M_WINDOW} and on to {trace[-1]}", flush=True)
+    del srv
+    torch.cuda.empty_cache()
+
+    big = mistral_cfg(ring=False, max_seq=M_LIN_SEQ)
+    prompt = torch.as_tensor(rng.integers(0, VOCAB, (1, M_RING - 1)),
+                             device=dev)
+    cb = llama.KVCache.init(big, 1, device=dev)
+    for off in range(0, M_RING - 1, 128):
+        llama.forward(qp, big, prompt[:, off:off + 128], cb)
+    cs = llama.KVCache.init(cfg, 1, device=dev)
+    cs.k[:, :, :, :M_RING - 1] = cb.k[:, :, :, :M_RING - 1]
+    cs.v[:, :, :, :M_RING - 1] = cb.v[:, :, :, :M_RING - 1]
+    cs.pos = cb.pos.clone()
+    llama.shift_context(cs, cfg, M_WINDOW)
+    if cs.pos.tolist() != [M_WINDOW]:
+        fail(f"m3: shift_context left pos {cs.pos.tolist()}")
+    tok = torch.as_tensor(rng.integers(0, VOCAB, (1, 1)), device=dev)
+    layer_e, layer_rel, logit_e, logit_rel = pair_layerwise(
+        qp, tok, (cfg, cs), (big, cb))
+    print(f"  (m3) decode step from the shifted cache (pos {M_WINDOW}) vs "
+          f"the unshifted one (pos {M_RING - 1}), kernels, same hidden "
+          f"state per layer: worst layer update rel max {layer_rel:.3e} "
+          f"(NMSE {layer_e:.3e}), logits rel max {logit_rel:.3e} (NMSE "
+          f"{logit_e:.3e}); limit rel max {SHIFT_TOL:g}", flush=True)
+    if not (layer_rel <= SHIFT_TOL and logit_rel <= SHIFT_TOL):
+        fail("m3: the shifted cache's step disagrees with the unshifted")
+
+
 FIXTURE = ROOT / "tests" / "golden" / "tiny_llama_q4km.gguf"
 PROMPT_IDS = [0, 262, 312, 311, 292]  # tests/test_gguf_interop.py
 GREEDY_CONT = [252, 44, 79, 306, 79, 306]
@@ -1174,8 +1623,18 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
 
     timer = Timer(dev)
+    t_phase = time.perf_counter()
+
+    def phase_done(name):
+        nonlocal t_phase
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        print(f"[phase] {name}: {now - t_phase:.1f} s", flush=True)
+        t_phase = now
+
     print("kernel phase:", flush=True)
     rows = kernel_phase(dev, timer)
+    phase_done("kernel phase")
     from quant_gemm_tpu_torch.kernels import registry
 
     # every kernel's launch count, and the K16 prefill route's calls
@@ -1184,8 +1643,14 @@ def main() -> int:
     counters["k16_dequant_gemm"] = (registry.k16_dequant_gemm, "calls")
     prompts, reuse = traffic(np.random.default_rng(0))
     by_run = main_path(dev, counters, prompts, reuse)
+    phase_done("main path (TinyLlama q4_0)")
     by_run.update(q4_k_m_path(dev, counters, prompts, reuse))
+    phase_done("Q4_K_M path")
     foreign_bytes(dev)
+    phase_done("foreign bytes")
+    torch.cuda.empty_cache()
+    by_run[RUN_M1] = mistral_path(dev, counters)
+    phase_done("Mistral path")
 
     kernels = []
     for name, (src, rep) in KERNEL_INFO.items():

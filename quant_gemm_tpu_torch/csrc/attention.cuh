@@ -1,6 +1,7 @@
 // Shared device code of the attention kernels (flash_decode.cu,
 // flash_prefill.cu): staging one tile of cache rows, bf16 or int8, into
-// shared memory as float32.  Plain C interface, no PyTorch headers.
+// shared memory as float32, and the slot ranges a ring cache's window
+// covers.  Plain C interface, no PyTorch headers.
 #pragma once
 
 #include <float.h>
@@ -12,6 +13,41 @@
 namespace qgt {
 
 constexpr int TS = 32;  // cache rows per tile (one per lane)
+
+// x mod r in [0, r) for r > 0, also for negative x.
+__device__ __forceinline__ int ring_mod(int x, int r) {
+  const int m = x % r;
+  return m < 0 ? m + r : m;
+}
+
+// Cache slots as at most two contiguous ranges [a[0], e[0]) and [a[1],
+// e[1]), walked in that order.
+struct SlotRanges {
+  int a[2], e[2];
+};
+
+// The slots of a ring of R slots (token g at slot g mod R) that hold the n
+// positions ending at global position p: the modular interval
+// [(p - n + 1) mod R, p mod R], which is one range, or two when it wraps
+// past slot R - 1 ([r_lo, R) then [0, r_hi]).  Empty for n <= 0, the whole
+// ring for n >= R.  So a walk over them visits O(n) slots, not O(R).
+__device__ __forceinline__ SlotRanges ring_ranges(int p, int n, int R) {
+  SlotRanges r{{0, 0}, {0, 0}};
+  if (n <= 0) return r;
+  if (n >= R) {
+    r.e[0] = R;
+    return r;
+  }
+  const int hi = ring_mod(p, R), lo = ring_mod(p - n + 1, R);
+  r.a[0] = lo;
+  if (lo <= hi) {
+    r.e[0] = hi + 1;
+  } else {
+    r.e[0] = R;
+    r.e[1] = hi + 1;
+  }
+  return r;
+}
 
 // Stage cache rows [s0, s0 + cnt) of one head as float32: K into kt with
 // row stride kp, V into vt with row stride HD.  Each thread loads 8

@@ -114,12 +114,17 @@ def qparams_from_jax(np_qparams: dict, device="cuda") -> dict:
     return out
 
 
-def cache_from_jax(cache, device="cuda") -> KVCache:
+def cache_from_jax(cache, device="cuda", ring: int = 0) -> KVCache:
     """The port's cache from a JAX ``KVCache`` whose arrays are numpy
     (for example ``jax.tree_util.tree_map(np.asarray, cache)``): ``k``/``v``
     bf16 (ml_dtypes) or int8, ``pos`` int32 and, for the q8 cache,
-    ``ks``/``vs`` float32; values are carried over exactly."""
+    ``ks``/``vs`` float32; values are carried over exactly.
+
+    ``ring=R`` (``cfg.ring_capacity``) takes a JAX ring cache: its first R
+    slots, the ring itself after JAX folded its write margin back onto the
+    ring's head; the margin is dropped (the port's ring has none)."""
     dev = resolve_device(device)
+    r = slice(0, ring or None)
 
     def t(x, dtype):  # a copy: arrays from JAX are read-only
         x = np.asarray(x)
@@ -131,8 +136,9 @@ def cache_from_jax(cache, device="cuda") -> KVCache:
     kv = torch.int8 if k.dtype == np.int8 else torch.bfloat16
     scales = ()
     if getattr(cache, "ks", None) is not None:
-        scales = (t(cache.ks, torch.float32), t(cache.vs, torch.float32))
-    return KVCache(t(cache.k, kv), t(cache.v, kv),
+        scales = (t(np.asarray(cache.ks)[..., r], torch.float32),
+                  t(np.asarray(cache.vs)[..., r], torch.float32))
+    return KVCache(t(k[..., r, :], kv), t(np.asarray(cache.v)[..., r, :], kv),
                    t(cache.pos, torch.int32), *scales)
 
 

@@ -1,8 +1,10 @@
 """Quantized Llama forward for the serving slice (W4A8).
 
 Counterpart of ``quant_gemm_tpu/models/llama.py`` for what the serving
-slice runs, with the bf16 or the int8 (``q8``) KV cache and an optional
-sliding window.  Weights are q4_0 (:func:`quantize_params`,
+slice runs, with the bf16 or the int8 (``q8``) KV cache, an optional
+sliding window, and with a window the ring cache (``cfg.ring``: O(window)
+slots, token g at slot ``g % R``) or the linear cache's context shift
+(:func:`shift_context`).  Weights are q4_0 (:func:`quantize_params`,
 :func:`init_qparams`) or the mix of a llama.cpp GGUF file
 (``models/gguf_loader.py``): q4_0 or q4_K (effective q4_1) per-32 weights
 and q6_K / q3_K / q2_K per-16 weights, with a :class:`SplitLinear` where
@@ -28,8 +30,8 @@ the parts of ``wqkv`` or ``wgu`` differ in format:
   leaves it to XLA); K4 for GEMMs of more than ``DECODE_M_MAX`` rows, and
   the plain float32 matmul for per-16 weights there.
 
-Not ported yet (each raises ``NotImplementedError``): the ring cache,
-``w_down_a16`` and activation modes other than ``q8_1``.
+Not ported yet (each raises ``NotImplementedError``): ``w_down_a16`` and
+activation modes other than ``q8_1``.
 
 :func:`forward` is :func:`begin`, :func:`layer` for each layer, :func:`end`
 and :func:`head`; a check can call the pieces to run the kernels and the
@@ -61,8 +63,10 @@ FLASH_PREFILL_T_MIN = 64  # prefill chunks from this length take K5
 
 
 class LlamaConfig(NamedTuple):
-    """The JAX ``LlamaConfig``'s fields; ``ring`` and ``w_down_a16`` are
-    not ported and must keep their defaults."""
+    """The JAX ``LlamaConfig``'s fields; ``w_down_a16`` is not ported and
+    must keep its default.  ``ring`` (needs ``window > 0``) makes the KV
+    cache a ring of :attr:`ring_capacity` slots, and bounds every forward
+    call at ``ring_chunk`` tokens."""
 
     vocab: int = 256
     dim: int = 512
@@ -84,12 +88,25 @@ class LlamaConfig(NamedTuple):
     def head_dim(self) -> int:
         return self.head_dim_override or self.dim // self.n_heads
 
+    @property
+    def ring_capacity(self) -> int:
+        """Ring slots R (the JAX ``ring_capacity``): token g lives at slot
+        g % R.  R >= window + ring_chunk, so a full chunk never overwrites
+        a slot its own rows still attend, rounded up to 512 (128 for rings
+        of at most 512)."""
+        if not (self.ring and self.window > 0):
+            raise ValueError("ring_capacity needs ring=True and window > 0")
+        r = self.window + self.ring_chunk
+        align = 512 if r > 512 else 128
+        return (r + align - 1) // align * align
+
 
 def check_config(cfg: LlamaConfig) -> None:
-    if cfg.ring:
-        raise NotImplementedError("the ring cache is not ported")
     if cfg.window < 0:
         raise ValueError(f"window must be >= 0, got {cfg.window}")
+    if cfg.ring and cfg.window <= 0:
+        raise ValueError("the ring cache needs a sliding window (window > "
+                         "0)")
     if cfg.w_down_a16:
         raise NotImplementedError("w_down_a16 (W4A16 down projection) is "
                                   "not ported")
@@ -219,7 +236,14 @@ class KVCache:
     ``qtype="q8"`` stores k/v as int8 codes with one float32 scale per
     (layer, slot, head, token) vector (``ks``/``vs`` [L, B, KV, S]), half
     the bf16 cache's bytes; the attention kernels apply the scales to the
-    scores and to the softmax weights, never to the codes."""
+    scores and to the softmax weights, never to the codes.
+
+    With ``cfg.ring`` the cache holds S = ``cfg.ring_capacity`` slots,
+    token g at slot ``g % S``, whatever ``max_seq`` is.  The JAX cache
+    has ``ring_chunk`` more slots, a write margin that its static-size
+    ``dynamic_update_slice`` spills into and folds back from; the port
+    writes in place through index tensors, ``(pos0 + arange(T)) % S``,
+    and needs none."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -239,8 +263,8 @@ class KVCache:
                              f"{qtype!r}")
         check_config(cfg)
         dev = resolve_device(device)
-        shape = (cfg.n_layers, batch, cfg.n_kv_heads, cfg.max_seq,
-                 cfg.head_dim)
+        slots = cfg.ring_capacity if cfg.ring else cfg.max_seq
+        shape = (cfg.n_layers, batch, cfg.n_kv_heads, slots, cfg.head_dim)
         pos = torch.zeros(batch, dtype=torch.int32, device=dev)
         if qtype == "q8":
             return KVCache(
@@ -266,6 +290,65 @@ def _quant_kv(x: torch.Tensor):
     return torch.round(x * inv[..., None]).to(torch.int8), scale
 
 
+def shift_context(cache: KVCache, cfg: LlamaConfig, keep: int,
+                  rope_cache=None, trigger: Optional[int] = None) -> KVCache:
+    """llama.cpp's context shift (the JAX ``shift_context``), in place:
+    each slot at ``pos >= trigger`` (default ``max_seq - 1``) keeps its
+    newest ``keep`` tokens, moved to slots 0..keep-1, and ``pos`` falls by
+    the ``delta = max(pos - keep, 0)`` tokens dropped.  RoPE rotates a
+    key pair by theta(pos), so rotating every kept key back by
+    theta(delta) re-positions them all at once; values only move.  The q8
+    cache dequantizes, rotates and requantizes the kept keys
+    (:func:`_quant_kv`; a rotation mixes lanes, so the scales change).
+
+    Step for step as JAX: every slot is rewritten, a slot below the
+    trigger with delta 0 (its rows rotated by theta(0), q8 keys
+    requantized); the slab start clamps to ``[0, S - keep]`` as
+    ``dynamic_slice`` clamps it.  With a window and ``keep >= window``
+    the attention set of the next step is unchanged.  Pass the model's
+    ``rope_cache`` (``rope_for(cfg, qparams)``) when a loader attached
+    its own spectrum.  Returns the same cache.  Ring caches do not shift
+    (the slot of token g is ``g % R``): raises."""
+    if cfg.ring:
+        raise ValueError("context shift is for linear caches, not the ring")
+    _, b, _, smax, hd = cache.k.shape
+    if not 0 < keep <= smax:
+        raise ValueError(f"keep must be in 1..{smax}, got {keep}")
+    dev = cache.k.device
+    if rope_cache is None:
+        rope_cache = rope_for(cfg, device=dev)
+    if trigger is None:
+        trigger = cfg.max_seq - 1
+    cos_t, sin_t = rope_cache
+    pos = cache.pos.to(torch.int64)
+    delta = torch.where(pos >= trigger, (pos - keep).clamp(min=0),
+                        torch.zeros_like(pos))
+    start = delta.clamp(max=smax - keep).tolist()
+    # theta(delta): a position past the table clamps, as a JAX gather
+    rows = delta.clamp(max=cos_t.shape[0] - 1)
+    for bb in range(b):
+        kept = slice(start[bb], start[bb] + keep)
+        x = cache.k[:, bb, :, kept].to(torch.float32)
+        if cache.quantized:
+            x = x * cache.ks[:, bb, :, kept][..., None]
+        cos, sin = cos_t[rows[bb]], sin_t[rows[bb]]
+        x0, x1 = x[..., : hd // 2], x[..., hd // 2:]
+        x = torch.cat([x0 * cos + x1 * sin, -x0 * sin + x1 * cos], dim=-1)
+        # clone: the kept rows and their destination overlap
+        v = cache.v[:, bb, :, kept].clone()
+        if cache.quantized:
+            codes, scale = _quant_kv(x)
+            vscale = cache.vs[:, bb, :, kept].clone()
+            cache.k[:, bb, :, :keep] = codes
+            cache.ks[:, bb, :, :keep] = scale
+            cache.vs[:, bb, :, :keep] = vscale
+        else:
+            cache.k[:, bb, :, :keep] = x.to(cache.k.dtype)
+        cache.v[:, bb, :, :keep] = v
+    cache.pos = (pos - delta).to(torch.int32)
+    return cache
+
+
 def _linear(w, x: torch.Tensor, ops) -> torch.Tensor:
     """y[M, N] = x[M, K] @ W^T, W4A8: x quantized to Q8_1 in dispatch; a
     :class:`SplitLinear` runs one GEMM per part, concatenated on N."""
@@ -283,7 +366,10 @@ def _attention(cfg: LlamaConfig, q, k_all, v_all, positions, ks=None,
     q: [B, T, H, hd]; k_all/v_all: [B, KV, S, hd] (the layer's full
     cache, current chunk already written); ks/vs: [B, KV, S] int8-cache
     scales or None; positions: [B, T] — the query at position p attends
-    cache slots <= p (and > p - window)."""
+    the cached tokens at positions <= p (and > p - window): slot = position
+    in a linear cache; in a ring, slot r holds the position ``g = p_cache
+    - (p_cache - r) mod R`` with ``p_cache`` the call's newest token
+    (``llama.py:477-484``)."""
     b, tq, h, hd = q.shape
     kv, s = k_all.shape[1], k_all.shape[2]
     qg = q.reshape(b, tq, kv, h // kv, hd).to(torch.float32)
@@ -292,9 +378,17 @@ def _attention(cfg: LlamaConfig, q, k_all, v_all, positions, ks=None,
     if ks is not None:  # int8 cache: the k scale factors out of the hd dot
         scores = scores * ks[:, :, None, None, :]
     span = torch.arange(s, device=q.device)[None, None, :]
-    mask = span <= positions[:, :, None]  # [B, T, S]
-    if cfg.window:
-        mask = mask & (span > positions[:, :, None] - cfg.window)
+    qpos = positions[:, :, None]
+    if cfg.ring:
+        ring = cfg.ring_capacity
+        p_cache = positions[:, -1][:, None, None]
+        g = p_cache - torch.remainder(p_cache - span, ring)
+        mask = ((g <= qpos) & (g >= 0) & (g > qpos - cfg.window)
+                & (span < ring))
+    else:
+        mask = span <= qpos  # [B, T, S]
+        if cfg.window:
+            mask = mask & (span > qpos - cfg.window)
     scores = torch.where(mask[:, None, None], scores,
                          torch.finfo(torch.float32).min)
     probs = torch.softmax(scores, dim=-1)
@@ -306,14 +400,16 @@ def _attention(cfg: LlamaConfig, q, k_all, v_all, positions, ks=None,
 
 class Step(NamedTuple):
     """What every layer of one forward call shares: each slot's token
-    positions [B, T], the clamped cache-write start [B], the rope tables
-    and whether decode takes K2 (``norm_qkv``) and K8 (``attn_tail``)."""
+    positions [B, T], the cache rows its tokens are written to [B, T], the
+    rope tables, whether decode takes K2 (``norm_qkv``) and K8
+    (``attn_tail``), and the ring's slot count R (0: a linear cache)."""
 
     positions: torch.Tensor
-    wstart: torch.Tensor
+    widx: torch.Tensor
     rope_cache: tuple
     use_mega: bool
     use_mega_tail: bool
+    ring: int
 
 
 def begin(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor,
@@ -325,15 +421,23 @@ def begin(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor,
         raise NotImplementedError(f"act_mode {act_mode!r} is not ported "
                                   "(W4A8 q8_1 only)")
     b, t = tokens.shape
+    if cfg.ring and t > cfg.ring_chunk:
+        raise ValueError(f"a ring cache takes at most ring_chunk = "
+                         f"{cfg.ring_chunk} tokens per call, got {t}")
     dev = cache.k.device
     if rope_cache is None:
         rope_cache = rope_for(cfg, qparams, dev)
     pos0 = cache.pos.to(torch.int64)
-    positions = pos0[:, None] + torch.arange(t, device=dev)[None, :]
-    # a cache write starts at pos, clamped so the T-row update fits (the
-    # start clamp of JAX's dynamic_update_slice, which overflowing and
-    # inactive slots rely on)
-    wstart = pos0.clamp(0, cache.k.shape[3] - t)
+    rows = torch.arange(t, device=dev)[None, :]
+    positions = pos0[:, None] + rows
+    ring = cfg.ring_capacity if cfg.ring else 0
+    if ring:
+        widx = torch.remainder(positions, ring)  # token g at slot g % R
+    else:
+        # a cache write starts at pos, clamped so the T-row update fits
+        # (the start clamp of JAX's dynamic_update_slice, which overflowing
+        # and inactive slots rely on)
+        widx = pos0.clamp(0, cache.k.shape[3] - t)[:, None] + rows
     # the port's K2 serves q4_0 only, so any q4_k or SplitLinear wqkv
     # turns it off for the whole model; JAX's K2 also takes q4_k, and
     # only a SplitLinear turns it off there (ROADMAP Queue 1)
@@ -343,7 +447,8 @@ def begin(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor,
     use_mega_tail = t == 1 and all(
         gemm_megalayer.tail_supported(ly, cfg, b) for ly in qparams["layers"])
     x = qparams["embed"][tokens.to(dev)].to(torch.float32)
-    return x, Step(positions, wstart, rope_cache, use_mega, use_mega_tail)
+    return x, Step(positions, widx, rope_cache, use_mega, use_mega_tail,
+                   ring)
 
 
 def layer(lyr: dict, li: int, cfg: LlamaConfig, x: torch.Tensor,
@@ -384,10 +489,10 @@ def layer(lyr: dict, li: int, cfg: LlamaConfig, x: torch.Tensor,
         attn = ops.flash_decode(
             q.reshape(b, kv_heads, rep, hd), cache.k, cache.v, cache.pos,
             k_current=k_t, v_current=v_t, layer=li, window=cfg.window,
-            **scales).reshape(b, t, nq)
+            ring=step.ring, **scales).reshape(b, t, nq)
     else:
         bidx = torch.arange(b, device=x.device)[:, None]
-        idx = step.wstart[:, None] + torch.arange(t, device=x.device)[None, :]
+        idx = step.widx
         # advanced indices around a slice: the indexed view is [B, T, KV,
         # hd], the layout k/v have before the transpose
         if cache.quantized:
@@ -405,7 +510,7 @@ def layer(lyr: dict, li: int, cfg: LlamaConfig, x: torch.Tensor,
                   .reshape(b, kv_heads, t * rep, hd))
             attn = ops.flash_prefill(
                 qg, cache.k, cache.v, step.positions[:, 0], rep=rep,
-                window=cfg.window, layer=li, **scales)
+                window=cfg.window, ring=step.ring, layer=li, **scales)
             attn = (attn.reshape(b, kv_heads, t, rep, hd).transpose(1, 2)
                     .reshape(b, t, nq))
         else:
@@ -430,13 +535,13 @@ def end(cache: KVCache, step: Step, current: list) -> None:
     """Insert decode's current tokens of every layer (``current``: what
     :func:`layer` returned for each layer) and advance ``cache.pos``."""
     if current:
-        # one insert per buffer covers every layer: k[:, bidx, :, wstart]
-        # is the [B, L, KV, hd] view of each slot's write row (ks: [B, L,
-        # KV])
+        # one insert per buffer covers every layer: k[:, bidx, :, row] is
+        # the [B, L, KV, hd] view of each slot's write row (ks: [B, L, KV])
         bidx = torch.arange(cache.k.shape[1], device=cache.k.device)
+        row = step.widx[:, 0]
         bufs = (cache.k, cache.v, cache.ks, cache.vs)
         for buf, vals in zip(bufs, zip(*current)):
-            buf[:, bidx, :, step.wstart] = torch.stack(vals).transpose(0, 1)
+            buf[:, bidx, :, row] = torch.stack(vals).transpose(0, 1)
     cache.pos = (step.positions[:, -1] + 1).to(torch.int32)
 
 
@@ -470,5 +575,6 @@ def forward(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor,
 
 
 __all__ = ["LlamaConfig", "init_params", "quantize_params", "init_qparams",
-           "rope_for", "SplitLinear", "KVCache", "Step", "begin", "layer",
-           "end", "head", "forward", "FLASH_PREFILL_T_MIN"]
+           "rope_for", "SplitLinear", "KVCache", "shift_context", "Step",
+           "begin", "layer", "end", "head", "forward",
+           "FLASH_PREFILL_T_MIN"]

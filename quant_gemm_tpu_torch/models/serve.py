@@ -13,9 +13,17 @@ longest prefix of its prompt, and only the rest is prefilled.  The cache
 is bf16 or, with ``cache_qtype="q8"``, int8 with per-token scales; the
 model may have a sliding window.
 
-Options outside the slice raise ``NotImplementedError``: the ring cache,
-``context_shift``, grammar sampling, ``n_probs``, ``prefill_a16`` and
-``w_down_a16``.
+A ring cache (``cfg.ring``) holds O(window) slots per request, so a
+request may run past the ring; its prefill chunk is clamped to a bucket
+multiple within ``ring_chunk`` and prompt caching is off (a wrapped slot
+no longer holds its prompt from position 0), as in JAX.  With
+``context_shift`` (linear caches only) a slot reaching ``max_seq - 1``
+keeps its newest ``window`` (or ``max_seq // 2``) tokens
+(``llama.shift_context``) and generation goes on; otherwise such a
+request finishes there.
+
+Options outside the slice raise ``NotImplementedError``: grammar
+sampling, ``n_probs``, ``prefill_a16`` and ``w_down_a16``.
 """
 
 from __future__ import annotations
@@ -74,11 +82,16 @@ class Server:
         self.device = resolve_device(device)
         if prefill_a16:
             raise NotImplementedError("prefill_a16 is not ported")
-        if context_shift:
-            raise NotImplementedError("context_shift is not ported")
         if act_mode != "q8_1":
             raise NotImplementedError(f"act_mode {act_mode!r} is not ported")
         llama.check_config(cfg)
+        if cfg.ring and context_shift:
+            raise ValueError("a ring cache does not shift (llama."
+                             "shift_context); its generation is bounded by "
+                             "max_seq, the RoPE table's size")
+        if cfg.ring and prefill_bucket > cfg.ring_chunk:
+            raise ValueError(f"prefill_bucket {prefill_bucket} exceeds "
+                             f"ring_chunk {cfg.ring_chunk}")
         if qparams["embed"].device != self.device:
             raise ValueError(f"qparams live on {qparams['embed'].device}, "
                              f"the server on {self.device}")
@@ -89,7 +102,14 @@ class Server:
         self.bucket = prefill_bucket
         self.eos_id = eos_id
         self.max_chunk = max_prefill_chunk or prefill_bucket * 8
-        self.cache_prompt = cache_prompt
+        if cfg.ring:
+            # every forward call, bucket padding included, stays within
+            # ring_chunk tokens
+            self.max_chunk = min(self.max_chunk, cfg.ring_chunk
+                                 // prefill_bucket * prefill_bucket)
+        self.cache_prompt = cache_prompt and not cfg.ring
+        self.context_shift = context_shift
+        self._shift_keep = max(cfg.window or cfg.max_seq // 2, 1)
         self.cache = llama.KVCache.init(cfg, n_slots, cache_qtype,
                                         device=self.device)
         self.slots: list[Optional[Request]] = [None] * n_slots
@@ -98,7 +118,8 @@ class Server:
         self._next_rid = 0
         self._rope = llama.rope_for(cfg, qparams, self.device)
         self._pending_tok = np.zeros(n_slots, np.int64)
-        self._hpos = np.zeros(n_slots, np.int64)  # host mirror of cache.pos
+        # host mirror of cache.pos, every slot's (decode advances them all)
+        self._hpos = np.zeros(n_slots, np.int64)
         self._temps = np.zeros(n_slots, np.float32)
         self._topk = np.zeros(n_slots, np.int64)
         self._topp = np.ones(n_slots, np.float32)
@@ -215,6 +236,7 @@ class Server:
             self.queue.pop(0)
             t0 = time.perf_counter()
             last_logits = self._prefill(s, r.prompt, reuse)
+            self._hpos[s] = len(r.prompt)
             self._n_cached_tokens += reuse
             self._history[s] = list(r.prompt)
             gen = torch.Generator(device=self.device)
@@ -248,7 +270,6 @@ class Server:
                 self.finished[r.rid] = r
                 continue
             self._pending_tok[s] = tok
-            self._hpos[s] = len(r.prompt)
             self._recent[s] = np.roll(self._recent[s], -1)
             self._recent[s, -1] = tok
             self.slots[s] = r
@@ -260,6 +281,12 @@ class Server:
         active = [s for s in range(self.n_slots) if self.slots[s] is not None]
         if not active:
             return {}
+        if self.context_shift and self._hpos.max() >= self.cfg.max_seq - 1:
+            llama.shift_context(self.cache, self.cfg, self._shift_keep,
+                                rope_cache=self._rope)
+            # every slot's rows moved: no prefix starts at position 0 now
+            self._history = [[] for _ in range(self.n_slots)]
+            self._hpos = self.cache.pos.cpu().numpy().astype(np.int64)
         t0 = time.perf_counter()
         tokens = torch.as_tensor(self._pending_tok[:, None],
                                  device=self.device)
@@ -288,7 +315,8 @@ class Server:
             out[r.rid] = tok
             if (len(r.generated) >= r.max_new
                     or (self.eos_id is not None and tok == self.eos_id)
-                    or self._hpos[s] >= self.cfg.max_seq - 1):
+                    or (not self.context_shift
+                        and self._hpos[s] >= self.cfg.max_seq - 1)):
                 r.done = True
                 self.finished[r.rid] = r
                 self.slots[s] = None

@@ -1,10 +1,11 @@
 """K3 flash-decode and K5 flash-prefill attention over the KV cache.
 
 Replace the Pallas kernels ``quant_gemm_tpu/ops/attention.py::
-flash_decode`` and ``::flash_prefill`` for the linear cache: bf16, or int8
-codes with one float32 scale per (layer, slot, head, token) vector (the
-``q8`` cache); full causal or a sliding ``window``.  The ring cache
-(``ring > 0``) is not ported and raises ``NotImplementedError``.
+flash_decode`` and ``::flash_prefill``: bf16, or int8 codes with one
+float32 scale per (layer, slot, head, token) vector (the ``q8`` cache);
+full causal or a sliding ``window``; a linear cache (slot = position) or,
+with ``ring=R``, a ring of R slots holding token g at slot ``g % R``
+(needs ``0 < window <= R``; only the first R slots are attended).
 
 * :func:`flash_decode`: one query token per slot, ``q`` [B, KV, rep, hd];
   slot ``b`` attends cache slots ``< pos[b]`` when the current token's
@@ -17,6 +18,15 @@ codes with one float32 scale per (layer, slot, head, token) vector (the
   ``t`` sits at ``pos0[b] + t`` and attends slots up to it (and, under a
   window, after ``pos0[b] + t - window``); the cache already holds the
   chunk's own rows.
+
+On the ring (``attention.py:87-95, 116-118`` and ``:394-401, 422-425``):
+decode masks slot r by its age ``(p_new - r) mod R < cnt``, where
+``p_new`` is the newest cached token (``pos - 1`` with the current token
+as operands, ``pos`` without) and ``cnt = min(window - 1, pos)`` (``min(
+window, pos + 1)``) the cached tokens the window holds; prefill masks by
+the global position a slot holds, ``g = p_cache - (p_cache - r) mod R``
+with ``p_cache = pos0 + T - 1``, and needs ``window + T <= R``.  The
+kernels walk only the window's one or two slot ranges.
 
 Both take the cache as ``[L, B, KV, S, hd]`` with ``layer=`` (no per-layer
 copy) or as ``[B, KV, S, hd]``; the int8 cache's ``k_scale``/``v_scale``
@@ -63,10 +73,12 @@ def _layer_view(k: torch.Tensor, layer, full_rank: int):
 
 
 def _check_cache(k, v, k_scale, v_scale, ring, window, name):
-    if ring:
-        raise NotImplementedError(f"{name}: the ring cache is not ported")
     if window < 0:
         raise ValueError(f"{name}: window must be >= 0, got {window}")
+    if ring and not 0 < window <= ring <= k.shape[-2]:
+        raise ValueError(f"{name}: a ring of {ring} slots needs 0 < window "
+                         f"<= ring <= the cache's {k.shape[-2]} slots; got "
+                         f"window {window}")
     if v.shape != k.shape or v.dtype != k.dtype:
         raise ValueError(f"{name}: k {tuple(k.shape)} {k.dtype} and v "
                          f"{tuple(v.shape)} {v.dtype} differ")
@@ -87,15 +99,17 @@ def _check_cache(k, v, k_scale, v_scale, ring, window, name):
                              f"{s.dtype}")
 
 
-def _plain_cache(k, v, k_scale, v_scale, layer):
-    """One layer's K/V as float32 and its scales (or None)."""
+def _plain_cache(k, v, k_scale, v_scale, layer, ring):
+    """One layer's K/V as float32 and its scales (or None); of a ring,
+    only its first ``ring`` slots."""
     f32 = torch.float32
-    kl = _layer_view(k, layer, 4).to(f32)
-    vl = _layer_view(v, layer, 4).to(f32)
+    s = ring or k.shape[-2]
+    kl = _layer_view(k, layer, 4)[:, :, :s].to(f32)
+    vl = _layer_view(v, layer, 4)[:, :, :s].to(f32)
     if k_scale is None:
         return kl, vl, None, None
-    return (kl, vl, _layer_view(k_scale, layer, 3),
-            _layer_view(v_scale, layer, 3))
+    return (kl, vl, _layer_view(k_scale, layer, 3)[:, :, :s],
+            _layer_view(v_scale, layer, 3)[:, :, :s])
 
 
 def _on_cpu(name, tensors) -> bool:
@@ -166,7 +180,7 @@ def flash_decode_plain(q, k, v, pos, *, k_current=None, v_current=None,
     _check_decode(q, k, v, pos, k_current, v_current, k_scale, v_scale,
                   layer, window, ring)
     f32 = torch.float32
-    kl, vl, ks, vs = _plain_cache(k, v, k_scale, v_scale, layer)
+    kl, vl, ks, vs = _plain_cache(k, v, k_scale, v_scale, layer, ring)
     hd = q.shape[-1]
     s = kl.shape[2]
     qs = q.to(f32) * (1.0 / math.sqrt(hd))
@@ -175,11 +189,19 @@ def flash_decode_plain(q, k, v, pos, *, k_current=None, v_current=None,
         scores = scores * ks[:, :, None, :]
     has_cur = k_current is not None
     p = pos.to(torch.int64)
-    valid = (p + (0 if has_cur else 1)).clamp(0, s)
     span = torch.arange(s, device=q.device)[None, :]
-    mask = span < valid[:, None]
-    if window:
-        mask = mask & (span >= (p - window + 1).clamp(min=0)[:, None])
+    if ring:
+        # age of each slot's token behind the newest cached one, and the
+        # cached tokens the window holds
+        seq_len = p + (0 if has_cur else 1)
+        cnt = seq_len.clamp(max=window - (1 if has_cur else 0))
+        mask = torch.remainder(seq_len[:, None] - 1 - span, ring) \
+            < cnt[:, None]
+    else:
+        valid = (p + (0 if has_cur else 1)).clamp(0, s)
+        mask = span < valid[:, None]
+        if window:
+            mask = mask & (span >= (p - window + 1).clamp(min=0)[:, None])
     scores = torch.where(mask[:, None, None], scores, NEG_INF)
     if not has_cur:
         probs = torch.softmax(scores, -1)
@@ -205,7 +227,7 @@ def flash_decode(q, k, v, pos, *, k_current=None, v_current=None,
     _check_decode(q, k, v, pos, k_current, v_current, k_scale, v_scale,
                   layer, window, ring)
     kw = dict(k_current=k_current, v_current=v_current, k_scale=k_scale,
-              v_scale=v_scale, layer=layer, window=window)
+              v_scale=v_scale, layer=layer, window=window, ring=ring)
     if _on_cpu("flash_decode", [q, k, v, pos, k_current, v_current,
                                 k_scale, v_scale]):
         return flash_decode_plain(q, k, v, pos, **kw)
@@ -224,14 +246,14 @@ def flash_decode(q, k, v, pos, *, k_current=None, v_current=None,
     P, I, L = _build.P, _build.I, _build.L
     fn = _build.function(
         "flash_decode", "qgt_flash_decode",
-        [P] * 9 + [I] * 5 + [L, L] + [I] * 3 + [_build.F, P])
+        [P] * 9 + [I] * 5 + [L, L] + [I] * 4 + [_build.F, P])
     with torch.cuda.device(dev):
         rc = fn(_build.ptr(qf), kp, vp, ksp, vsp, _build.ptr(pos32),
                 _build.ptr(kcur) if has_cur else null,
                 _build.ptr(vcur) if has_cur else null, _build.ptr(out),
                 b, kv, rep, hd, s, kstride, sstride, int(has_cur),
-                int(k_scale is not None), int(window), 1.0 / math.sqrt(hd),
-                _build.stream(dev))
+                int(k_scale is not None), int(window), int(ring),
+                1.0 / math.sqrt(hd), _build.stream(dev))
     _build.check("flash_decode", "qgt_flash_decode", rc)
     flash_decode.launches += 1
     return out
@@ -248,6 +270,10 @@ def _check_prefill(q, k, v, pos0, rep, k_scale, v_scale, layer, window,
     if rep < 1 or rows % rep:
         raise ValueError(f"flash_prefill: {rows} query rows are not T x "
                          f"rep={rep}")
+    if ring and window + rows // rep > ring:
+        raise ValueError(f"flash_prefill: a chunk of {rows // rep} tokens "
+                         f"and a window of {window} overrun a ring of "
+                         f"{ring} slots (window + T <= ring)")
     if kl.shape[:2] != (b, kv) or kl.shape[3] != hd:
         raise ValueError(f"q {tuple(q.shape)} does not match cache "
                          f"{tuple(k.shape)}")
@@ -258,22 +284,30 @@ def _check_prefill(q, k, v, pos0, rep, k_scale, v_scale, layer, window,
 def flash_prefill_plain(q, k, v, pos0, *, rep, k_scale=None, v_scale=None,
                         window=0, ring=0, layer=None) -> torch.Tensor:
     """Plain PyTorch version: dense masked softmax in float32 over the
-    whole cache, every row masked by its own position."""
+    whole cache (a ring's first ``ring`` slots), every row masked by its
+    own position."""
     _check_prefill(q, k, v, pos0, rep, k_scale, v_scale, layer, window,
                    ring)
-    kl, vl, ks, vs = _plain_cache(k, v, k_scale, v_scale, layer)
+    kl, vl, ks, vs = _plain_cache(k, v, k_scale, v_scale, layer, ring)
     rows, hd = q.shape[2], q.shape[3]
     s = kl.shape[2]
     qs = q.to(torch.float32) * (1.0 / math.sqrt(hd))
     scores = torch.einsum("bgqd,bgsd->bgqs", qs, kl)
     if ks is not None:
         scores = scores * ks[:, :, None, :]
-    qpos = (pos0.to(torch.int64)[:, None]
-            + torch.arange(rows, device=q.device)[None, :] // rep)
+    p0 = pos0.to(torch.int64)[:, None]
+    qpos = (p0 + torch.arange(rows, device=q.device)[None, :] // rep)
+    qpos = qpos[:, :, None]  # [B, rows, 1]
     span = torch.arange(s, device=q.device)[None, None, :]
-    mask = span <= qpos[:, :, None]  # [B, rows, S]
-    if window:
-        mask = mask & (span > qpos[:, :, None] - window)
+    if ring:
+        # the global position each slot holds, from the chunk's newest
+        p_cache = p0[:, :, None] + rows // rep - 1
+        g = p_cache - torch.remainder(p_cache - span, ring)
+        mask = (g <= qpos) & (g >= 0) & (g > qpos - window)
+    else:
+        mask = span <= qpos  # [B, rows, S]
+        if window:
+            mask = mask & (span > qpos - window)
     scores = torch.where(mask[:, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     if vs is not None:
@@ -291,7 +325,7 @@ def flash_prefill(q, k, v, pos0, *, rep, k_scale=None, v_scale=None,
     _check_prefill(q, k, v, pos0, rep, k_scale, v_scale, layer, window,
                    ring)
     kw = dict(rep=rep, k_scale=k_scale, v_scale=v_scale, window=window,
-              layer=layer)
+              ring=ring, layer=layer)
     if _on_cpu("flash_prefill", [q, k, v, pos0, k_scale, v_scale]):
         return flash_prefill_plain(q, k, v, pos0, **kw)
     dev = q.device
@@ -305,12 +339,12 @@ def flash_prefill(q, k, v, pos0, *, rep, k_scale=None, v_scale=None,
     P, I, L = _build.P, _build.I, _build.L
     fn = _build.function(
         "flash_prefill", "qgt_flash_prefill",
-        [P] * 7 + [I] * 6 + [L, L] + [I] * 2 + [_build.F, P])
+        [P] * 7 + [I] * 6 + [L, L] + [I] * 3 + [_build.F, P])
     with torch.cuda.device(dev):
         rc = fn(_build.ptr(qf), kp, vp, ksp, vsp, _build.ptr(pos32),
                 _build.ptr(out), b, kv, rows, rep, hd, s, kstride, sstride,
-                int(k_scale is not None), int(window), 1.0 / math.sqrt(hd),
-                _build.stream(dev))
+                int(k_scale is not None), int(window), int(ring),
+                1.0 / math.sqrt(hd), _build.stream(dev))
     _build.check("flash_prefill", "qgt_flash_prefill", rc)
     flash_prefill.launches += 1
     return out

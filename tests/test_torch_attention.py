@@ -125,15 +125,19 @@ def test_flash_decode_int8_and_window_match_jax(quant, window):
 
 
 def test_ring_cache_is_not_ported():
+    """What of the ring stays refused: a ring without a window, or one
+    larger than the cache (its forms are held to JAX in
+    ``tests/test_torch_ring.py``)."""
     q, pos0, tc, _ = _prefill_case(5)
     k, v, _, _ = tc
-    with pytest.raises(NotImplementedError):
-        flash_prefill(torch.from_numpy(q), k, v, torch.from_numpy(pos0),
-                      rep=2, window=16, ring=64)
+    for window, ring in ((0, 64), (16, k.shape[-2] + 1)):
+        with pytest.raises(ValueError):
+            flash_prefill(torch.from_numpy(q), k, v, torch.from_numpy(pos0),
+                          rep=2, window=window, ring=ring)
     qd, pos, (kd, vd, _, _), _, _ = _decode_case(5, False)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         flash_decode_plain(torch.from_numpy(qd), kd, vd,
-                           torch.from_numpy(pos), layer=0, window=16,
+                           torch.from_numpy(pos), layer=0, window=0,
                            ring=64)
 
 

@@ -9,8 +9,8 @@ has only PyTorch; ``--noconftest`` keeps pytest from loading
 
 Tolerances (those of chip_smoke.py): K1 ``1e-4 * max|C|`` (float32
 summation order; q4_k and K7 ``1e-5 * max|C|``), K2 ``2e-3 * max|C|`` (a
-Q8_1 code can also move across a .5 rounding tie), K3 and K5
-``atol=2e-3``, K4 NMSE <= 1e-4, K8 ``2e-3 * max|out - x|`` on the layer
+Q8_1 code can also move across a .5 rounding tie), K3 and K5, linear and
+ring, ``atol=2e-3``, K4 NMSE <= 1e-4, K8 ``2e-3 * max|out - x|`` on the layer
 update (K2's rule), and its wo and w_down stages bit for bit equal to
 ``quantize_q8_1`` + K1 on inputs where the glue between them is exact;
 through the model, with both op sets started from the same hidden state
@@ -378,6 +378,112 @@ def test_flash_prefill(dev, hd, rep, t, quant, window):
     assert flash_prefill.launches == before + 1
     assert torch.isfinite(got).all()
     assert (got - ref).abs().max() <= 2e-3
+
+
+@pytest.mark.parametrize("current", [True, False])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("hd, rep", [(64, 8), (128, 4)])
+def test_flash_decode_ring(dev, hd, rep, quant, current):
+    """The ring form (R = 256 slots, window 200): positions before the
+    wrap (0, 5, 199), at it (255, 256) and past it (300, 1000), with and
+    without the current token as operands; the layer of a stacked cache
+    with more slots than the ring (only the first R are attended)."""
+    rng = np.random.default_rng(15)
+    b, kv, ring, layers = 7, 2, 256, 2
+
+    def f(*shape):
+        return _t(rng.standard_normal(shape).astype(np.float32), dev)
+
+    q = f(b, kv, rep, hd)
+    shape = (layers, b, kv, ring + 32, hd)
+    if quant:
+        (kc, vc), kw = _int8_cache(rng, shape, dev)
+    else:
+        kc, vc, kw = f(*shape).to(torch.bfloat16), \
+            f(*shape).to(torch.bfloat16), {}
+    if current:
+        kw.update(k_current=f(b, kv, 1, hd).to(torch.bfloat16),
+                  v_current=f(b, kv, 1, hd).to(torch.bfloat16))
+    kw.update(layer=1, window=200, ring=ring)
+    pos = torch.tensor([0, 5, 199, 255, 256, 300, 1000], dtype=torch.int32,
+                       device=dev)
+    before = flash_decode.launches
+    got = flash_decode(q, kc, vc, pos, **kw)
+    ref = flash_decode_plain(q, kc, vc, pos, **kw)
+    assert flash_decode.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 2e-3
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("hd, rep, t", [(64, 8, 72), (128, 4, 37)])
+def test_flash_prefill_ring(dev, hd, rep, t, quant):
+    """The ring form (R = 256, window 100): chunks straddling the ring's
+    edge (pos0 220), at its start (0) and past the wrap (400), T * rep
+    rows that do not divide the 64-row tile, a one-slot-strided view of a
+    wider stacked cache."""
+    rng = np.random.default_rng(16)
+    b, kv, ring, layers = 3, 2, 256, 2
+    q = _t(rng.standard_normal((b, kv, t * rep, hd)).astype(np.float32), dev)
+    shape = (layers, b + 1, kv, ring, hd)
+    if quant:
+        (kc, vc), kw = _int8_cache(rng, shape, dev)
+    else:
+        kc, vc = (_t(rng.standard_normal(shape).astype(np.float32),
+                     dev).to(torch.bfloat16) for _ in range(2))
+        kw = {}
+    kc, vc = kc[:, 1:], vc[:, 1:]
+    kw = {n: x[:, 1:] for n, x in kw.items()}
+    kw.update(rep=rep, window=100, ring=ring, layer=0)
+    pos0 = torch.tensor([220, 0, 400], dtype=torch.int32, device=dev)
+    before = flash_prefill.launches
+    got = flash_prefill(q, kc, vc, pos0, **kw)
+    ref = flash_prefill_plain(q, kc, vc, pos0, **kw)
+    assert flash_prefill.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 2e-3
+
+
+@pytest.mark.parametrize("qtype", ["bf16", "q8"])
+def test_ring_forward_through_kernels(dev, qtype):
+    """A ring model (window 48, ring_chunk 64, R = 128): a 64-token chunk
+    straddling the ring's edge (K5 at pos0 100) and a decode step past the
+    wrap, each layer through the kernels and the plain versions from the
+    same hidden state (update and logits NMSE <= 1e-4)."""
+    cfg = llama.LlamaConfig(vocab=256, dim=512, n_layers=2, n_heads=8,
+                            n_kv_heads=2, d_ff=1024, max_seq=512, window=48,
+                            ring=True, ring_chunk=64)
+    qp = llama.init_qparams(cfg, seed=1, device=dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    cache = llama.KVCache.init(cfg, 2, qtype, device=dev)
+    assert cache.k.shape[3] == cfg.ring_capacity == 128
+    for t in (64, 36):
+        llama.forward(qp, cfg, torch.randint(0, 256, (2, t), device=dev,
+                                             generator=g), cache)
+
+    def nmse(got, ref):
+        return ((got - ref) ** 2).sum() / (ref ** 2).sum()
+
+    before = (flash_prefill.launches, flash_decode.launches)
+    for t in (64, 1):
+        tokens = torch.randint(0, 256, (2, t), device=dev, generator=g)
+        cache_p = cache.clone()
+        x, step = llama.begin(qp, cfg, tokens, cache)
+        current = []
+        for li, lyr in enumerate(qp["layers"]):
+            xk, kv = llama.layer(lyr, li, cfg, x, cache, step)
+            xp, _ = llama.layer(lyr, li, cfg, x, cache_p, step,
+                                registry.PLAIN)
+            assert nmse(xk - x, xp - x) <= 1e-4
+            x = xk
+            if kv is not None:
+                current.append(kv)
+        assert nmse(llama.head(qp, cfg, x),
+                    llama.head(qp, cfg, x, registry.PLAIN)) <= 1e-4
+        llama.end(cache, step, current)
+    assert cache.pos.tolist() == [165, 165]
+    assert (flash_prefill.launches, flash_decode.launches) == (
+        before[0] + cfg.n_layers, before[1] + cfg.n_layers)
 
 
 @pytest.mark.parametrize("qtype, window", [("bf16", 0), ("q8", 0),

@@ -8,7 +8,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 1. prints the card (``nvidia-smi`` name and power limit), the torch and
    CUDA versions, and builds every kernel of the serving path from
    ``quant_gemm_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel);
-2. kernel phase: each of K1-K8 at the shapes the serving paths give it
+2. kernel phase: each of K1-K10 at the shapes its paths give it
    (K3 and K5 also with the int8 cache and a window of 256, and on the
    Mistral path's ring; K1 and K4
    also with q4_K weights in their effective form at the Q4_K_M shapes;
@@ -76,7 +76,22 @@ Run from the repository root on a machine with one NVIDIA H100:
    one, layer by layer (``SHIFT_TOL``); ``torch.profiler`` breakdowns of
    a ring decode step past R and of a chunk; the kernel phase holds K3
    and K5 on the ring and K1, K2, K4 at these shapes;
-7. prints one JSON line of the kernels, the card, and last the result
+7. spec phase (slice 6): the port's spec runner (``quant_gemm_tpu_torch.
+   specs.spec_runner.run_spec``) on the card over every committed
+   definition (each must pass its threshold), every gemm definition again
+   under each ladder rung its activation takes (``pallas_exact`` for a
+   Q8_1 activation, ``pallas_f32``, ``pallas_bf16``, ``pallas``,
+   ``xla_dequant``, ``xla_int``, ``xla_compensated``), and at full width:
+   rmsnorm at 8/128/4096 x 4096, softmax at 8 x 32000 and 4096 x 4608,
+   the ten gemm definitions at Mistral's ``wqkv`` and ``w_down`` (M = 128
+   through K4 on float32 activations, and M = 8 through K1 for a Q8_1
+   one); K9, K10, K1, K4 (and K3, K5) launches counted from 0 against the
+   phase's; the kernel phase holds K9 and K10 at those shapes, at the
+   definitions' own 5 x 512 and at a ragged 7 x 1000 (both one warp per
+   row), and K1 (M = 8) and K4 (M = 128, bf16 and float32 activations,
+   beside ``torch.matmul`` on the weight dequantized in advance) in the
+   q4_1, q5_0, q5_1 and q8_0 forms at Mistral's ``wqkv`` and ``w_down``;
+8. prints one JSON line of the kernels, the card, and last the result
    line; each phase's seconds on its own line.
 
 Exits non-zero, with no result line, when CUDA is unavailable or any phase
@@ -650,7 +665,133 @@ def kernel_phase(dev, timer):
     print(f"  {'attn_tail':13s} wo and w_down stages at M={m}: equal to "
           "quantize_q8_1 + K1", flush=True)
     mistral_kernel_rows(dev, timer, record, randn, g)
+    slice6_kernel_rows(dev, timer, record, randn)
     return rows
+
+
+# bytes of one block of 32 weights (ggml-common.h block_q*): what a
+# per-32 weight holds, and what bound_ms counts for it
+Q32_BLOCK_BYTES = {"q4_0": 18, "q4_1": 20, "q5_0": 22, "q5_1": 24,
+                   "q8_0": 34}
+# the spec runner's full-width shapes (Mistral-7B-v0.1): K9 at a decode
+# step's 8 rows, a 128-token chunk and a 4096-token prompt at hidden
+# 4096; K10 at a decode step's logits over the vocab and at 32 heads x
+# 128 query rows of a ring chunk's scores over R = 4608 slots; the GEMMs
+# at wqkv and w_down
+SPEC_RMSNORM = [(8, M_DIM), (128, M_DIM), (4096, M_DIM)]
+SPEC_SOFTMAX = [(8, VOCAB), (M_HEADS * 128, M_RING)]
+SPEC_GEMM = {"wqkv": (M_HEADS * M_HD + 2 * M_KV * M_HD, M_DIM),
+             "w_down": (M_DIM, M_D_FF)}
+
+
+# a ragged C <= 1024: the warp-per-row kernels with no multiple of 32
+RAGGED_ROWS = (7, 1000)
+
+
+def slice6_kernel_rows(dev, timer, record, randn):
+    """K9 and K10 against their plain versions at the definitions' own R x
+    C (one warp per row), at ``RAGGED_ROWS`` and at the spec runner's
+    full-width shapes (one block per row), beside ``torch.nn.functional.
+    rms_norm`` and ``torch.softmax`` (yardsticks the port never calls); K1
+    (M = 8) and K4 (M = 128, bf16 and float32 activations) in the q4_1,
+    q5_0, q5_1 and q8_0 forms at Mistral's wqkv and w_down, K4 beside
+    ``torch.matmul`` on the weight dequantized in advance (no PyTorch call
+    applies K1's per-block integer scales)."""
+    from quant_gemm_tpu_torch.formats import quant as tq
+    from quant_gemm_tpu_torch.specs import spec_runner
+    from quant_gemm_tpu_torch.kernels import layout
+    from quant_gemm_tpu_torch.kernels.gemm_dequant import (
+        gemm_dequant, gemm_dequant_plain)
+    from quant_gemm_tpu_torch.kernels.gemm_exact import (gemm_exact,
+                                                         gemm_exact_plain)
+    from quant_gemm_tpu_torch.ops.rms_norm import (rms_norm_pallas,
+                                                   rms_norm_pallas_plain)
+    from quant_gemm_tpu_torch.ops.softmax import (softmax_pallas,
+                                                  softmax_pallas_plain)
+
+    def rows_of(stem, full):
+        """(R, C, on the main path) for K9 / K10: the definition's own
+        shape, the ragged one, then the full-width ones."""
+        path = next(p for p in spec_runner.definitions() if p.stem == stem)
+        prm = spec_runner.load(path)["params"]
+        return ([(prm["R"], prm["C"], True), (*RAGGED_ROWS, False)]
+                + [(r, c, True) for r, c in full])
+
+    eps = 1e-5
+    for r, c, main in rows_of("rmsnorm", SPEC_RMSNORM):
+        x, w = randn(r, c), 0.5 + randn(c).abs()
+        got, ref = rms_norm_pallas(x, w, eps), rms_norm_pallas_plain(x, w, eps)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        tol = 1e-5 * ref.abs().max().item()
+        if not err <= tol:
+            fail(f"K9 rms_norm_pallas {r}x{c}: max|err| {err} > {tol}")
+        lib = torch.nn.functional.rms_norm
+        record("rms_norm_pallas", f"R={r} C={c}", err,
+               f"max|err| <= {tol:.3e}",
+               timer(lambda: rms_norm_pallas(x, w, eps)),
+               timer(lambda: rms_norm_pallas_plain(x, w, eps), reps=5),
+               bound(8 * r * c + 4 * c, 3 * r * c, "f32"),
+               timer(lambda: lib(x, (c,), w, eps)), main=main)
+    for r, c, main in rows_of("softmax", SPEC_SOFTMAX):
+        x = 4.0 * randn(r, c)
+        got, ref = softmax_pallas(x), softmax_pallas_plain(x)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        if not err <= 1e-6:
+            fail(f"K10 softmax_pallas {r}x{c}: max|err| {err} > 1e-6")
+        record("softmax_pallas", f"R={r} C={c}", err, "max|err| <= 1e-6",
+               timer(lambda: softmax_pallas(x)),
+               timer(lambda: softmax_pallas_plain(x), reps=5),
+               bound(8 * r * c, 5 * r * c, "f32"),
+               timer(lambda: torch.softmax(x, -1)), main=main)
+    for qtype in ("q4_1", "q5_0", "q5_1", "q8_0"):
+        for name, (n, k) in SPEC_GEMM.items():
+            w = layout.prepare(tq.QUANTIZE[qtype](randn(n, k, scale=k ** -0.5)))
+            wbytes = n * k // 32 * Q32_BLOCK_BYTES[qtype]
+            m = 8
+            a = tq.quantize_q8_1(randn(m, k))
+            got, ref = gemm_exact(w, a), gemm_exact_plain(w, a)
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            tol = 1e-4 * ref.abs().max().item()
+            if not err <= tol:
+                fail(f"K1 gemm_exact {qtype} {name}: max|err| {err} > {tol}")
+            act = m * k + 2 * m * (k // 32) * 2 + m * n * 4
+            record("gemm_exact", f"{qtype} Mistral {name} M={m} N={n} K={k}",
+                   err, f"max|err| <= {tol:.3e}",
+                   timer(lambda: gemm_exact(w, a)),
+                   timer(lambda: gemm_exact_plain(w, a), reps=5),
+                   bound(wbytes + act, 2 * m * n * k, "int8"), None,
+                   main=False)
+            m = 128
+            x = randn(m, k)
+            for adt, kind in ((torch.bfloat16, "bf16"),
+                              (torch.float32, "f32")):
+                a = x.to(adt)
+                got, ref = gemm_dequant(w, a), gemm_dequant_plain(w, a)
+                # yardstick: one matmul on the weight dequantized in
+                # advance to A's type (TF32 off for float32)
+                wd = layout.dequantize(w, adt)
+                lib = torch.matmul(a, wd.T).float()
+                torch.cuda.synchronize()
+                err = (got - ref).abs().max().item()
+                e, e_lib = nmse(got, ref), nmse(lib, ref)
+                if not e <= 1e-4:
+                    fail(f"K4 gemm_dequant {qtype} {kind} {name}: NMSE {e} "
+                         "> 1e-4")
+                if not e_lib <= 1e-3:
+                    fail(f"K4 yardstick matmul {qtype} {kind} {name}: NMSE "
+                         f"{e_lib} > 1e-3")
+                act = m * k * a.element_size() + m * n * 4
+                record("gemm_dequant", f"{qtype} {kind} A Mistral {name} "
+                       f"M={m} N={n} K={k}", err, f"NMSE {e:.3e} <= 1e-4",
+                       timer(lambda: gemm_dequant(w, a)),
+                       timer(lambda: gemm_dequant_plain(w, a), reps=5),
+                       bound(wbytes + act, 2 * m * n * k, kind),
+                       timer(lambda: torch.matmul(a, wd.T)), main=False)
+                del wd
+            del w
 
 
 def ring_keep(pos, n_slots, window):
@@ -1578,6 +1719,88 @@ def foreign_bytes(dev):
           f"{'equal' if own == GREEDY_CONT else 'near-tie'}", flush=True)
 
 
+RUN_SPEC = "spec runner"
+
+
+def spec_phase(dev, counters):
+    """The port's spec runner on the card: every definition at its own
+    parameters, every gemm definition under each ladder rung its
+    activation takes, and the full-width runs; counters from 0 just before
+    and read just after, checked against the phase's launches."""
+    from quant_gemm_tpu_torch.specs import spec_runner
+
+    defs = spec_runner.definitions()
+    gemm = [p for p in defs if spec_runner.load(p)["op_type"] == "gemm_quant"]
+    q8 = [p for p in gemm
+          if spec_runner.load(p)["inputs"]["A"]["dtype"] == "q8_1"]
+    failed = []
+
+    def run(path, impl=None, params=None, memo=None):
+        r = spec_runner.run_spec(path, impl=impl, params=params, device=dev,
+                                 memo=memo)
+        if not r.passed:
+            failed.append((path.stem, impl, params, r.row()))
+        return r
+
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    print(f"  every committed definition ({len(defs)}), on the card:",
+          flush=True)
+    for p in defs:
+        print(f"    {run(p).row()}", flush=True)
+    rungs = {"pallas_exact": q8, "pallas_f32": gemm, "pallas_bf16": gemm,
+             "pallas": gemm, "xla_dequant": gemm, "xla_int": q8,
+             "xla_compensated": q8}
+    for impl, paths in rungs.items():
+        res = [run(p, impl) for p in paths]
+        worst = max(r.nmse / r.threshold for r in res)
+        print(f"  ladder {impl:16s} {len(res)} gemm definitions, worst NMSE "
+              f"/ threshold {worst:.3f}", flush=True)
+    print("  full width (Mistral-7B-v0.1 shapes):", flush=True)
+    for r, c in SPEC_RMSNORM:
+        row = run(defs[[p.stem for p in defs].index("rmsnorm")],
+                  params={"R": r, "C": c}).row()
+        print(f"    R={r} C={c} {row}", flush=True)
+    for r, c in SPEC_SOFTMAX:
+        row = run(defs[[p.stem for p in defs].index("softmax")],
+                  params={"R": r, "C": c}).row()
+        print(f"    R={r} C={c} {row}", flush=True)
+    for name, (n, k) in SPEC_GEMM.items():
+        memo = {}  # this shape's draws and goldens, drawn once
+        for p in gemm:
+            row = run(p, params={"M": 128, "N": n, "K": k}, memo=memo).row()
+            print(f"    {name} M=128 N={n} K={k} pallas_f32 {row}",
+                  flush=True)
+            if p in q8:
+                row = run(p, "pallas_exact", {"M": 8, "N": n, "K": k},
+                          memo).row()
+                print(f"    {name} M=8 N={n} K={k} pallas_exact {row}",
+                      flush=True)
+        del memo
+    torch.cuda.synchronize()
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    print(f"  spec phase: {len(defs)} definitions, "
+          f"{sum(len(v) for v in rungs.values())} ladder runs, "
+          f"{len(SPEC_RMSNORM) + len(SPEC_SOFTMAX) + 2 * (len(gemm) + len(q8))}"
+          f" full-width runs in {time.perf_counter() - t0:.1f} s; "
+          f"launches {json.dumps(launches)}", flush=True)
+    if failed:
+        fail(f"spec runner on the card: {len(failed)} runs failed: {failed}")
+    # K9/K10: rmsnorm / softmax once each, then at each full-width shape;
+    # K4: every gemm definition by default (pallas_f32), three K4 rungs
+    # each, and at both shapes; K1: pallas_exact for each Q8_1 definition
+    # and at both shapes; K3/K5: the two attention definitions
+    check_launches(RUN_SPEC, launches, {
+        "rms_norm_pallas": 1 + len(SPEC_RMSNORM),
+        "softmax_pallas": 1 + len(SPEC_SOFTMAX),
+        "gemm_dequant": len(gemm) * (1 + 3 + len(SPEC_GEMM)),
+        "gemm_exact": len(q8) * (1 + len(SPEC_GEMM)),
+        "flash_decode": 1, "flash_prefill": 1, "norm_qkv": 0,
+        "gemm_exact_k16": 0, "gemm_exact_fused": 0, "attn_tail": 0})
+    return launches
+
+
 KERNEL_INFO = {
     "gemm_exact": ("quant_gemm_tpu_torch/csrc/gemm_exact.cu",
                    "quant_gemm_tpu/kernels/gemm_exact.py:775"),
@@ -1595,11 +1818,16 @@ KERNEL_INFO = {
                          "quant_gemm_tpu/kernels/gemm_exact.py:995"),
     "attn_tail": ("quant_gemm_tpu_torch/csrc/attn_tail.cu",
                   "quant_gemm_tpu/kernels/gemm_megalayer.py:494"),
+    "rms_norm_pallas": ("quant_gemm_tpu_torch/csrc/rms_norm.cu",
+                        "quant_gemm_tpu/ops/rms_norm.py:56"),
+    "softmax_pallas": ("quant_gemm_tpu_torch/csrc/softmax.cu",
+                       "quant_gemm_tpu/ops/softmax.py:68"),
 }
 # the run whose launches the kernels line reports: the default q4_0
 # server's, or the first run that takes the kernel
 LAUNCH_RUN = {"gemm_exact_k16": "Q4_K_M bf16", "gemm_exact_fused": RUN_A,
-              "attn_tail": RUN_B}
+              "attn_tail": RUN_B, "rms_norm_pallas": RUN_SPEC,
+              "softmax_pallas": RUN_SPEC}
 
 
 def main() -> int:
@@ -1641,6 +1869,11 @@ def main() -> int:
     counters = {name: (fn, "launches")
                 for name, fn in registry.KERNELS._asdict().items()}
     counters["k16_dequant_gemm"] = (registry.k16_dequant_gemm, "calls")
+    from quant_gemm_tpu_torch.ops.rms_norm import rms_norm_pallas
+    from quant_gemm_tpu_torch.ops.softmax import softmax_pallas
+
+    counters["rms_norm_pallas"] = (rms_norm_pallas, "launches")
+    counters["softmax_pallas"] = (softmax_pallas, "launches")
     prompts, reuse = traffic(np.random.default_rng(0))
     by_run = main_path(dev, counters, prompts, reuse)
     phase_done("main path (TinyLlama q4_0)")
@@ -1651,6 +1884,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_run[RUN_M1] = mistral_path(dev, counters)
     phase_done("Mistral path")
+    torch.cuda.empty_cache()
+    print("spec phase:", flush=True)
+    by_run[RUN_SPEC] = spec_phase(dev, counters)
+    phase_done("spec phase")
 
     kernels = []
     for name, (src, rep) in KERNEL_INFO.items():

@@ -1,8 +1,9 @@
-// Shared device code of the port's per-32 exact kernels, q4_0 and q4_k
-// weights x Q8_1 activations (gemm_exact.cu, norm_qkv.cu,
-// gemm_exact_fused.cu, attn_tail.cu): the in-kernel Q8_1 quantizer, the
-// block dot, the block loop and K1's summation order.  Plain C interface,
-// no PyTorch headers.
+// Shared device code of the port's per-32 kernels (gemm_exact.cu,
+// gemm_dequant.cu, norm_qkv.cu, gemm_exact_fused.cu, attn_tail.cu): the
+// in-kernel Q8_1 quantizer, the per-32 weight formats (q4_0, q4_1, q5_0,
+// q5_1, q8_0, q4_k: where a block's codes and scales are, its exact dot
+// with Q8_1 codes, its epilogue, its dequantized values), the block loop
+// and K1's summation order.  Plain C interface, no PyTorch headers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,6 +36,31 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
   return v;
+}
+
+// Sum and max over a block of whole warps, the result in every thread:
+// each warp reduces with shuffles, then every thread combines the warps'
+// values from red[] (32 floats of shared memory) in warp order, so all
+// threads hold the same bits.  Every thread of the block must call them.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  __syncthreads();  // red may still be read from a previous call
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.0f;
+  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) s += red[w];
+  return s;
+}
+
+__device__ __forceinline__ float block_max(float v, float* red) {
+  v = warp_max(v);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float m = red[0];
+  for (int w = 1; w < static_cast<int>(blockDim.x >> 5); ++w)
+    m = fmaxf(m, red[w]);
+  return m;
 }
 
 // Sum and max over the 8 lanes of an aligned group (xor 4, 2, 1).
@@ -148,20 +174,140 @@ __device__ __forceinline__ int dot_q4_0_q8(uint4 w, int4 a0, int4 a1) {
   return s;
 }
 
-// The golden's per-block epilogue for q4_0: d_w * (d_a * sumi - 8 * s_a),
-// each step rounded on its own (no FMA contraction), as in
-// gemm_reference.h:175-222.
-__device__ __forceinline__ float q4_0_term(float dw, float da, float sa,
-                                           int sumi) {
-  return __fmul_rn(dw, __fsub_rn(__fmul_rn(da, static_cast<float>(sumi)),
-                                 __fmul_rn(8.0f, sa)));
+// Exact int32 dot of one q5 block: the q4_0 byte layout of the low four
+// bits and the 32 fifth bits qh (bit j: code j, llama.cpp's block qh).
+// bit4(b) moves bits 0..3 of b to bit 4 of bytes 0..3, so each dp4a
+// operand holds four 5-bit codes 0..31 (positive as signed bytes).
+__device__ __forceinline__ unsigned bit4(unsigned b) {
+  return ((b & 1u) << 4) | ((b & 2u) << 11) | ((b & 4u) << 18) |
+         ((b & 8u) << 25);
 }
 
-// The per-32 weight formats of the exact kernels: where a block's scales
-// are and its epilogue (ref/gemm.py::gemm_wxa8 order, each step rounded
-// on its own).
+__device__ __forceinline__ int dot_q5_q8(uint4 w, unsigned h, int4 a0,
+                                         int4 a1) {
+  const unsigned lo = 0x0F0F0F0Fu;
+  int s = 0;
+  s = __dp4a(static_cast<int>((w.x & lo) | bit4(h)), a0.x, s);
+  s = __dp4a(static_cast<int>((w.y & lo) | bit4(h >> 4)), a0.y, s);
+  s = __dp4a(static_cast<int>((w.z & lo) | bit4(h >> 8)), a0.z, s);
+  s = __dp4a(static_cast<int>((w.w & lo) | bit4(h >> 12)), a0.w, s);
+  s = __dp4a(static_cast<int>(((w.x >> 4) & lo) | bit4(h >> 16)), a1.x, s);
+  s = __dp4a(static_cast<int>(((w.y >> 4) & lo) | bit4(h >> 20)), a1.y, s);
+  s = __dp4a(static_cast<int>(((w.z >> 4) & lo) | bit4(h >> 24)), a1.z, s);
+  s = __dp4a(static_cast<int>(((w.w >> 4) & lo) | bit4(h >> 28)), a1.w, s);
+  return s;
+}
+
+// Exact int32 dot of one q8_0 block (32 signed codes, w0: 0..15, w1:
+// 16..31) with its 32 int8 activation codes: eight signed dp4a.
+__device__ __forceinline__ int dot_q8_q8(int4 w0, int4 w1, int4 a0, int4 a1) {
+  int s = 0;
+  s = __dp4a(w0.x, a0.x, s);
+  s = __dp4a(w0.y, a0.y, s);
+  s = __dp4a(w0.z, a0.z, s);
+  s = __dp4a(w0.w, a0.w, s);
+  s = __dp4a(w1.x, a1.x, s);
+  s = __dp4a(w1.y, a1.y, s);
+  s = __dp4a(w1.z, a1.z, s);
+  s = __dp4a(w1.w, a1.w, s);
+  return s;
+}
+
+// The golden's per-block epilogues (ref/gemm.py::gemm_wxa8,
+// gemm_reference.h:175-222), each step rounded on its own (no FMA
+// contraction): an offset format d_w * (d_a * sumi - off * s_a), a min
+// format d_w * d_a * sumi + m_w * s_a, q8_0 d_w * d_a * sumi.
+__device__ __forceinline__ float offset_term(float dw, float da, float sa,
+                                             int sumi, float off) {
+  return __fmul_rn(dw, __fsub_rn(__fmul_rn(da, static_cast<float>(sumi)),
+                                 __fmul_rn(off, sa)));
+}
+
+__device__ __forceinline__ float q4_0_term(float dw, float da, float sa,
+                                           int sumi) {
+  return offset_term(dw, da, sa, sumi, 8.0f);
+}
+
+__device__ __forceinline__ float min_term(float2 w, float da, float sa,
+                                          int sumi) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(w.x, da), static_cast<float>(sumi)),
+                   __fmul_rn(w.y, sa));
+}
+
+// K4's view of a block: the dequantized weights 4 qtr .. 4 qtr + 3 into
+// v[0..3] and 16 + 4 qtr .. 16 + 4 qtr + 3 into v[4..7], from the codes
+// (raw, 0..31 or signed int8) and the block's (d, m): (q - off) * d or,
+// with a min, q * d + m rounded after each step, as the JAX kernels
+// dequantize in float32.
+__device__ __forceinline__ void q4_codes8(const uint8_t* wq, size_t blk,
+                                          int qtr, int (&q)[8]) {
+  const uint32_t w =
+      __ldg(reinterpret_cast<const uint32_t*>(wq + blk * 16) + qtr);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    q[i] = (w >> (8 * i)) & 15;
+    q[4 + i] = (w >> (8 * i + 4)) & 15;
+  }
+}
+
+__device__ __forceinline__ void add_bit4(unsigned h, int qtr, int (&q)[8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    q[i] |= ((h >> (4 * qtr + i)) & 1u) << 4;
+    q[4 + i] |= ((h >> (16 + 4 * qtr + i)) & 1u) << 4;
+  }
+}
+
+template <bool MIN>
+__device__ __forceinline__ void values8(const int (&q)[8], float2 s,
+                                        float off, float (&v)[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    v[i] = MIN ? __fadd_rn(__fmul_rn(static_cast<float>(q[i]), s.x), s.y)
+               : static_cast<float>(q[i] - static_cast<int>(off)) * s.x;
+}
+
+// The per-32 weight formats: where a block's codes and scales are
+// (Block, load, scales), its exact dot with the Q8_1 codes (dot), the
+// golden's epilogue (term, ref/gemm.py::gemm_wxa8 order) and K4's
+// dequantized values (dequant8).  Codes: qs [N, nb*16] bytes (q4/q5, the
+// low four bits) or [N, nb*32] int8 (q8_0), at wq.
+struct Q4W {  // the 4-bit code layout of q4_0, q4_1 and q4_k
+  using Block = uint4;
+  __device__ __forceinline__ static Block load(const uint8_t* wq, size_t row,
+                                               int nb, int b) {
+    return __ldg(reinterpret_cast<const uint4*>(wq + row * nb * 16) + b);
+  }
+  __device__ __forceinline__ static int dot(Block w, int4 a0, int4 a1) {
+    return dot_q4_0_q8(w, a0, a1);
+  }
+  __device__ __forceinline__ static void codes8(const uint8_t* wq,
+                                                size_t blk, int qtr,
+                                                int (&q)[8]) {
+    q4_codes8(wq, blk, qtr, q);
+  }
+};
+
+// The 4-bit formats take their codes from Q4W (aggregates with their
+// scale planes as the only members, so Q4_0W{d} initializes them).
+#define QGT_Q4_CODES                                                        \
+  using Block = Q4W::Block;                                                 \
+  __device__ __forceinline__ static Block load(const uint8_t* wq,           \
+                                               size_t row, int nb, int b) { \
+    return Q4W::load(wq, row, nb, b);                                       \
+  }                                                                         \
+  __device__ __forceinline__ static int dot(Block w, int4 a0, int4 a1) {    \
+    return Q4W::dot(w, a0, a1);                                             \
+  }                                                                         \
+  __device__ __forceinline__ static void codes8(const uint8_t* wq,          \
+                                                size_t blk, int qtr,        \
+                                                int (&q)[8]) {              \
+    Q4W::codes8(wq, blk, qtr, q);                                           \
+  }
+
 struct Q4_0W {  // d f16 [N, nb]: d_w * (d_a * sumi - 8 * s_a)
   const __half* d;
+  QGT_Q4_CODES
   __device__ __forceinline__ float2 scales(size_t i) const {
     return make_float2(__half2float(d[i]), 0.0f);
   }
@@ -169,25 +315,134 @@ struct Q4_0W {  // d f16 [N, nb]: d_w * (d_a * sumi - 8 * s_a)
                                                int sumi) {
     return q4_0_term(w.x, da, sa, sumi);
   }
+  static constexpr bool MIN = false;
+  static constexpr float OFF = 8.0f;
 };
 
 struct Q4_KW {  // effective d', m' f32 [N, nb]: d' * d_a * sumi + m' * s_a
   const float* d;
   const float* m;
+  QGT_Q4_CODES
   __device__ __forceinline__ float2 scales(size_t i) const {
     return make_float2(d[i], m[i]);
   }
   __device__ __forceinline__ static float term(float2 w, float da, float sa,
                                                int sumi) {
-    return __fadd_rn(__fmul_rn(__fmul_rn(w.x, da), static_cast<float>(sumi)),
-                     __fmul_rn(w.y, sa));
+    return min_term(w, da, sa, sumi);
   }
+  static constexpr bool MIN = true;
+  static constexpr float OFF = 0.0f;
 };
+
+struct Q4_1W {  // d, m f16 [N, nb]: d_w * d_a * sumi + m_w * s_a
+  const __half* d;
+  const __half* m;
+  QGT_Q4_CODES
+  __device__ __forceinline__ float2 scales(size_t i) const {
+    return make_float2(__half2float(d[i]), __half2float(m[i]));
+  }
+  __device__ __forceinline__ static float term(float2 w, float da, float sa,
+                                               int sumi) {
+    return min_term(w, da, sa, sumi);
+  }
+  static constexpr bool MIN = true;
+  static constexpr float OFF = 0.0f;
+};
+
+#undef QGT_Q4_CODES
+
+struct Q5Block {
+  uint4 q;     // low four bits, the q4_0 layout
+  unsigned h;  // fifth bits, bit j of code j
+};
+
+template <bool HAS_MIN>
+struct Q5W {  // d (and m) f16 [N, nb], qh u32 [N, nb]
+  const __half* d;
+  const __half* m;
+  const unsigned* qh;
+  using Block = Q5Block;
+  __device__ __forceinline__ Block load(const uint8_t* wq, size_t row, int nb,
+                                        int b) const {
+    return {Q4W::load(wq, row, nb, b), __ldg(qh + row * nb + b)};
+  }
+  __device__ __forceinline__ static int dot(const Block& w, int4 a0, int4 a1) {
+    return dot_q5_q8(w.q, w.h, a0, a1);
+  }
+  __device__ __forceinline__ void codes8(const uint8_t* wq, size_t blk,
+                                         int qtr, int (&q)[8]) const {
+    q4_codes8(wq, blk, qtr, q);
+    add_bit4(__ldg(qh + blk), qtr, q);
+  }
+  __device__ __forceinline__ float2 scales(size_t i) const {
+    return make_float2(__half2float(d[i]), HAS_MIN ? __half2float(m[i]) : 0.0f);
+  }
+  // q5_0: d_w * (d_a * sumi - 16 * s_a); q5_1: d_w * d_a * sumi + m_w * s_a
+  __device__ __forceinline__ static float term(float2 w, float da, float sa,
+                                               int sumi) {
+    return HAS_MIN ? min_term(w, da, sa, sumi)
+                   : offset_term(w.x, da, sa, sumi, 16.0f);
+  }
+  static constexpr bool MIN = HAS_MIN;
+  static constexpr float OFF = HAS_MIN ? 0.0f : 16.0f;
+};
+using Q5_0W = Q5W<false>;
+using Q5_1W = Q5W<true>;
+
+struct Q8Block {
+  int4 lo;  // codes 0..15
+  int4 hi;  // codes 16..31
+};
+
+struct Q8_0W {  // int8 codes [N, nb*32], d f16 [N, nb]: d_w * d_a * sumi
+  const __half* d;
+  using Block = Q8Block;
+  __device__ __forceinline__ static Block load(const uint8_t* wq, size_t row,
+                                               int nb, int b) {
+    const int4* p = reinterpret_cast<const int4*>(wq + row * nb * 32) + 2 * b;
+    return {__ldg(p), __ldg(p + 1)};
+  }
+  __device__ __forceinline__ static int dot(const Block& w, int4 a0, int4 a1) {
+    return dot_q8_q8(w.lo, w.hi, a0, a1);
+  }
+  __device__ __forceinline__ static void codes8(const uint8_t* wq,
+                                                size_t blk, int qtr,
+                                                int (&q)[8]) {
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(wq + blk * 32);
+    const uint32_t w0 = __ldg(p + qtr), w1 = __ldg(p + 4 + qtr);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      q[i] = static_cast<int8_t>((w0 >> (8 * i)) & 0xff);
+      q[4 + i] = static_cast<int8_t>((w1 >> (8 * i)) & 0xff);
+    }
+  }
+  __device__ __forceinline__ float2 scales(size_t i) const {
+    return make_float2(__half2float(d[i]), 0.0f);
+  }
+  __device__ __forceinline__ static float term(float2 w, float da, float sa,
+                                               int sumi) {
+    return __fmul_rn(__fmul_rn(w.x, da), static_cast<float>(sumi));
+  }
+  static constexpr bool MIN = false;
+  static constexpr float OFF = 0.0f;
+};
+
+// K4: block b of weight row `row`, dequantized values 4 qtr .. +3 and
+// 16 + 4 qtr .. +3 of the block into v (see values8).
+template <typename W>
+__device__ __forceinline__ void dequant8(const W& fmt, const uint8_t* wq,
+                                         size_t row, int nb, int b, int qtr,
+                                         float (&v)[8]) {
+  const size_t blk = row * nb + b;
+  int q[8];
+  fmt.codes8(wq, blk, qtr, q);
+  values8<W::MIN>(q, fmt.scales(blk), W::OFF, v);
+}
 
 // Partial sums acc[c][m] of C[m, n0 + c] over the blocks b = b0, b0 +
 // bstride, ... < nb, for NC consecutive weight rows (columns of C) and M
 // <= MM rows, the block terms summed in float32 as the TPU kernel sums
-// them.  Weights: qs uint8 [N, nb*16] and the scales of format W.
+// them.  Weights: the codes at wq and the planes of format W.
 // Activations (global or shared memory): qa int8 [M, nb*32], da/sa
 // [M, nb] of ScaleT.
 template <int NC, typename ScaleT, typename W, int MM = MMAX>
@@ -197,16 +452,16 @@ __device__ __forceinline__ void exact_partial(
     int bstride, float (&acc)[NC][MM]) {
   const int K = nb * QK;
   for (int b = b0; b < nb; b += bstride) {
-    uint4 w[NC];
+    typename W::Block w[NC];
     float2 sw[NC];
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       if (n0 + c < N) {
         const size_t row = static_cast<size_t>(n0 + c);
-        w[c] = __ldg(reinterpret_cast<const uint4*>(wq + row * nb * 16) + b);
+        w[c] = fmt.load(wq, row, nb, b);
         sw[c] = fmt.scales(row * nb + b);
       } else {
-        w[c] = make_uint4(0u, 0u, 0u, 0u);
+        w[c] = typename W::Block{};
         sw[c] = make_float2(0.0f, 0.0f);
       }
     }
@@ -223,7 +478,7 @@ __device__ __forceinline__ void exact_partial(
 #pragma unroll
         for (int c = 0; c < NC; ++c)
           acc[c][m] = __fadd_rn(
-              acc[c][m], W::term(sw[c], dam, sam, dot_q4_0_q8(w[c], a0, a1)));
+              acc[c][m], W::term(sw[c], dam, sam, W::dot(w[c], a0, a1)));
       }
     }
   }

@@ -1,39 +1,56 @@
-// K4: dequant GEMM for prefill, bf16 activations x q4_0 or q4_k weights.
+// K4: dequant GEMM for prefill, bf16 or float32 activations x per-32
+// weights (q4_0, q4_1, q5_0, q5_1, q8_0, q4_k).
 //
 // Replaces the Pallas kernel quant_gemm_tpu/kernels/gemm_pallas.py::gemm
-// (body _kernel_w4).  C[M, N] = A[M, K] @ W[N, K]^T with W = (q - 8) d
-// for q4_0 and W = q d' + m' (a q4_K tensor's effective f32 scale and
-// min, the has_min branch of _kernel_w4) for q4_k; as in the
-// JAX package, a Q8_1 activation is folded to bf16 before the call
-// (registry.dispatch).  The products are summed in float32, as the TPU
+// (bodies _kernel_w4 and, for q8_0, _kernel_w8).  C[M, N] = A[M, K] @
+// W[N, K]^T with W = (q - 8) d (q4_0), (q - 16) d (q5_0), q d (q8_0) or
+// q d + m (q4_1, q5_1, and q4_k with a q4_K tensor's effective f32 scale
+// and min: the has_min branch of _kernel_w4); the 5-bit codes take their
+// fifth bit from the block's qh word (_kernel_w4's has_qh).  A is bf16 (the
+// serving prefill; a Q8_1 activation is folded to bf16 before the call, as
+// gemm_pallas.py:554-562 does) or float32 (the JAX ladder's pallas_f32,
+// which keeps A in f32).  The products are summed in float32, as the TPU
 // kernel accumulates them; the plain version's matmul sums in another
 // order.
 //
-// Bound on an H100: at the prefill chunk the kernel serves (M <= 48) the
-// weight stream still dominates (2*M*N*K operations against N*K*9/16
-// weight bytes: 170 operations per byte at M = 48, below the ~295 a
-// tensor-core product needs to leave the memory bound).  Design: a plain
-// shared-memory tiled GEMM on the CUDA cores, the simple first
-// version — a BM x BN = 64 x 32 output tile per 128-thread block, one
-// 32-deep quant block per K step: the block's 64 bf16 activation rows and
-// its 32 weight rows' codes are expanded to float32 in shared memory
-// ((q - 8) * d is exact in float32; q * d' + m' is rounded once, in the
-// JAX kernel's order), and each thread accumulates a 4 x 4
-// patch with float32 FMA.  Moving the product onto the tensor cores
-// (mma/wgmma on bf16 or int8 operands) is later work.
+// Bound on an H100: operations at the serving prefill chunk of 128 rows
+// (2*M*N*K operations against N*K*9/16 weight bytes: 455 operations per
+// byte at M = 128, above the ~295 where the bf16 tensor cores, not the
+// memory, become the limit), bytes only below M of about 80.  Design: a
+// plain shared-memory tiled GEMM on the CUDA cores, the simple first
+// version, far from either bound -- a BM x BN = 64 x 32 output tile per
+// 128-thread block, one 32-deep quant block per K step: the block's 64
+// activation rows and its 32 weight rows' codes are expanded to float32
+// in shared memory (common.cuh::dequant8: (q - off) * d is exact in
+// float32; q * d + m is rounded after each step, in the JAX kernel's
+// order), and each thread accumulates a 4 x 4 patch with float32 FMA.
+// Moving the product onto the tensor cores (mma/wgmma on bf16 operands)
+// is later work.
 #include "common.cuh"
 
 namespace {
 
 constexpr int BM = 64, BN = 32, BK = qgt::QK, THREADS = 128;
 
-// q4_0: d f16, w = (q - 8) d.  q4_k: d', m' f32, w = q d' + m'.
-template <bool HAS_MIN, typename ScaleT>
+// eight consecutive activations as float (16-byte aligned: K % 32 == 0)
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[8]) {
+  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) f[i] = __bfloat162float(h[i]);
+}
+
+__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
+  const float4 lo = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 hi = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  f[0] = lo.x, f[1] = lo.y, f[2] = lo.z, f[3] = lo.w;
+  f[4] = hi.x, f[5] = hi.y, f[6] = hi.z, f[7] = hi.w;
+}
+
+template <typename AT, typename W>
 __global__ void __launch_bounds__(THREADS)
-    gemm_dequant_kernel(const __nv_bfloat16* __restrict__ a,
-                        const uint8_t* __restrict__ wq,
-                        const ScaleT* __restrict__ wd,
-                        const float* __restrict__ wm,
+    gemm_dequant_kernel(const AT* __restrict__ a,
+                        const uint8_t* __restrict__ wq, const W fmt,
                         float* __restrict__ out, int M, int N, int K) {
   __shared__ __align__(16) float as[BK][BM];
   __shared__ __align__(16) float ws[BK][BN];
@@ -47,44 +64,26 @@ __global__ void __launch_bounds__(THREADS)
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
   for (int b = 0; b < nb; ++b) {
-    // activation tile: 64 rows x 32 bf16 = 256 vectors of 8
+    // activation tile: 64 rows x 32 values = 256 vectors of 8
     for (int v = t; v < BM * BK / 8; v += THREADS) {
       const int row = v / (BK / 8), k8 = (v % (BK / 8)) * 8;
       float f[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-      if (m0 + row < M) {
-        const uint4 raw = __ldg(reinterpret_cast<const uint4*>(
-            a + static_cast<size_t>(m0 + row) * K + b * BK + k8));
-        const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) f[i] = __bfloat162float(h[i]);
-      }
+      if (m0 + row < M)
+        load8(a + static_cast<size_t>(m0 + row) * K + b * BK + k8, f);
 #pragma unroll
       for (int i = 0; i < 8; ++i) as[k8 + i][row] = f[i];
     }
-    // weight tile: 32 rows x 16 code bytes; thread = (row, 4-byte quarter)
+    // weight tile: 32 rows x 32 values; thread = (row, quarter), the
+    // quarter's values 4 qtr .. 4 qtr + 3 and 16 + 4 qtr .. 16 + 4 qtr + 3
     {
       const int col = t / 4, qtr = t % 4;
-      uint32_t w = 0u;  // past N: d = m = 0, so every weight is 0
-      float d = 0.0f, mn = 0.0f;
-      if (n0 + col < N) {
-        const size_t row = static_cast<size_t>(n0 + col);
-        w = __ldg(reinterpret_cast<const uint32_t*>(wq + row * nb * 16 +
-                                                    b * 16) + qtr);
-        d = qgt::to_f32(wd[row * nb + b]);
-        if (HAS_MIN) mn = wm[row * nb + b];
-      }
+      float v[8] = {0, 0, 0, 0, 0, 0, 0, 0};  // past N: every weight is 0
+      if (n0 + col < N)
+        qgt::dequant8(fmt, wq, static_cast<size_t>(n0 + col), nb, b, qtr, v);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int byte = (w >> (8 * i)) & 0xff, j = 4 * qtr + i;
-        if (HAS_MIN) {
-          ws[j][col] =
-              __fadd_rn(__fmul_rn(static_cast<float>(byte & 15), d), mn);
-          ws[j + 16][col] =
-              __fadd_rn(__fmul_rn(static_cast<float>(byte >> 4), d), mn);
-        } else {
-          ws[j][col] = static_cast<float>((byte & 15) - 8) * d;
-          ws[j + 16][col] = static_cast<float>((byte >> 4) - 8) * d;
-        }
+        ws[4 * qtr + i][col] = v[i];
+        ws[16 + 4 * qtr + i][col] = v[4 + i];
       }
     }
     __syncthreads();
@@ -115,35 +114,79 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <bool HAS_MIN, typename ScaleT>
-int launch(const void* a, const void* wq, const void* wd, const void* wm,
-           void* out, int M, int N, int K, void* stream) {
+template <typename W>
+int launch(const void* a, int a_f32, const void* wq, const W fmt, void* out,
+           int M, int N, int K, void* stream) {
   if (M < 1 || N < 1 || K % qgt::QK)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_dequant_kernel<HAS_MIN, ScaleT><<<grid, THREADS, 0,
-                                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(a), static_cast<const uint8_t*>(wq),
-      static_cast<const ScaleT*>(wd), static_cast<const float*>(wm),
-      static_cast<float*>(out), M, N, K);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint8_t* w = static_cast<const uint8_t*>(wq);
+  float* o = static_cast<float*>(out);
+  if (a_f32)
+    gemm_dequant_kernel<float, W><<<grid, THREADS, 0, s>>>(
+        static_cast<const float*>(a), w, fmt, o, M, N, K);
+  else
+    gemm_dequant_kernel<__nv_bfloat16, W><<<grid, THREADS, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(a), w, fmt, o, M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
 
+const __half* h(const void* p) { return static_cast<const __half*>(p); }
+
 }  // namespace
 
-// out f32 [M, N] = A bf16 [M, K] @ dequant(W)^T, W q4_0 (qs uint8
-// [N, K/2], d f16 [N, K/32]).
-QGT_EXPORT int qgt_gemm_dequant_q4_0(const void* a, const void* wq,
-                                     const void* wd, void* out, int M, int N,
-                                     int K, void* stream) {
-  return launch<false, __half>(a, wq, wd, nullptr, out, M, N, K, stream);
-}
-
-// out f32 [M, N] = A bf16 [M, K] @ dequant(W)^T, W q4_k (qs uint8
-// [N, K/2], effective d', m' f32 [N, K/32]).
-QGT_EXPORT int qgt_gemm_dequant_q4_k(const void* a, const void* wq,
-                                     const void* wd, const void* wm,
+// Every entry point: out f32 [M, N] = A [M, K] @ dequant(W)^T, A bf16
+// (a_f32 = 0) or float32 (a_f32 = 1), W's codes at wq (uint8 [N, K/2],
+// q8_0 int8 [N, K]) and its planes (f16 d, m [N, K/32]; q4_k f32 d', m';
+// q5 u32 qh [N, K/32]).
+QGT_EXPORT int qgt_gemm_dequant_q4_0(const void* a, int a_f32,
+                                     const void* wq, const void* wd,
                                      void* out, int M, int N, int K,
                                      void* stream) {
-  return launch<true, float>(a, wq, wd, wm, out, M, N, K, stream);
+  return launch(a, a_f32, wq, qgt::Q4_0W{h(wd)}, out, M, N, K, stream);
+}
+
+QGT_EXPORT int qgt_gemm_dequant_q4_1(const void* a, int a_f32,
+                                     const void* wq, const void* wd,
+                                     const void* wm, void* out, int M, int N,
+                                     int K, void* stream) {
+  return launch(a, a_f32, wq, qgt::Q4_1W{h(wd), h(wm)}, out, M, N, K,
+                stream);
+}
+
+QGT_EXPORT int qgt_gemm_dequant_q5_0(const void* a, int a_f32,
+                                     const void* wq, const void* wd,
+                                     const void* wqh, void* out, int M, int N,
+                                     int K, void* stream) {
+  return launch(a, a_f32, wq,
+                qgt::Q5_0W{h(wd), nullptr, static_cast<const unsigned*>(wqh)},
+                out, M, N, K, stream);
+}
+
+QGT_EXPORT int qgt_gemm_dequant_q5_1(const void* a, int a_f32,
+                                     const void* wq, const void* wd,
+                                     const void* wm, const void* wqh,
+                                     void* out, int M, int N, int K,
+                                     void* stream) {
+  return launch(a, a_f32, wq,
+                qgt::Q5_1W{h(wd), h(wm), static_cast<const unsigned*>(wqh)},
+                out, M, N, K, stream);
+}
+
+QGT_EXPORT int qgt_gemm_dequant_q8_0(const void* a, int a_f32,
+                                     const void* wq, const void* wd,
+                                     void* out, int M, int N, int K,
+                                     void* stream) {
+  return launch(a, a_f32, wq, qgt::Q8_0W{h(wd)}, out, M, N, K, stream);
+}
+
+QGT_EXPORT int qgt_gemm_dequant_q4_k(const void* a, int a_f32,
+                                     const void* wq, const void* wd,
+                                     const void* wm, void* out, int M, int N,
+                                     int K, void* stream) {
+  return launch(a, a_f32, wq,
+                qgt::Q4_KW{static_cast<const float*>(wd),
+                           static_cast<const float*>(wm)},
+                out, M, N, K, stream);
 }

@@ -1,19 +1,23 @@
-// K1: exact W4A8 decode GEMM, q4_0 or q4_k weights x Q8_1 activations,
-// M <= 12.
+// K1: exact WxA8 decode GEMM, per-32 weights (q4_0, q4_1, q5_0, q5_1,
+// q8_0, q4_k) x Q8_1 activations, M <= 12.
 //
 // Replaces the Pallas kernel quant_gemm_tpu/kernels/gemm_exact.py::
-// gemm_exact (body _kernel).  C[m, n] = sum_b term_b with sumi the exact
-// int32 dot of block b's raw codes (eight __dp4a) and term_b the golden's
-// per-format epilogue (ref/gemm.py::gemm_wxa8): q4_0 d_w(d_a sumi - 8 s_a),
-// q4_k (a q4_K tensor's effective q4_1 form) d' d_a sumi + m' s_a, each
-// step rounded on its own; the terms are summed in float32, as the TPU
-// kernel sums them.
+// gemm_exact (bodies _kernel and, for q8_0, _kernel_w8).  C[m, n] =
+// sum_b term_b with sumi the exact int32 dot of block b's raw codes (eight
+// __dp4a: 4-bit nibbles, 5-bit codes with their qh bit moved in, or q8_0's
+// signed bytes) and term_b the golden's per-format epilogue
+// (ref/gemm.py::gemm_wxa8): q4_0 d_w(d_a sumi - 8 s_a), q5_0 d_w(d_a sumi
+// - 16 s_a), q4_1 / q5_1 / q4_k (a q4_K tensor's effective q4_1 form)
+// d_w d_a sumi + m_w s_a, q8_0 d_w d_a sumi, each step rounded on its own;
+// the terms are summed in float32, as the TPU kernel sums them.
 //
-// Bound on an H100: bytes.  At M <= 12 the weight stream (N*K/2 code
-// bytes + N*K/16 f16 scale bytes for q4_0, N*K/4 f32 d' and m' bytes for
-// q4_k) is everything; the activations are a few KB and stay in L1/L2.  Design: a block of NW warps owns NC = 4 weight
-// rows and splits their K blocks over its threads, so every lane issues
-// 16-byte loads of whole q4_0 blocks and the grid has N/4 blocks (8000
+// Bound on an H100: bytes.  At M <= 12 the weight stream (per 32 weights:
+// 16 code bytes + 2 d bytes for q4_0, + 2 m for q4_1, + 4 qh for q5_0, +
+// 6 for q5_1, 32 + 2 for q8_0, 16 + 8 f32 d' and m' bytes for q4_k) is
+// everything; the activations are a few KB and stay in L1/L2.  Design: a
+// block of NW warps owns NC = 4 weight rows and splits their K blocks over
+// its threads, so every lane issues 16-byte loads of whole blocks (two for
+// q8_0, plus the 4-byte qh word for q5) and the grid has N/4 blocks (8000
 // for the 32000-row lm_head, 512 at N = 2048) to cover all SMs; warp
 // shuffles and one shared-memory pass reduce the partial sums.  That
 // order is common.cuh::k1_rows, which K6 and K8 share.
@@ -65,6 +69,54 @@ QGT_EXPORT int qgt_gemm_exact_q4_0(const void* wq, const void* wd,
                                    const void* sa, void* out, int M, int N,
                                    int K, void* stream) {
   return launch(wq, qgt::Q4_0W{static_cast<const __half*>(wd)}, qa, da, sa,
+                out, M, N, K, stream);
+}
+
+// out f32 [M, N] = q4_1 W [N, K] (qs uint8 [N, K/2], d, m f16 [N, K/32])
+//                  x Q8_1 A [M, K] (qa int8, da/sa f16).
+QGT_EXPORT int qgt_gemm_exact_q4_1(const void* wq, const void* wd,
+                                   const void* wm, const void* qa,
+                                   const void* da, const void* sa, void* out,
+                                   int M, int N, int K, void* stream) {
+  return launch(wq,
+                qgt::Q4_1W{static_cast<const __half*>(wd),
+                           static_cast<const __half*>(wm)},
+                qa, da, sa, out, M, N, K, stream);
+}
+
+// out f32 [M, N] = q5_0 W [N, K] (qs uint8 [N, K/2] low four bits, d f16
+//                  [N, K/32], qh u32 [N, K/32]) x Q8_1 A [M, K].
+QGT_EXPORT int qgt_gemm_exact_q5_0(const void* wq, const void* wd,
+                                   const void* wqh, const void* qa,
+                                   const void* da, const void* sa, void* out,
+                                   int M, int N, int K, void* stream) {
+  return launch(wq,
+                qgt::Q5_0W{static_cast<const __half*>(wd), nullptr,
+                           static_cast<const unsigned*>(wqh)},
+                qa, da, sa, out, M, N, K, stream);
+}
+
+// out f32 [M, N] = q5_1 W [N, K] (qs uint8 [N, K/2], d, m f16 [N, K/32],
+//                  qh u32 [N, K/32]) x Q8_1 A [M, K].
+QGT_EXPORT int qgt_gemm_exact_q5_1(const void* wq, const void* wd,
+                                   const void* wm, const void* wqh,
+                                   const void* qa, const void* da,
+                                   const void* sa, void* out, int M, int N,
+                                   int K, void* stream) {
+  return launch(wq,
+                qgt::Q5_1W{static_cast<const __half*>(wd),
+                           static_cast<const __half*>(wm),
+                           static_cast<const unsigned*>(wqh)},
+                qa, da, sa, out, M, N, K, stream);
+}
+
+// out f32 [M, N] = q8_0 W [N, K] (qs int8 [N, K], d f16 [N, K/32])
+//                  x Q8_1 A [M, K].
+QGT_EXPORT int qgt_gemm_exact_q8_0(const void* wq, const void* wd,
+                                   const void* qa, const void* da,
+                                   const void* sa, void* out, int M, int N,
+                                   int K, void* stream) {
+  return launch(wq, qgt::Q8_0W{static_cast<const __half*>(wd)}, qa, da, sa,
                 out, M, N, K, stream);
 }
 

@@ -1,10 +1,14 @@
-"""llama.cpp K-quant super-blocks (256 elements): q4_K, q6_K, q2_K, q3_K.
+"""llama.cpp K-quant super-blocks (256 elements): q4_K, q5_K, q6_K, q2_K,
+q3_K.
 
 Torch twins of the JAX package's ``formats/kquants.py`` containers and
 byte codecs, written as tensor operations so that a model file decodes on
 whatever device its bytes were moved to (a full-width file on the card in
 seconds).  Every function is bit-equal to its numpy counterpart on the same
-bytes.  The encoders (``quantize_q*_k``) are not ported.
+bytes.  The q4_K and q5_K encoders (:func:`quantize_q4_k`,
+:func:`quantize_q5_k`, with llama.cpp's ``make_qkx2_quants`` scale/min
+search) are host code in numpy, copies of the JAX package's; they return
+containers of CPU tensors.  The q6_K/q3_K/q2_K encoders are not ported.
 
 Serialized blocks (AoS, ``uint8 [N, K/256, bytes]``) and their SoA
 containers:
@@ -15,6 +19,10 @@ format  bytes  block_* layout -> container
 q4_K     144   d, dmin f16 | scales[12] (eight 6-bit (ls, lm) pairs) |
                qs[128] (per 64-chunk: byte l = x[l] | x[l+32] << 4)
                -> :class:`Q4_KTensor` (planar packed codes 0..15)
+q5_K     176   d, dmin f16 | scales[12] | qh[32] (byte l: bit 2c = 5th
+               bit of x[64c + l], bit 2c+1 of x[64c + 32 + l]) | qs[128]
+               -> :class:`Q5_KTensor` (planar low nibbles + planar 5th
+               bits)
 q6_K     210   ql[128] | qh[64] | scales[16] int8 | d f16
                -> :class:`Q6_KTensor` (int8 codes q - 32)
 q2_K      84   scales[16] (sc | mn << 4) | qs[64] 2-bit | d, dmin f16
@@ -34,9 +42,12 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .blocks import QK
+from .numpy_ref import f16_sat
+from .quant import pack_planar_bits, unpack_planar_bits
 
 QK_K = 256  # super-block size
 NSB = QK_K // QK  # 32-element sub-blocks per super-block
@@ -44,6 +55,7 @@ BLOCK_BYTES = 144  # q4_K: 2 + 2 + 12 + 128
 QK6_BLOCK_BYTES = 210  # 128 ql + 64 qh + 16 scales + 2 d
 QK2_BLOCK_BYTES = 84  # 16 scales + 64 qs + 2 d + 2 dmin
 QK3_BLOCK_BYTES = 110  # 32 hmask + 64 qs + 12 scales + 2 d
+QK5_BLOCK_BYTES = 176  # 2 + 2 + 12 + 32 + 128
 
 
 class Q4_KTensor(NamedTuple):
@@ -165,6 +177,206 @@ def dequantize_q4_k(t: Q4_KTensor) -> torch.Tensor:
     n, k = t.packed.shape[0], t.k
     q = _unplanar(t.packed).to(torch.float32).reshape(n, k // QK, QK)
     return (q * eff.d[..., None] + eff.m[..., None]).reshape(n, k)
+
+
+# ---------------------------------------------------------------------------
+# the q4_K / q5_K encoders (numpy host code, as in the JAX package)
+# ---------------------------------------------------------------------------
+
+
+def _qkx2_search(xs: np.ndarray, nmax: int, rmin: float, rdelta: float,
+                 nstep: int) -> tuple[np.ndarray, np.ndarray]:
+    """Weighted least-squares (scale, min) search per 32-element sub-block:
+    llama.cpp ``make_qkx2_quants`` (use_mad=false), vectorized.
+
+    For each candidate inverse scale ``(rmin + rdelta*s + nmax) / span``
+    the codes are rounded and (scale, min) refit by weighted least squares
+    over them; the candidate with the lowest weighted SSE wins against the
+    plain min/max start.  Weights: ``sqrt(mean(x^2)) + |x|``.  Returns
+    ``(scale, minv)`` f32 ``[..., B]``, minv stored positive (m = -min);
+    a constant sub-block gets scale 0."""
+    w = np.sqrt((xs * xs).mean(axis=-1, keepdims=True)) + np.abs(xs)
+    mn = np.minimum(xs.min(axis=-1), 0.0)
+    mx = xs.max(axis=-1)
+    span = mx - mn
+    ok = span > 0
+    span_safe = np.where(ok, span, 1.0)
+    sum_w = w.sum(axis=-1)
+    sum_x = (w * xs).sum(axis=-1)
+
+    def sse(scale, minv_neg, codes):
+        r = scale[..., None] * codes + minv_neg[..., None] - xs
+        return (w * r * r).sum(axis=-1)
+
+    # initialization: plain min/max rounding, no refit
+    l0 = np.clip(
+        np.floor((xs - mn[..., None]) * (nmax / span_safe)[..., None] + 0.5),
+        0, nmax)
+    best_scale = span / nmax
+    best_min = mn.copy()
+    best_err = sse(best_scale, best_min, l0)
+
+    for s in range(nstep + 1):
+        isc = (rmin + rdelta * s + nmax) / span_safe
+        l = np.clip(np.floor(isc[..., None] * (xs - mn[..., None]) + 0.5),
+                    0, nmax)
+        sum_l = (w * l).sum(axis=-1)
+        sum_l2 = (w * l * l).sum(axis=-1)
+        sum_xl = (w * l * xs).sum(axis=-1)
+        det = sum_w * sum_l2 - sum_l * sum_l
+        valid = det > 0
+        det_safe = np.where(valid, det, 1.0)
+        this_scale = (sum_w * sum_xl - sum_x * sum_l) / det_safe
+        this_min = (sum_l2 * sum_x - sum_l * sum_xl) / det_safe
+        # a positive min is clamped to 0 and the scale refit unconstrained
+        pos = this_min > 0
+        l2_safe = np.where(sum_l2 > 0, sum_l2, 1.0)
+        this_scale = np.where(pos, sum_xl / l2_safe, this_scale)
+        this_min = np.where(pos, 0.0, this_min)
+        err = np.where(valid, sse(this_scale, this_min, l), np.inf)
+        better = err < best_err
+        best_err = np.where(better, err, best_err)
+        best_scale = np.where(better, this_scale, best_scale)
+        best_min = np.where(better, this_min, best_min)
+
+    scale = np.where(ok, best_scale, 0.0).astype(np.float32)
+    minv = np.where(ok, -best_min, -mn).astype(np.float32)
+    return scale, np.maximum(minv, 0.0)
+
+
+def _encode_k(x, nmax: int, rmin: float, nstep: int, search: bool):
+    """The shared q4_K/q5_K encoder: super-scales ``d``/``dmin`` (f16),
+    6-bit sub-scales ``ls``/``lm`` and the codes 0..nmax, numpy."""
+    x = np.asarray(x, np.float32)
+    n, k = x.shape
+    if k % QK_K:
+        raise ValueError(f"K={k} must be a multiple of {QK_K}")
+    xs = x.reshape(n, k // QK, QK)
+    if search:
+        scale, minv = _qkx2_search(xs, nmax, rmin=rmin, rdelta=0.1,
+                                   nstep=nstep)
+    else:
+        mn = np.minimum(xs.min(axis=2), 0.0)  # mins stored positive
+        scale = (xs.max(axis=2) - mn) / float(nmax)
+        minv = -mn
+    d = f16_sat(scale.reshape(n, -1, NSB).max(axis=2) / 63.0)
+    dmin = f16_sat(minv.reshape(n, -1, NSB).max(axis=2) / 63.0)
+
+    def six_bit(vals, sup):  # vals [N, nb], sup [N, nsb] (f32 of the f16)
+        rep = np.repeat(sup, NSB, axis=1)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            q = np.floor(vals / np.where(rep > 0, rep, 1.0) + 0.5)
+        return np.clip(np.where(rep > 0, q, 0), 0, 63).astype(np.uint8)
+
+    d32, dmin32 = d.astype(np.float32), dmin.astype(np.float32)
+    ls, lm = six_bit(scale, d32), six_bit(minv, dmin32)
+    d_eff = np.repeat(d32, NSB, axis=1) * ls  # [N, nb]
+    m_eff = np.repeat(dmin32, NSB, axis=1) * lm
+    with np.errstate(divide="ignore", invalid="ignore"):
+        q = np.floor((xs + m_eff[:, :, None])
+                     / np.where(d_eff > 0, d_eff, 1.0)[:, :, None] + 0.5)
+    codes = np.clip(np.where(d_eff[:, :, None] > 0, q, 0), 0, nmax)
+    return d, dmin, ls, lm, codes.astype(np.uint8).reshape(n, k)
+
+
+def _tensors(*arrays):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
+
+
+def quantize_q4_k(x, search: bool = True) -> Q4_KTensor:
+    """float [N, K] (numpy or a CPU tensor) -> :class:`Q4_KTensor` of CPU
+    tensors, K % 256 == 0.  ``search=True`` runs the weighted scale/min
+    search (rmin -1, 20 steps: llama.cpp ``quantize_row_q4_K_ref``'s
+    parameters), ``False`` the min/max encoder."""
+    d, dmin, ls, lm, codes = _encode_k(np.asarray(x), 15, -1.0, 20, search)
+    half = codes.shape[1] // 2
+    packed = codes[:, :half] | (codes[:, half:] << 4)
+    return Q4_KTensor(*_tensors(d, dmin, ls, lm, packed))
+
+
+# ---------------------------------------------------------------------------
+# q5_K
+# ---------------------------------------------------------------------------
+
+
+class Q5_KTensor(NamedTuple):
+    """SoA q5_K: super-scales, 6-bit sub-scales, planar low nibbles and
+    planar 5th bits (bit ``c % 8`` of byte ``c // 8`` is code c's)."""
+
+    d: torch.Tensor  # f16 [N, K/256]
+    dmin: torch.Tensor  # f16 [N, K/256]
+    ls: torch.Tensor  # u8 [N, K/32]
+    lm: torch.Tensor  # u8 [N, K/32]
+    packed: torch.Tensor  # u8 [N, K/2] planar low nibbles
+    qh: torch.Tensor  # u8 [N, K/8] planar 5th bits
+
+    @property
+    def k(self) -> int:
+        return self.packed.shape[-1] * 2
+
+
+def quantize_q5_k(x, search: bool = True) -> Q5_KTensor:
+    """float [N, K] (numpy or a CPU tensor) -> :class:`Q5_KTensor` of CPU
+    tensors, K % 256 == 0.  ``search=True`` runs the weighted scale/min
+    search (rmin -0.5, 15 steps: llama.cpp ``quantize_row_q5_K_ref``'s
+    parameters), ``False`` the min/max encoder."""
+    d, dmin, ls, lm, codes = _encode_k(np.asarray(x), 31, -0.5, 15, search)
+    n, k = codes.shape
+    half = k // 2
+    packed = (codes[:, :half] & 0xF) | ((codes[:, half:] & 0xF) << 4)
+    bits = (codes >> 4).reshape(n, k // 8, 8)
+    qh = (bits << np.arange(8, dtype=np.uint8)).sum(axis=-1).astype(np.uint8)
+    return Q5_KTensor(*_tensors(d, dmin, ls, lm, packed, qh))
+
+
+def _codes5(t: Q5_KTensor) -> torch.Tensor:
+    """Natural-order codes 0..31, int32 [N, K]."""
+    return (_unplanar(t.packed).to(torch.int32)
+            | (unpack_planar_bits(t.qh).to(torch.int32) << 4))
+
+
+def dequantize_q5_k(t: Q5_KTensor) -> torch.Tensor:
+    """f32 [N, K]: ``q * d' + m'`` per 32-element sub-block, ``d' =
+    d*ls``, ``m' = -dmin*lm``."""
+    d = _rep(t.d, NSB) * t.ls.to(torch.float32)
+    m = -(_rep(t.dmin, NSB) * t.lm.to(torch.float32))
+    n, k = t.packed.shape[0], t.k
+    q = _codes5(t).to(torch.float32).reshape(n, k // QK, QK)
+    return (q * d[..., None] + m[..., None]).reshape(n, k)
+
+
+def to_bytes_q5_k(t: Q5_KTensor) -> torch.Tensor:
+    """SoA -> AoS u8 [N, K/256, 176] (bit-identical to block_q5_K)."""
+    n = t.packed.shape[0]
+    nsb = t.k // QK_K
+    scales = _pack_scales(t.ls.reshape(n, nsb, 8), t.lm.reshape(n, nsb, 8))
+    c = _codes5(t).reshape(n, nsb, 4, 2, 32)  # [.., chunk, half, 32]
+    hi = (c >> 4) & 1
+    qh = sum((hi[:, :, j, 0] << (2 * j)) | (hi[:, :, j, 1] << (2 * j + 1))
+             for j in range(4)).to(torch.uint8)
+    low = (c & 0xF).to(torch.uint8)
+    qs = (low[:, :, :, 0] | (low[:, :, :, 1] << 4)).reshape(n, nsb, 128)
+    return torch.cat([_f16_bytes(t.d.reshape(n, nsb)).reshape(n, nsb, 2),
+                      _f16_bytes(t.dmin.reshape(n, nsb)).reshape(n, nsb, 2),
+                      scales, qh, qs], dim=-1)
+
+
+def from_bytes_q5_k(raw: torch.Tensor) -> Q5_KTensor:
+    """AoS u8 [N, K/256, 176] -> :class:`Q5_KTensor` (accepts llama.cpp's
+    bytes), on ``raw``'s device."""
+    n, nsb, bb = raw.shape
+    if bb != QK5_BLOCK_BYTES:
+        raise ValueError(f"q5_K blocks are {QK5_BLOCK_BYTES} bytes, got {bb}")
+    ls, lm = _unpack_scales(raw[:, :, 4:16])
+    qh = raw[:, :, 16:48]
+    qs = raw[:, :, 48:176].reshape(n, nsb, 4, 32)
+    codes = torch.stack(
+        [torch.stack([(qs[:, :, j] & 0xF) | (((qh >> (2 * j)) & 1) << 4),
+                      (qs[:, :, j] >> 4) | (((qh >> (2 * j + 1)) & 1) << 4)],
+                     dim=2) for j in range(4)], dim=2).reshape(n, nsb * QK_K)
+    return Q5_KTensor(_f16(raw, 0), _f16(raw, 2), ls.reshape(n, -1),
+                      lm.reshape(n, -1), _planar(codes & 0xF),
+                      pack_planar_bits(codes >> 4))
 
 
 # ---------------------------------------------------------------------------
@@ -387,6 +599,7 @@ K16_TENSORS = (Q2_KTensor, Q3_KTensor, Q6_KTensor)
 #: container -> dequantizer (f32 [N, K])
 DEQUANT = {
     Q4_KTensor: dequantize_q4_k,
+    Q5_KTensor: dequantize_q5_k,
     Q2_KTensor: dequantize_q2_k,
     Q3_KTensor: dequantize_q3_k,
     Q6_KTensor: dequantize_q6_k,
@@ -459,9 +672,12 @@ def k16_qtype(t) -> Optional[str]:
 
 
 __all__ = ["QK_K", "NSB", "BLOCK_BYTES", "QK6_BLOCK_BYTES",
-           "QK2_BLOCK_BYTES", "QK3_BLOCK_BYTES", "Q4_KTensor", "EffectiveQ41",
-           "Q6_KTensor", "Q2_KTensor", "Q3_KTensor", "from_bytes",
-           "to_bytes", "to_effective", "dequantize_q4_k", "from_bytes_q6_k",
+           "QK2_BLOCK_BYTES", "QK3_BLOCK_BYTES", "QK5_BLOCK_BYTES",
+           "Q4_KTensor", "EffectiveQ41", "Q5_KTensor", "Q6_KTensor",
+           "Q2_KTensor", "Q3_KTensor", "from_bytes", "to_bytes",
+           "to_effective", "dequantize_q4_k", "quantize_q4_k",
+           "quantize_q5_k", "dequantize_q5_k", "to_bytes_q5_k",
+           "from_bytes_q5_k", "from_bytes_q6_k",
            "to_bytes_q6_k", "dequantize_q6_k", "from_bytes_q2_k",
            "to_bytes_q2_k", "from_bytes_q3_k", "to_bytes_q3_k",
            "dequantize_q2_k", "dequantize_q3_k", "K16_TENSORS", "DEQUANT",

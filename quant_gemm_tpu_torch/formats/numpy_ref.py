@@ -1,9 +1,11 @@
-"""CPU (numpy) reference quantize/dequantize: the port's golden.
+"""CPU (numpy) reference quantize/dequantize for the six block formats: the
+port's golden.
 
-A copy of the JAX package's ``formats/numpy_ref.py`` trimmed to q4_0, q8_0
-and q8_1.  Semantics: round half to even (``np.rint``), scales saturate to
-float16 (``f16_sat``), the quantizers multiply by a safe reciprocal rather
-than divide, and Q8_1 stores ``s = f16(d * sum(q))``.
+A copy of the JAX package's ``formats/numpy_ref.py``.  Semantics: round
+half to even (``np.rint``), scales saturate to float16 (``f16_sat``), the
+quantizers multiply by a safe reciprocal rather than divide, and Q8_1
+stores ``s = f16(d * sum(q))``.  Every function takes ``[..., K]`` float
+arrays and returns the planar containers of :mod:`.blocks`.
 """
 
 from __future__ import annotations
@@ -11,7 +13,8 @@ from __future__ import annotations
 import numpy as np
 
 from ..utils import F16_MAX
-from .blocks import QK, Q4_0Tensor, Q8_0Tensor, Q8_1Tensor
+from .blocks import (QK, Q4_0Tensor, Q4_1Tensor, Q5_0Tensor, Q5_1Tensor,
+                     Q8_0Tensor, Q8_1Tensor)
 
 
 def f16_sat(x):
@@ -33,6 +36,23 @@ def pack_planar_4bit(q: np.ndarray) -> np.ndarray:
 def unpack_planar_4bit(packed: np.ndarray) -> np.ndarray:
     """Inverse of :func:`pack_planar_4bit`; returns ``uint8[..., K]``."""
     return np.concatenate([packed & 0x0F, packed >> 4], axis=-1)
+
+
+def pack_planar_bits(b: np.ndarray) -> np.ndarray:
+    """Pack single bits ``uint[..., K]`` -> ``uint8[..., K/8]`` planar:
+    bit ``c % 8`` of byte ``c // 8`` is ``b[..., c]`` (natural order)."""
+    k = b.shape[-1]
+    assert k % 8 == 0
+    b = (b.astype(np.uint8) & 1).reshape(b.shape[:-1] + (k // 8, 8))
+    shifts = np.arange(8, dtype=np.uint8)
+    return (b << shifts).sum(axis=-1).astype(np.uint8)
+
+
+def unpack_planar_bits(packed: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`pack_planar_bits`; returns ``uint8[..., K]``."""
+    shifts = np.arange(8, dtype=np.uint8)
+    bits = (packed[..., None] >> shifts) & 1
+    return bits.reshape(packed.shape[:-1] + (packed.shape[-1] * 8,))
 
 
 def _blocks(x: np.ndarray) -> np.ndarray:
@@ -59,6 +79,44 @@ def quantize_q4_0(x: np.ndarray) -> Q4_0Tensor:
     return Q4_0Tensor(pack_planar_4bit(q.reshape(x.shape)), d)
 
 
+def quantize_q4_1(x: np.ndarray) -> Q4_1Tensor:
+    """d = (max-min)/15, m = min, q = clip(rint((x-m)/d), 0, 15)."""
+    xb = _blocks(x)
+    mn = xb.min(axis=-1)
+    mx = xb.max(axis=-1)
+    d = f16_sat((mx - mn) / 15.0)
+    m = f16_sat(mn)
+    inv = _safe_inv(d)
+    q = np.clip(np.rint((xb - mn[..., None]) * inv[..., None]), 0, 15)
+    return Q4_1Tensor(pack_planar_4bit(q.astype(np.uint8).reshape(x.shape)),
+                      d, m)
+
+
+def quantize_q5_0(x: np.ndarray) -> Q5_0Tensor:
+    """d = amax/15, q = clip(rint(x/d), -16, 15) + 16."""
+    xb = _blocks(x)
+    amax = np.abs(xb).max(axis=-1)
+    d = f16_sat(amax / 15.0)
+    inv = _safe_inv(d)
+    q = np.clip(np.rint(xb * inv[..., None]) + 16, 0, 31).astype(np.uint8)
+    q = q.reshape(x.shape)
+    return Q5_0Tensor(pack_planar_4bit(q & 0x0F), pack_planar_bits(q >> 4), d)
+
+
+def quantize_q5_1(x: np.ndarray) -> Q5_1Tensor:
+    """d = (max-min)/31, m = min, q = clip(rint((x-m)/d), 0, 31)."""
+    xb = _blocks(x)
+    mn = xb.min(axis=-1)
+    mx = xb.max(axis=-1)
+    d = f16_sat((mx - mn) / 31.0)
+    m = f16_sat(mn)
+    inv = _safe_inv(d)
+    q = np.clip(np.rint((xb - mn[..., None]) * inv[..., None]), 0, 31)
+    q = q.astype(np.uint8).reshape(x.shape)
+    return Q5_1Tensor(pack_planar_4bit(q & 0x0F), pack_planar_bits(q >> 4),
+                      d, m)
+
+
 def quantize_q8_0(x: np.ndarray) -> Q8_0Tensor:
     """d = amax/127, q = clip(rint(x/d), -127, 127)."""
     xb = _blocks(x)
@@ -81,15 +139,21 @@ def quantize_q8_1(x: np.ndarray) -> Q8_1Tensor:
     return Q8_1Tensor(q.reshape(x.shape), d, s)
 
 
-QUANTIZE = {"q4_0": quantize_q4_0, "q8_0": quantize_q8_0,
-            "q8_1": quantize_q8_1}
+QUANTIZE = {"q4_0": quantize_q4_0, "q4_1": quantize_q4_1,
+            "q5_0": quantize_q5_0, "q5_1": quantize_q5_1,
+            "q8_0": quantize_q8_0, "q8_1": quantize_q8_1}
 
 
 def codes(t) -> np.ndarray:
     """Raw stored integer codes ``int32[..., K]`` in natural K order (q4_0:
-    the unshifted 0..15 nibbles)."""
-    if isinstance(t, Q4_0Tensor):
+    the unshifted 0..15 nibbles; q5: the 0..31 codes with their 5th
+    bit)."""
+    if isinstance(t, (Q4_0Tensor, Q4_1Tensor)):
         return unpack_planar_4bit(np.asarray(t.packed)).astype(np.int32)
+    if isinstance(t, (Q5_0Tensor, Q5_1Tensor)):
+        lo = unpack_planar_4bit(np.asarray(t.packed)).astype(np.int32)
+        hi = unpack_planar_bits(np.asarray(t.qh)).astype(np.int32)
+        return lo | (hi << 4)
     if isinstance(t, (Q8_0Tensor, Q8_1Tensor)):
         return np.asarray(t.qs).astype(np.int32)
     raise TypeError(type(t))
@@ -98,10 +162,16 @@ def codes(t) -> np.ndarray:
 def dequantize(t) -> np.ndarray:
     """Dequantize a block tensor back to float32 ``[..., K]``."""
     q = codes(t)
+    spec = t.spec
     d = np.repeat(np.asarray(t.d).astype(np.float32), QK, axis=-1)
-    return (q - t.spec.offset).astype(np.float32) * d
+    if spec.has_min:
+        m = np.repeat(np.asarray(t.m).astype(np.float32), QK, axis=-1)
+        return q.astype(np.float32) * d + m
+    return (q - spec.offset).astype(np.float32) * d
 
 
 __all__ = ["f16_sat", "pack_planar_4bit", "unpack_planar_4bit",
-           "quantize_q4_0", "quantize_q8_0", "quantize_q8_1", "QUANTIZE",
-           "codes", "dequantize"]
+           "pack_planar_bits", "unpack_planar_bits", "quantize_q4_0",
+           "quantize_q4_1", "quantize_q5_0", "quantize_q5_1",
+           "quantize_q8_0", "quantize_q8_1", "QUANTIZE", "codes",
+           "dequantize"]

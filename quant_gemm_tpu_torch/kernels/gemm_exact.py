@@ -1,23 +1,26 @@
-"""K1: exact W4A8 decode GEMM (q4_0 or q4_k weights x Q8_1 activations,
-M <= 12), and K6, the same GEMM with the Q8_1 quantization of a float
+"""K1: exact WxA8 decode GEMM (per-32 weights x Q8_1 activations, M <=
+12), and K6, the same GEMM with the Q8_1 quantization of a float
 activation inside the kernel.
 
 Replaces the Pallas kernel ``quant_gemm_tpu/kernels/gemm_exact.py::
-gemm_exact``.  Per 32-block, the exact int32 dot ``sumi`` of the raw 0..15
-weight codes and the int8 activation codes, then the golden's epilogue in
-float32 (``ref/gemm.py::gemm_wxa8``, not the TPU kernel's fused-
-compensation order): q4_0 ``d_w * (d_a * sumi - 8 * s_a)``
-(``gemm_reference.h:175-222``); q4_k, a q4_K tensor in its effective q4_1
-form, ``d' * d_a * sumi + m' * s_a`` with ``s_a`` the stored f16 ``s =
-d_a * sum(q)`` of Q8_1, not the float sum of the activations.  The block
-terms are summed in float32 as the TPU kernel sums them.  Kernel and
-plain version sum in different orders, so they agree to float32 rounding,
-not bit for bit.
+gemm_exact`` (``_kernel``, and ``_kernel_w8`` for q8_0).  Per 32-block,
+the exact int32 dot ``sumi`` of the raw weight codes (0..15, 0..31 for q5
+with the 5th bit from ``qh``, signed for q8_0) and the int8 activation
+codes, then the golden's epilogue in float32 (``ref/gemm.py::gemm_wxa8``,
+not the TPU kernel's fused-compensation order): q4_0 ``d_w * (d_a * sumi -
+8 * s_a)`` (``gemm_reference.h:175-222``), q5_0 the same with 16; q4_1,
+q5_1 and q4_k (a q4_K tensor in its effective q4_1 form) ``d_w * d_a *
+sumi + m_w * s_a`` with ``s_a`` the stored f16 ``s = d_a * sum(q)`` of
+Q8_1, not the float sum of the activations; q8_0 ``d_w * d_a * sumi``.
+The block terms are summed in float32 as the TPU kernel sums them.
+Kernel and plain version sum in different orders, so they agree to
+float32 rounding, not bit for bit.
 
-Bound on an H100: bytes — the weight stream (``N*K*9/16`` bytes for q4_0,
-``N*K*3/4`` for q4_k with its f32 d' and m' planes) at 3.35 TB/s; the
-design (``csrc/gemm_exact.cu``) streams whole blocks with 16-byte loads,
-eight ``__dp4a`` each, over a grid of ``N/4`` blocks.
+Bound on an H100: bytes — the weight stream (per 32 weights: 18 bytes for
+q4_0, 20 q4_1, 22 q5_0, 24 q5_1, 34 q8_0, 24 for q4_k with its f32 d' and
+m' planes) at 3.35 TB/s; the design (``csrc/gemm_exact.cu``) streams whole
+blocks with 16-byte loads (two for q8_0, and q5's 4-byte qh word), eight
+``__dp4a`` each, over a grid of ``N/4`` blocks.
 
 :func:`gemm_exact` launches the CUDA kernel for CUDA tensors and runs
 :func:`gemm_exact_plain` for CPU tensors; ``gemm_exact.launches`` counts
@@ -34,7 +37,7 @@ that unfused chain on the plain K1.  Bound: bytes, K1's weight stream plus
 ``M*K*4`` bytes of ``x``; the kernel quantizes ``x`` once per block of a
 persistent grid into shared memory, so its ``M*K*9/8`` bytes of codes
 and scales must fit one block's 227 KB (the launch raises otherwise).
-The q8_0 form of the JAX kernel waits for the port's q8_0 weights.
+K6 takes q4_0 and q4_k; its q8_0 and q4_1 forms are not ported yet.
 ``gemm_exact_fused.launches`` counts launches.
 """
 
@@ -45,13 +48,13 @@ import torch
 from ..formats.blocks import QK, Q8_1Tensor
 from ..formats.quant import quantize_q8_1
 from . import _build, layout
-from .layout import PreparedWeight
+from .layout import OFFSET, QTYPES, PreparedWeight, planes
 
 MMAX = 12  # most activation rows the kernel takes
 
 
 def _check(w: PreparedWeight, a: Q8_1Tensor, mmax: int = MMAX) -> None:
-    if w.qtype not in ("q4_0", "q4_k"):
+    if w.qtype not in QTYPES:
         raise NotImplementedError(f"gemm_exact: {w.qtype} is not ported")
     m, k = a.qs.shape
     if k != w.k:
@@ -79,22 +82,24 @@ def gemm_exact_plain(w: PreparedWeight, a: Q8_1Tensor) -> torch.Tensor:
     dw = w.d.to(torch.float32)[None]
     da = a.d.to(torch.float32)[:, None]
     sa = a.s.to(torch.float32)[:, None]
-    if w.qtype == "q4_0":
-        terms = dw * (da * sumi - 8.0 * sa)
+    if w.qtype in OFFSET:
+        terms = dw * (da * sumi - float(OFFSET[w.qtype]) * sa)
+    elif w.m is not None:
+        terms = dw * da * sumi + w.m.to(torch.float32)[None] * sa
     else:
-        terms = dw * da * sumi + w.m[None] * sa
+        terms = dw * da * sumi
     return terms.sum(dim=-1)
 
 
 def gemm_exact(w: PreparedWeight, a: Q8_1Tensor) -> torch.Tensor:
-    """``C[M, N]`` float32 of q4_0 or q4_k ``w`` [N, K] and Q8_1 ``a``
-    [M, K]."""
+    """``C[M, N]`` float32 of a per-32 ``w`` [N, K] (``layout.QTYPES``)
+    and Q8_1 ``a`` [M, K]."""
     _check(w, a)
     dev = w.qs.device
-    planes = (w.d,) if w.m is None else (w.d, w.m)
+    wp = planes(w)
     if dev.type == "cpu" and a.qs.device.type == "cpu":
         return gemm_exact_plain(w, a)
-    if dev.type != "cuda" or any(t.device != dev for t in (*a, *planes)):
+    if dev.type != "cuda" or any(t.device != dev for t in (*a, *wp)):
         raise ValueError("gemm_exact: all operands must be on one CUDA "
                          "device (or all on the CPU)")
     m, k = a.qs.shape
@@ -103,10 +108,10 @@ def gemm_exact(w: PreparedWeight, a: Q8_1Tensor) -> torch.Tensor:
     out = torch.empty(m, w.n, dtype=torch.float32, device=dev)
     symbol = f"qgt_gemm_exact_{w.qtype}"
     fn = _build.function("gemm_exact", symbol,
-                         [_build.P] * (5 + len(planes)) + [_build.I] * 3
+                         [_build.P] * (5 + len(wp)) + [_build.I] * 3
                          + [_build.P])
     with torch.cuda.device(dev):
-        rc = fn(_build.ptr(w.qs), *map(_build.ptr, planes), _build.ptr(qa),
+        rc = fn(_build.ptr(w.qs), *map(_build.ptr, wp), _build.ptr(qa),
                 _build.ptr(da), _build.ptr(sa), _build.ptr(out), m, w.n, k,
                 _build.stream(dev))
     _build.check("gemm_exact", symbol, rc)
@@ -138,10 +143,10 @@ def gemm_exact_fused(w: PreparedWeight, x: torch.Tensor) -> torch.Tensor:
     float ``x`` [M <= 12, K], with the quantization inside the kernel."""
     _check_fused(w, x)
     dev = w.qs.device
-    planes = (w.d,) if w.m is None else (w.d, w.m)
+    wp = planes(w)
     if dev.type == "cpu" and x.device.type == "cpu":
         return gemm_exact_fused_plain(w, x)
-    if dev.type != "cuda" or any(t.device != dev for t in (x, *planes)):
+    if dev.type != "cuda" or any(t.device != dev for t in (x, *wp)):
         raise ValueError("gemm_exact_fused: all operands must be on one "
                          "CUDA device (or all on the CPU)")
     m, k = x.shape
@@ -150,10 +155,10 @@ def gemm_exact_fused(w: PreparedWeight, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty(m, w.n, dtype=torch.float32, device=dev)
     symbol = f"qgt_gemm_exact_fused_{w.qtype}"
     fn = _build.function("gemm_exact_fused", symbol,
-                         [_build.P] * (3 + len(planes)) + [_build.I] * 3
+                         [_build.P] * (3 + len(wp)) + [_build.I] * 3
                          + [_build.P])
     with torch.cuda.device(dev):
-        rc = fn(_build.ptr(w.qs), *map(_build.ptr, planes), _build.ptr(x),
+        rc = fn(_build.ptr(w.qs), *map(_build.ptr, wp), _build.ptr(x),
                 _build.ptr(out), m, w.n, k, _build.stream(dev))
     _build.check("gemm_exact_fused", symbol, rc)
     gemm_exact_fused.launches += 1

@@ -10,12 +10,20 @@ themselves).
 
 :class:`PreparedWeight` (per-32 formats, K % 32 == 0), per weight row n:
 
-* ``qs: uint8[N, K/2]`` — block ``b``'s 16 code bytes at ``[16b, 16b +
-  16)``, byte ``j`` holding code ``32b + j`` in its low nibble and code
-  ``32b + j + 16`` in its high nibble: exactly the ``qs`` field of
-  llama.cpp's ``block_q4_0``, so one 16-byte load per lane brings a block;
-* q4_0: ``d: float16[N, K/32]``, the block scales as stored in GGUF;
-  ``x = (q - 8) * d``;
+* 4/5-bit ``qs: uint8[N, K/2]`` — block ``b``'s 16 code bytes at ``[16b,
+  16b + 16)``, byte ``j`` holding (the low four bits of) code ``32b + j``
+  in its low nibble and code ``32b + j + 16`` in its high nibble: exactly
+  the ``qs`` field of llama.cpp's ``block_q4_0``, so one 16-byte load per
+  lane brings a block;
+* q8_0 ``qs: int8[N, K]`` — block ``b``'s 32 signed codes at ``[32b, 32b
+  + 32)``, llama.cpp's ``block_q8_0`` ``qs`` (two 16-byte loads);
+* q5_0/q5_1 ``qh: int32[N, K/32]`` — block ``b``'s 32 fifth bits, bit
+  ``j`` the high bit of code ``32b + j``: llama.cpp's 4-byte ``qh``, and
+  the little-endian word of the planar container's bytes ``4b .. 4b+3``;
+* ``d: float16[N, K/32]`` — the block scales as stored in GGUF, and for
+  q4_1/q5_1 ``m: float16[N, K/32]``, the block mins: ``x = (q - 8) * d``
+  (q4_0), ``(q - 16) * d`` (q5_0), ``q * d`` (q8_0), ``q * d + m``
+  (q4_1, q5_1);
 * q4_k (a q4_K tensor in its effective q4_1 form, ``kquants.
   to_effective``): ``d, m: float32[N, K/32]``, ``x = q * d + m``.  The
   effective ``d' = d * ls`` and ``m' = -dmin * lm`` are f32 products that
@@ -23,7 +31,7 @@ themselves).
   against 4.5 in the file (keeping f16 d/dmin per 256 plus the 6-bit
   ls/lm and forming the products in the kernel would read 4.625); the
   port takes the planes for now because K1 and K4 then share one block
-  loop and one epilogue with q4_0, as the JAX kernels share theirs.
+  loop and one epilogue with q4_1, as the JAX kernels share theirs.
 
 :class:`PreparedK16` (per-16 formats q6_K, q3_K, q2_K, K % 256 == 0):
 
@@ -43,17 +51,31 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..formats import kquants
-from ..formats.blocks import QK, Q4_0Tensor
+from ..formats.blocks import (QK, Q4_0Tensor, Q4_1Tensor, Q5_0Tensor,
+                              Q5_1Tensor, Q8_0Tensor)
 from ..formats.quant import unpack_planar_4bit
+
+#: the per-32 formats :func:`prepare` lays out, and the value subtracted
+#: from a code before its scale (the min forms add ``m`` instead)
+QTYPES = ("q4_0", "q4_1", "q5_0", "q5_1", "q8_0", "q4_k")
+OFFSET = {"q4_0": 8, "q5_0": 16}
+HAS_MIN = ("q4_1", "q5_1", "q4_k")
 
 
 class PreparedWeight(NamedTuple):
-    qtype: str  # format name ("q4_0" or "q4_k")
+    qtype: str  # format name, one of QTYPES
     n: int  # out-features
     k: int  # reduction dim
-    qs: torch.Tensor  # uint8 [N, K/2], GGUF block order (see module doc)
-    d: torch.Tensor  # q4_0: float16 [N, K/32]; q4_k: float32 [N, K/32]
-    m: Optional[torch.Tensor] = None  # q4_k: float32 [N, K/32]
+    qs: torch.Tensor  # uint8 [N, K/2] or (q8_0) int8 [N, K], GGUF order
+    d: torch.Tensor  # float16 [N, K/32]; q4_k: float32
+    m: Optional[torch.Tensor] = None  # q4_1/q5_1 float16, q4_k float32
+    qh: Optional[torch.Tensor] = None  # q5_0/q5_1: int32 [N, K/32]
+
+
+def planes(w: PreparedWeight) -> tuple:
+    """The weight's scale and bit planes in the kernels' argument order:
+    d, then m (min formats), then qh (q5)."""
+    return tuple(t for t in (w.d, w.m, w.qh) if t is not None)
 
 
 class PreparedK16(NamedTuple):
@@ -65,18 +87,31 @@ class PreparedK16(NamedTuple):
     mp: Optional[torch.Tensor] = None  # float32 [N, K/16] (q2_k)
 
 
+_CONTAINERS = {Q4_0Tensor: "q4_0", Q4_1Tensor: "q4_1", Q5_0Tensor: "q5_0",
+               Q5_1Tensor: "q5_1", Q8_0Tensor: "q8_0",
+               kquants.EffectiveQ41: "q4_k"}
+
+
 def prepare(w_q) -> PreparedWeight:
-    """Re-lay a planar row-major Q4_0 container or q4_K effective container
-    (``kquants.EffectiveQ41``, torch tensors) into the kernel layout, on
-    the container's device."""
-    if isinstance(w_q, Q4_0Tensor):
-        qtype = "q4_0"
-    elif isinstance(w_q, kquants.EffectiveQ41):
-        qtype = "q4_k"
-    else:
+    """Re-lay a planar row-major container (q4_0, q4_1, q5_0, q5_1, q8_0,
+    or a q4_K tensor's ``kquants.EffectiveQ41``; torch tensors) into the
+    kernel layout, on the container's device."""
+    qtype = _CONTAINERS.get(type(w_q))
+    if qtype is None:
         raise NotImplementedError(
-            f"prepare: {type(w_q).__name__} weights are not ported (q4_0 "
-            "and q4_K are)")
+            f"prepare: {type(w_q).__name__} weights are not ported (per-32 "
+            f"formats: {', '.join(QTYPES)})")
+    dev = w_q.d.device
+
+    def plane(x, dtype=torch.float16):
+        return torch.as_tensor(x).to(device=dev, dtype=dtype).contiguous()
+
+    if qtype == "q8_0":
+        n, k = w_q.qs.shape
+        if k % QK:
+            raise ValueError(f"K={k} must be a multiple of {QK}")
+        return PreparedWeight(qtype, n, k, plane(w_q.qs, torch.int8),
+                              plane(w_q.d))
     packed = torch.as_tensor(w_q.packed)
     n, khalf = packed.shape
     k = 2 * khalf
@@ -84,15 +119,14 @@ def prepare(w_q) -> PreparedWeight:
         raise ValueError(f"K={k} must be a multiple of {QK}")
     c = unpack_planar_4bit(packed).reshape(n, k // QK, 2, QK // 2)
     qs = (c[:, :, 0] | (c[:, :, 1] << 4)).reshape(n, khalf).contiguous()
-
-    def plane(x, dtype):
-        return torch.as_tensor(x).to(device=packed.device,
-                                     dtype=dtype).contiguous()
-
-    if qtype == "q4_0":
-        return PreparedWeight(qtype, n, k, qs, plane(w_q.d, torch.float16))
-    return PreparedWeight(qtype, n, k, qs, plane(w_q.d, torch.float32),
-                          plane(w_q.m, torch.float32))
+    if qtype == "q4_k":
+        return PreparedWeight(qtype, n, k, qs, plane(w_q.d, torch.float32),
+                              plane(w_q.m, torch.float32))
+    m = plane(w_q.m) if qtype in HAS_MIN else None
+    # planar bits in natural order: block b's 32 bits are bytes 4b..4b+3
+    qh = (plane(w_q.qh, torch.uint8).view(torch.int32)
+          if qtype in ("q5_0", "q5_1") else None)
+    return PreparedWeight(qtype, n, k, qs, plane(w_q.d), m, qh)
 
 
 def prepare_k16(t) -> PreparedK16:
@@ -109,19 +143,27 @@ def prepare_k16(t) -> PreparedK16:
 
 
 def codes(w: PreparedWeight) -> torch.Tensor:
-    """Raw 0..15 codes ``uint8[N, K]`` in natural K order."""
+    """Raw codes ``[N, K]`` in natural K order: uint8 0..15 (q4), 0..31
+    (q5, the 5th bit from ``qh``), or the int8 codes (q8_0)."""
+    if w.qtype == "q8_0":
+        return w.qs
     b = w.qs.reshape(w.n, w.k // QK, QK // 2)
-    return torch.cat([b & 0x0F, b >> 4], dim=-1).reshape(w.n, w.k)
+    q = torch.cat([b & 0x0F, b >> 4], dim=-1)
+    if w.qh is not None:
+        j = torch.arange(QK, device=w.qh.device, dtype=torch.int32)
+        q = q | (((w.qh[..., None] >> j) & 1) << 4).to(torch.uint8)
+    return q.reshape(w.n, w.k)
 
 
 def dequantize(w: PreparedWeight, dtype=torch.float32) -> torch.Tensor:
-    """``(q - 8) * d`` (q4_0) or ``q * d + m`` (q4_k) as ``dtype [N, K]``,
-    computed in float32 as the JAX kernels dequantize."""
+    """``(q - offset) * d`` or ``q * d + m`` as ``dtype [N, K]``, computed
+    in float32 as the JAX kernels dequantize."""
     q = codes(w).to(torch.float32).reshape(w.n, w.k // QK, QK)
-    if w.qtype == "q4_0":
-        x = (q - 8.0) * w.d.to(torch.float32)[..., None]
+    d = w.d.to(torch.float32)[..., None]
+    if w.m is not None:
+        x = q * d + w.m.to(torch.float32)[..., None]
     else:
-        x = q * w.d[..., None] + w.m[..., None]
+        x = (q - float(OFFSET.get(w.qtype, 0))) * d
     return x.reshape(w.n, w.k).to(dtype)
 
 
@@ -134,5 +176,6 @@ def dequantize_k16(w: PreparedK16) -> torch.Tensor:
     return x
 
 
-__all__ = ["PreparedWeight", "PreparedK16", "prepare", "prepare_k16",
+__all__ = ["QTYPES", "OFFSET", "HAS_MIN", "PreparedWeight", "PreparedK16",
+           "planes", "prepare", "prepare_k16",
            "codes", "dequantize", "dequantize_k16"]

@@ -3,15 +3,17 @@
 Counterpart of ``quant_gemm_tpu/kernels/registry.py::dispatch`` for the
 weights the port serves:
 
-* per-32 weights (``layout.PreparedWeight``: q4_0, and q4_k, a q4_K
-  tensor in its effective q4_1 form), K % 32 == 0:
+* per-32 weights (``layout.PreparedWeight``: q4_0, q4_1, q5_0, q5_1,
+  q8_0, and q4_k, a q4_K tensor in its effective q4_1 form), K % 32 ==
+  0:
 
   - a float activation with ``quantize_act=True`` of M <=
     :data:`DECODE_M_MAX` rows takes K6 (``gemm_exact_fused``: the Q8_1
     quantization inside the kernel, bit-identical to the unfused route)
-    when :data:`FUSED_DECODE` is True, as ``registry.py:199-205`` routes
-    it; otherwise, and at any M, it is quantized to Q8_1 by the torch
-    twin (``formats.quant.quantize_q8_1``);
+    when :data:`FUSED_DECODE` is True and K6 has the weight's form (q4_0,
+    q4_k), as ``registry.py:199-205`` routes it; otherwise, and at any M,
+    it is quantized to Q8_1 by the torch twin
+    (``formats.quant.quantize_q8_1``);
   - a Q8_1 activation of M <= :data:`DECODE_M_MAX` rows takes K1
     (``gemm_exact``);
   - anything else is folded to bf16 (``qs * d``, as ``gemm_pallas.py:
@@ -37,6 +39,30 @@ Any other weight type raises: nothing falls back to a plain version.
 :data:`KERNELS` and :data:`PLAIN` name the eight operations of the port;
 the model takes one of them (``ops=``), so a run can go through the plain
 versions on purpose — on the card too — for a comparison.
+
+:data:`LADDER` is the JAX package's named kernel ladder (``kernels/
+registry.py::KERNELS``), each rung ``fn(w, act)`` with ``w`` a planar SoA
+container (or, for the kernel rungs, an already prepared weight) and
+``act`` a float [M, K] or a Q8_1 activation:
+
+==================  =====================================================
+name                route
+==================  =====================================================
+xla_dequant         plain torch (``gemm_xla``): dequantize + matmul, a Q8_1
+                    activation with its scales folded
+xla_compensated     plain torch: the compensation formula, Q8_1 only
+xla_int             plain torch: exact per-block integer dots, Q8_1 only
+pallas_exact        K1 ``gemm_exact``, Q8_1 only
+pallas_exact_fused  K6 ``gemm_exact_fused``, float activations
+pallas_k16          K7 ``gemm_exact_k16`` (q6_K/q3_K/q2_K), Q8_1 only
+pallas_f32          K4 ``gemm_dequant`` on a float32 activation (a Q8_1
+                    one folded to float32)
+pallas_bf16         K4 on a bf16 activation (a Q8_1 one folded to bf16)
+pallas              the same as pallas_bf16 (JAX's f32 operands at DEFAULT
+                    precision round them to bf16 in the MXU)
+pallas_fused_quant  raises: K4's in-kernel Q8_1 (``fused_quant``) is not
+                    ported (ROADMAP, Queue 2)
+==================  =====================================================
 """
 
 from __future__ import annotations
@@ -49,6 +75,7 @@ from ..formats.blocks import Q8_1Tensor
 from ..formats.quant import expand_scale, quantize_q8_1
 from ..ops.attention import (flash_decode, flash_decode_plain,
                              flash_prefill, flash_prefill_plain)
+from . import gemm_xla, layout
 from .gemm_dequant import gemm_dequant, gemm_dequant_plain
 from .gemm_exact import (gemm_exact, gemm_exact_fused,
                          gemm_exact_fused_plain, gemm_exact_plain)
@@ -88,11 +115,14 @@ DECODE_M_MAX = 12
 # us slower per GEMM on a TPU v5e (quant_gemm_tpu registry); its H100
 # times are in PERF.md.
 FUSED_DECODE = False
+#: the weight forms K6 has (its q8_0 and q4_1 forms are not ported)
+FUSED_QTYPES = ("q4_0", "q4_k")
 
 
-def fold_q8_1(act: Q8_1Tensor) -> torch.Tensor:
-    """Q8_1 -> bf16 ``qs * d`` (exact in float32, then rounded to bf16)."""
-    return (act.qs.to(torch.float32) * expand_scale(act.d)).to(torch.bfloat16)
+def fold_q8_1(act: Q8_1Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Q8_1 -> ``qs * d`` as ``dtype`` (exact in float32, then rounded to
+    bf16 by default)."""
+    return (act.qs.to(torch.float32) * expand_scale(act.d)).to(dtype)
 
 
 def k16_dequant_gemm(w: PreparedK16, a: torch.Tensor) -> torch.Tensor:
@@ -123,7 +153,7 @@ def dispatch(w, act, quantize_act: bool = False, ops: Ops = KERNELS):
         raise TypeError(f"dispatch: no kernel serves {type(w).__name__} "
                         "weights")
     if quantize_act and not isinstance(act, Q8_1Tensor):
-        if FUSED_DECODE and m <= DECODE_M_MAX:
+        if FUSED_DECODE and m <= DECODE_M_MAX and w.qtype in FUSED_QTYPES:
             return ops.gemm_exact_fused(w, act.to(torch.float32))
         act = quantize_q8_1(act.to(torch.float32))
     if isinstance(act, Q8_1Tensor):
@@ -133,5 +163,82 @@ def dispatch(w, act, quantize_act: bool = False, ops: Ops = KERNELS):
     return ops.gemm_dequant(w, act.to(torch.bfloat16))
 
 
-__all__ = ["Ops", "KERNELS", "PLAIN", "DECODE_M_MAX", "FUSED_DECODE",
-           "fold_q8_1", "k16_dequant_gemm", "dispatch"]
+def _prepared(w) -> PreparedWeight:
+    return w if isinstance(w, PreparedWeight) else layout.prepare(w)
+
+
+def _need_q8_1(name, act):
+    if not isinstance(act, Q8_1Tensor):
+        raise TypeError(f"{name} takes a Q8_1 activation")
+
+
+def _need_float(name, act):
+    if isinstance(act, Q8_1Tensor):
+        raise TypeError(f"{name} takes a float activation")
+
+
+def _xla_dequant(w, act):
+    if isinstance(act, Q8_1Tensor):
+        return gemm_xla.gemm_wxa8_scaled(w, act)
+    return gemm_xla.gemm_wxa16(w, act)
+
+
+def _xla_compensated(w, act):
+    _need_q8_1("xla_compensated", act)
+    return gemm_xla.gemm_wxa8_compensated(w, act)
+
+
+def _xla_int(w, act):
+    _need_q8_1("xla_int", act)
+    return gemm_xla.gemm_wxa8_int(w, act)
+
+
+def _pallas_exact(w, act):
+    _need_q8_1("pallas_exact", act)
+    return gemm_exact(_prepared(w), act)
+
+
+def _pallas_exact_fused(w, act):
+    _need_float("pallas_exact_fused", act)
+    return gemm_exact_fused(_prepared(w), act.to(torch.float32))
+
+
+def _pallas_k16(w, act):
+    _need_q8_1("pallas_k16", act)
+    wk = w if isinstance(w, PreparedK16) else layout.prepare_k16(w)
+    return gemm_exact_k16(wk, act)
+
+
+def _pallas_f32(w, act):
+    if isinstance(act, Q8_1Tensor):  # folded in float32, as JAX's f32 mode
+        act = fold_q8_1(act, torch.float32)
+    return gemm_dequant(_prepared(w), act.to(torch.float32))
+
+
+def _pallas_bf16(w, act):
+    a = fold_q8_1(act) if isinstance(act, Q8_1Tensor) else act
+    return gemm_dequant(_prepared(w), a.to(torch.bfloat16))
+
+
+def _pallas_fused_quant(w, act):
+    raise NotImplementedError(
+        "pallas_fused_quant: K4's in-kernel Q8_1 quantization (JAX "
+        "gemm_pallas.py fused_quant=True) is not ported (ROADMAP, Queue 2)")
+
+
+#: the JAX package's kernel ladder under its names (module doc)
+LADDER = {
+    "xla_dequant": _xla_dequant,
+    "xla_compensated": _xla_compensated,
+    "xla_int": _xla_int,
+    "pallas_exact": _pallas_exact,
+    "pallas_exact_fused": _pallas_exact_fused,
+    "pallas_k16": _pallas_k16,
+    "pallas_f32": _pallas_f32,
+    "pallas_bf16": _pallas_bf16,
+    "pallas_fused_quant": _pallas_fused_quant,
+    "pallas": _pallas_bf16,
+}
+
+__all__ = ["Ops", "KERNELS", "PLAIN", "LADDER", "DECODE_M_MAX",
+           "FUSED_DECODE", "fold_q8_1", "k16_dequant_gemm", "dispatch"]

@@ -12,15 +12,20 @@ load_llama`` with every array as numpy (for example
 planes) and returns the port's parameters.  It reads only attributes and
 arrays, so it needs neither JAX nor the JAX package.
 
-The TPU layout of a q4_0 or q4_k ``PreparedWeight`` is undone step by
-step:
+The TPU layout of a per-32 ``PreparedWeight`` (q4_0, q4_1, q5_0, q5_1,
+q8_0, q4_k) is undone step by step:
 
 * ``packed_t`` int8 ``[K/2 (padded), N (padded)]`` -> transpose, drop
   the N padding, undo the XOR 0x80 ("x8") byte encoding, drop the K
   padding: the planar row-major bytes of the SoA container;
-* ``d_t`` (and q4_k's ``m_t``) ``[K/32 (padded per half), N (padded)]``
-  float32, or int16 holding float16 bits -> transpose, drop the per-half
-  K padding: f16 for q4_0, the effective f32 scale and min for q4_k;
+* ``d_t`` (and ``m_t``) ``[K/32 (padded per half), N (padded)]`` float32,
+  or int16 holding float16 bits -> transpose, drop the per-half K
+  padding: f16 (the effective f32 scale and min for q4_k);
+* q5's ``qh_t`` uint8 ``[K/8 (padded per half), N (padded)]`` planar
+  bits -> transpose, drop the per-half padding (the nibble-packed
+  ``qh2_t`` copy is not read);
+* q8_0's ``qs_t`` int8 ``[K (padded), N (padded)]`` and its ``d_t`` are
+  padded at the end of K only;
 * then the port's own ``layout.prepare``.
 
 A ``PreparedK16``'s ``qs_t`` / ``scp_t`` / ``mp_t`` ``[K (padded) or K/16,
@@ -32,7 +37,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..formats.blocks import QK, Q4_0Tensor
+from ..formats.blocks import (QK, Q4_0Tensor, Q4_1Tensor, Q5_0Tensor,
+                              Q5_1Tensor, Q8_0Tensor)
 from ..formats.kquants import EffectiveQ41
 from ..kernels import layout
 from ..utils import resolve_device
@@ -40,31 +46,48 @@ from .llama import KVCache, SplitLinear
 
 
 def planar_from_jax(pw):
-    """The planar container (numpy) behind a JAX q4_0 or q4_k
-    ``PreparedWeight`` whose planes are numpy arrays: a ``Q4_0Tensor``
-    (f16 ``d``) or an ``EffectiveQ41`` (f32 ``d`` and ``m``)."""
-    if pw.qtype not in ("q4_0", "q4_k"):
+    """The planar container (numpy) behind a JAX per-32 ``PreparedWeight``
+    whose planes are numpy arrays: a ``Q4_0Tensor``, ``Q4_1Tensor``,
+    ``Q5_0Tensor``, ``Q5_1Tensor`` or ``Q8_0Tensor`` (f16 scales), or an
+    ``EffectiveQ41`` for q4_k (f32 ``d`` and ``m``)."""
+    if pw.qtype not in layout.QTYPES:
         raise NotImplementedError(f"{pw.qtype} weights are not ported "
-                                  "(q4_0 and q4_k are)")
+                                  f"(per-32: {', '.join(layout.QTYPES)})")
     n, k = int(pw.n), int(pw.k)
-    khalf, nbh = k // 2, k // 64
-    packed_t = np.asarray(pw.packed_t)
-    packed = (packed_t.view(np.uint8).T[:n, :khalf] ^ 0x80).astype(np.uint8)
-    dtype = np.float16 if pw.qtype == "q4_0" else np.float32
+    dtype = np.float32 if pw.qtype == "q4_k" else np.float16
 
-    def plane(x_t):
+    def scales(x_t, halves=True):
         x_t = np.asarray(x_t)
         x = (x_t.view(np.float16) if x_t.dtype == np.int16 else x_t)
         x = x.astype(dtype).T[:n]
-        nbh_p = x.shape[1] // 2  # each K half padded to nbh_p blocks
-        x = np.concatenate([x[:, :nbh], x[:, nbh_p:nbh_p + nbh]], axis=1)
-        assert x.shape == (n, k // QK)
-        return np.ascontiguousarray(x)
+        return np.ascontiguousarray(unpad(x, k // QK) if halves
+                                    else x[:, :k // QK])
 
+    def unpad(x, cols):
+        """Drop the padding after each K half of a [N, padded] plane."""
+        half_p = x.shape[1] // 2
+        out = np.concatenate([x[:, :cols // 2], x[:, half_p:half_p
+                                                  + cols // 2]], axis=1)
+        assert out.shape == (n, cols)
+        return out
+
+    if pw.qtype == "q8_0":
+        qs = np.ascontiguousarray(np.asarray(pw.qs_t).T[:n, :k])
+        return Q8_0Tensor(qs.astype(np.int8), scales(pw.d_t, halves=False))
+    packed_t = np.asarray(pw.packed_t)
+    packed = (packed_t.view(np.uint8).T[:n, :k // 2] ^ 0x80).astype(np.uint8)
     packed = np.ascontiguousarray(packed)
+    d = scales(pw.d_t)
     if pw.qtype == "q4_0":
-        return Q4_0Tensor(packed, plane(pw.d_t))
-    return EffectiveQ41(packed, plane(pw.d_t), plane(pw.m_t))
+        return Q4_0Tensor(packed, d)
+    if pw.qtype == "q4_k":
+        return EffectiveQ41(packed, d, scales(pw.m_t))
+    if pw.qtype == "q4_1":
+        return Q4_1Tensor(packed, d, scales(pw.m_t))
+    qh = np.ascontiguousarray(unpad(np.asarray(pw.qh_t).T[:n], k // 8))
+    if pw.qtype == "q5_0":
+        return Q5_0Tensor(packed, qh, d)
+    return Q5_1Tensor(packed, qh, d, scales(pw.m_t))
 
 
 def _k16_from_jax(pw, dev) -> layout.PreparedK16:

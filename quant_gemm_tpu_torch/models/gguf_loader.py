@@ -20,8 +20,9 @@ bytes are moved to the target device and decoded there:
 * ``rope_freqs.weight`` becomes ``params["rope_inv_freq"]`` (llama.cpp's
   per-dimension divisors of the base spectrum).
 
-Not ported: ``export_gguf``, the tokenizer, and QKV biases (qwen2), which
-raise ``NotImplementedError``.
+Not ported: ``export_gguf``, the tokenizer, q8_0 weights (the kernels
+take them, the decode fusions K2 and K6 not yet) and QKV biases (qwen2),
+which raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -124,7 +125,10 @@ def _prep(t):
         return layout.prepare(kquants.to_effective(t))
     if isinstance(t, kquants.K16_TENSORS):
         return layout.prepare_k16(t)
-    return layout.prepare(t)  # q4_0; q8_0 weights raise there
+    if not isinstance(t, Q4_0Tensor):
+        raise NotImplementedError(f"{type(t).__name__} weights are not "
+                                  "served (q4_0, q4_K, q6_K, q3_K, q2_K are)")
+    return layout.prepare(t)
 
 
 def _dequantize(t) -> torch.Tensor:

@@ -17,7 +17,11 @@ through the model, with both op sets started from the same hidden state
 at every layer, each layer's update and the logits NMSE <= 1e-4.  Exact: K6 equals ``quantize_q8_1`` + K1 bit for bit, and
 K2 equals its own summation order replayed in float32 where its RMSNorm
 is exact (rows of +-1, eps 0), which pins its in-kernel Q8_1 codes to
-``quantize_q8_1``'s.
+``quantize_q8_1``'s.  Slice 6: K1 in the q4_1/q5_0/q5_1/q8_0 forms
+``1e-4 * max|C|``, K4 in them (bf16 and float32 activations) NMSE <=
+1e-4, K9 ``rms_norm_pallas`` ``1e-5 * max|y|`` (its own sum order and
+``rsqrtf``), K10 ``softmax_pallas`` ``atol=1e-6``; the spec runner on the
+card passes every definition under its own threshold.
 """
 
 from pathlib import Path
@@ -48,7 +52,11 @@ from quant_gemm_tpu_torch.ops.attention import (flash_decode,
                                                 flash_decode_plain,
                                                 flash_prefill,
                                                 flash_prefill_plain)
-from quant_gemm_tpu_torch.ops.rms_norm import rms_norm
+from quant_gemm_tpu_torch.ops.rms_norm import (rms_norm, rms_norm_pallas,
+                                               rms_norm_pallas_plain)
+from quant_gemm_tpu_torch.ops.softmax import (softmax_pallas,
+                                              softmax_pallas_plain)
+from quant_gemm_tpu_torch.specs import spec_runner
 
 N, K, EPS = 768, 1024, 1e-5  # N not a multiple of the kernels' tiles
 
@@ -574,3 +582,123 @@ def test_fused_decode_through_kernels(dev, monkeypatch, fused, tail):
     assert n["gemm_exact"] == (0 if fused else 1 + (0 if tail else
                                                     3 * layers))
     assert n["norm_qkv"] == n["flash_decode"] == layers
+
+
+# --- slice 6: the per-32 forms of K1 and K4, K9, K10, the spec runner ---
+
+NEW32 = ["q4_1", "q5_0", "q5_1", "q8_0"]
+
+
+def _weight32(qtype, k, dev, seed=41):
+    w = np.random.default_rng(seed).normal(0, 0.05, (N, k)).astype(np.float32)
+    return layout.prepare(tq.QUANTIZE[qtype](_t(w, dev)))
+
+
+@pytest.mark.parametrize("k", [1024, 1056, 14336])
+@pytest.mark.parametrize("m", [1, 8, 12])
+@pytest.mark.parametrize("qtype", NEW32)
+def test_gemm_exact_new_forms(dev, qtype, m, k):
+    """K1's q4_1 / q5_0 / q5_1 / q8_0 epilogues, K % 64 == 32 included."""
+    w = _weight32(qtype, k, dev)
+    x = np.random.default_rng(m).standard_normal((m, k)).astype(np.float32)
+    a = tq.quantize_q8_1(_t(x, dev))
+    before = gemm_exact.launches
+    got, ref = gemm_exact(w, a), gemm_exact_plain(w, a)
+    assert gemm_exact.launches == before + 1
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.parametrize("k", [1024, 1056, 14336])
+@pytest.mark.parametrize("m", [1, 8, 12, 128])
+@pytest.mark.parametrize("adt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("qtype", NEW32 + ["q4_0"])
+def test_gemm_dequant_new_forms(dev, qtype, adt, m, k):
+    """K4's new weight forms and its float32-activation form, at the
+    decode rows, a prefill chunk's, and K % 64 == 32."""
+    w = _weight32(qtype, k, dev)
+    x = np.random.default_rng(m).standard_normal((m, k)).astype(np.float32)
+    a = _t(x, dev).to(adt)
+    before = gemm_dequant.launches
+    got, ref = gemm_dequant(w, a), gemm_dequant_plain(w, a)
+    assert gemm_dequant.launches == before + 1
+    assert ((got - ref) ** 2).sum() <= 1e-4 * (ref ** 2).sum()
+
+
+@pytest.mark.parametrize("qtype", ["q4_0", "q4_k"])
+def test_k2_and_k6_at_k_1056(dev, qtype):
+    """K % 64 == 32 through K2 (q4_0) and K6, which stays bit-equal to
+    quantize_q8_1 + K1; q4_k as the effective form of q4_1's blocks (a
+    q4_K tensor itself needs K % 256)."""
+    k = 1056
+    w = _weight32("q4_0" if qtype == "q4_0" else "q4_1", k, dev)
+    if qtype == "q4_k":
+        w = w._replace(qtype="q4_k", d=w.d.float(), m=w.m.float())
+    x = _t((np.random.default_rng(5).standard_normal((8, k)) * 2).astype(
+        np.float32), dev)
+    got = gemm_exact_fused(w, x)
+    assert torch.equal(got, gemm_exact(w, tq.quantize_q8_1(x)))
+    ref = gemm_exact_fused_plain(w, x)
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+    if qtype == "q4_0":
+        nw = _t(np.random.default_rng(6).normal(1, .1, k).astype(np.float32),
+                dev)
+        got, ref = norm_qkv(w, x, nw, EPS), norm_qkv_plain(w, x, nw, EPS)
+        assert (got - ref).abs().max() <= 2e-3 * ref.abs().max()
+
+
+ROWS = [(8, 4096), (5, 1000), (300, 1001), (3, 32000), (7, 33), (4096, 4608)]
+
+
+def _unaligned(r, c, dev, seed):
+    """[r, c] float32 starting 4 bytes past a 16-byte boundary (the
+    kernels need no alignment)."""
+    x = torch.randn(r * c + 1, generator=torch.Generator(device=dev)
+                    .manual_seed(seed), device=dev)
+    return x[1:].view(r, c)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("r, c", ROWS)
+def test_rms_norm_pallas(dev, r, c, aligned):
+    x = _unaligned(r, c, dev, 1) if not aligned else torch.randn(
+        r, c, generator=torch.Generator(device=dev).manual_seed(1),
+        device=dev)
+    w = 0.5 + torch.rand(c, generator=torch.Generator(device=dev)
+                         .manual_seed(2), device=dev)
+    before = rms_norm_pallas.launches
+    got, ref = rms_norm_pallas(x, w, EPS), rms_norm_pallas_plain(x, w, EPS)
+    assert rms_norm_pallas.launches == before + 1
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("r, c", ROWS)
+def test_softmax_pallas(dev, r, c, aligned):
+    x = 4.0 * (_unaligned(r, c, dev, 3) if not aligned else torch.randn(
+        r, c, generator=torch.Generator(device=dev).manual_seed(3),
+        device=dev))
+    before = softmax_pallas.launches
+    got, ref = softmax_pallas(x), softmax_pallas_plain(x)
+    assert softmax_pallas.launches == before + 1
+    assert (got - ref).abs().max() <= 1e-6
+    assert torch.allclose(got.sum(-1), torch.ones(r, device=dev), atol=1e-5)
+
+
+@pytest.mark.parametrize("path", spec_runner.definitions(),
+                         ids=lambda p: p.stem)
+def test_spec_on_the_card(dev, path):
+    """Every committed definition through the kernels on the card; a gemm
+    definition under every ladder rung its activation takes, at its own
+    K and at K = 1056."""
+    r = spec_runner.run_spec(path)
+    assert r.passed, r.row()
+    d = spec_runner.load(path)
+    if d["op_type"] != "gemm_quant":
+        return
+    rungs = ["pallas_f32", "pallas_bf16", "pallas", "xla_dequant"]
+    if d["inputs"]["A"]["dtype"] == "q8_1":
+        rungs += ["pallas_exact", "xla_int", "xla_compensated"]
+    for impl in rungs:
+        for params in (None, {"M": 8, "K": 1056}):
+            r = spec_runner.run_spec(path, impl=impl, params=params)
+            assert r.passed, (impl, params, r.row())

@@ -86,6 +86,8 @@ def test_layout_is_gguf_block_order():
 
 
 def test_prepare_rejects_unported_formats():
-    w8 = pnr.quantize_q8_0(_inputs("normal"))
+    from quant_gemm_tpu_torch.formats import kquants as tk
+
+    w5k = tk.quantize_q5_k(_inputs("normal"), search=False)
     with pytest.raises(NotImplementedError):
-        layout.prepare(type(w8)(*(torch.from_numpy(a) for a in w8)))
+        layout.prepare(w5k)

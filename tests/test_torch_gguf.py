@@ -254,5 +254,5 @@ def test_tied_embeddings_and_unported_pieces(tmp_path):
         tgl.load_llama(path, device="cpu")
     w8 = tq.quantize_q4_0(torch.zeros(4, 64))
     with pytest.raises(NotImplementedError, match="Q8_0Tensor"):
-        layout.prepare(Q8_0Tensor(torch.zeros(4, 64, dtype=torch.int8),
+        tgl._prep(Q8_0Tensor(torch.zeros(4, 64, dtype=torch.int8),
                                   w8.d))

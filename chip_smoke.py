@@ -54,11 +54,23 @@ Run from the repository root on a machine with one NVIDIA H100:
    sees no hand kernel); then (c) ``FUSED_DECODE`` on this file: K6 on
    its q4_K decode GEMMs (88 per step), K7 unchanged, and the
    layer-by-layer decode check;
-5. foreign bytes: ``tests/golden/tiny_llama_q4km.gguf`` (written by an
+5. formats path (slice 7): a GGUF file of each of llama.cpp's Q8_0,
+   Q5_0, Q4_1, Q5_1 and Q5_K_M mixes (``FILE_MIXES``) at TinyLlama-1.1B
+   width, all 22 layers (random valid blocks from a seed, one file on
+   disk at a time), loaded with ``load_llama`` and served with
+   ``Server(qp, cfg, n_slots=8)`` at its defaults, the first 8 requests
+   of the traffic: load seconds and device bytes against file bytes, each
+   kernel's launches against ``route_launches`` (K2 22 per decode step on
+   Q4_1, Q5_0, Q5_1, none on Q8_0 and on Q5_K_M, whose more-bits layers
+   hold a SplitLinear wqkv; K7 on the q6_K tensors), the layer-by-layer
+   check of a chunk and a decode step; then Q4_1 and Q8_0 again with
+   ``FUSED_DECODE`` (K6's q4_1 and q8_0 forms), whose transcripts must
+   equal the default run's token for token;
+6. foreign bytes: ``tests/golden/tiny_llama_q4km.gguf`` (written by an
    independent generator) loads onto the card, and its pinned greedy
    transcript, teacher-forced through the kernels, must be the argmax at
    every step or a printed near-tie;
-6. Mistral path, at Mistral-7B-v0.1 width (32 layers, hidden 4096, 8 KV
+7. Mistral path, at Mistral-7B-v0.1 width (32 layers, hidden 4096, 8 KV
    heads of 128, window 4096; random q4_0 weights from a seed, built on
    the card) on the ring KV cache (``ring_chunk`` 256, R = 4608 slots):
    (m1) ``Server(qp, cfg, n_slots=8)`` serves four greedy requests
@@ -76,12 +88,13 @@ Run from the repository root on a machine with one NVIDIA H100:
    one, layer by layer (``SHIFT_TOL``); ``torch.profiler`` breakdowns of
    a ring decode step past R and of a chunk; the kernel phase holds K3
    and K5 on the ring and K1, K2, K4 at these shapes;
-7. spec phase (slice 6): the port's spec runner (``quant_gemm_tpu_torch.
+8. spec phase (slice 6): the port's spec runner (``quant_gemm_tpu_torch.
    specs.spec_runner.run_spec``) on the card over every committed
    definition (each must pass its threshold), every gemm definition again
    under each ladder rung its activation takes (``pallas_exact`` for a
    Q8_1 activation, ``pallas_f32``, ``pallas_bf16``, ``pallas``,
-   ``xla_dequant``, ``xla_int``, ``xla_compensated``), and at full width:
+   ``pallas_fused_quant`` for a float one, ``xla_dequant``, ``xla_int``,
+   ``xla_compensated``), and at full width:
    rmsnorm at 8/128/4096 x 4096, softmax at 8 x 32000 and 4096 x 4608,
    the ten gemm definitions at Mistral's ``wqkv`` and ``w_down`` (M = 128
    through K4 on float32 activations, and M = 8 through K1 for a Q8_1
@@ -91,7 +104,16 @@ Run from the repository root on a machine with one NVIDIA H100:
    row), and K1 (M = 8) and K4 (M = 128, bf16 and float32 activations,
    beside ``torch.matmul`` on the weight dequantized in advance) in the
    q4_1, q5_0, q5_1 and q8_0 forms at Mistral's ``wqkv`` and ``w_down``;
-8. prints one JSON line of the kernels, the card, and last the result
+   slice 7's rows: K2 in the q4_1, q4_k, q5_0, q5_1 and q5_k forms at
+   TinyLlama's and Mistral's ``wqkv``, K6 in q4_1 and q8_0 at TinyLlama's
+   four decode GEMMs (bit for bit against quantize_q8_1 + K1), K1 and K4
+   on q5_k at TinyLlama's ``wqkv`` and ``w_down``, and K4 ``fused_quant``
+   (bf16 and float32 operands) at Mistral's ``wqkv`` and ``w_down``
+   against its plain version at NMSE <= ``FQ_NMSE`` (only the summation
+   order differs), beside ``torch.matmul`` on the weight dequantized and
+   the activation fake-quantized in advance, and its prologue bit for bit
+   through a q8_0 identity weight at both K;
+9. prints one JSON line of the kernels, the card, and last the result
    line; each phase's seconds on its own line.
 
 Exits non-zero, with no result line, when CUDA is unavailable or any phase
@@ -207,7 +229,12 @@ def q4_bytes(n: int, k: int) -> int:
 
 # bytes of one GGUF block of 256 weights (ggml-common.h block_q*_K): what
 # a K-quant weight holds, and what bound_ms counts for it
-KQ_BLOCK_BYTES = {"q4_K": 144, "q6_K": 210, "q3_K": 110, "q2_K": 84}
+KQ_BLOCK_BYTES = {"q4_K": 144, "q5_K": 176, "q6_K": 210, "q3_K": 110,
+                  "q2_K": 84}
+# bytes of one block of 32 weights (ggml-common.h block_q*): what a
+# per-32 weight holds, and what bound_ms counts for it
+Q32_BLOCK_BYTES = {"q4_0": 18, "q4_1": 20, "q5_0": 22, "q5_1": 24,
+                   "q8_0": 34}
 
 
 def kq_bytes(qtype: str, n: int, k: int) -> int:
@@ -231,11 +258,41 @@ def k16_layout_bytes(w) -> int:
 # embedding q4_K
 MORE_BITS = [i for i in range(LAYERS) if i < LAYERS // 8
              or i >= 7 * LAYERS // 8 or (i - LAYERS // 8) % 3 == 2]
+# llama.cpp's file mixes (llama_tensor_get_type, no importance matrix)
+# at TinyLlama-1.1B width: "default" is every linear's and the
+# embedding's type, "output" the output's, "more_bits" attn_v's and
+# ffn_down's in the MORE_BITS layers; "file_type" the GGUF
+# general.file_type (LLAMA_FTYPE_MOSTLY_*); "k2": K2 takes every decode
+# step's wqkv (one whole 4/5-bit weight in every layer)
+FILE_MIXES = {
+    "Q4_K_M": {"default": "q4_K", "output": "q6_K", "more_bits": "q6_K",
+               "file_type": 15, "k2": False},
+    "Q8_0": {"default": "q8_0", "output": "q8_0", "file_type": 7,
+             "k2": False},
+    "Q5_0": {"default": "q5_0", "output": "q6_K", "file_type": 8,
+             "k2": True},
+    "Q4_1": {"default": "q4_1", "output": "q6_K", "file_type": 3,
+             "k2": True},
+    "Q5_1": {"default": "q5_1", "output": "q6_K", "file_type": 9,
+             "k2": True},
+    "Q5_K_M": {"default": "q5_K", "output": "q6_K", "more_bits": "q6_K",
+               "file_type": 17, "k2": False},
+}
+# the formats path's files, and those served again with FUSED_DECODE
+FORMAT_FILES = ("Q8_0", "Q5_0", "Q4_1", "Q5_1", "Q5_K_M")
+FUSED_FILES = ("Q4_1", "Q8_0")
 Q4KM_Q4K_SHAPES = {"wqkv": (HEADS * HD + 2 * KV_HEADS * HD, DIM),
                    "wq, wo": (HEADS * HD, DIM), "wk": (KV_HEADS * HD, DIM),
                    "wgu": (2 * D_FF, DIM), "w_down": (DIM, D_FF)}
 Q4KM_Q6K_SHAPES = {"attn_v": (KV_HEADS * HD, DIM), "ffn_down": (DIM, D_FF),
                    "output": (VOCAB, DIM)}
+
+
+# K4 fused_quant against its plain version: both feed the same fake-
+# quantized operand, so only the float32 summation order differs (about
+# 1e-12 at the spec shapes); leaving the fake quantization out moves the
+# output by about 3e-5 in NMSE, rounding d to f16 by about 3e-6
+FQ_NMSE = 1e-8
 
 
 def nmse(got, ref) -> float:
@@ -666,13 +723,10 @@ def kernel_phase(dev, timer):
           "quantize_q8_1 + K1", flush=True)
     mistral_kernel_rows(dev, timer, record, randn, g)
     slice6_kernel_rows(dev, timer, record, randn)
+    slice7_kernel_rows(dev, timer, record, unfused, randn)
     return rows
 
 
-# bytes of one block of 32 weights (ggml-common.h block_q*): what a
-# per-32 weight holds, and what bound_ms counts for it
-Q32_BLOCK_BYTES = {"q4_0": 18, "q4_1": 20, "q5_0": 22, "q5_1": 24,
-                   "q8_0": 34}
 # the spec runner's full-width shapes (Mistral-7B-v0.1): K9 at a decode
 # step's 8 rows, a 128-token chunk and a 4096-token prompt at hidden
 # 4096; K10 at a decode step's logits over the vocab and at 32 heads x
@@ -792,6 +846,194 @@ def slice6_kernel_rows(dev, timer, record, randn):
                        timer(lambda: torch.matmul(a, wd.T)), main=False)
                 del wd
             del w
+
+
+def slice7_kernel_rows(dev, timer, record, unfused, randn):
+    """K2 in the q4_1, q4_k, q5_0, q5_1 and q5_k forms at TinyLlama's and
+    Mistral's wqkv (M = 8); K6 in q4_1 and q8_0 at TinyLlama's four
+    decode GEMMs, bit for bit against quantize_q8_1 + K1; K1 (M = 8) and
+    K4 (M = 128, bf16) on q5_k at TinyLlama's wqkv and w_down; K4
+    ``fused_quant`` (bf16 and float32 operands, M = 128) in the spec
+    definitions' five per-32 forms at the spec phase's full-width wqkv
+    and w_down, beside ``torch.matmul`` on the weight dequantized and the
+    activation fake-quantized in advance.  K-quant weights count their
+    GGUF block bytes in bound_ms, the port's f32-plane layout beside."""
+    from quant_gemm_tpu_torch.formats import kquants
+    from quant_gemm_tpu_torch.formats import quant as tq
+    from quant_gemm_tpu_torch.kernels import layout
+    from quant_gemm_tpu_torch.kernels.gemm_dequant import (
+        fake_quant_q8, gemm_dequant, gemm_dequant_plain)
+    from quant_gemm_tpu_torch.kernels.gemm_exact import (
+        gemm_exact, gemm_exact_fused, gemm_exact_fused_plain,
+        gemm_exact_plain)
+    from quant_gemm_tpu_torch.kernels.gemm_megalayer import (
+        norm_qkv, norm_qkv_plain)
+
+    g = torch.Generator(device=dev).manual_seed(77)
+    effective = {"q4_k": ("q4_K", kquants.to_effective),
+                 "q5_k": ("q5_K", kquants.to_effective_q5_k)}
+
+    def weight(qtype, n, k):
+        """(weight, its format's bytes, the port layout's bytes or None)."""
+        if qtype in effective:
+            name, eff = effective[qtype]
+            w = layout.prepare(eff(kquants.random_blocks(
+                name, n, k, k ** -0.5, g)))
+            lay = n * k // 2 + n * (k // 32) * 8 \
+                + (n * k // 8 if w.qh is not None else 0)
+            return w, n * k // 256 * KQ_BLOCK_BYTES[name], lay
+        w = layout.prepare(tq.QUANTIZE[qtype](randn(n, k, scale=k ** -0.5)))
+        return w, n * k // 32 * Q32_BLOCK_BYTES[qtype], None
+
+    tiny = {"wqkv": (HEADS * HD + 2 * KV_HEADS * HD, DIM),
+            "wo": (DIM, DIM), "wgu": (2 * D_FF, DIM),
+            "w_down": (DIM, D_FF), "lm_head": (VOCAB, DIM)}
+    m = 8
+    for qtype in ("q4_1", "q4_k", "q5_0", "q5_1", "q5_k"):
+        for label, (n, k) in (("wqkv", tiny["wqkv"]),
+                              ("Mistral wqkv", SPEC_GEMM["wqkv"])):
+            w, wbytes, lay = weight(qtype, n, k)
+            x = randn(m, k, scale=3.0)
+            nw = 1.0 + 0.1 * randn(k)
+            got, ref = norm_qkv(w, x, nw, 1e-5), norm_qkv_plain(w, x, nw,
+                                                                1e-5)
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            tol = 2e-3 * ref.abs().max().item()
+            if not err <= tol:
+                fail(f"K2 norm_qkv {qtype} {label}: max|err| {err} > {tol}")
+            act = m * k * 4 + k * 4 + m * n * 4
+            ops = 2 * m * n * k
+            record("norm_qkv", f"{qtype} {label} M={m} N={n} K={k}", err,
+                   f"max|err| <= {tol:.3e}",
+                   timer(lambda: norm_qkv(w, x, nw, 1e-5)),
+                   timer(lambda: norm_qkv_plain(w, x, nw, 1e-5), reps=5),
+                   bound(wbytes + act, ops, "int8"), None, main=False,
+                   layout_bnd=lay and bound(lay + act, ops, "int8"))
+
+    # K6: q4_1 and q8_0 at the four decode GEMMs, bit-equal to
+    # quantize_q8_1 + K1, also on zero and f16-saturating blocks
+    for qtype in ("q4_1", "q8_0"):
+        for label in ("wo", "wgu", "w_down", "lm_head"):
+            n, k = tiny[label]
+            w, wbytes, _ = weight(qtype, n, k)
+            x = randn(m, k)
+            odd = x.clone()
+            odd[0, :32], odd[-1, 32:64], odd[m // 2, 64:96] = 0.0, 7e8, -7e8
+            for xx in (odd, x):  # max_abs_err and tol: the plain input's
+                got = gemm_exact_fused(w, xx)
+                want = gemm_exact(w, tq.quantize_q8_1(xx))
+                ref = gemm_exact_fused_plain(w, xx)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"K6 gemm_exact_fused {qtype} {label}: differs "
+                         "from quantize_q8_1 + K1")
+                err = (got - ref).abs().max().item()
+                tol = 1e-4 * ref.abs().max().item()
+                if not err <= tol:
+                    fail(f"K6 gemm_exact_fused {qtype} {label}: max|err| "
+                         f"{err} > {tol}")
+            record("gemm_exact_fused", f"{qtype} {label} M={m} N={n} K={k}",
+                   err, f"== quantize_q8_1 + K1, max|err| <= {tol:.3e}",
+                   timer(lambda: gemm_exact_fused(w, x)),
+                   timer(lambda: gemm_exact_fused_plain(w, x), reps=5),
+                   bound(wbytes + m * k * 4 + m * n * 4, 2 * m * n * k,
+                         "int8"), None, main=False)
+            unfused("quantize_q8_1 + K1",
+                    timer(lambda: gemm_exact(w, tq.quantize_q8_1(x))))
+
+    # K1 (M = 8) and K4 (M = 128, bf16) on q5_k
+    for label in ("wqkv", "w_down"):
+        n, k = tiny[label]
+        w, wbytes, lay = weight("q5_k", n, k)
+        a = tq.quantize_q8_1(randn(m, k))
+        got, ref = gemm_exact(w, a), gemm_exact_plain(w, a)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        tol = 1e-5 * ref.abs().max().item()
+        if not err <= tol:
+            fail(f"K1 gemm_exact q5_k {label}: max|err| {err} > {tol}")
+        act = m * k + 2 * m * (k // 32) * 2 + m * n * 4
+        ops = 2 * m * n * k
+        record("gemm_exact", f"q5_k {label} M={m} N={n} K={k}", err,
+               f"max|err| <= {tol:.3e}", timer(lambda: gemm_exact(w, a)),
+               timer(lambda: gemm_exact_plain(w, a), reps=5),
+               bound(wbytes + act, ops, "int8"), None, main=False,
+               layout_bnd=bound(lay + act, ops, "int8"))
+        mm = 128
+        a = randn(mm, k).to(torch.bfloat16)
+        got, ref = gemm_dequant(w, a), gemm_dequant_plain(w, a)
+        wb = layout.dequantize(w, torch.bfloat16)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        e = nmse(got, ref)
+        if not e <= 1e-4:
+            fail(f"K4 gemm_dequant q5_k {label}: NMSE {e} > 1e-4")
+        act = mm * k * 2 + mm * n * 4
+        ops = 2 * mm * n * k
+        record("gemm_dequant", f"q5_k {label} M={mm} N={n} K={k}", err,
+               f"NMSE {e:.3e} <= 1e-4", timer(lambda: gemm_dequant(w, a)),
+               timer(lambda: gemm_dequant_plain(w, a), reps=5),
+               bound(wbytes + act, ops, "bf16"),
+               timer(lambda: torch.matmul(a, wb.T)), main=False,
+               layout_bnd=bound(lay + act, ops, "bf16"))
+        del wb
+
+    # K4 fused_quant at the spec phase's full-width shapes, M = 128
+    mm = 128
+    for qtype in ("q4_0", "q4_1", "q5_0", "q5_1", "q8_0"):
+        for label, (n, k) in SPEC_GEMM.items():
+            w, wbytes, _ = weight(qtype, n, k)
+            x = randn(mm, k)
+            for adt, kind in ((torch.bfloat16, "bf16"),
+                              (torch.float32, "f32")):
+                got = gemm_dequant(w, x, fused_quant=True, a_dtype=adt)
+                ref = gemm_dequant_plain(w, x, fused_quant=True, a_dtype=adt)
+                # yardstick: one matmul on the weight dequantized and the
+                # activation fake-quantized in advance, in the operand type
+                wd, xq = layout.dequantize(w, adt), fake_quant_q8(x).to(adt)
+                lib = torch.matmul(xq, wd.T).float()
+                torch.cuda.synchronize()
+                err = (got - ref).abs().max().item()
+                e, e_lib = nmse(got, ref), nmse(lib, ref)
+                if not e <= FQ_NMSE:
+                    fail(f"K4 fused_quant {qtype} {kind} {label}: NMSE {e} "
+                         f"> {FQ_NMSE}")
+                if not e_lib <= 1e-3:
+                    fail(f"K4 fused_quant yardstick {qtype} {kind} {label}:"
+                         f" NMSE {e_lib} > 1e-3")
+                record("gemm_dequant", f"fused_quant {qtype} {kind} "
+                       f"Mistral {label} M={mm} N={n} K={k}", err,
+                       f"NMSE {e:.3e} <= {FQ_NMSE}",
+                       timer(lambda: gemm_dequant(w, x, fused_quant=True,
+                                                  a_dtype=adt)),
+                       timer(lambda: gemm_dequant_plain(
+                           w, x, fused_quant=True, a_dtype=adt), reps=5),
+                       bound(wbytes + mm * k * 4 + mm * n * 4,
+                             2 * mm * n * k, kind),
+                       timer(lambda: torch.matmul(xq, wd.T)), main=False)
+                del wd, xq
+            del w
+
+    # the prologue alone, bit for bit: through a q8_0 identity weight
+    # (code 1, d = 1 on the diagonal) each output is one product a' * 1
+    # plus zeros, so out == fake_quant_q8(x) in the operand type
+    for k in sorted({k for _, k in SPEC_GEMM.values()}):
+        eye = layout.PreparedWeight(
+            "q8_0", k, k, torch.eye(k, dtype=torch.int8, device=dev),
+            torch.ones(k, k // 32, dtype=torch.float16, device=dev))
+        x = randn(mm, k, scale=4.0)
+        x[0, :32], x[-1, 32:64], x[mm // 2, 64:96] = 0.0, 7e8, -7e8
+        x[:, -32:] *= 1e-3
+        for adt, kind in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            got = gemm_dequant(eye, x, fused_quant=True, a_dtype=adt)
+            if not torch.equal(got, fake_quant_q8(x).to(adt).float()):
+                fail(f"K4 fused_quant {kind} K={k}: the in-kernel fake "
+                     "quantization differs from fake_quant_q8")
+        del eye
+        print(f"  K4 fused_quant prologue, q8_0 identity M={mm} K={k}: "
+              "bf16 and f32 outputs == fake_quant_q8(x) bit for bit",
+              flush=True)
 
 
 def ring_keep(pos, n_slots, window):
@@ -957,10 +1199,10 @@ def chunks(prompts, reuse, chunk=128, bucket=16):
 
 
 def serve_traffic(name, qp, cfg, dev, prompts, reuse, counters, **kw):
-    """A warm-up request, then the 16 requests through ``Server(qp, cfg,
-    n_slots=8, **kw)`` with every counter set to 0 just before and read
-    just after.  Checks what every run must show; returns (launches,
-    stats, {request id: generated tokens})."""
+    """A warm-up request, then the requests (16, or the first 8) through
+    ``Server(qp, cfg, n_slots=8, **kw)`` with every counter set to 0 just
+    before and read just after.  Checks what every run must show; returns
+    (launches, stats, {request id: generated tokens})."""
     from quant_gemm_tpu_torch.models import serve
 
     warm = serve.Server(qp, cfg, n_slots=8, device=dev, **kw)
@@ -978,7 +1220,7 @@ def serve_traffic(name, qp, cfg, dev, prompts, reuse, counters, **kw):
     wall = time.perf_counter() - t0
     launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
     st = srv.stats()
-    if sorted(results) != list(range(16)):
+    if sorted(results) != list(range(len(prompts))):
         fail(f"{name}: not every request finished: {sorted(results)}")
     if any(len(t) != 32 for t in results.values()):
         fail(f"{name}: a request stopped short of max_new=32")
@@ -987,7 +1229,8 @@ def serve_traffic(name, qp, cfg, dev, prompts, reuse, counters, **kw):
     if st["cached_prompt_tokens"] != sum(reuse):
         fail(f"{name}: reused {st['cached_prompt_tokens']} cached "
              f"prompt tokens, expected {sum(reuse)}")
-    print(f"  {name}: 16 requests, {st['prefill_tokens']} prompt tokens "
+    print(f"  {name}: {len(prompts)} requests, {st['prefill_tokens']} "
+          f"prompt tokens "
           f"prefilled and {st['cached_prompt_tokens']} reused from the "
           f"cache, {st['generated_tokens']} generated, "
           f"{st['decode_steps']} decode steps in {wall:.2f} s", flush=True)
@@ -1290,41 +1533,73 @@ def main_path(dev, counters, prompts, reuse):
     return by_run
 
 
-def write_q4_k_m(path, dev, seed=0):
-    """A GGUF file in llama.cpp's Q4_K_M mix at TinyLlama-1.1B width:
-    random valid blocks drawn on the card from a ``torch.Generator``
-    seed, each weight at about the scale 1/sqrt(K) (the embedding 0.02),
-    f32 norms of 1, TinyLlama's metadata."""
+def random_blocks32(qtype, n, k, std, g):
+    """A per-32 container (q4_1, q5_0, q5_1, q8_0) of random valid blocks
+    drawn on ``g``'s device, values of mean about 0 and standard deviation
+    about ``std``: uniform codes, f16 scales +-25% around the target, and
+    (q4_1, q5_1) mins that centre the codes; the per-32 counterpart of
+    ``kquants.random_blocks``."""
+    from quant_gemm_tpu_torch.formats import blocks, quant
+
+    dev = g.device
+    nb = k // 32
+    top, sd = {"q4_1": (16, 4.61), "q5_0": (32, 9.23), "q5_1": (32, 9.23),
+               "q8_0": (255, 73.6)}[qtype]
+    u = torch.rand(n, nb, generator=g, device=dev)
+    d = (std / sd * (0.75 + 0.5 * u)).to(torch.float16)
+    codes = torch.randint(0, top, (n, k), generator=g, device=dev)
+    if qtype == "q8_0":
+        return blocks.Q8_0Tensor((codes - 127).to(torch.int8), d)
+    packed = quant.pack_planar_4bit(codes & 0xF)
+    mid = (top - 1) / 2  # the min that centres the codes
+    m = (-mid * d.to(torch.float32)).to(torch.float16)
+    if qtype == "q4_1":
+        return blocks.Q4_1Tensor(packed, d, m)
+    qh = quant.pack_planar_bits(codes >> 4)
+    if qtype == "q5_0":
+        return blocks.Q5_0Tensor(packed, qh, d)
+    return blocks.Q5_1Tensor(packed, qh, d, m)
+
+
+def write_gguf_mix(path, mix, dev, seed=0):
+    """A GGUF file of llama.cpp's ``mix`` (``FILE_MIXES``) at
+    TinyLlama-1.1B width: random valid blocks drawn on the card from a
+    ``torch.Generator`` seed, each weight at about the scale 1/sqrt(K)
+    (the embedding 0.02), f32 norms of 1, TinyLlama's metadata."""
     from quant_gemm_tpu_torch.formats import kquants
     from quant_gemm_tpu_torch.formats.gguf_file import write_gguf
 
+    types = FILE_MIXES[mix]
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def lin(qtype, n, k, std=None):
-        return kquants.random_blocks(qtype, n, k, std or k ** -0.5, g)
+        draw = (random_blocks32 if qtype in Q32_BLOCK_BYTES
+                else kquants.random_blocks)
+        return draw(qtype, n, k, std or k ** -0.5, g)
 
     ones = torch.ones(DIM, device=dev)
-    tensors = {"token_embd.weight": lin("q4_K", VOCAB, DIM, 0.02),
+    tensors = {"token_embd.weight": lin(types["default"], VOCAB, DIM, 0.02),
                "output_norm.weight": ones}
     for i in range(LAYERS):
-        big = "q6_K" if i in MORE_BITS else "q4_K"
+        base = types["default"]
+        big = types.get("more_bits", base) if i in MORE_BITS else base
         blk = f"blk.{i}."
         tensors.update({
             blk + "attn_norm.weight": ones,
-            blk + "attn_q.weight": lin("q4_K", HEADS * HD, DIM),
-            blk + "attn_k.weight": lin("q4_K", KV_HEADS * HD, DIM),
+            blk + "attn_q.weight": lin(base, HEADS * HD, DIM),
+            blk + "attn_k.weight": lin(base, KV_HEADS * HD, DIM),
             blk + "attn_v.weight": lin(big, KV_HEADS * HD, DIM),
-            blk + "attn_output.weight": lin("q4_K", DIM, HEADS * HD),
+            blk + "attn_output.weight": lin(base, DIM, HEADS * HD),
             blk + "ffn_norm.weight": ones,
-            blk + "ffn_gate.weight": lin("q4_K", D_FF, DIM),
-            blk + "ffn_up.weight": lin("q4_K", D_FF, DIM),
+            blk + "ffn_gate.weight": lin(base, D_FF, DIM),
+            blk + "ffn_up.weight": lin(base, D_FF, DIM),
             blk + "ffn_down.weight": lin(big, DIM, D_FF),
         })
-    tensors["output.weight"] = lin("q6_K", VOCAB, DIM)
+    tensors["output.weight"] = lin(types["output"], VOCAB, DIM)
     metadata = {
         "general.architecture": "llama",
-        "general.name": "TinyLlama-1.1B width, Q4_K_M mix, random blocks",
-        "general.file_type": 15,  # LLAMA_FTYPE_MOSTLY_Q4_K_M
+        "general.name": f"TinyLlama-1.1B width, {mix} mix, random blocks",
+        "general.file_type": types["file_type"],
         "llama.vocab_size": VOCAB, "llama.embedding_length": DIM,
         "llama.block_count": LAYERS, "llama.feed_forward_length": D_FF,
         "llama.attention.head_count": HEADS,
@@ -1356,7 +1631,7 @@ def q4_k_m_path(dev, counters, prompts, reuse):
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "tinyllama-1.1b-q4_k_m-random.gguf"
         t0 = time.perf_counter()
-        write_q4_k_m(path, dev)
+        write_gguf_mix(path, "Q4_K_M", dev)
         t_write = time.perf_counter() - t0
         t0 = time.perf_counter()
         qp, cfg = gguf_loader.load_llama(path, device=dev)
@@ -1418,6 +1693,145 @@ def q4_k_m_path(dev, counters, prompts, reuse):
         report_cases([(f"{RUN_C} decode step",
                        decode_case(qp, cfg, rng, dev))])
     return {"Q4_K_M bf16": launches, RUN_C: fused}
+
+
+def route_launches(qp, steps, n_chunks, fused, k2):
+    """The launches of a run on ``qp`` worked out from its layers and the
+    route rules: per decode step (8 rows), K2 for every layer's wqkv when
+    the mix takes K2 (``k2``, ``FILE_MIXES``), else the wqkv's parts as
+    GEMMs; each decode GEMM K7 on a per-16 weight, K6 with FUSED_DECODE on
+    a ``gemm_exact.FUSED_QTYPES`` form, else K1; K3 per layer.  Per
+    prefill chunk, K4 on every per-32 weight, the plain float32 matmul on
+    every per-16 one, K5 per layer at 64 tokens or more."""
+    from quant_gemm_tpu_torch.kernels import layout
+    from quant_gemm_tpu_torch.kernels.gemm_exact import FUSED_QTYPES
+    from quant_gemm_tpu_torch.models import llama
+
+    layers = qp["layers"]
+
+    def parts(w):
+        return w.parts if isinstance(w, llama.SplitLinear) else (w,)
+
+    gemms = [p for ly in layers for name in ("wqkv", "wo", "wgu", "w_down")
+             for p in parts(ly[name])] + [qp["lm_head"]]
+    decode = [p for ly in layers for name in ("wo", "wgu", "w_down")
+              for p in parts(ly[name])] + [qp["lm_head"]]
+    if not k2:
+        decode += [p for ly in layers for p in parts(ly["wqkv"])]
+    k16 = [isinstance(w, layout.PreparedK16) for w in decode]
+    k6 = [fused and not k and w.qtype in FUSED_QTYPES
+          for w, k in zip(decode, k16)]
+    prefill_k16 = sum(isinstance(w, layout.PreparedK16) for w in gemms)
+    return {
+        "norm_qkv": steps * LAYERS if k2 else 0,
+        "flash_decode": steps * LAYERS,
+        "gemm_exact_k16": steps * sum(k16),
+        "gemm_exact_fused": steps * sum(k6),
+        "gemm_exact": steps * (len(decode) - sum(k16) - sum(k6)),
+        "attn_tail": 0,
+        "gemm_dequant": len(n_chunks) * (len(gemms) - prefill_k16),
+        "k16_dequant_gemm": len(n_chunks) * prefill_k16,
+        "flash_prefill": LAYERS * sum(t >= 64 for t in n_chunks),
+    }
+
+
+def check_structure(mix, qp):
+    """The loaded parameters hold the mix's weights: one whole weight of
+    the default format per slot, a SplitLinear wqkv and per-16 wqkv part
+    and w_down in the more-bits layers, the output's format."""
+    from quant_gemm_tpu_torch.kernels import layout
+    from quant_gemm_tpu_torch.models import llama
+
+    types = {k: v.lower() for k, v in FILE_MIXES[mix].items()
+             if isinstance(v, str)}
+    for i, ly in enumerate(qp["layers"]):
+        big = i in MORE_BITS and "more_bits" in types
+        want_split = big and types["more_bits"] != types["default"]
+        if isinstance(ly["wqkv"], llama.SplitLinear) != want_split:
+            fail(f"{mix}: layer {i} wqkv is {type(ly['wqkv']).__name__}")
+        for name in ("wo", "wgu", "w_down"):
+            qt = types["more_bits"] if big and name == "w_down" \
+                else types["default"]
+            if ly[name].qtype != qt:
+                fail(f"{mix}: layer {i} {name} is {ly[name].qtype}, "
+                     f"expected {qt}")
+        if not want_split and (not isinstance(ly["wqkv"],
+                                              layout.PreparedWeight)
+                               or ly["wqkv"].qtype != types["default"]):
+            fail(f"{mix}: layer {i} wqkv is not one {types['default']} "
+                 "weight")
+    if qp["lm_head"].qtype != types["output"]:
+        fail(f"{mix}: lm_head is {qp['lm_head'].qtype}")
+
+
+def formats_path(dev, counters, prompts, reuse):
+    """Slice 7: write, load and serve a GGUF file of each of
+    ``FORMAT_FILES`` (one on disk at a time), with the first 8 requests of
+    the traffic, launches checked against ``route_launches`` and the
+    mix's K2 rule; the layer-by-layer check of a chunk and a decode step;
+    then ``FUSED_FILES`` again with FUSED_DECODE, whose transcripts must
+    equal the default run's.  Returns each run's launches."""
+    from quant_gemm_tpu_torch.models import gguf_loader, llama
+
+    prompts, reuse = prompts[:8], reuse[:8]
+    n_chunks = chunks(prompts, reuse)
+    by_run, rng = {}, np.random.default_rng(4)
+    for seed, mix in enumerate(FORMAT_FILES):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / f"tinyllama-1.1b-{mix.lower()}-random.gguf"
+            t0 = time.perf_counter()
+            write_gguf_mix(path, mix, dev, seed=10 + seed)
+            t_write = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            qp, cfg = gguf_loader.load_llama(path, device=dev)
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+            size = path.stat().st_size
+        on_card = device_bytes(qp)
+        print(f"{mix} file: {size} bytes of GGUF written in {t_write:.1f} s, "
+              f"loaded onto the card in {t_load:.1f} s, {on_card} bytes on "
+              f"the card ({on_card / size:.3f} x the file)", flush=True)
+        if cfg != tinyllama_cfg():
+            fail(f"{mix}: config from the file's metadata differs: {cfg}")
+        check_structure(mix, qp)
+        name = f"{mix}: Server(qp, cfg, n_slots=8)"
+        launches, st, default = serve_traffic(name, qp, cfg, dev, prompts,
+                                              reuse, counters)
+        k2 = FILE_MIXES[mix]["k2"]
+        want = route_launches(qp, st["decode_steps"], n_chunks, False, k2)
+        check_launches(name, launches, want)
+        steps = st["decode_steps"]
+        print(f"    per decode step: K2 {want['norm_qkv'] // steps}, K1 "
+              f"{want['gemm_exact'] // steps}, K7 "
+              f"{want['gemm_exact_k16'] // steps}, K3 {LAYERS}", flush=True)
+        by_run[f"{mix} bf16"] = launches
+        toks = torch.as_tensor(rng.integers(0, VOCAB, (1, 128)), device=dev)
+        cache = llama.KVCache.init(cfg, 1, device=dev)
+        report_cases([(f"{mix} chunk 128 at pos0 0",
+                       check(qp, cfg, toks, cache)),
+                      (f"{mix} decode step",
+                       decode_case(qp, cfg, rng, dev))])
+        if mix in FUSED_FILES:
+            run = f"{mix} FUSED_DECODE"
+            with switches(fused=True):
+                fused, st, results = serve_traffic(
+                    f"{run}: Server(qp, cfg, n_slots=8)", qp, cfg, dev,
+                    prompts, reuse, counters)
+            want = route_launches(qp, st["decode_steps"], n_chunks, True,
+                                  k2)
+            check_launches(run, fused, want)
+            if results != default:
+                fail(f"{run}: the transcripts differ from the default "
+                     "run's")
+            print(f"    per decode step: K6 "
+                  f"{want['gemm_exact_fused'] // st['decode_steps']}, K2 "
+                  f"{want['norm_qkv'] // st['decode_steps']}, K1 0; all "
+                  f"{len(prompts)} transcripts equal the default run's",
+                  flush=True)
+            by_run[run] = fused
+        del qp
+        torch.cuda.empty_cache()
+    return by_run
 
 
 def mistral_cfg(ring=True, max_seq=M_MAX_SEQ):
@@ -1733,6 +2147,7 @@ def spec_phase(dev, counters):
     gemm = [p for p in defs if spec_runner.load(p)["op_type"] == "gemm_quant"]
     q8 = [p for p in gemm
           if spec_runner.load(p)["inputs"]["A"]["dtype"] == "q8_1"]
+    a16 = [p for p in gemm if p not in q8]
     failed = []
 
     def run(path, impl=None, params=None, memo=None):
@@ -1750,8 +2165,8 @@ def spec_phase(dev, counters):
     for p in defs:
         print(f"    {run(p).row()}", flush=True)
     rungs = {"pallas_exact": q8, "pallas_f32": gemm, "pallas_bf16": gemm,
-             "pallas": gemm, "xla_dequant": gemm, "xla_int": q8,
-             "xla_compensated": q8}
+             "pallas": gemm, "pallas_fused_quant": a16, "xla_dequant": gemm,
+             "xla_int": q8, "xla_compensated": q8}
     for impl, paths in rungs.items():
         res = [run(p, impl) for p in paths]
         worst = max(r.nmse / r.threshold for r in res)
@@ -1789,12 +2204,13 @@ def spec_phase(dev, counters):
         fail(f"spec runner on the card: {len(failed)} runs failed: {failed}")
     # K9/K10: rmsnorm / softmax once each, then at each full-width shape;
     # K4: every gemm definition by default (pallas_f32), three K4 rungs
-    # each, and at both shapes; K1: pallas_exact for each Q8_1 definition
+    # each, and at both shapes, and pallas_fused_quant for each float-
+    # activation definition; K1: pallas_exact for each Q8_1 definition
     # and at both shapes; K3/K5: the two attention definitions
     check_launches(RUN_SPEC, launches, {
         "rms_norm_pallas": 1 + len(SPEC_RMSNORM),
         "softmax_pallas": 1 + len(SPEC_SOFTMAX),
-        "gemm_dequant": len(gemm) * (1 + 3 + len(SPEC_GEMM)),
+        "gemm_dequant": len(gemm) * (1 + 3 + len(SPEC_GEMM)) + len(a16),
         "gemm_exact": len(q8) * (1 + len(SPEC_GEMM)),
         "flash_decode": 1, "flash_prefill": 1, "norm_qkv": 0,
         "gemm_exact_k16": 0, "gemm_exact_fused": 0, "attn_tail": 0})
@@ -1879,6 +2295,9 @@ def main() -> int:
     phase_done("main path (TinyLlama q4_0)")
     by_run.update(q4_k_m_path(dev, counters, prompts, reuse))
     phase_done("Q4_K_M path")
+    torch.cuda.empty_cache()
+    by_run.update(formats_path(dev, counters, prompts, reuse))
+    phase_done("formats path (slice 7)")
     foreign_bytes(dev)
     phase_done("foreign bytes")
     torch.cuda.empty_cache()

@@ -1,7 +1,7 @@
 // Shared device code of the port's per-32 kernels (gemm_exact.cu,
 // gemm_dequant.cu, norm_qkv.cu, gemm_exact_fused.cu, attn_tail.cu): the
 // in-kernel Q8_1 quantizer, the per-32 weight formats (q4_0, q4_1, q5_0,
-// q5_1, q8_0, q4_k: where a block's codes and scales are, its exact dot
+// q5_1, q8_0, q4_k, q5_k: where a block's codes and scales are, its exact dot
 // with Q8_1 codes, its epilogue, its dequantized values), the block loop
 // and K1's summation order.  Plain C interface, no PyTorch headers.
 #pragma once
@@ -356,10 +356,12 @@ struct Q5Block {
   unsigned h;  // fifth bits, bit j of code j
 };
 
-template <bool HAS_MIN>
-struct Q5W {  // d (and m) f16 [N, nb], qh u32 [N, nb]
-  const __half* d;
-  const __half* m;
+// q5_0 and q5_1: d (and m) f16 [N, nb], qh u32 [N, nb]; q5_k (a q5_K
+// tensor in its effective q5_1 form): d', m' f32 [N, nb], qh u32 [N, nb]
+template <bool HAS_MIN, typename S = __half>
+struct Q5W {
+  const S* d;
+  const S* m;
   const unsigned* qh;
   using Block = Q5Block;
   __device__ __forceinline__ Block load(const uint8_t* wq, size_t row, int nb,
@@ -375,9 +377,10 @@ struct Q5W {  // d (and m) f16 [N, nb], qh u32 [N, nb]
     add_bit4(__ldg(qh + blk), qtr, q);
   }
   __device__ __forceinline__ float2 scales(size_t i) const {
-    return make_float2(__half2float(d[i]), HAS_MIN ? __half2float(m[i]) : 0.0f);
+    return make_float2(to_f32(d[i]), HAS_MIN ? to_f32(m[i]) : 0.0f);
   }
-  // q5_0: d_w * (d_a * sumi - 16 * s_a); q5_1: d_w * d_a * sumi + m_w * s_a
+  // q5_0: d_w * (d_a * sumi - 16 * s_a); q5_1, q5_k: d_w * d_a * sumi +
+  // m_w * s_a
   __device__ __forceinline__ static float term(float2 w, float da, float sa,
                                                int sumi) {
     return HAS_MIN ? min_term(w, da, sa, sumi)
@@ -388,6 +391,7 @@ struct Q5W {  // d (and m) f16 [N, nb], qh u32 [N, nb]
 };
 using Q5_0W = Q5W<false>;
 using Q5_1W = Q5W<true>;
+using Q5_KW = Q5W<true, float>;
 
 struct Q8Block {
   int4 lo;  // codes 0..15

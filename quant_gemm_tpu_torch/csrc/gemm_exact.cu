@@ -1,5 +1,5 @@
 // K1: exact WxA8 decode GEMM, per-32 weights (q4_0, q4_1, q5_0, q5_1,
-// q8_0, q4_k) x Q8_1 activations, M <= 12.
+// q8_0, q4_k, q5_k) x Q8_1 activations, M <= 12.
 //
 // Replaces the Pallas kernel quant_gemm_tpu/kernels/gemm_exact.py::
 // gemm_exact (bodies _kernel and, for q8_0, _kernel_w8).  C[m, n] =
@@ -7,14 +7,16 @@
 // __dp4a: 4-bit nibbles, 5-bit codes with their qh bit moved in, or q8_0's
 // signed bytes) and term_b the golden's per-format epilogue
 // (ref/gemm.py::gemm_wxa8): q4_0 d_w(d_a sumi - 8 s_a), q5_0 d_w(d_a sumi
-// - 16 s_a), q4_1 / q5_1 / q4_k (a q4_K tensor's effective q4_1 form)
-// d_w d_a sumi + m_w s_a, q8_0 d_w d_a sumi, each step rounded on its own;
-// the terms are summed in float32, as the TPU kernel sums them.
+// - 16 s_a), q4_1 / q5_1 / q4_k / q5_k (a q4_K or q5_K tensor's effective
+// q4_1 or q5_1 form) d_w d_a sumi + m_w s_a, q8_0 d_w d_a sumi, each step
+// rounded on its own; the terms are summed in float32, as the TPU kernel
+// sums them.
 //
 // Bound on an H100: bytes.  At M <= 12 the weight stream (per 32 weights:
 // 16 code bytes + 2 d bytes for q4_0, + 2 m for q4_1, + 4 qh for q5_0, +
-// 6 for q5_1, 32 + 2 for q8_0, 16 + 8 f32 d' and m' bytes for q4_k) is
-// everything; the activations are a few KB and stay in L1/L2.  Design: a
+// 6 for q5_1, 32 + 2 for q8_0, 16 + 8 f32 d' and m' bytes for q4_k, 16 +
+// 4 + 8 for q5_k) is everything; the activations are a few KB and stay in
+// L1/L2.  Design: a
 // block of NW warps owns NC = 4 weight rows and splits their K blocks over
 // its threads, so every lane issues 16-byte loads of whole blocks (two for
 // q8_0, plus the 4-byte qh word for q5) and the grid has N/4 blocks (8000
@@ -129,5 +131,20 @@ QGT_EXPORT int qgt_gemm_exact_q4_k(const void* wq, const void* wd,
   return launch(wq,
                 qgt::Q4_KW{static_cast<const float*>(wd),
                            static_cast<const float*>(wm)},
+                qa, da, sa, out, M, N, K, stream);
+}
+
+// out f32 [M, N] = q5_k W [N, K] (qs uint8 [N, K/2] low four bits,
+//                  effective d', m' f32 [N, K/32], qh u32 [N, K/32])
+//                  x Q8_1 A [M, K] (qa int8, da/sa f16).
+QGT_EXPORT int qgt_gemm_exact_q5_k(const void* wq, const void* wd,
+                                   const void* wm, const void* wqh,
+                                   const void* qa, const void* da,
+                                   const void* sa, void* out, int M, int N,
+                                   int K, void* stream) {
+  return launch(wq,
+                qgt::Q5_KW{static_cast<const float*>(wd),
+                           static_cast<const float*>(wm),
+                           static_cast<const unsigned*>(wqh)},
                 qa, da, sa, out, M, N, K, stream);
 }

@@ -1,9 +1,12 @@
-// K6: exact W4A8 decode GEMM with the Q8_1 quantization of the float
-// activation inside the kernel, q4_0 or q4_k weights, M <= 12.
+// K6: exact WxA8 decode GEMM with the Q8_1 quantization of the float
+// activation inside the kernel, M <= 12, for the per-32 weights without a
+// qh plane: q4_0, q4_1, q4_k and q8_0 (the JAX dispatch keeps the q5
+// forms on quantize + K1).
 //
 // Replaces the Pallas kernel quant_gemm_tpu/kernels/gemm_exact.py::
-// gemm_exact_fused (body _kernel_fused).  out = gemm_exact(w,
-// quantize_q8_1(x)) bit for bit: the codes come from the shared quantizer
+// gemm_exact_fused (bodies _kernel_fused and, for q8_0, _kernel_w8_fused).
+// out = gemm_exact(w, quantize_q8_1(x)) bit for bit, in every form: the
+// codes come from the shared quantizer
 // (common.cuh, bit-equal to formats/quant.py::quantize_q8_1), the scales
 // are held as f16 in shared memory (exact: they are f16 values), and
 // every output is summed in K1's order (common.cuh::k1_rows, which K1
@@ -126,4 +129,23 @@ QGT_EXPORT int qgt_gemm_exact_fused_q4_k(const void* wq, const void* wd,
                 qgt::Q4_KW{static_cast<const float*>(wd),
                            static_cast<const float*>(wm)},
                 x, out, M, N, K, stream);
+}
+
+// The same for q4_1 W (qs uint8 [N, K/2], d, m f16 [N, K/32]).
+QGT_EXPORT int qgt_gemm_exact_fused_q4_1(const void* wq, const void* wd,
+                                         const void* wm, const void* x,
+                                         void* out, int M, int N, int K,
+                                         void* stream) {
+  return launch(wq,
+                qgt::Q4_1W{static_cast<const __half*>(wd),
+                           static_cast<const __half*>(wm)},
+                x, out, M, N, K, stream);
+}
+
+// The same for q8_0 W (qs int8 [N, K], d f16 [N, K/32]).
+QGT_EXPORT int qgt_gemm_exact_fused_q8_0(const void* wq, const void* wd,
+                                         const void* x, void* out, int M,
+                                         int N, int K, void* stream) {
+  return launch(wq, qgt::Q8_0W{static_cast<const __half*>(wd)}, x, out, M, N,
+                K, stream);
 }

@@ -12,13 +12,15 @@ containers:
     tensor-info*: name(str) n_dims(u32) dims(u64*) ggml_type(u32) offset(u64)
     padding to `general.alignment` (default 32) | tensor data blob
 
-Types read and written: f32, f16, q4_0, q8_0 (:mod:`.blocks` containers)
-and q4_K, q6_K, q2_K, q3_K (:mod:`.kquants`).  The other ggml types of
-the table raise ``NotImplementedError`` with the type's name.
+Types read and written: f32, f16, q4_0, q4_1, q5_0, q5_1, q8_0
+(:mod:`.blocks` containers) and q4_K, q5_K, q6_K, q2_K, q3_K
+(:mod:`.kquants`).  The other ggml types of the table (q8_1, iq4_nl,
+iq4_xs) raise ``NotImplementedError`` with the type's name.
 """
 
 from __future__ import annotations
 
+import functools
 import struct
 from typing import Any, BinaryIO
 
@@ -27,7 +29,8 @@ import torch
 
 from ..utils import resolve_device
 from . import kquants
-from .blocks import QK, Q4_0Tensor, Q8_0Tensor
+from .blocks import (QK, Q4_0Tensor, Q4_1Tensor, Q5_0Tensor, Q5_1Tensor,
+                     Q8_0Tensor)
 from .quant import pack_planar_4bit, unpack_planar_4bit
 
 MAGIC = b"GGUF"
@@ -40,7 +43,8 @@ GGML_TYPES = {0: "f32", 1: "f16", 2: "q4_0", 3: "q4_1", 6: "q5_0", 7: "q5_1",
 GGML_IDS = {v: k for k, v in GGML_TYPES.items()}
 
 #: bytes per block and elements per block of the types this module reads
-_BLOCK = {"f32": (4, 1), "f16": (2, 1), "q4_0": (18, QK), "q8_0": (34, QK),
+_BLOCK = {"f32": (4, 1), "f16": (2, 1), "q4_0": (18, QK), "q4_1": (20, QK),
+          "q5_0": (22, QK), "q5_1": (24, QK), "q8_0": (34, QK),
           **{n: (c[0], kquants.QK_K) for n, c in kquants.CODECS.items()}}
 
 # GGUF metadata value types
@@ -131,23 +135,49 @@ def tensor_nbytes(qtype: str, n_elems: int) -> int:
     return n_elems // per * nbytes
 
 
-# -- 32-element block codecs (block_q4_0, block_q8_0) on torch tensors ------
+# -- 32-element block codecs (ggml-common.h block_q4_0 .. block_q8_0) on
+# torch tensors.  A block is its f16 d, then (q4_1, q5_1) its f16 m, then
+# (q5) its 4-byte qh, bit j the fifth bit of code j, then its codes: 16
+# bytes with byte j = code j | code j+16 << 4 (the low four bits), or 32
+# int8 codes (q8_0).  A q5 block's qh bytes are the planar container's
+# bytes 4b .. 4b+3 unchanged (bit c % 8 of byte c // 8 is code c's).
+
+#: per-32 GGUF type -> (container, has m, has qh)
+_PER32 = {"q4_0": (Q4_0Tensor, False, False),
+          "q4_1": (Q4_1Tensor, True, False),
+          "q5_0": (Q5_0Tensor, False, True),
+          "q5_1": (Q5_1Tensor, True, True)}
 
 
-def _q4_0_from_bytes(raw: torch.Tensor) -> Q4_0Tensor:
-    """u8 [N, K/32, 18] (d f16, qs[j] = x[j] | x[j+16] << 4) -> planar."""
+def _per32_from_bytes(qt: str, raw: torch.Tensor):
+    """u8 [N, K/32, bytes] -> the planar container of ``qt``."""
+    cls, has_m, has_qh = _PER32[qt]
     n, nb, _ = raw.shape
-    qs = raw[:, :, 2:18]
+    fields = {"d": kquants._f16(raw, 0)}
+    at = 2
+    if has_m:
+        fields["m"] = kquants._f16(raw, 2)
+        at = 4
+    if has_qh:
+        fields["qh"] = raw[:, :, at:at + 4].reshape(n, nb * 4)
+        at += 4
+    qs = raw[:, :, at:at + 16]
     codes = torch.cat([qs & 0x0F, qs >> 4], dim=-1).reshape(n, nb * QK)
-    return Q4_0Tensor(pack_planar_4bit(codes), kquants._f16(raw, 0))
+    return cls(packed=pack_planar_4bit(codes), **fields)
 
 
-def _q4_0_to_bytes(t: Q4_0Tensor) -> torch.Tensor:
+def _per32_to_bytes(qt: str, t) -> torch.Tensor:
+    _, has_m, has_qh = _PER32[qt]
     n = t.packed.shape[0]
     q = unpack_planar_4bit(t.packed).reshape(n, -1, QK)
     nb = q.shape[1]
-    return torch.cat([kquants._f16_bytes(t.d.reshape(n, nb)),
-                      q[..., :16] | (q[..., 16:] << 4)], dim=-1)
+    parts = [kquants._f16_bytes(t.d.reshape(n, nb))]
+    if has_m:
+        parts.append(kquants._f16_bytes(t.m.reshape(n, nb)))
+    if has_qh:
+        parts.append(t.qh.reshape(n, nb, 4).to(torch.uint8))
+    parts.append(q[..., :16] | (q[..., 16:] << 4))
+    return torch.cat(parts, dim=-1)
 
 
 def _q8_0_from_bytes(raw: torch.Tensor) -> Q8_0Tensor:
@@ -163,10 +193,16 @@ def _q8_0_to_bytes(t: Q8_0Tensor) -> torch.Tensor:
                      dim=-1)
 
 
-_DECODE = {"q4_0": _q4_0_from_bytes, "q8_0": _q8_0_from_bytes,
+_DECODE = {"q8_0": _q8_0_from_bytes,
+           **{qt: functools.partial(_per32_from_bytes, qt) for qt in _PER32},
            **{n: c[1] for n, c in kquants.CODECS.items()}}
-_ENCODE = {"q4_0": _q4_0_to_bytes, "q8_0": _q8_0_to_bytes,
+_ENCODE = {"q8_0": _q8_0_to_bytes,
+           **{qt: functools.partial(_per32_to_bytes, qt) for qt in _PER32},
            **{n: c[2] for n, c in kquants.CODECS.items()}}
+#: container type -> GGUF type name, for the writer
+_GGUF_TYPE = {Q8_0Tensor: "q8_0",
+              **{c[0]: qt for qt, c in _PER32.items()},
+              **kquants.GGUF_TYPE}
 
 
 class GGUFFile:
@@ -227,7 +263,8 @@ class GGUFFile:
 
     def load(self, name: str, device="cuda"):
         """One tensor on ``device``: a float tensor (f32/f16) or a block
-        container (q4_0, q8_0, q4_K, q6_K, q2_K, q3_K), decoded there."""
+        container (q4_0, q4_1, q5_0, q5_1, q8_0, q4_K, q5_K, q6_K, q2_K,
+        q3_K), decoded there."""
         info = self.tensors[name]
         shape, qt = info["shape"], info["qtype"]
         _readable(qt)
@@ -250,15 +287,12 @@ def _info(t):
             raise TypeError(f"write_gguf writes f32/f16 tensors, not "
                             f"{t.dtype}")
         return qt, tuple(t.shape)
-    if isinstance(t, Q4_0Tensor):
-        return "q4_0", (t.packed.shape[0], t.k)
-    if isinstance(t, Q8_0Tensor):
-        return "q8_0", tuple(t.qs.shape)
-    qt = kquants.GGUF_TYPE.get(type(t))
+    qt = _GGUF_TYPE.get(type(t))
     if qt is None:
         raise NotImplementedError(f"write_gguf: {type(t).__name__} is not a "
                                   "ported format")
-    return qt, ((t.packed if qt == "q4_K" else t.qs).shape[0], t.k)
+    codes = t.qs if hasattr(t, "qs") else t.packed
+    return qt, (codes.shape[0], t.k)
 
 
 def _encode(t, qt: str) -> np.ndarray:
@@ -271,9 +305,11 @@ def _encode(t, qt: str) -> np.ndarray:
 def write_gguf(path, tensors: dict, metadata: dict | None = None) -> None:
     """Write float tensors and block containers to a GGUF v3 file.
 
-    ``tensors``: {name: float32/float16 tensor | Q4_0Tensor | Q8_0Tensor |
-    Q4_KTensor | Q6_KTensor | Q2_KTensor | Q3_KTensor} of torch tensors on
-    any device; each is encoded on its device and written in turn."""
+    ``tensors``: {name: float32/float16 tensor | a per-32 container
+    (Q4_0Tensor, Q4_1Tensor, Q5_0Tensor, Q5_1Tensor, Q8_0Tensor) | a
+    K-quant container (Q4_KTensor, Q5_KTensor, Q6_KTensor, Q2_KTensor,
+    Q3_KTensor)} of torch tensors on any device; each is encoded on its
+    device and written in turn."""
     metadata = dict(metadata or {})
     metadata.setdefault("general.alignment", DEFAULT_ALIGNMENT)
     align = int(metadata["general.alignment"])

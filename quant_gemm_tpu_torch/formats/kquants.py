@@ -7,8 +7,10 @@ whatever device its bytes were moved to (a full-width file on the card in
 seconds).  Every function is bit-equal to its numpy counterpart on the same
 bytes.  The q4_K and q5_K encoders (:func:`quantize_q4_k`,
 :func:`quantize_q5_k`, with llama.cpp's ``make_qkx2_quants`` scale/min
-search) are host code in numpy, copies of the JAX package's; they return
-containers of CPU tensors.  The q6_K/q3_K/q2_K encoders are not ported.
+search) and the simplified q6_K/q3_K/q2_K encoders
+(:func:`quantize_q6_k`, :func:`quantize_q3_k`, :func:`quantize_q2_k`) are
+host code in numpy, copies of the JAX package's; they return containers
+of CPU tensors.
 
 Serialized blocks (AoS, ``uint8 [N, K/256, bytes]``) and their SoA
 containers:
@@ -33,7 +35,8 @@ q3_K     110   hmask[32] | qs[64] 2-bit | scales[12] 6-bit | d f16
 
 q4_K dequantizes per 32-element sub-block as ``d*ls*q - dmin*lm``: the
 q4_1 form with per-32 **effective** f32 scales ``d' = d*ls`` and ``m' =
--dmin*lm`` (:func:`to_effective`; the products are not f16 values).  The
+-dmin*lm`` (:func:`to_effective`; the products are not f16 values), and
+q5_K likewise the q5_1 form (:func:`to_effective_q5_k`).  The
 per-16 formats keep their exact codes and per-16 f32 scales ``scp`` (and
 q2_K's additive ``mp``) for the per-16 kernel K7.
 """
@@ -329,6 +332,29 @@ def quantize_q5_k(x, search: bool = True) -> Q5_KTensor:
     return Q5_KTensor(*_tensors(d, dmin, ls, lm, packed, qh))
 
 
+class EffectiveQ51(NamedTuple):
+    """Per-32 effective ``(d', m')`` view of a q5_K tensor: q5_1-shaped
+    with f32 scales; ``x = q * d' + m'``."""
+
+    packed: torch.Tensor  # u8 [N, K/2] planar low nibbles
+    qh: torch.Tensor  # u8 [N, K/8] planar 5th bits
+    d: torch.Tensor  # f32 [N, K/32]
+    m: torch.Tensor  # f32 [N, K/32]
+
+    qtype = "q5_k"
+
+    @property
+    def k(self) -> int:
+        return self.packed.shape[-1] * 2
+
+
+def to_effective_q5_k(t: Q5_KTensor) -> EffectiveQ51:
+    """Per-32 effective scales: ``d' = d*ls``, ``m' = -dmin*lm`` (f32)."""
+    d = _rep(t.d, NSB) * t.ls.to(torch.float32)
+    m = -(_rep(t.dmin, NSB) * t.lm.to(torch.float32))
+    return EffectiveQ51(t.packed, t.qh, d, m)
+
+
 def _codes5(t: Q5_KTensor) -> torch.Tensor:
     """Natural-order codes 0..31, int32 [N, K]."""
     return (_unplanar(t.packed).to(torch.int32)
@@ -338,11 +364,10 @@ def _codes5(t: Q5_KTensor) -> torch.Tensor:
 def dequantize_q5_k(t: Q5_KTensor) -> torch.Tensor:
     """f32 [N, K]: ``q * d' + m'`` per 32-element sub-block, ``d' =
     d*ls``, ``m' = -dmin*lm``."""
-    d = _rep(t.d, NSB) * t.ls.to(torch.float32)
-    m = -(_rep(t.dmin, NSB) * t.lm.to(torch.float32))
+    eff = to_effective_q5_k(t)
     n, k = t.packed.shape[0], t.k
     q = _codes5(t).to(torch.float32).reshape(n, k // QK, QK)
-    return (q * d[..., None] + m[..., None]).reshape(n, k)
+    return (q * eff.d[..., None] + eff.m[..., None]).reshape(n, k)
 
 
 def to_bytes_q5_k(t: Q5_KTensor) -> torch.Tensor:
@@ -593,6 +618,79 @@ def dequantize_q3_k(t: Q3_KTensor) -> torch.Tensor:
     return t.scp.repeat_interleave(16, dim=-1) * t.qs.to(torch.float32)
 
 
+# ---------------------------------------------------------------------------
+# the q6_K / q3_K / q2_K encoders (numpy host code, as in the JAX package)
+# ---------------------------------------------------------------------------
+
+
+def _k16_groups(x):
+    x = np.asarray(x, np.float32)
+    n, k = x.shape
+    if k % QK_K:
+        raise ValueError(f"K={k} must be a multiple of {QK_K}")
+    return n, k, x.reshape(n, k // 16, 16)
+
+
+def _sub_scales(f, d, lo, hi):
+    """Per-16 sub-scales ``clip(rint(f / d), lo, hi)`` against the f16
+    super-scale ``d`` (0 where ``d`` is 0) and ``d`` per 16, float32."""
+    d32 = np.repeat(d.astype(np.float32), 16, axis=-1)
+    sc = np.where(d32 > 0, np.rint(f / np.where(d32 > 0, d32, 1.0)), 0.0)
+    return sc.clip(lo, hi), d32
+
+
+def _inverse(scp, signed=False):
+    ok = scp != 0 if signed else scp > 0
+    return np.where(ok, 1.0 / np.where(ok, scp, 1.0), 0.0)
+
+
+def quantize_q6_k(x) -> Q6_KTensor:
+    """float [N, K] -> :class:`Q6_KTensor` of CPU tensors, K % 256 == 0:
+    the JAX package's simplified two-level encoder (per-16 ``f =
+    amax/31``, ``d = max f / 127`` per 256, ``sc = rint(f/d)``, codes
+    ``rint(x / (d*sc))`` in [-32, 31])."""
+    n, k, g = _k16_groups(x)
+    f = np.abs(g).max(-1) / 31.0
+    d = f16_sat(f.reshape(n, -1, 16).max(-1) / 127.0)
+    sc, d32 = _sub_scales(f, d, 0, 127)
+    sc = sc.astype(np.int8)
+    inv = _inverse(d32 * sc.astype(np.float32))
+    q = np.clip(np.rint(g * inv[..., None]), -32, 31).astype(np.int8)
+    return Q6_KTensor(*_tensors(d, sc, q.reshape(n, k)))
+
+
+def quantize_q3_k(x) -> Q3_KTensor:
+    """float [N, K] -> :class:`Q3_KTensor` of CPU tensors (the JAX
+    package's simplified encoder, codes in [-4, 3])."""
+    n, k, g = _k16_groups(x)
+    f = np.abs(g).max(-1) / 4.0
+    d = f16_sat(f.reshape(n, -1, 16).max(-1) / 31.0)
+    sc, d32 = _sub_scales(f, d, -32, 31)
+    sc = sc.astype(np.int8)
+    inv = _inverse(d32 * sc.astype(np.float32), signed=True)
+    q = np.clip(np.rint(g * inv[..., None]), -4, 3).astype(np.int8)
+    return Q3_KTensor(*_tensors(d, sc, q.reshape(n, k)))
+
+
+def quantize_q2_k(x) -> Q2_KTensor:
+    """float [N, K] -> :class:`Q2_KTensor` of CPU tensors (the JAX
+    package's simplified encoder, ``x ~ d*sc*q - dmin*mn``, positive mins
+    clamped to 0 as llama.cpp does)."""
+    n, k, g = _k16_groups(x)
+    mn_f = np.minimum(g.min(-1), 0.0)
+    sc_f = (g.max(-1) - mn_f) / 3.0
+    d = f16_sat(sc_f.reshape(n, -1, 16).max(-1) / 15.0)
+    dmin = f16_sat((-mn_f).reshape(n, -1, 16).max(-1) / 15.0)
+    sc, d32 = _sub_scales(sc_f, d, 0, 15)
+    mn, dm32 = _sub_scales(-mn_f, dmin, 0, 15)
+    sc, mn = sc.astype(np.uint8), mn.astype(np.uint8)
+    mp = dm32 * mn.astype(np.float32)
+    inv = _inverse(d32 * sc.astype(np.float32))
+    q = np.clip(np.rint((g + mp[..., None]) * inv[..., None]), 0, 3)
+    return Q2_KTensor(*_tensors(d, dmin, sc, mn,
+                                q.astype(np.int8).reshape(n, k)))
+
+
 #: per-16-scale containers (served by K7, ``kernels/gemm_exact_k16.py``)
 K16_TENSORS = (Q2_KTensor, Q3_KTensor, Q6_KTensor)
 
@@ -608,14 +706,15 @@ DEQUANT = {
 #: GGUF type name -> (bytes per 256-element block, decoder, encoder)
 CODECS = {
     "q4_K": (BLOCK_BYTES, from_bytes, to_bytes),
+    "q5_K": (QK5_BLOCK_BYTES, from_bytes_q5_k, to_bytes_q5_k),
     "q6_K": (QK6_BLOCK_BYTES, from_bytes_q6_k, to_bytes_q6_k),
     "q2_K": (QK2_BLOCK_BYTES, from_bytes_q2_k, to_bytes_q2_k),
     "q3_K": (QK3_BLOCK_BYTES, from_bytes_q3_k, to_bytes_q3_k),
 }
 
 #: container type -> GGUF type name
-GGUF_TYPE = {Q4_KTensor: "q4_K", Q6_KTensor: "q6_K", Q2_KTensor: "q2_K",
-             Q3_KTensor: "q3_K"}
+GGUF_TYPE = {Q4_KTensor: "q4_K", Q5_KTensor: "q5_K", Q6_KTensor: "q6_K",
+             Q2_KTensor: "q2_K", Q3_KTensor: "q3_K"}
 
 
 def random_blocks(qtype: str, n: int, k: int, std: float,
@@ -623,9 +722,9 @@ def random_blocks(qtype: str, n: int, k: int, std: float,
     """A container of random valid blocks on ``generator``'s device whose
     values have mean about 0 and standard deviation about ``std``: uniform
     codes, sub-scales drawn from a band that keeps the f16 scales normal
-    at the usual widths, and (q4_K, q2_K) mins that centre the codes.  For
-    smoke runs and tests of full-width models without a checkpoint;
-    ``qtype`` is a GGUF name (``"q4_K"``, ...)."""
+    at the usual widths, and (q4_K, q5_K, q2_K) mins that centre the
+    codes.  For smoke runs and tests of full-width models without a
+    checkpoint; ``qtype`` is a GGUF name (``"q4_K"``, ...)."""
     if k % QK_K:
         raise ValueError(f"K={k} must be a multiple of {QK_K}")
     nsb = k // QK_K
@@ -648,6 +747,13 @@ def random_blocks(qtype: str, n: int, k: int, std: float,
         dmin = (d.to(torch.float32) * 7.5).to(torch.float16)
         codes = ints(0, 16, n, k).to(torch.uint8)
         return Q4_KTensor(d, dmin, ls, ls.clone(), _planar(codes))
+    if qtype == "q5_K":  # x = d*ls*q - dmin*lm, q uniform 0..31 (sd 9.2)
+        ls = ints(16, 64, n, k // QK).to(torch.uint8)
+        d = f16(std / (9.2 * 40))
+        dmin = (d.to(torch.float32) * 15.5).to(torch.float16)
+        codes = ints(0, 32, n, k).to(torch.uint8)
+        return Q5_KTensor(d, dmin, ls, ls.clone(), _planar(codes & 0xF),
+                          pack_planar_bits(codes >> 4))
     if qtype == "q6_K":  # x = d*sc*q', q' uniform -32..31 (sd 18.5)
         sc = (ints(4, 17, n, k // 16) * sign(n, k // 16)).to(torch.int8)
         return Q6_KTensor(f16(std / (18.5 * 10)), sc,
@@ -667,16 +773,18 @@ def random_blocks(qtype: str, n: int, k: int, std: float,
 
 def k16_qtype(t) -> Optional[str]:
     """``"q2_k"``/``"q3_k"``/``"q6_k"`` for a per-16 container, else None."""
-    name = GGUF_TYPE.get(type(t))
-    return None if name is None or name == "q4_K" else name.lower()
+    return GGUF_TYPE[type(t)].lower() if isinstance(t, K16_TENSORS) else None
 
 
 __all__ = ["QK_K", "NSB", "BLOCK_BYTES", "QK6_BLOCK_BYTES",
            "QK2_BLOCK_BYTES", "QK3_BLOCK_BYTES", "QK5_BLOCK_BYTES",
-           "Q4_KTensor", "EffectiveQ41", "Q5_KTensor", "Q6_KTensor",
+           "Q4_KTensor", "EffectiveQ41", "Q5_KTensor", "EffectiveQ51",
+           "Q6_KTensor",
            "Q2_KTensor", "Q3_KTensor", "from_bytes", "to_bytes",
            "to_effective", "dequantize_q4_k", "quantize_q4_k",
-           "quantize_q5_k", "dequantize_q5_k", "to_bytes_q5_k",
+           "quantize_q5_k", "to_effective_q5_k", "dequantize_q5_k",
+           "to_bytes_q5_k", "quantize_q6_k", "quantize_q3_k",
+           "quantize_q2_k",
            "from_bytes_q5_k", "from_bytes_q6_k",
            "to_bytes_q6_k", "dequantize_q6_k", "from_bytes_q2_k",
            "to_bytes_q2_k", "from_bytes_q3_k", "to_bytes_q3_k",

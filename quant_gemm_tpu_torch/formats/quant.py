@@ -34,6 +34,15 @@ def _blocks(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[:-1] + (k // QK, QK)).to(torch.float32)
 
 
+def div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` as the IEEE float32 quotient on every device.  PyTorch's
+    CUDA division by a Python scalar multiplies by the scalar's rounded
+    reciprocal instead, which can move the last bit, and with it an f16
+    scale at a rounding tie, away from numpy's, JAX's and the kernels'
+    quotient; a tensor divisor takes the true division."""
+    return x / torch.full_like(x, c)
+
+
 def _safe_inv(d_f16: torch.Tensor) -> torch.Tensor:
     d = d_f16.to(torch.float32)
     return torch.where(d > 0, 1.0 / torch.where(d > 0, d, 1.0),
@@ -78,7 +87,7 @@ def unpack_planar_bits(packed: torch.Tensor) -> torch.Tensor:
 def quantize_q4_0(x: torch.Tensor) -> Q4_0Tensor:
     xb = _blocks(x)
     amax = xb.abs().amax(dim=-1)
-    d = f16_sat(amax / 7.0)
+    d = f16_sat(div(amax, 7.0))
     q = torch.round(xb * _safe_inv(d)[..., None]).clamp(-8, 7) + 8
     return Q4_0Tensor(pack_planar_4bit(q.reshape(x.shape)), d)
 
@@ -86,7 +95,7 @@ def quantize_q4_0(x: torch.Tensor) -> Q4_0Tensor:
 def quantize_q4_1(x: torch.Tensor) -> Q4_1Tensor:
     xb = _blocks(x)
     mn, mx = xb.amin(dim=-1), xb.amax(dim=-1)
-    d = f16_sat((mx - mn) / 15.0)
+    d = f16_sat(div(mx - mn, 15.0))
     q = torch.round((xb - mn[..., None]) * _safe_inv(d)[..., None])
     q = q.clamp(0, 15).to(torch.uint8)
     return Q4_1Tensor(pack_planar_4bit(q.reshape(x.shape)), d, f16_sat(mn))
@@ -95,7 +104,7 @@ def quantize_q4_1(x: torch.Tensor) -> Q4_1Tensor:
 def quantize_q5_0(x: torch.Tensor) -> Q5_0Tensor:
     xb = _blocks(x)
     amax = xb.abs().amax(dim=-1)
-    d = f16_sat(amax / 15.0)
+    d = f16_sat(div(amax, 15.0))
     q = (torch.round(xb * _safe_inv(d)[..., None]) + 16).clamp(0, 31)
     q = q.to(torch.uint8).reshape(x.shape)
     return Q5_0Tensor(pack_planar_4bit(q & 0x0F), pack_planar_bits(q >> 4), d)
@@ -104,7 +113,7 @@ def quantize_q5_0(x: torch.Tensor) -> Q5_0Tensor:
 def quantize_q5_1(x: torch.Tensor) -> Q5_1Tensor:
     xb = _blocks(x)
     mn, mx = xb.amin(dim=-1), xb.amax(dim=-1)
-    d = f16_sat((mx - mn) / 31.0)
+    d = f16_sat(div(mx - mn, 31.0))
     q = torch.round((xb - mn[..., None]) * _safe_inv(d)[..., None])
     q = q.clamp(0, 31).to(torch.uint8).reshape(x.shape)
     return Q5_1Tensor(pack_planar_4bit(q & 0x0F), pack_planar_bits(q >> 4),
@@ -114,7 +123,7 @@ def quantize_q5_1(x: torch.Tensor) -> Q5_1Tensor:
 def quantize_q8_0(x: torch.Tensor) -> Q8_0Tensor:
     xb = _blocks(x)
     amax = xb.abs().amax(dim=-1)
-    d = f16_sat(amax / 127.0)
+    d = f16_sat(div(amax, 127.0))
     q = torch.round(xb * _safe_inv(d)[..., None]).clamp(-127, 127)
     return Q8_0Tensor(q.to(torch.int8).reshape(x.shape), d)
 
@@ -123,7 +132,7 @@ def quantize_q8_1(x: torch.Tensor) -> Q8_1Tensor:
     """Activation quantizer with the llama.cpp-exact s = f16(d * sum(q))."""
     xb = _blocks(x)
     amax = xb.abs().amax(dim=-1)
-    d = f16_sat(amax / 127.0)
+    d = f16_sat(div(amax, 127.0))
     q = torch.round(xb * _safe_inv(d)[..., None]).clamp(-127, 127)
     q = q.to(torch.int8)
     sum_q = q.to(torch.int32).sum(dim=-1)
@@ -159,7 +168,7 @@ def dequantize(t, dtype=torch.float32) -> torch.Tensor:
     return x.to(dtype)
 
 
-__all__ = ["f16_sat", "expand_scale", "pack_planar_4bit",
+__all__ = ["f16_sat", "div", "expand_scale", "pack_planar_4bit",
            "unpack_planar_4bit", "pack_planar_bits", "unpack_planar_bits",
            "quantize_q4_0", "quantize_q4_1", "quantize_q5_0",
            "quantize_q5_1", "quantize_q8_0", "quantize_q8_1", "QUANTIZE",

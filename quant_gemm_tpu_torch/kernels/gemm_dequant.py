@@ -1,23 +1,34 @@
 """K4: dequant GEMM for prefill (bf16 or float32 activations x per-32
-weights: q4_0, q4_1, q5_0, q5_1, q8_0, q4_k).
+weights: q4_0, q4_1, q5_0, q5_1, q8_0, q4_k, q5_k), and its
+``fused_quant`` form.
 
 Replaces the Pallas kernel ``quant_gemm_tpu/kernels/gemm_pallas.py::gemm``
 (bodies ``_kernel_w4`` and, for q8_0, ``_kernel_w8``): ``C[M, N] = A[M, K]
 @ W[N, K]^T`` with float32 accumulation, ``W = (q - 8) d`` (q4_0), ``(q -
 16) d`` (q5_0, the 5th bit from ``qh``), ``q d`` (q8_0) and ``q d + m``
-(q4_1, q5_1, and q4_k with the effective f32 scale and min of a q4_K
-tensor: ``has_min``).  A is bf16, the serving prefill's (a Q8_1
-activation is folded to bf16 before the call, as ``gemm_pallas.py:
+(q4_1, q5_1, and q4_k / q5_k with the effective f32 scale and min of a
+q4_K / q5_K tensor: ``has_min``).  A is bf16, the serving prefill's (a
+Q8_1 activation is folded to bf16 before the call, as ``gemm_pallas.py:
 554-562`` does; see :func:`.registry.dispatch`), or float32, the JAX
-ladder's ``pallas_f32``, which keeps A in f32.  ``fused_quant`` (the
-in-kernel Q8_1 of ``_fake_quant_q8``) is not ported.
+ladder's ``pallas_f32``, which keeps A in f32.
+
+``fused_quant=True`` (``gemm_pallas.py``'s ``fused_quant``, the body
+``_fake_quant_q8``) fake-quantizes a float A per 32-block inside the
+kernel's A-tile prologue: ``d = amax / 127`` in float32, ``inv = 1/d``
+(0 where ``d`` is 0), ``q = clip(rint(a * inv), -127, 127)``, ``a' = q *
+d``, each step rounded on its own, so ``a'`` is bit-equal to
+:func:`fake_quant_q8`'s; ``a'`` then goes in the operand type
+``a_dtype``: bf16 by default, float32 where the caller asks (JAX's
+``mxu_dtype``).  This is **not** Q8_1: ``d`` is not rounded to f16 and no
+``s = d * sum(q)`` is formed.
 
 Bound on an H100: operations at the Server's prefill chunk of 128 rows
 (455 operations per q4_0 weight byte, above the ~295 where bf16 tensor
 cores would become the limit; bytes only below M of about 80).  The first
 design (``csrc/gemm_dequant.cu``) is a plain shared-memory tiled GEMM with
 float32 FMA on the CUDA cores, far from that bound; moving it to the
-tensor cores is later work.
+tensor cores is later work.  The fake quantization costs two warp
+shuffles per 32-block of A and no extra bytes.
 
 :func:`gemm_dequant` launches the kernel for CUDA tensors and runs
 :func:`gemm_dequant_plain` for CPU tensors; ``gemm_dequant.launches``
@@ -28,13 +39,15 @@ from __future__ import annotations
 
 import torch
 
+from ..formats.blocks import QK
+from ..formats.quant import div
 from . import _build, layout
 from .layout import QTYPES, PreparedWeight, planes
 
 ACT_DTYPES = (torch.bfloat16, torch.float32)
 
 
-def _check(w: PreparedWeight, a: torch.Tensor) -> None:
+def _check(w: PreparedWeight, a: torch.Tensor, a_dtype=None) -> None:
     if w.qtype not in QTYPES:
         raise NotImplementedError(f"gemm_dequant: {w.qtype} is not ported")
     if a.dim() != 2 or a.shape[1] != w.k:
@@ -42,25 +55,49 @@ def _check(w: PreparedWeight, a: torch.Tensor) -> None:
     if a.dtype not in ACT_DTYPES:
         raise TypeError(f"gemm_dequant takes bf16 or float32 activations, "
                         f"got {a.dtype}")
+    if a_dtype is not None and a_dtype not in ACT_DTYPES:
+        raise TypeError(f"fused_quant operands are bf16 or float32, not "
+                        f"{a_dtype}")
 
 
-def gemm_dequant_plain(w: PreparedWeight, a: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: the activation and the weight dequantized in
-    float32 (``layout.dequantize``) multiplied in float32, as the JAX
-    kernel does on its CPU reference backend (on a card, with TF32 off:
-    ``torch.backends.cuda.matmul.allow_tf32 = False``)."""
-    _check(w, a)
+def fake_quant_q8(a: torch.Tensor) -> torch.Tensor:
+    """The JAX ``_fake_quant_q8``: float32 ``q * d`` per 32-block of ``a``
+    [M, K], ``d = amax / 127`` (float32), ``q = clip(rint(a / d), -127,
+    127)`` (``a * (1/d)``; 0 where ``d`` is 0)."""
+    m, k = a.shape
+    blocks = a.to(torch.float32).reshape(m, k // QK, QK)
+    d = div(blocks.abs().amax(dim=-1, keepdim=True), 127.0)
+    inv = torch.where(d > 0, 1.0 / torch.where(d > 0, d, 1.0), 0.0)
+    q = torch.clamp(torch.round(blocks * inv), -127.0, 127.0)
+    return (q * d).reshape(m, k)
+
+
+def gemm_dequant_plain(w: PreparedWeight, a: torch.Tensor,
+                       fused_quant: bool = False,
+                       a_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain PyTorch version: the activation (with ``fused_quant``,
+    :func:`fake_quant_q8` of it rounded to ``a_dtype``) and the weight
+    dequantized in float32 (``layout.dequantize``) multiplied in float32,
+    as the JAX kernel does on its CPU reference backend (on a card, with
+    TF32 off: ``torch.backends.cuda.matmul.allow_tf32 = False``)."""
+    _check(w, a, a_dtype if fused_quant else None)
+    if fused_quant:
+        a = fake_quant_q8(a).to(a_dtype)
     return a.to(torch.float32) @ layout.dequantize(w).T
 
 
-def gemm_dequant(w: PreparedWeight, a: torch.Tensor) -> torch.Tensor:
+def gemm_dequant(w: PreparedWeight, a: torch.Tensor,
+                 fused_quant: bool = False,
+                 a_dtype=torch.bfloat16) -> torch.Tensor:
     """``C[M, N]`` float32 of a per-32 ``w`` [N, K] (``layout.QTYPES``)
-    and a bf16 or float32 ``a`` [M, K]."""
-    _check(w, a)
+    and a bf16 or float32 ``a`` [M, K]; with ``fused_quant``, ``a``
+    fake-quantized per 32-block in the kernel, the operand in
+    ``a_dtype``."""
+    _check(w, a, a_dtype if fused_quant else None)
     dev = w.qs.device
     wp = planes(w)
     if dev.type == "cpu" and a.device.type == "cpu":
-        return gemm_dequant_plain(w, a)
+        return gemm_dequant_plain(w, a, fused_quant, a_dtype)
     if dev.type != "cuda" or any(t.device != dev for t in (a, *wp)):
         raise ValueError("gemm_dequant: all operands must be on one CUDA "
                          "device (or all on the CPU)")
@@ -68,12 +105,14 @@ def gemm_dequant(w: PreparedWeight, a: torch.Tensor) -> torch.Tensor:
     a = a.contiguous()
     _build.check_aligned("gemm_dequant", a, w.qs)
     out = torch.empty(m, w.n, dtype=torch.float32, device=dev)
+    fq = 0 if not fused_quant else (2 if a_dtype == torch.bfloat16 else 1)
     symbol = f"qgt_gemm_dequant_{w.qtype}"
     fn = _build.function("gemm_dequant", symbol,
-                         [_build.P, _build.I] + [_build.P] * (2 + len(wp))
-                         + [_build.I] * 3 + [_build.P])
+                         [_build.P, _build.I, _build.I]
+                         + [_build.P] * (2 + len(wp)) + [_build.I] * 3
+                         + [_build.P])
     with torch.cuda.device(dev):
-        rc = fn(_build.ptr(a), int(a.dtype == torch.float32),
+        rc = fn(_build.ptr(a), int(a.dtype == torch.float32), fq,
                 _build.ptr(w.qs), *map(_build.ptr, wp), _build.ptr(out), m,
                 w.n, w.k, _build.stream(dev))
     _build.check("gemm_dequant", symbol, rc)
@@ -83,4 +122,5 @@ def gemm_dequant(w: PreparedWeight, a: torch.Tensor) -> torch.Tensor:
 
 gemm_dequant.launches = 0
 
-__all__ = ["gemm_dequant", "gemm_dequant_plain", "ACT_DTYPES"]
+__all__ = ["gemm_dequant", "gemm_dequant_plain", "fake_quant_q8",
+           "ACT_DTYPES"]

@@ -9,8 +9,9 @@ with the 5th bit from ``qh``, signed for q8_0) and the int8 activation
 codes, then the golden's epilogue in float32 (``ref/gemm.py::gemm_wxa8``,
 not the TPU kernel's fused-compensation order): q4_0 ``d_w * (d_a * sumi -
 8 * s_a)`` (``gemm_reference.h:175-222``), q5_0 the same with 16; q4_1,
-q5_1 and q4_k (a q4_K tensor in its effective q4_1 form) ``d_w * d_a *
-sumi + m_w * s_a`` with ``s_a`` the stored f16 ``s = d_a * sum(q)`` of
+q5_1, q4_k and q5_k (a q4_K / q5_K tensor in its effective q4_1 / q5_1
+form) ``d_w * d_a * sumi + m_w * s_a`` with ``s_a`` the stored f16 ``s =
+d_a * sum(q)`` of
 Q8_1, not the float sum of the activations; q8_0 ``d_w * d_a * sumi``.
 The block terms are summed in float32 as the TPU kernel sums them.
 Kernel and plain version sum in different orders, so they agree to
@@ -18,7 +19,7 @@ float32 rounding, not bit for bit.
 
 Bound on an H100: bytes — the weight stream (per 32 weights: 18 bytes for
 q4_0, 20 q4_1, 22 q5_0, 24 q5_1, 34 q8_0, 24 for q4_k with its f32 d' and
-m' planes) at 3.35 TB/s; the design (``csrc/gemm_exact.cu``) streams whole
+m' planes, 28 for q5_k) at 3.35 TB/s; the design (``csrc/gemm_exact.cu``) streams whole
 blocks with 16-byte loads (two for q8_0, and q5's 4-byte qh word), eight
 ``__dp4a`` each, over a grid of ``N/4`` blocks.
 
@@ -37,7 +38,9 @@ that unfused chain on the plain K1.  Bound: bytes, K1's weight stream plus
 ``M*K*4`` bytes of ``x``; the kernel quantizes ``x`` once per block of a
 persistent grid into shared memory, so its ``M*K*9/8`` bytes of codes
 and scales must fit one block's 227 KB (the launch raises otherwise).
-K6 takes q4_0 and q4_k; its q8_0 and q4_1 forms are not ported yet.
+K6 takes the per-32 weights without a qh plane, :data:`FUSED_QTYPES`
+(q4_0, q4_1, q4_k and q8_0, the JAX body ``_kernel_w8_fused`` for the
+last); the q5 forms keep quantize + K1, as in JAX.
 ``gemm_exact_fused.launches`` counts launches.
 """
 
@@ -51,6 +54,9 @@ from . import _build, layout
 from .layout import OFFSET, QTYPES, PreparedWeight, planes
 
 MMAX = 12  # most activation rows the kernel takes
+#: the weight forms K6 has: every per-32 weight without a qh plane (the
+#: JAX dispatch's rule, ``registry.py:200-204``)
+FUSED_QTYPES = ("q4_0", "q4_1", "q4_k", "q8_0")
 
 
 def _check(w: PreparedWeight, a: Q8_1Tensor, mmax: int = MMAX) -> None:
@@ -123,9 +129,10 @@ gemm_exact.launches = 0
 
 
 def _check_fused(w: PreparedWeight, x: torch.Tensor) -> None:
-    if w.qtype not in ("q4_0", "q4_k"):
-        raise NotImplementedError(f"gemm_exact_fused: {w.qtype} is not "
-                                  "ported")
+    if w.qtype not in FUSED_QTYPES:
+        raise NotImplementedError(f"gemm_exact_fused: {w.qtype} has a qh "
+                                  "plane; it takes quantize + K1, as in "
+                                  "JAX")
     if x.dim() != 2 or x.shape[1] != w.k or not 1 <= x.shape[0] <= MMAX:
         raise ValueError(f"gemm_exact_fused takes x [1..{MMAX}, {w.k}], "
                          f"got {tuple(x.shape)}")
@@ -168,4 +175,4 @@ def gemm_exact_fused(w: PreparedWeight, x: torch.Tensor) -> torch.Tensor:
 gemm_exact_fused.launches = 0
 
 __all__ = ["gemm_exact", "gemm_exact_plain", "gemm_exact_fused",
-           "gemm_exact_fused_plain", "MMAX"]
+           "gemm_exact_fused_plain", "MMAX", "FUSED_QTYPES"]

@@ -1,7 +1,10 @@
 """The decode-layer fusions of ``quant_gemm_tpu/kernels/gemm_megalayer.py``.
 
-K2 :func:`norm_qkv`: RMSNorm + Q8_1 quantize + exact q4_0 GEMM on
-``wqkv`` in one launch.  Replaces the Pallas kernel ``norm_qkv``.  Its
+K2 :func:`norm_qkv`: RMSNorm + Q8_1 quantize + exact GEMM on ``wqkv``
+in one launch, for the JAX kernel's formats (:data:`QKV_QTYPES`: q4_0,
+the min-plane formats q4_1 and q4_k, and the q5 family q5_0, q5_1 and
+q5_k through the qh plane; JAX's K2 takes no q8_0).  Replaces the Pallas
+kernel ``norm_qkv`` (``_qkv_kernel`` with ``has_min`` / ``has_qh``).  Its
 plain version is exactly ``rms_norm -> quantize_q8_1 -> gemm_exact_plain``,
 the equivalence the JAX docstring states.  The kernel normalises in
 another float32 summation order, and a last-ulp difference can move a
@@ -9,7 +12,7 @@ Q8_1 code across a .5 rounding tie, so kernel and plain version agree to
 a tolerance (``2e-3 * max|C|``), not bit for bit.  Bound on an H100:
 bytes (the ``wqkv`` stream); every block of ``csrc/norm_qkv.cu``
 recomputes the M <= 8 rows' norm and codes in shared memory and then runs
-K1's inner loop on 16 weight rows.
+K1's inner loop, over the weight's format, on 16 weight rows.
 
 K8 :func:`attn_tail`: everything after attention (``wo`` + residual +
 RMSNorm + Q8_1 + ``wgu`` + SiLU*gate + Q8_1 + ``w_down`` + residual) in
@@ -49,9 +52,11 @@ from ..ops.activations import silu_mul
 from ..ops.rms_norm import rms_norm
 from . import _build
 from .gemm_exact import gemm_exact_plain
-from .layout import PreparedWeight
+from .layout import PreparedWeight, planes
 
 MMAX = 8  # rows the fused kernels take (the serving batch)
+#: the weight forms K2 takes (the JAX ``_supported_w`` formats)
+QKV_QTYPES = ("q4_0", "q4_1", "q4_k", "q5_0", "q5_1", "q5_k")
 
 ENABLE_TAIL = False  # K8 attn_tail, the JAX default
 
@@ -63,8 +68,11 @@ def _q4_0(w, k: int, n: int = 0) -> bool:
 
 def supported(w, dim: int, m: int) -> bool:
     """True when a decode step of ``m`` rows can take :func:`norm_qkv`
-    (the JAX ``qkv_supported`` rule: M <= 8, dim % 512 == 0, q4_0)."""
-    return _q4_0(w, dim) and dim % 512 == 0 and m <= MMAX
+    (the JAX ``qkv_supported`` / ``_supported_w`` rule: M <= 8, dim % 512
+    == 0, ``w`` one whole :class:`PreparedWeight` of K = dim in a
+    :data:`QKV_QTYPES` form, not a ``SplitLinear`` of parts)."""
+    return (isinstance(w, PreparedWeight) and w.qtype in QKV_QTYPES
+            and w.k == dim and dim % 512 == 0 and m <= MMAX)
 
 
 def tail_supported(lyr: dict, cfg, m: int) -> bool:
@@ -80,8 +88,9 @@ def tail_supported(lyr: dict, cfg, m: int) -> bool:
 
 
 def _check(w: PreparedWeight, x: torch.Tensor, norm_w: torch.Tensor) -> None:
-    if w.qtype != "q4_0":
-        raise NotImplementedError(f"norm_qkv: {w.qtype} is not ported")
+    if w.qtype not in QKV_QTYPES:
+        raise NotImplementedError(f"norm_qkv takes {', '.join(QKV_QTYPES)}"
+                                  f" weights, as in JAX, not {w.qtype}")
     if x.dim() != 2 or x.shape[1] != w.k or not 1 <= x.shape[0] <= MMAX:
         raise ValueError(f"norm_qkv takes x [1..{MMAX}, {w.k}], got "
                          f"{tuple(x.shape)}")
@@ -105,22 +114,26 @@ def norm_qkv(w: PreparedWeight, x: torch.Tensor, norm_w: torch.Tensor,
     dev = w.qs.device
     if dev.type == "cpu" and x.device.type == "cpu":
         return norm_qkv_plain(w, x, norm_w, eps)
-    if dev.type != "cuda" or x.device != dev or norm_w.device != dev:
+    if dev.type != "cuda" or any(t.device != dev
+                                 for t in (x, norm_w, *planes(w))):
         raise ValueError("norm_qkv: all operands must be on one CUDA device "
                          "(or all on the CPU)")
     m = x.shape[0]
     x = x.to(torch.float32).contiguous()
     nw = norm_w.to(torch.float32).contiguous()
+    wp = planes(w)
+    _build.check_aligned("norm_qkv", w.qs)
     out = torch.empty(m, w.n, dtype=torch.float32, device=dev)
+    symbol = f"qgt_norm_qkv_{w.qtype}"
     fn = _build.function(
-        "norm_qkv", "qgt_norm_qkv_q4_0",
-        [_build.P, _build.P, _build.F] + [_build.P] * 3 + [_build.I] * 3
-        + [_build.P])
+        "norm_qkv", symbol,
+        [_build.P, _build.P, _build.F] + [_build.P] * (2 + len(wp))
+        + [_build.I] * 3 + [_build.P])
     with torch.cuda.device(dev):
         rc = fn(_build.ptr(x), _build.ptr(nw), float(eps), _build.ptr(w.qs),
-                _build.ptr(w.d), _build.ptr(out), m, w.n, w.k,
+                *map(_build.ptr, wp), _build.ptr(out), m, w.n, w.k,
                 _build.stream(dev))
-    _build.check("norm_qkv", "qgt_norm_qkv_q4_0", rc)
+    _build.check("norm_qkv", symbol, rc)
     norm_qkv.launches += 1
     return out
 
@@ -202,4 +215,5 @@ def attn_tail(attn: torch.Tensor, x: torch.Tensor, norm_w: torch.Tensor,
 attn_tail.launches = 0
 
 __all__ = ["norm_qkv", "norm_qkv_plain", "attn_tail", "attn_tail_plain",
-           "supported", "tail_supported", "ENABLE_TAIL", "MMAX"]
+           "supported", "tail_supported", "ENABLE_TAIL", "MMAX",
+           "QKV_QTYPES"]

@@ -17,7 +17,7 @@ themselves).
   lane brings a block;
 * q8_0 ``qs: int8[N, K]`` — block ``b``'s 32 signed codes at ``[32b, 32b
   + 32)``, llama.cpp's ``block_q8_0`` ``qs`` (two 16-byte loads);
-* q5_0/q5_1 ``qh: int32[N, K/32]`` — block ``b``'s 32 fifth bits, bit
+* q5_0/q5_1/q5_k ``qh: int32[N, K/32]`` — block ``b``'s 32 fifth bits, bit
   ``j`` the high bit of code ``32b + j``: llama.cpp's 4-byte ``qh``, and
   the little-endian word of the planar container's bytes ``4b .. 4b+3``;
 * ``d: float16[N, K/32]`` — the block scales as stored in GGUF, and for
@@ -32,6 +32,10 @@ themselves).
   ls/lm and forming the products in the kernel would read 4.625); the
   port takes the planes for now because K1 and K4 then share one block
   loop and one epilogue with q4_1, as the JAX kernels share theirs.
+* q5_k (a q5_K tensor in its effective q5_1 form, ``kquants.
+  to_effective_q5_k``): the q5_1 layout with ``d, m: float32[N, K/32]``,
+  as q4_k is the q4_1 layout with f32 planes: 4 code bits + 1 fifth bit +
+  64/32 scale bits = 7 bits per weight against 5.5 in the file.
 
 :class:`PreparedK16` (per-16 formats q6_K, q3_K, q2_K, K % 256 == 0):
 
@@ -57,9 +61,13 @@ from ..formats.quant import unpack_planar_4bit
 
 #: the per-32 formats :func:`prepare` lays out, and the value subtracted
 #: from a code before its scale (the min forms add ``m`` instead)
-QTYPES = ("q4_0", "q4_1", "q5_0", "q5_1", "q8_0", "q4_k")
+QTYPES = ("q4_0", "q4_1", "q5_0", "q5_1", "q8_0", "q4_k", "q5_k")
 OFFSET = {"q4_0": 8, "q5_0": 16}
-HAS_MIN = ("q4_1", "q5_1", "q4_k")
+HAS_MIN = ("q4_1", "q5_1", "q4_k", "q5_k")
+#: the formats whose codes take a fifth bit from ``qh``
+HAS_QH = ("q5_0", "q5_1", "q5_k")
+#: the K-quant effective forms, whose ``d``/``m`` planes are float32
+F32_PLANES = ("q4_k", "q5_k")
 
 
 class PreparedWeight(NamedTuple):
@@ -67,9 +75,9 @@ class PreparedWeight(NamedTuple):
     n: int  # out-features
     k: int  # reduction dim
     qs: torch.Tensor  # uint8 [N, K/2] or (q8_0) int8 [N, K], GGUF order
-    d: torch.Tensor  # float16 [N, K/32]; q4_k: float32
-    m: Optional[torch.Tensor] = None  # q4_1/q5_1 float16, q4_k float32
-    qh: Optional[torch.Tensor] = None  # q5_0/q5_1: int32 [N, K/32]
+    d: torch.Tensor  # float16 [N, K/32]; q4_k, q5_k: float32
+    m: Optional[torch.Tensor] = None  # q4_1/q5_1 float16, q4_k/q5_k float32
+    qh: Optional[torch.Tensor] = None  # q5_0/q5_1/q5_k: int32 [N, K/32]
 
 
 def planes(w: PreparedWeight) -> tuple:
@@ -89,13 +97,13 @@ class PreparedK16(NamedTuple):
 
 _CONTAINERS = {Q4_0Tensor: "q4_0", Q4_1Tensor: "q4_1", Q5_0Tensor: "q5_0",
                Q5_1Tensor: "q5_1", Q8_0Tensor: "q8_0",
-               kquants.EffectiveQ41: "q4_k"}
+               kquants.EffectiveQ41: "q4_k", kquants.EffectiveQ51: "q5_k"}
 
 
 def prepare(w_q) -> PreparedWeight:
     """Re-lay a planar row-major container (q4_0, q4_1, q5_0, q5_1, q8_0,
-    or a q4_K tensor's ``kquants.EffectiveQ41``; torch tensors) into the
-    kernel layout, on the container's device."""
+    or a q4_K / q5_K tensor's ``kquants.EffectiveQ41`` / ``EffectiveQ51``;
+    torch tensors) into the kernel layout, on the container's device."""
     qtype = _CONTAINERS.get(type(w_q))
     if qtype is None:
         raise NotImplementedError(
@@ -119,14 +127,12 @@ def prepare(w_q) -> PreparedWeight:
         raise ValueError(f"K={k} must be a multiple of {QK}")
     c = unpack_planar_4bit(packed).reshape(n, k // QK, 2, QK // 2)
     qs = (c[:, :, 0] | (c[:, :, 1] << 4)).reshape(n, khalf).contiguous()
-    if qtype == "q4_k":
-        return PreparedWeight(qtype, n, k, qs, plane(w_q.d, torch.float32),
-                              plane(w_q.m, torch.float32))
-    m = plane(w_q.m) if qtype in HAS_MIN else None
+    sdt = torch.float32 if qtype in F32_PLANES else torch.float16
+    m = plane(w_q.m, sdt) if qtype in HAS_MIN else None
     # planar bits in natural order: block b's 32 bits are bytes 4b..4b+3
     qh = (plane(w_q.qh, torch.uint8).view(torch.int32)
-          if qtype in ("q5_0", "q5_1") else None)
-    return PreparedWeight(qtype, n, k, qs, plane(w_q.d), m, qh)
+          if qtype in HAS_QH else None)
+    return PreparedWeight(qtype, n, k, qs, plane(w_q.d, sdt), m, qh)
 
 
 def prepare_k16(t) -> PreparedK16:
@@ -176,6 +182,7 @@ def dequantize_k16(w: PreparedK16) -> torch.Tensor:
     return x
 
 
-__all__ = ["QTYPES", "OFFSET", "HAS_MIN", "PreparedWeight", "PreparedK16",
+__all__ = ["QTYPES", "OFFSET", "HAS_MIN", "HAS_QH", "F32_PLANES",
+           "PreparedWeight", "PreparedK16",
            "planes", "prepare", "prepare_k16",
            "codes", "dequantize", "dequantize_k16"]

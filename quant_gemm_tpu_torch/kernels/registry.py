@@ -4,14 +4,15 @@ Counterpart of ``quant_gemm_tpu/kernels/registry.py::dispatch`` for the
 weights the port serves:
 
 * per-32 weights (``layout.PreparedWeight``: q4_0, q4_1, q5_0, q5_1,
-  q8_0, and q4_k, a q4_K tensor in its effective q4_1 form), K % 32 ==
-  0:
+  q8_0, and q4_k / q5_k, a q4_K / q5_K tensor in its effective q4_1 /
+  q5_1 form), K % 32 == 0:
 
   - a float activation with ``quantize_act=True`` of M <=
     :data:`DECODE_M_MAX` rows takes K6 (``gemm_exact_fused``: the Q8_1
     quantization inside the kernel, bit-identical to the unfused route)
-    when :data:`FUSED_DECODE` is True and K6 has the weight's form (q4_0,
-    q4_k), as ``registry.py:199-205`` routes it; otherwise, and at any M,
+    when :data:`FUSED_DECODE` is True and K6 has the weight's form
+    (``gemm_exact.FUSED_QTYPES``: every form without a qh plane), as
+    ``registry.py:199-205`` routes it; otherwise, and at any M,
     it is quantized to Q8_1 by the torch twin
     (``formats.quant.quantize_q8_1``);
   - a Q8_1 activation of M <= :data:`DECODE_M_MAX` rows takes K1
@@ -60,8 +61,10 @@ pallas_f32          K4 ``gemm_dequant`` on a float32 activation (a Q8_1
 pallas_bf16         K4 on a bf16 activation (a Q8_1 one folded to bf16)
 pallas              the same as pallas_bf16 (JAX's f32 operands at DEFAULT
                     precision round them to bf16 in the MXU)
-pallas_fused_quant  raises: K4's in-kernel Q8_1 (``fused_quant``) is not
-                    ported (ROADMAP, Queue 2)
+pallas_fused_quant  K4 with ``fused_quant``: a float activation
+                    fake-quantized per 32-block in the kernel, the
+                    operand bf16 (``a_dtype=torch.float32`` keeps it
+                    float32, JAX's ``mxu_dtype``)
 ==================  =====================================================
 """
 
@@ -77,7 +80,7 @@ from ..ops.attention import (flash_decode, flash_decode_plain,
                              flash_prefill, flash_prefill_plain)
 from . import gemm_xla, layout
 from .gemm_dequant import gemm_dequant, gemm_dequant_plain
-from .gemm_exact import (gemm_exact, gemm_exact_fused,
+from .gemm_exact import (FUSED_QTYPES, gemm_exact, gemm_exact_fused,
                          gemm_exact_fused_plain, gemm_exact_plain)
 from .gemm_exact_k16 import gemm_exact_k16, gemm_exact_k16_plain
 from .gemm_megalayer import (attn_tail, attn_tail_plain, norm_qkv,
@@ -115,8 +118,6 @@ DECODE_M_MAX = 12
 # us slower per GEMM on a TPU v5e (quant_gemm_tpu registry); its H100
 # times are in PERF.md.
 FUSED_DECODE = False
-#: the weight forms K6 has (its q8_0 and q4_1 forms are not ported)
-FUSED_QTYPES = ("q4_0", "q4_k")
 
 
 def fold_q8_1(act: Q8_1Tensor, dtype=torch.bfloat16) -> torch.Tensor:
@@ -220,10 +221,10 @@ def _pallas_bf16(w, act):
     return gemm_dequant(_prepared(w), a.to(torch.bfloat16))
 
 
-def _pallas_fused_quant(w, act):
-    raise NotImplementedError(
-        "pallas_fused_quant: K4's in-kernel Q8_1 quantization (JAX "
-        "gemm_pallas.py fused_quant=True) is not ported (ROADMAP, Queue 2)")
+def _pallas_fused_quant(w, act, a_dtype=torch.bfloat16):
+    _need_float("pallas_fused_quant", act)
+    return gemm_dequant(_prepared(w), act.to(torch.float32),
+                        fused_quant=True, a_dtype=a_dtype)
 
 
 #: the JAX package's kernel ladder under its names (module doc)

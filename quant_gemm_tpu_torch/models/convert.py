@@ -13,14 +13,14 @@ planes) and returns the port's parameters.  It reads only attributes and
 arrays, so it needs neither JAX nor the JAX package.
 
 The TPU layout of a per-32 ``PreparedWeight`` (q4_0, q4_1, q5_0, q5_1,
-q8_0, q4_k) is undone step by step:
+q8_0, q4_k, q5_k) is undone step by step:
 
 * ``packed_t`` int8 ``[K/2 (padded), N (padded)]`` -> transpose, drop
   the N padding, undo the XOR 0x80 ("x8") byte encoding, drop the K
   padding: the planar row-major bytes of the SoA container;
 * ``d_t`` (and ``m_t``) ``[K/32 (padded per half), N (padded)]`` float32,
   or int16 holding float16 bits -> transpose, drop the per-half K
-  padding: f16 (the effective f32 scale and min for q4_k);
+  padding: f16 (the effective f32 scale and min for q4_k and q5_k);
 * q5's ``qh_t`` uint8 ``[K/8 (padded per half), N (padded)]`` planar
   bits -> transpose, drop the per-half padding (the nibble-packed
   ``qh2_t`` copy is not read);
@@ -39,7 +39,7 @@ import torch
 
 from ..formats.blocks import (QK, Q4_0Tensor, Q4_1Tensor, Q5_0Tensor,
                               Q5_1Tensor, Q8_0Tensor)
-from ..formats.kquants import EffectiveQ41
+from ..formats.kquants import EffectiveQ41, EffectiveQ51
 from ..kernels import layout
 from ..utils import resolve_device
 from .llama import KVCache, SplitLinear
@@ -49,12 +49,13 @@ def planar_from_jax(pw):
     """The planar container (numpy) behind a JAX per-32 ``PreparedWeight``
     whose planes are numpy arrays: a ``Q4_0Tensor``, ``Q4_1Tensor``,
     ``Q5_0Tensor``, ``Q5_1Tensor`` or ``Q8_0Tensor`` (f16 scales), or an
-    ``EffectiveQ41`` for q4_k (f32 ``d`` and ``m``)."""
+    ``EffectiveQ41`` for q4_k or ``EffectiveQ51`` for q5_k (f32 ``d`` and
+    ``m``)."""
     if pw.qtype not in layout.QTYPES:
         raise NotImplementedError(f"{pw.qtype} weights are not ported "
                                   f"(per-32: {', '.join(layout.QTYPES)})")
     n, k = int(pw.n), int(pw.k)
-    dtype = np.float32 if pw.qtype == "q4_k" else np.float16
+    dtype = np.float32 if pw.qtype in layout.F32_PLANES else np.float16
 
     def scales(x_t, halves=True):
         x_t = np.asarray(x_t)
@@ -87,6 +88,8 @@ def planar_from_jax(pw):
     qh = np.ascontiguousarray(unpad(np.asarray(pw.qh_t).T[:n], k // 8))
     if pw.qtype == "q5_0":
         return Q5_0Tensor(packed, qh, d)
+    if pw.qtype == "q5_k":
+        return EffectiveQ51(packed, qh, d, scales(pw.m_t))
     return Q5_1Tensor(packed, qh, d, scales(pw.m_t))
 
 

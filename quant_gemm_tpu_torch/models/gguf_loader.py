@@ -7,22 +7,26 @@ and ``<arch>.*`` metadata loads into the parameters
 :func:`~.llama.forward` and :class:`~.serve.Server` take.  Every tensor's
 bytes are moved to the target device and decoded there:
 
-* q4_0 weights and q4_K weights (in their effective q4_1 form,
-  ``kquants.to_effective``) become ``layout.PreparedWeight`` (K1/K4);
-  q6_K, q3_K and q2_K weights become ``layout.PreparedK16`` (K7); a float
-  tensor in a weight slot is quantized to q4_0, as in JAX;
+* per-32 weights (q4_0, q4_1, q5_0, q5_1, q8_0), and q4_K and q5_K
+  weights in their effective q4_1 / q5_1 form (``kquants.to_effective``,
+  ``to_effective_q5_k``), become ``layout.PreparedWeight`` (K1/K4, and
+  K2/K6 where their rules take them); q6_K, q3_K and q2_K weights become
+  ``layout.PreparedK16`` (K7); a float tensor in a weight slot is
+  quantized to q4_0, as in JAX.  So llama.cpp's Q8_0, Q5_0, Q4_1, Q5_1,
+  Q4_K_M and Q5_K_M files load;
 * q/k/v and gate/up are fused into ``wqkv`` / ``wgu`` when their parts
   share a format (block quantization is row-local, so the concatenation
   is bit-identical), and kept as a :class:`~.llama.SplitLinear` when they
   do not (a Q4_K_M file's q6_K ``attn_v``);
-* the embedding is dequantized to bf16; a file without ``output.weight``
+* the embedding, in any of these formats, is dequantized to bf16; a file
+  without ``output.weight``
   (tied embeddings) serves ``lm_head`` from ``token_embd``;
 * ``rope_freqs.weight`` becomes ``params["rope_inv_freq"]`` (llama.cpp's
   per-dimension divisors of the base spectrum).
 
-Not ported: ``export_gguf``, the tokenizer, q8_0 weights (the kernels
-take them, the decode fusions K2 and K6 not yet) and QKV biases (qwen2),
-which raise ``NotImplementedError``.
+Not ported: ``export_gguf``, the tokenizer, iq4_nl / iq4_xs tensors and
+QKV biases (qwen2), which raise ``NotImplementedError``.  A q8_0 model
+decodes without K2, whose JAX kernel takes no q8_0 either.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import torch
 
 from ..formats import kquants
 from ..formats import quant as tq
-from ..formats.blocks import Q4_0Tensor, Q8_0Tensor
+from ..formats.blocks import WEIGHT_TENSOR_TYPES
 from ..formats.gguf_file import GGUFFile
 from ..kernels import layout
 from ..utils import resolve_device
@@ -117,24 +121,30 @@ def _concat(parts):
     return type(t0)(*(torch.cat(f, dim=0) for f in zip(*parts)))
 
 
+_PER32 = tuple(WEIGHT_TENSOR_TYPES.values())
+
+
 def _prep(t):
     """A loaded tensor in a weight slot -> the port's kernel weight."""
     if isinstance(t, torch.Tensor):  # float tensor in a quantized slot
         return layout.prepare(tq.quantize_q4_0(t.to(torch.float32)))
     if isinstance(t, kquants.Q4_KTensor):
         return layout.prepare(kquants.to_effective(t))
+    if isinstance(t, kquants.Q5_KTensor):
+        return layout.prepare(kquants.to_effective_q5_k(t))
     if isinstance(t, kquants.K16_TENSORS):
         return layout.prepare_k16(t)
-    if not isinstance(t, Q4_0Tensor):
-        raise NotImplementedError(f"{type(t).__name__} weights are not "
-                                  "served (q4_0, q4_K, q6_K, q3_K, q2_K are)")
+    if not isinstance(t, _PER32):
+        raise NotImplementedError(
+            f"{type(t).__name__} weights are not served (q4_0, q4_1, q5_0, "
+            "q5_1, q8_0, q4_K, q5_K, q6_K, q3_K, q2_K are)")
     return layout.prepare(t)
 
 
 def _dequantize(t) -> torch.Tensor:
     if isinstance(t, torch.Tensor):
         return t.to(torch.float32)
-    if isinstance(t, (Q4_0Tensor, Q8_0Tensor)):
+    if isinstance(t, _PER32):
         return tq.dequantize(t)
     return kquants.DEQUANT[type(t)](t)
 

@@ -4,22 +4,28 @@ Counterpart of ``quant_gemm_tpu/models/llama.py`` for what the serving
 slice runs, with the bf16 or the int8 (``q8``) KV cache, an optional
 sliding window, and with a window the ring cache (``cfg.ring``: O(window)
 slots, token g at slot ``g % R``) or the linear cache's context shift
-(:func:`shift_context`).  Weights are q4_0 (:func:`quantize_params`,
-:func:`init_qparams`) or the mix of a llama.cpp GGUF file
-(``models/gguf_loader.py``): q4_0 or q4_K (effective q4_1) per-32 weights
-and q6_K / q3_K / q2_K per-16 weights, with a :class:`SplitLinear` where
-the parts of ``wqkv`` or ``wgu`` differ in format:
+(:func:`shift_context`).  Weights are any format of the JAX package's
+``quantize_params`` (:func:`quantize_params`: q4_0, q4_1, q5_0, q5_1,
+q8_0, q4_k / q5_k in their effective q4_1 / q5_1 form, and the per-16
+q6_k, q3_k, q2_k), q4_0 or q8_0 drawn on the device
+(:func:`init_qparams`), or the mix of a llama.cpp GGUF file
+(``models/gguf_loader.py``: Q8_0, Q5_0, Q4_1, Q5_1, Q4_K_M, Q5_K_M, ...),
+with a :class:`SplitLinear` where the parts of ``wqkv`` or ``wgu`` differ
+in format:
 
 * decode (T = 1): RMSNorm + Q8_1 + ``wqkv`` through K2 (``norm_qkv``) when
-  the batch is <= 8 and ``dim % 512 == 0``, otherwise RMSNorm then the
-  dispatched GEMM; RoPE; K3 (``flash_decode``) over the stacked cache with
-  the current token's k/v (bf16, with either cache) as operands; K1 GEMMs
-  for ``wo``, ``wgu``, ``w_down`` and ``lm_head``; the cache write (with
-  the q8 cache: codes and scales) deferred to one all-layer insert after
-  the layer loop; per-16 weights take K7 (``gemm_exact_k16``) instead of
-  K1, and K2 only runs when every layer's ``wqkv`` is one q4_0 weight;
-  with ``registry.FUSED_DECODE`` the per-32 decode GEMMs take K6
-  (``gemm_exact_fused``, bit-identical to quantize + K1), and with
+  the batch is <= 8, ``dim % 512 == 0`` and every layer's ``wqkv`` is one
+  weight in a K2 form (``gemm_megalayer.QKV_QTYPES``: q4_0, q4_1, q4_k,
+  q5_0, q5_1, q5_k; not q8_0, a per-16 weight or a :class:`SplitLinear`,
+  as in JAX), otherwise RMSNorm then the dispatched GEMM; RoPE; K3
+  (``flash_decode``) over the stacked cache with the current token's k/v
+  (bf16, with either cache) as operands; K1 GEMMs for ``wo``, ``wgu``,
+  ``w_down`` and ``lm_head``; the cache write (with the q8 cache: codes
+  and scales) deferred to one all-layer insert after the layer loop;
+  per-16 weights take K7 (``gemm_exact_k16``) instead of K1; with
+  ``registry.FUSED_DECODE`` the per-32 decode GEMMs without a qh plane
+  (q4_0, q4_1, q4_k, q8_0) take K6 (``gemm_exact_fused``, bit-identical
+  to quantize + K1), and with
   ``gemm_megalayer.ENABLE_TAIL`` everything after attention (``wo`` to
   the second residual) is one K8 (``attn_tail``) launch when every layer
   is ``tail_supported`` (q4_0, batch <= 8) — both switches off by
@@ -52,7 +58,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..formats.quant import quantize_q4_0
+from ..formats import kquants
+from ..formats.quant import QUANTIZE
 from ..kernels import gemm_megalayer, layout, registry
 from ..ops.activations import silu_mul
 from ..ops.rms_norm import rms_norm
@@ -144,48 +151,87 @@ def init_params(cfg: LlamaConfig, seed: int = 0) -> dict:
     }
 
 
-def _prep_q4_0(w: torch.Tensor) -> layout.PreparedWeight:
-    return layout.prepare(quantize_q4_0(w))
+#: the per-16 K-quants :func:`quantize_params` takes, and their encoders
+_K16_ENCODERS = {"q6_k": kquants.quantize_q6_k, "q3_k": kquants.quantize_q3_k,
+                 "q2_k": kquants.quantize_q2_k}
+#: the K-quants served in their effective per-32 form
+_EFFECTIVE = {"q4_k": (kquants.quantize_q4_k, kquants.to_effective),
+              "q5_k": (kquants.quantize_q5_k, kquants.to_effective_q5_k)}
+#: every weight format :func:`quantize_params` takes (the JAX package's)
+QPARAM_QTYPES = ("q4_0", "q4_1", "q5_0", "q5_1", "q8_0", "q4_k", "q5_k",
+                 "q6_k", "q3_k", "q2_k")
+
+
+def _on(container, dev):
+    return type(container)(*(t.to(dev) for t in container))
+
+
+def _preparer(qtype: str, dev: torch.device):
+    """float32 numpy [N, K] -> the kernel weight of ``qtype`` on ``dev``:
+    the per-32 formats through the torch quantizers on ``dev``, the
+    K-quants through their numpy encoders (as in the JAX package; q4_k and
+    q5_k then in their effective per-32 form, the per-16 ones through
+    ``layout.prepare_k16``)."""
+    if qtype in _K16_ENCODERS:
+        enc = _K16_ENCODERS[qtype]
+        return lambda w: layout.prepare_k16(_on(enc(w), dev))
+    if qtype in _EFFECTIVE:
+        enc, eff = _EFFECTIVE[qtype]
+        return lambda w: layout.prepare(eff(_on(enc(w), dev)))
+    if qtype in layout.QTYPES:
+        quantize = QUANTIZE[qtype]
+        return lambda w: layout.prepare(quantize(torch.as_tensor(w,
+                                                                 device=dev)))
+    raise NotImplementedError(f"quantize_params takes "
+                              f"{', '.join(QPARAM_QTYPES)}, not {qtype}")
 
 
 def quantize_params(params: dict, qtype: str = "q4_0",
                     device="cuda") -> dict:
-    """Quantize every linear to q4_0 on ``device``, fusing ``wqkv`` and
-    ``wgu`` as the JAX package does (block quantization is row-local, so
-    the concatenation quantizes bit-identically to its parts).  The
-    embedding stays bf16, the norms float32."""
-    if qtype != "q4_0":
-        raise NotImplementedError(f"only q4_0 weights are ported, not {qtype}")
+    """Quantize every linear to ``qtype`` (:data:`QPARAM_QTYPES`, the JAX
+    ``quantize_params``'s) on ``device``, fusing ``wqkv`` and ``wgu`` as
+    the JAX package does (block quantization is row-local, so the
+    concatenation quantizes bit-identically to its parts).  The embedding
+    stays bf16, the norms float32."""
     dev = resolve_device(device)
+    prep = _preparer(qtype, dev)
 
     def f32(x):
         return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    def lin(*parts):
+        return prep(np.concatenate([np.asarray(p, np.float32)
+                                    for p in parts], axis=0))
 
     out = {"embed": f32(params["embed"]).to(torch.bfloat16),
            "final_norm": f32(params["final_norm"]), "layers": []}
     for lyr in params["layers"]:
         q = {k: f32(v) for k, v in lyr.items() if k.endswith("norm")}
-        q["wqkv"] = _prep_q4_0(f32(np.concatenate(
-            [lyr["wq"], lyr["wk"], lyr["wv"]], axis=0)))
-        q["wo"] = _prep_q4_0(f32(lyr["wo"]))
-        q["wgu"] = _prep_q4_0(f32(np.concatenate(
-            [lyr["w_gate"], lyr["w_up"]], axis=0)))
-        q["w_down"] = _prep_q4_0(f32(lyr["w_down"]))
+        q["wqkv"] = lin(lyr["wq"], lyr["wk"], lyr["wv"])
+        q["wo"] = lin(lyr["wo"])
+        q["wgu"] = lin(lyr["w_gate"], lyr["w_up"])
+        q["w_down"] = lin(lyr["w_down"])
         out["layers"].append(q)
-    out["lm_head"] = _prep_q4_0(f32(params["lm_head"]))
+    out["lm_head"] = lin(params["lm_head"])
     return out
 
 
-def init_qparams(cfg: LlamaConfig, seed: int = 0, device="cuda") -> dict:
-    """Random q4_0 model drawn and quantized entirely on ``device`` from a
-    ``torch.Generator`` seed (the JAX ``init_qparams_device``): the same
+def init_qparams(cfg: LlamaConfig, seed: int = 0, device="cuda",
+                 qtype: str = "q4_0") -> dict:
+    """Random q4_0 or q8_0 model drawn and quantized entirely on
+    ``device`` from a ``torch.Generator`` seed (the JAX
+    ``init_qparams_device``, which takes the same two formats): the same
     shapes as :func:`quantize_params` output, other weight values."""
+    if qtype not in ("q4_0", "q8_0"):
+        raise NotImplementedError(f"init_qparams draws q4_0 or q8_0 "
+                                  f"weights, as in JAX, not {qtype}")
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
+    quantize = QUANTIZE[qtype]
 
     def lin(n, k):
-        return _prep_q4_0(torch.randn(n, k, generator=g, device=dev)
-                          * (1.0 / k ** 0.5))
+        return layout.prepare(quantize(
+            torch.randn(n, k, generator=g, device=dev) * (1.0 / k ** 0.5)))
 
     kq, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
     out = {
@@ -438,9 +484,8 @@ def begin(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor,
         # (the start clamp of JAX's dynamic_update_slice, which overflowing
         # and inactive slots rely on)
         widx = pos0.clamp(0, cache.k.shape[3] - t)[:, None] + rows
-    # the port's K2 serves q4_0 only, so any q4_k or SplitLinear wqkv
-    # turns it off for the whole model; JAX's K2 also takes q4_k, and
-    # only a SplitLinear turns it off there (ROADMAP Queue 1)
+    # K2 on every layer or on none, as in JAX: a q8_0, per-16 or
+    # SplitLinear wqkv anywhere turns it off for the whole model
     use_mega = t == 1 and all(
         gemm_megalayer.supported(ly["wqkv"], cfg.dim, b)
         for ly in qparams["layers"])

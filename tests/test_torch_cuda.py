@@ -21,7 +21,14 @@ is exact (rows of +-1, eps 0), which pins its in-kernel Q8_1 codes to
 ``1e-4 * max|C|``, K4 in them (bf16 and float32 activations) NMSE <=
 1e-4, K9 ``rms_norm_pallas`` ``1e-5 * max|y|`` (its own sum order and
 ``rsqrtf``), K10 ``softmax_pallas`` ``atol=1e-6``; the spec runner on the
-card passes every definition under its own threshold.
+card passes every definition under its own threshold.  Slice 7: K2 in the
+q4_1/q4_k/q5_0/q5_1/q5_k forms ``2e-3 * max|C|``, K6 in q4_1 and q8_0 bit
+for bit, K1 on q5_k ``1e-5 * max|C|``, K4 on q5_k NMSE <= 1e-4, K4 with
+``fused_quant`` (every per-32 form, bf16 and float32 operands) NMSE <=
+``FQ_NMSE`` = 1e-8 (kernel and plain version feed the same fake-quantized
+operand, so only the float32 summation order differs: about 1e-12 on an
+H100; leaving the fake quantization out moves the output by about 3e-5),
+and K4's in-kernel fake quantization bit for bit.
 """
 
 from pathlib import Path
@@ -33,7 +40,8 @@ import torch
 from quant_gemm_tpu_torch.formats import kquants
 from quant_gemm_tpu_torch.formats import quant as tq
 from quant_gemm_tpu_torch.kernels import layout, registry
-from quant_gemm_tpu_torch.kernels.gemm_dequant import (gemm_dequant,
+from quant_gemm_tpu_torch.kernels.gemm_dequant import (fake_quant_q8,
+                                                       gemm_dequant,
                                                        gemm_dequant_plain)
 from quant_gemm_tpu_torch.kernels import gemm_megalayer
 from quant_gemm_tpu_torch.kernels.gemm_exact import (gemm_exact,
@@ -59,6 +67,7 @@ from quant_gemm_tpu_torch.ops.softmax import (softmax_pallas,
 from quant_gemm_tpu_torch.specs import spec_runner
 
 N, K, EPS = 768, 1024, 1e-5  # N not a multiple of the kernels' tiles
+FQ_NMSE = 1e-8  # K4 fused_quant against its plain version (module doc)
 
 pytestmark = pytest.mark.cuda
 
@@ -153,13 +162,14 @@ def _degenerate(x):
 
 @pytest.mark.parametrize("k", [2048, 5632])
 @pytest.mark.parametrize("m", [1, 8, 12])
-@pytest.mark.parametrize("qtype", ["q4_0", "q4_k"])
+@pytest.mark.parametrize("qtype", ["q4_0", "q4_k", "q4_1", "q8_0"])
 def test_gemm_exact_fused(dev, qtype, m, k):
     """K6 equals quantize_q8_1 + K1 bit for bit, degenerate blocks
-    included; N = 774 is not a multiple of K1's four rows."""
+    included, in every form it has (q4_1 and q8_0 since slice 7); N = 774
+    is not a multiple of K1's four rows."""
     g = torch.Generator(device=dev).manual_seed(41)
-    if qtype == "q4_0":
-        w = layout.prepare(tq.quantize_q4_0(
+    if qtype != "q4_k":
+        w = layout.prepare(tq.QUANTIZE[qtype](
             torch.randn(774, k, generator=g, device=dev) * k ** -0.5))
     else:
         w = layout.prepare(kquants.to_effective(_kquant("q4_K", 774, k, dev)))
@@ -698,7 +708,142 @@ def test_spec_on_the_card(dev, path):
     rungs = ["pallas_f32", "pallas_bf16", "pallas", "xla_dequant"]
     if d["inputs"]["A"]["dtype"] == "q8_1":
         rungs += ["pallas_exact", "xla_int", "xla_compensated"]
+    else:
+        rungs += ["pallas_fused_quant"]
     for impl in rungs:
         for params in (None, {"M": 8, "K": 1056}):
             r = spec_runner.run_spec(path, impl=impl, params=params)
             assert r.passed, (impl, params, r.row())
+
+
+# -- slice 7: K2's min and qh planes, K1/K4 on q5_k, K4's fused_quant ----
+
+K2_NEW = ["q4_1", "q4_k", "q5_0", "q5_1", "q5_k"]
+ALL32 = ["q4_0", "q4_1", "q5_0", "q5_1", "q8_0", "q4_k", "q5_k"]
+
+
+def _weight_any(qtype, k, dev, seed=41):
+    """A per-32 weight of any form: q4_k / q5_k as the effective form of
+    q4_1 / q5_1 blocks with float32 planes (a K-quant tensor itself
+    needs K % 256 == 0; the kernels take any K % 32 == 0)."""
+    base = {"q4_k": "q4_1", "q5_k": "q5_1"}.get(qtype, qtype)
+    w = _weight32(base, k, dev, seed)
+    if base != qtype:
+        w = w._replace(qtype=qtype, d=w.d.float(), m=w.m.float())
+    return w
+
+
+@pytest.mark.parametrize("k", [1024, 1056])
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("qtype", K2_NEW)
+def test_norm_qkv_new_forms(dev, qtype, m, k):
+    """K2 with the min plane (q4_1, q4_k, q5_1, q5_k) and the qh plane
+    (q5_0, q5_1, q5_k) against its plain chain (``2e-3 * max|C|``), K %
+    64 == 32 included."""
+    w = _weight_any(qtype, k, dev)
+    x = _t((np.random.default_rng(m).standard_normal((m, k)) * 3).astype(
+        np.float32), dev)
+    nw = _t(np.random.default_rng(6).normal(1, .1, k).astype(np.float32),
+            dev)
+    before = norm_qkv.launches
+    got, ref = norm_qkv(w, x, nw, EPS), norm_qkv_plain(w, x, nw, EPS)
+    assert norm_qkv.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 2e-3 * ref.abs().max()
+
+
+@pytest.mark.parametrize("k", [1024, 14336])
+@pytest.mark.parametrize("m", [1, 8, 12])
+def test_gemm_exact_q5_k(dev, m, k):
+    """K1 on a q5_K tensor's effective form (random valid blocks),
+    ``1e-5 * max|C|`` as q4_k."""
+    w = layout.prepare(kquants.to_effective_q5_k(_kquant("q5_K", N, k, dev)))
+    assert w.qtype == "q5_k" and w.d.dtype == torch.float32
+    a = tq.quantize_q8_1(_t(np.random.default_rng(m).standard_normal(
+        (m, k)).astype(np.float32), dev))
+    before = gemm_exact.launches
+    got, ref = gemm_exact(w, a), gemm_exact_plain(w, a)
+    assert gemm_exact.launches == before + 1
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("k", [1024, 1056, 14336])
+@pytest.mark.parametrize("m", [1, 128])
+@pytest.mark.parametrize("adt", [torch.bfloat16, torch.float32])
+def test_gemm_dequant_q5_k(dev, adt, m, k):
+    """K4 on q5_k, NMSE <= 1e-4; K = 1056 through the effective form of
+    q5_1 blocks."""
+    if k % 256:
+        w = _weight_any("q5_k", k, dev)
+    else:
+        w = layout.prepare(kquants.to_effective_q5_k(
+            _kquant("q5_K", N, k, dev)))
+    a = _t(np.random.default_rng(m).standard_normal((m, k)).astype(
+        np.float32), dev).to(adt)
+    before = gemm_dequant.launches
+    got, ref = gemm_dequant(w, a), gemm_dequant_plain(w, a)
+    assert gemm_dequant.launches == before + 1
+    assert ((got - ref) ** 2).sum() <= 1e-4 * (ref ** 2).sum()
+
+
+@pytest.mark.parametrize("k", [1024, 1056])
+@pytest.mark.parametrize("m", [1, 128])
+@pytest.mark.parametrize("a_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("qtype", ALL32)
+def test_gemm_dequant_fused_quant(dev, qtype, a_dtype, m, k):
+    """K4 with the activation fake-quantized in the kernel (JAX's
+    ``_fake_quant_q8``), every per-32 form, bf16 and float32 operands,
+    against its plain version (NMSE <= ``FQ_NMSE``), degenerate blocks
+    included."""
+    w = _weight_any(qtype, k, dev)
+    x = _degenerate(_t(np.random.default_rng(m).standard_normal(
+        (m, k)).astype(np.float32), dev))
+    x[:, -32:] *= 1e-3  # a block far below the others
+    before = gemm_dequant.launches
+    got = gemm_dequant(w, x, fused_quant=True, a_dtype=a_dtype)
+    assert gemm_dequant.launches == before + 1
+    ref = gemm_dequant_plain(w, x, fused_quant=True, a_dtype=a_dtype)
+    assert torch.isfinite(got).all()
+    assert ((got - ref) ** 2).sum() <= FQ_NMSE * (ref ** 2).sum()
+
+
+@pytest.mark.parametrize("a_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_fused_quant_prologue_bit_exact(dev, xdt, a_dtype):
+    """K4's in-kernel fake quantization equals ``fake_quant_q8`` bit for
+    bit: through a q8_0 identity weight (code 1, d = 1 on the diagonal)
+    every output is one product a' * 1 plus zeros, so out = a'."""
+    k = 1024
+    qs = torch.eye(k, dtype=torch.int8, device=dev)
+    eye = layout.PreparedWeight("q8_0", k, k, qs, torch.ones(
+        k, k // 32, dtype=torch.float16, device=dev))
+    x = _degenerate(torch.randn(8, k, generator=torch.Generator(
+        device=dev).manual_seed(9), device=dev) * 4).to(xdt)
+    got = gemm_dequant(eye, x, fused_quant=True, a_dtype=a_dtype)
+    want = fake_quant_q8(x).to(a_dtype).float()
+    assert torch.equal(got, want)
+
+
+def test_pallas_fused_quant_rung(dev):
+    """The ladder rung runs K4 with fused_quant on a planar container."""
+    w = tq.quantize_q4_0(_t(np.random.default_rng(2).normal(
+        0, 0.05, (N, K)).astype(np.float32), dev))
+    x = _act(16, 4, dev)
+    before = gemm_dequant.launches
+    got = registry.LADDER["pallas_fused_quant"](w, x)
+    assert gemm_dequant.launches == before + 1
+    ref = gemm_dequant_plain(layout.prepare(w), x, fused_quant=True)
+    assert ((got - ref) ** 2).sum() <= FQ_NMSE * (ref ** 2).sum()
+
+
+@pytest.mark.parametrize("qtype", sorted(tq.QUANTIZE))
+def test_quantizers_on_the_card_bit_equal_to_cpu(dev, qtype):
+    """The torch quantizers give the same bits on the card as on the CPU
+    (where they equal numpy's) over 2^20 blocks: their scale divisions
+    take the IEEE quotient there too (``quant.div``), so a scale at an
+    f16 rounding tie rounds the same way."""
+    x = torch.randn(4096, 8192, generator=torch.Generator().manual_seed(3))
+    got = tq.QUANTIZE[qtype](x.to(dev))
+    want = tq.QUANTIZE[qtype](x)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)

@@ -86,8 +86,19 @@ def test_layout_is_gguf_block_order():
 
 
 def test_prepare_rejects_unported_formats():
+    """A q5_K tensor lays out through its effective q5_1 form (f32
+    planes); iq4_nl, not ported, raises, as does a K-quant container
+    passed without its effective form."""
+    from quant_gemm_tpu.formats import kquants as jk
     from quant_gemm_tpu_torch.formats import kquants as tk
 
     w5k = tk.quantize_q5_k(_inputs("normal"), search=False)
+    pw = layout.prepare(tk.to_effective_q5_k(w5k))
+    assert pw.qtype == "q5_k" and pw.d.dtype == torch.float32
+    np.testing.assert_array_equal(layout.dequantize(pw).numpy(),
+                                  tk.dequantize_q5_k(w5k).numpy())
     with pytest.raises(NotImplementedError):
         layout.prepare(w5k)
+    iq4 = jk.quantize_iq4_nl(_inputs("normal"))  # block_iq4_nl bytes
+    with pytest.raises(NotImplementedError, match="not ported"):
+        layout.prepare(iq4)

@@ -40,7 +40,8 @@ from quant_gemm_tpu_torch.formats.blocks import Q8_1Tensor
 from quant_gemm_tpu_torch.kernels import layout, registry
 from quant_gemm_tpu_torch.kernels.gemm_dequant import (gemm_dequant,
                                                        gemm_dequant_plain)
-from quant_gemm_tpu_torch.kernels.gemm_exact import (gemm_exact,
+from quant_gemm_tpu_torch.kernels.gemm_exact import (FUSED_QTYPES,
+                                                     gemm_exact,
                                                      gemm_exact_fused_plain,
                                                      gemm_exact_plain)
 from quant_gemm_tpu_torch.kernels.gemm_megalayer import norm_qkv_plain
@@ -281,16 +282,25 @@ def test_plain_gemm_rungs_match_jax(gemm_inputs, qtype, rung):
 
 
 def test_ladder_refuses_what_it_does_not_take(gemm_inputs):
+    """Each rung refuses the activation kind it does not take, and K6 the
+    forms with a qh plane (the JAX dispatch keeps them on quantize + K1);
+    the K4 fused_quant and K6 q8_0 rungs run (slice 7)."""
     weights, a, _, a8_t = gemm_inputs
     pw = weights["q8_0"][2]
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        registry.LADDER["pallas_fused_quant"](pw, torch.from_numpy(a))
+    x = torch.from_numpy(a)
     with pytest.raises(TypeError):
-        registry.LADDER["pallas_exact"](pw, torch.from_numpy(a))
+        registry.LADDER["pallas_fused_quant"](pw, a8_t)
+    with pytest.raises(TypeError):
+        registry.LADDER["pallas_exact"](pw, x)
     with pytest.raises(TypeError):
         registry.LADDER["pallas_exact_fused"](pw, a8_t)
-    with pytest.raises(NotImplementedError):  # K6 has q4_0 and q4_k only
-        registry.LADDER["pallas_exact_fused"](pw, torch.from_numpy(a))
+    with pytest.raises(NotImplementedError, match="qh plane"):
+        registry.LADDER["pallas_exact_fused"](weights["q5_0"][2], x)
+    torch.testing.assert_close(
+        registry.LADDER["pallas_exact_fused"](pw, x),
+        gemm_exact_plain(pw, tq.quantize_q8_1(x)), rtol=0, atol=0)
+    assert registry.LADDER["pallas_fused_quant"](pw, x).shape == \
+        (x.shape[0], pw.n)
 
 
 @pytest.mark.parametrize("m, route", [(1, "gemm_exact"), (12, "gemm_exact"),
@@ -344,7 +354,7 @@ def test_k1_k4_k6_at_k_1056_match_the_golden(k1056, qtype):
     _close(gemm_exact(pw, a8_t).numpy(), jref.gemm_wxa8(wq, a8), 1e-6)
     _close(gemm_dequant(pw, torch.from_numpy(x)).numpy(),
            jref.gemm_wxa16(x, wq), 1e-5)
-    if qtype in registry.FUSED_QTYPES:
+    if qtype in FUSED_QTYPES:
         _close(gemm_exact_fused_plain(pw, torch.from_numpy(x)).numpy(),
                jref.gemm_wxa8(wq, a8), 1e-6)
 

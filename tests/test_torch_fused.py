@@ -250,8 +250,8 @@ def qparams():
 
 def test_tail_supported_follows_its_switch(qparams, monkeypatch):
     """ENABLE_TAIL (off by default, as in JAX) gates K8; the rules refuse
-    M > 8, dim or d_ff % 512 != 0 and q4_k weights; K2's ``supported``
-    takes no switch."""
+    M > 8, dim or d_ff % 512 != 0 and (K8) q4_k weights; K2's
+    ``supported`` takes no switch, and takes q4_k as JAX's does."""
     lyr = qparams["layers"][0]
     assert not gemm_megalayer.ENABLE_TAIL  # the JAX default
     assert gemm_megalayer.supported(lyr["wqkv"], DIM, 8)
@@ -275,7 +275,7 @@ def test_tail_supported_follows_its_switch(qparams, monkeypatch):
                                                torch.zeros_like(
                                                    lyr["wgu"].d.float()))}
     assert not gemm_megalayer.tail_supported(q4k, TCFG, 8)
-    assert not gemm_megalayer.supported(q4k["wgu"], DIM, 8)
+    assert gemm_megalayer.supported(q4k["wgu"], DIM, 8)
 
 
 def _prefilled(qp, rng):

@@ -111,12 +111,15 @@ def test_write_and_read_every_type_both_ways(tmp_path):
 
 
 def test_unported_type_raises_with_its_name(tmp_path):
+    """An iq4_nl tensor (not ported) written by the JAX writer raises
+    with its type's name."""
     x = np.random.default_rng(2).normal(0, 1, (4, 256)).astype(np.float32)
-    path = tmp_path / "q5k.gguf"
-    jgf.write_gguf(str(path), {"w": jk.quantize_q5_k(x, search=False)})
+    path = tmp_path / "iq4nl.gguf"
+    raw = jk.quantize_iq4_nl(x).tobytes()
+    jgf.write_gguf(str(path), {"w": jgf.RawTensor("iq4_nl", (4, 256), raw)})
     gf = tgf.GGUFFile(path)
-    assert gf.tensors["w"]["qtype"] == "q5_K"
-    with pytest.raises(NotImplementedError, match="q5_K"):
+    assert gf.tensors["w"]["qtype"] == "iq4_nl"
+    with pytest.raises(NotImplementedError, match="iq4_nl"):
         gf.load("w", "cpu")
 
 
@@ -252,7 +255,11 @@ def test_tied_embeddings_and_unported_pieces(tmp_path):
     jgf.write_gguf(str(path), bias, dict(gf.metadata))
     with pytest.raises(NotImplementedError, match="bias"):
         tgl.load_llama(path, device="cpu")
-    w8 = tq.quantize_q4_0(torch.zeros(4, 64))
-    with pytest.raises(NotImplementedError, match="Q8_0Tensor"):
-        tgl._prep(Q8_0Tensor(torch.zeros(4, 64, dtype=torch.int8),
-                                  w8.d))
+    # a q8_0 weight is served (slice 7): K1/K4's q8_0 form
+    x8 = torch.from_numpy(np.random.default_rng(8).normal(
+        0, 0.1, (4, 64)).astype(np.float32))
+    w8 = tgl._prep(tq.quantize_q8_0(x8))
+    assert w8.qtype == "q8_0"
+    torch.testing.assert_close(layout.dequantize(w8),
+                               tq.dequantize(tq.quantize_q8_0(x8)),
+                               rtol=0, atol=0)

@@ -116,6 +116,11 @@ Run from the repository root on a machine with one NVIDIA H100:
 9. prints one JSON line of the kernels, the card, and last the result
    line; each phase's seconds on its own line.
 
+K4's bf16-operand forms and K5 run on the tensor cores: every K4
+and K5 row of the kernel phase calls the kernel a second time and fails
+unless the two outputs are equal bit for bit; K4 also runs at M = 100
+and 300 at Mistral's ``wgu`` (ragged rows, more than one row tile).
+
 Exits non-zero, with no result line, when CUDA is unavailable or any phase
 fails.  TF32 is off for every float32 product (``allow_tf32 = False``), so
 the plain versions are full float32.
@@ -293,6 +298,12 @@ Q4KM_Q6K_SHAPES = {"attn_v": (KV_HEADS * HD, DIM), "ffn_down": (DIM, D_FF),
 # 1e-12 at the spec shapes); leaving the fake quantization out moves the
 # output by about 3e-5 in NMSE, rounding d to f16 by about 3e-6
 FQ_NMSE = 1e-8
+
+
+def same_bits(label, got, fn) -> None:
+    """K4 and K5 are deterministic: a second call gives the same bits."""
+    if not torch.equal(got, fn()):
+        fail(f"{label}: two calls differ (the kernel is not deterministic)")
 
 
 def nmse(got, ref) -> float:
@@ -477,6 +488,8 @@ def kernel_phase(dev, timer):
         if not err <= 2e-3:
             fail(f"K5 flash_prefill {ctype} pos0={p0} window={window}: "
                  f"max|err| {err} > 2e-3")
+        same_bits(f"K5 flash_prefill {ctype} pos0={p0} window={window}",
+                  got, lambda: flash_prefill(q5, k_, v_, pos0, **kw))
         qpos = p0 + np.arange(t5)
         seen = np.minimum(qpos + 1, window) if window else qpos + 1
         lo = max(p0 - window + 1, 0) if window else 0
@@ -516,14 +529,22 @@ def kernel_phase(dev, timer):
     # K4: dequant GEMM at the prefill chunk M = 128
     m = 128
     m_weights["Mistral wqkv"] = m_wqkv
-    for name, w in [("wqkv", wqkv), *weights.items(), *m_weights.items()]:
+    # (also ragged rows and more than one row tile at Mistral's wgu, M =
+    # 100 and 300)
+    for name, w, m in [("wqkv", wqkv, 128),
+                       *((n, w, 128) for n, w in weights.items()),
+                       *((n, w, 128) for n, w in m_weights.items()),
+                       ("Mistral wgu", m_weights["Mistral wgu"], 100),
+                       ("Mistral wgu", m_weights["Mistral wgu"], 300)]:
         a = fold_q8_1(quantize_q8_1(randn(m, w.k)))
         got, ref = gemm_dequant(w, a), gemm_dequant_plain(w, a)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
         e = nmse(got, ref)
         if not e <= 1e-4:
-            fail(f"K4 gemm_dequant {name}: NMSE {e} > 1e-4")
+            fail(f"K4 gemm_dequant {name} M={m}: NMSE {e} > 1e-4")
+        same_bits(f"K4 gemm_dequant {name} M={m}", got,
+                  lambda: gemm_dequant(w, a))
         wb = layout.dequantize(w, torch.bfloat16)  # yardstick's own weight
         nbytes = q4_bytes(w.n, w.k) + m * w.k * 2 + m * w.n * 4
         record("gemm_dequant", f"{name} M={m} N={w.n} K={w.k}", err,
@@ -531,7 +552,7 @@ def kernel_phase(dev, timer):
                timer(lambda: gemm_dequant_plain(w, a), reps=5),
                bound(nbytes, 2 * m * w.n * w.k, "bf16"),
                timer(lambda: torch.matmul(a, wb.T)),
-               main=name in weights or name == "wqkv")
+               main=(name in weights or name == "wqkv") and m == 128)
     del m_weights, m_wqkv, wb
 
     # the Q4_K_M path's GEMMs: K1 (M = 8) and K4 (M = 128) on q4_K weights
@@ -571,6 +592,8 @@ def kernel_phase(dev, timer):
         if not (e <= 1e-4 and err <= tol):
             fail(f"K4 gemm_dequant q4_k {name}: NMSE {e} > 1e-4 or "
                  f"max|err| {err} > {tol}")
+        same_bits(f"K4 gemm_dequant q4_k {name}", got,
+                  lambda: gemm_dequant(w, a))
         wb = layout.dequantize(w, torch.bfloat16)
         act = m * w.k * 2 + m * w.n * 4
         ops = 2 * m * w.n * w.k
@@ -834,6 +857,8 @@ def slice6_kernel_rows(dev, timer, record, randn):
                 if not e <= 1e-4:
                     fail(f"K4 gemm_dequant {qtype} {kind} {name}: NMSE {e} "
                          "> 1e-4")
+                same_bits(f"K4 gemm_dequant {qtype} {kind} {name}", got,
+                          lambda: gemm_dequant(w, a))
                 if not e_lib <= 1e-3:
                     fail(f"K4 yardstick matmul {qtype} {kind} {name}: NMSE "
                          f"{e_lib} > 1e-3")
@@ -969,6 +994,8 @@ def slice7_kernel_rows(dev, timer, record, unfused, randn):
         e = nmse(got, ref)
         if not e <= 1e-4:
             fail(f"K4 gemm_dequant q5_k {label}: NMSE {e} > 1e-4")
+        same_bits(f"K4 gemm_dequant q5_k {label}", got,
+                  lambda: gemm_dequant(w, a))
         act = mm * k * 2 + mm * n * 4
         ops = 2 * mm * n * k
         record("gemm_dequant", f"q5_k {label} M={mm} N={n} K={k}", err,
@@ -999,6 +1026,9 @@ def slice7_kernel_rows(dev, timer, record, unfused, randn):
                 if not e <= FQ_NMSE:
                     fail(f"K4 fused_quant {qtype} {kind} {label}: NMSE {e} "
                          f"> {FQ_NMSE}")
+                same_bits(f"K4 fused_quant {qtype} {kind} {label}", got,
+                          lambda: gemm_dequant(w, x, fused_quant=True,
+                                               a_dtype=adt))
                 if not e_lib <= 1e-3:
                     fail(f"K4 fused_quant yardstick {qtype} {kind} {label}:"
                          f" NMSE {e_lib} > 1e-3")
@@ -1142,6 +1172,8 @@ def mistral_kernel_rows(dev, timer, record, randn, g):
         err = (got - ref).abs().max().item()
         if not err <= 2e-3:
             fail(f"K5 flash_prefill ring {ctype}: max|err| {err} > 2e-3")
+        same_bits(f"K5 flash_prefill ring {ctype}", got,
+                  lambda: flash_prefill(q5, k_, v_, pos0, **kw))
         elt = 1 if ctype == "int8" else 2
         nbytes = 2 * q5.numel() * 4 + 4 \
             + 2 * M_KV * rows5 * (M_HD * elt + (4 if sc else 0))

@@ -23,12 +23,24 @@ d``, each step rounded on its own, so ``a'`` is bit-equal to
 ``s = d * sum(q)`` is formed.
 
 Bound on an H100: operations at the Server's prefill chunk of 128 rows
-(455 operations per q4_0 weight byte, above the ~295 where bf16 tensor
-cores would become the limit; bytes only below M of about 80).  The first
-design (``csrc/gemm_dequant.cu``) is a plain shared-memory tiled GEMM with
-float32 FMA on the CUDA cores, far from that bound; moving it to the
-tensor cores is later work.  The fake quantization costs two warp
-shuffles per 32-block of A and no extra bytes.
+(455 operations per q4_0 weight byte, above the ~295 where the bf16
+tensor cores become the limit; bytes only below M of about 80): 0.0304
+ms of bf16 tensor-core work at Mistral-7B's ``wgu`` (N 28672, K 4096),
+0.0060 ms at TinyLlama-1.1B's (N 11264, K 2048).
+Design (``csrc/gemm_dequant.cu``): bf16 operands (a bf16 ``a``, or
+``fused_quant`` with ``a_dtype=bf16``) run on the tensor cores
+(``mma.sync`` bf16, float32 accumulation) with exact per-block scaling:
+each 32-block's codes are small integers, exact in bf16, so every
+product is exact and the block's sum is folded in as ``d * T_b`` (``+ m
+* sum(A_b)`` for the min formats); the weight is never rounded, and the
+result differs from :func:`gemm_dequant_plain` only in float32
+summation order.  Where the 64 x 64 output tiles do not fill the card,
+K is split into pieces (:func:`k4_grid`) whose float32 partials a
+second kernel adds in piece order, so every call gives the same bits.
+float32 operands (the ladder's ``pallas_f32``, ``fused_quant`` with
+``a_dtype=float32``) stay on the CUDA-core body, float32 FMA: the tensor
+cores would need a 3-piece bf16 split of A, and their bound would first
+be restated.
 
 :func:`gemm_dequant` launches the kernel for CUDA tensors and runs
 :func:`gemm_dequant_plain` for CPU tensors; ``gemm_dequant.launches``
@@ -45,6 +57,34 @@ from . import _build, layout
 from .layout import QTYPES, PreparedWeight, planes
 
 ACT_DTYPES = (torch.bfloat16, torch.float32)
+
+#: the tensor-core body's output tile (rows, columns: ``TBM``, ``TBN`` of
+#: ``csrc/gemm_dequant.cu``) and the H100's SMs
+TILE_M, TILE_N, SMS = 64, 64, 132
+#: fewest quant blocks in a K piece
+MIN_CHUNK = 2
+
+
+def k4_grid(m: int, n: int, k: int) -> tuple:
+    """The tensor-core body's grid ``(tiles_n, tiles_m, pieces)`` and the
+    K piece length ``chunk`` in 32-blocks (piece z takes blocks ``[z *
+    chunk, min(nb, (z + 1) * chunk))``, none empty).  K is split only
+    where the output tiles do not fill the card's SMs: into about
+    ``SMS / tiles`` pieces of at least ``MIN_CHUNK`` blocks."""
+    tn, tm = -(-n // TILE_N), -(-m // TILE_M)
+    nb = k // QK
+    want = -(-SMS // (tn * tm))
+    chunk = nb if want <= 1 else max(MIN_CHUNK, nb // want)
+    chunk = min(chunk, nb)
+    return (tn, tm, -(-nb // chunk)), chunk
+
+
+def tensor_cores(a: torch.Tensor, fused_quant: bool, a_dtype) -> bool:
+    """Whether the call takes the tensor-core body: bf16 operands (a bf16
+    activation, or ``fused_quant`` into bf16)."""
+    if fused_quant:
+        return a_dtype == torch.bfloat16
+    return a.dtype == torch.bfloat16
 
 
 def _check(w: PreparedWeight, a: torch.Tensor, a_dtype=None) -> None:
@@ -106,15 +146,33 @@ def gemm_dequant(w: PreparedWeight, a: torch.Tensor,
     _build.check_aligned("gemm_dequant", a, w.qs)
     out = torch.empty(m, w.n, dtype=torch.float32, device=dev)
     fq = 0 if not fused_quant else (2 if a_dtype == torch.bfloat16 else 1)
+    null = _build.P(None)
+    part = sa = a2 = null
+    chunk = w.k // QK
+    if tensor_cores(a, fused_quant, a_dtype):
+        (_, _, pieces), chunk = k4_grid(m, w.n, w.k)
+        keep = []  # scratch alive until the launch is enqueued
+        if pieces > 1:
+            keep.append(torch.empty(pieces, m, w.n, dtype=torch.float32,
+                                    device=dev))
+            part = _build.ptr(keep[-1])
+        if w.m is not None:
+            keep.append(torch.empty(m, w.k // QK, dtype=torch.float32,
+                                    device=dev))
+            sa = _build.ptr(keep[-1])
+        if fq == 2:
+            keep.append(torch.empty(m, w.k, dtype=torch.bfloat16,
+                                    device=dev))
+            a2 = _build.ptr(keep[-1])
     symbol = f"qgt_gemm_dequant_{w.qtype}"
     fn = _build.function("gemm_dequant", symbol,
                          [_build.P, _build.I, _build.I]
-                         + [_build.P] * (2 + len(wp)) + [_build.I] * 3
+                         + [_build.P] * (5 + len(wp)) + [_build.I] * 4
                          + [_build.P])
     with torch.cuda.device(dev):
         rc = fn(_build.ptr(a), int(a.dtype == torch.float32), fq,
-                _build.ptr(w.qs), *map(_build.ptr, wp), _build.ptr(out), m,
-                w.n, w.k, _build.stream(dev))
+                _build.ptr(w.qs), *map(_build.ptr, wp), _build.ptr(out),
+                part, sa, a2, m, w.n, w.k, chunk, _build.stream(dev))
     _build.check("gemm_dequant", symbol, rc)
     gemm_dequant.launches += 1
     return out
@@ -123,4 +181,4 @@ def gemm_dequant(w: PreparedWeight, a: torch.Tensor,
 gemm_dequant.launches = 0
 
 __all__ = ["gemm_dequant", "gemm_dequant_plain", "fake_quant_q8",
-           "ACT_DTYPES"]
+           "k4_grid", "tensor_cores", "ACT_DTYPES", "TILE_M", "TILE_N", "SMS"]

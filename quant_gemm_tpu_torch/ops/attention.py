@@ -37,10 +37,23 @@ block must be contiguous.  Int8: the k scale multiplies the scores before
 the mask, the softmax sum takes p unscaled and the p.V sum ``p * v_scale``
 (``attention.py:109-138, 416-445``).
 
-Bound on an H100: bytes (the valid K and V rows, with int8 their scales,
-read once; q and the output).  Designs: ``csrc/flash_decode.cu`` and
-``csrc/flash_prefill.cu``, float32 on the CUDA cores as the TPU kernels
-compute.
+K3's bound on an H100: bytes (the valid K and V rows, with int8 their
+scales, read once; q and the output); ``csrc/flash_decode.cu`` computes
+in float32 on the CUDA cores as the TPU kernel does.
+
+K5 (``csrc/flash_prefill.cu``): QK^T and PV on the tensor cores
+(``mma.sync`` bf16, float32 accumulation), the online softmax in float32.
+K and V are exact in bf16 (int8 codes convert exactly); the pre-scaled q
+and the probabilities enter as hi + lo bf16 pairs, two MMAs each, so the
+products match float32 to about 2^-16 relative.  Its bound at the
+Mistral-7B ring chunk (T 128, hd 128, window 4096) is operations,
+0.0087 ms of bf16 tensor-core work (bytes at short contexts).  So that
+the grid fills the card, the slot interval each (slot, kv head, 64-row
+tile) walks is cut into pieces (:func:`prefill_pieces` picks their
+number from host-known sizes, :func:`prefill_piece_bounds` mirrors the
+kernel's cut); each piece writes its (max, sum, unnormalised output)
+and a merge kernel combines them in piece order, so every call gives
+the same bits.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version (``*_plain``, dense masked softmax in float32, the query scaled
@@ -58,6 +71,36 @@ import torch
 from ..kernels import _build
 
 NEG_INF = float(torch.finfo(torch.float32).min)
+
+#: K5's query rows per block and cache rows per tile (``ROWS``, ``KT`` of
+#: ``csrc/flash_prefill.cu``), and the H100's SMs
+PREFILL_ROWS, PREFILL_TILE, SMS = 64, 64, 132
+
+
+def prefill_pieces(b: int, kv: int, rows: int, rep: int, window: int,
+                   slots: int) -> int:
+    """How many pieces K5 cuts each block's slot interval into: enough
+    for about two blocks per SM, at most one tile each at the longest
+    interval a 64-row tile can walk (``slots`` cache slots, or the ring's;
+    with a window, ``window`` + its tokens - 1), and no piece empty
+    there."""
+    blocks = b * kv * -(-rows // PREFILL_ROWS)
+    tokens = min(rows // rep, (PREFILL_ROWS - 1) // rep + 2)
+    span = min(slots, window + tokens - 1) if window else slots
+    tiles = -(-span // PREFILL_TILE)
+    ns = max(1, min(-(-2 * SMS // blocks), tiles))
+    return -(-tiles // -(-tiles // ns))  # none empty at `span`
+
+
+def prefill_piece_bounds(length: int, ns: int) -> list:
+    """The kernel's cut of a slot interval of ``length`` slots into ``ns``
+    pieces: ``[u0, u1)`` each, whole tiles of ``PREFILL_TILE`` slots,
+    ``ceil(tiles / ns)`` tiles a piece; pieces past the interval are
+    empty."""
+    tiles = -(-length // PREFILL_TILE)
+    per = -(-tiles // ns)
+    return [(min(length, p * per * PREFILL_TILE),
+             min(length, (p + 1) * per * PREFILL_TILE)) for p in range(ns)]
 
 
 def _layer_view(k: torch.Tensor, layer, full_rank: int):
@@ -336,13 +379,21 @@ def flash_prefill(q, k, v, pos0, *, rep, k_scale=None, v_scale=None,
     qf = q.to(torch.float32).contiguous()
     pos32 = pos0.to(torch.int32).contiguous()
     out = torch.empty(b, kv, rows, hd, dtype=torch.float32, device=dev)
+    ns = prefill_pieces(b, kv, rows, rep, window, ring or s)
+    po = pml = _build.P(None)
+    if ns > 1:
+        # [B, KV, ns, rows, hd] unnormalised outputs, then (max, sum)
+        n = b * kv * ns * rows
+        part = torch.empty(n * (hd + 2), dtype=torch.float32, device=dev)
+        po, pml = _build.ptr(part), _build.ptr(part[n * hd:])
     P, I, L = _build.P, _build.I, _build.L
     fn = _build.function(
         "flash_prefill", "qgt_flash_prefill",
-        [P] * 7 + [I] * 6 + [L, L] + [I] * 3 + [_build.F, P])
+        [P] * 9 + [I] * 7 + [L, L] + [I] * 3 + [_build.F, P])
     with torch.cuda.device(dev):
         rc = fn(_build.ptr(qf), kp, vp, ksp, vsp, _build.ptr(pos32),
-                _build.ptr(out), b, kv, rows, rep, hd, s, kstride, sstride,
+                _build.ptr(out), po, pml, ns, b, kv, rows, rep, hd, s,
+                kstride, sstride,
                 int(k_scale is not None), int(window), int(ring),
                 1.0 / math.sqrt(hd), _build.stream(dev))
     _build.check("flash_prefill", "qgt_flash_prefill", rc)
@@ -360,4 +411,5 @@ def flash_decode_ref(q, k, v, pos) -> torch.Tensor:
 
 
 __all__ = ["flash_decode", "flash_decode_plain", "flash_prefill",
-           "flash_prefill_plain", "flash_decode_ref", "NEG_INF"]
+           "flash_prefill_plain", "flash_decode_ref", "prefill_pieces",
+           "prefill_piece_bounds", "NEG_INF"]

@@ -28,7 +28,12 @@ for bit, K1 on q5_k ``1e-5 * max|C|``, K4 on q5_k NMSE <= 1e-4, K4 with
 ``FQ_NMSE`` = 1e-8 (kernel and plain version feed the same fake-quantized
 operand, so only the float32 summation order differs: about 1e-12 on an
 H100; leaving the fake quantization out moves the output by about 3e-5),
-and K4's in-kernel fake quantization bit for bit.
+and K4's in-kernel fake quantization bit for bit.  The tensor-core
+prefill kernels (K4's bf16 operand forms, K5): K4 at ragged M and an N no
+tile divides, bf16 and ``fused_quant`` bf16, NMSE <= ``FQ_NMSE`` (every
+product is exact, so only the float32 summation order differs); K5
+split over the slots at full Mistral-7B ring width ``atol=2e-3``; both
+kernels give the same bits on two calls.
 """
 
 from pathlib import Path
@@ -847,3 +852,70 @@ def test_quantizers_on_the_card_bit_equal_to_cpu(dev, qtype):
     want = tq.QUANTIZE[qtype](x)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+# --- the tensor-core prefill kernels: K4's bf16 forms and K5 ---
+
+
+@pytest.mark.parametrize("qtype", ALL32)
+def test_gemm_dequant_deterministic(dev, qtype):
+    """Two launches at the prefill chunk (M = 128, K split into pieces
+    at this N) give the same bits, bf16 and fused_quant bf16."""
+    w = _weight_any(qtype, K, dev)
+    x = _t(np.random.default_rng(3).standard_normal((128, K)).astype(
+        np.float32), dev)
+    a = x.to(torch.bfloat16)
+    assert torch.equal(gemm_dequant(w, a), gemm_dequant(w, a))
+    assert torch.equal(gemm_dequant(w, x, fused_quant=True),
+                       gemm_dequant(w, x, fused_quant=True))
+
+
+@pytest.mark.parametrize("fq", [False, True])
+@pytest.mark.parametrize("m", [13, 100, 300])
+@pytest.mark.parametrize("qtype", ALL32)
+def test_gemm_dequant_ragged(dev, qtype, m, fq):
+    """Ragged rows, N = 2560 + 96 (no multiple of the 64-wide tile) and
+    K = 1056 (K % 64 == 32), bf16 operands: NMSE <= FQ_NMSE."""
+    n, k = 2560 + 96, 1056
+    base = {"q4_k": "q4_1", "q5_k": "q5_1"}.get(qtype, qtype)
+    wf = np.random.default_rng(8).normal(0, 0.05, (n, k)).astype(np.float32)
+    w = layout.prepare(tq.QUANTIZE[base](_t(wf, dev)))
+    if base != qtype:
+        w = w._replace(qtype=qtype, d=w.d.float(), m=w.m.float())
+    x = _t(np.random.default_rng(m).standard_normal((m, k)).astype(
+        np.float32), dev)
+    a = x if fq else x.to(torch.bfloat16)
+    before = gemm_dequant.launches
+    got = gemm_dequant(w, a, fused_quant=fq)
+    assert gemm_dequant.launches == before + 1
+    ref = gemm_dequant_plain(w, a, fused_quant=fq)
+    assert torch.isfinite(got).all()
+    assert ((got - ref) ** 2).sum() <= FQ_NMSE * (ref ** 2).sum()
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("p0", [0, 4000, 4544])
+def test_flash_prefill_split_s_mistral_ring(dev, p0, quant):
+    """K5 at full Mistral-7B ring width, one layer: KV 8, rep 4, hd 128,
+    R 4608, window 4096, a 128-token chunk at pos0 0 (most pieces
+    empty), 4000 and 4544 (across the ring's edge); max|err| <= 2e-3,
+    and two calls bit-equal."""
+    rng = np.random.default_rng(p0 + 1)
+    kv, rep, hd, ring, t = 8, 4, 128, 4608, 128
+    q = _t(rng.standard_normal((1, kv, t * rep, hd)).astype(np.float32), dev)
+    shape = (1, kv, ring, hd)
+    if quant:
+        (kc, vc), kw = _int8_cache(rng, shape, dev)
+    else:
+        kc, vc = (_t(rng.standard_normal(shape).astype(np.float32),
+                     dev).to(torch.bfloat16) for _ in range(2))
+        kw = {}
+    kw.update(rep=rep, window=4096, ring=ring)
+    pos0 = torch.tensor([p0], dtype=torch.int32, device=dev)
+    before = flash_prefill.launches
+    got = flash_prefill(q, kc, vc, pos0, **kw)
+    assert flash_prefill.launches == before + 1
+    ref = flash_prefill_plain(q, kc, vc, pos0, **kw)
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 2e-3
+    assert torch.equal(got, flash_prefill(q, kc, vc, pos0, **kw))

@@ -116,10 +116,16 @@ Run from the repository root on a machine with one NVIDIA H100:
 9. prints one JSON line of the kernels, the card, and last the result
    line; each phase's seconds on its own line.
 
-K4's bf16-operand forms and K5 run on the tensor cores: every K4
-and K5 row of the kernel phase calls the kernel a second time and fails
-unless the two outputs are equal bit for bit; K4 also runs at M = 100
-and 300 at Mistral's ``wgu`` (ragged rows, more than one row tile).
+K4's bf16-operand forms, K5, K3 and K1 run on the tensor cores: every
+K3, K4 and K5 row of the kernel phase calls the kernel a second time and
+fails unless the two outputs are equal bit for bit (K3 rows print their
+piece count ``ns``; the Mistral ring rows run once more with the
+Server's ``s_hi`` at those positions and one tile a piece, within 2e-3
+of the first call); every K1 row (all seven forms) must equal
+``gemm_exact.k1_order`` of the plain version's per-block terms bit
+for bit (the summation order K6 and K8 share); K4 also runs at M = 100
+and 300 at Mistral's ``wgu`` (ragged rows, more than one row tile).  The
+profiler windows print each kernel group's share of the busy time.
 
 Exits non-zero, with no result line, when CUDA is unavailable or any phase
 fails.  TF32 is off for every float32 product (``allow_tf32 = False``), so
@@ -301,9 +307,20 @@ FQ_NMSE = 1e-8
 
 
 def same_bits(label, got, fn) -> None:
-    """K4 and K5 are deterministic: a second call gives the same bits."""
+    """K3, K4 and K5 are deterministic: a second call gives the same
+    bits."""
     if not torch.equal(got, fn()):
         fail(f"{label}: two calls differ (the kernel is not deterministic)")
+
+
+def k1_bits(label, w, a, got) -> None:
+    """K1 keeps the summation order K6 and K8 share: its output equals
+    ``k1_order`` of the plain version's per-block terms bit for bit."""
+    from quant_gemm_tpu_torch.kernels.gemm_exact import block_terms, k1_order
+
+    if not torch.equal(got, k1_order(block_terms(w, a))):
+        fail(f"K1 gemm_exact {label}: differs from k1_order of the plain "
+             "version's terms (the summation order moved)")
 
 
 def nmse(got, ref) -> float:
@@ -379,10 +396,12 @@ def kernel_phase(dev, timer):
         tol = 1e-4 * ref.abs().max().item()
         if not err <= tol:
             fail(f"K1 gemm_exact {name}: max|err| {err} > {tol}")
+        k1_bits(name, w, a, got)
         nbytes = q4_bytes(w.n, w.k) + m * w.k + 2 * m * (w.k // 32) * 2 \
             + m * w.n * 4
         record("gemm_exact", f"{name} M={m} N={w.n} K={w.k}", err,
-               f"max|err| <= {tol:.3e}", timer(lambda: gemm_exact(w, a)),
+               f"max|err| <= {tol:.3e}, == k1_order bit for bit",
+               timer(lambda: gemm_exact(w, a)),
                timer(lambda: gemm_exact_plain(w, a), reps=5),
                bound(nbytes, 2 * m * w.n * w.k, "int8"), None,
                main=name in weights)
@@ -430,12 +449,15 @@ def kernel_phase(dev, timer):
         kw = dict(k_current=kcur, v_current=vcur, layer=layer, window=window,
                   **sc)
         got = flash_decode(q, k_, v_, pos, **kw)
+        ns = flash_decode.last_pieces
         ref = flash_decode_plain(q, k_, v_, pos, **kw)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
         if not err <= 2e-3:
             fail(f"K3 flash_decode {ctype} window={window}: max|err| {err} "
                  "> 2e-3")
+        same_bits(f"K3 flash_decode {ctype} window={window}", got,
+                  lambda: flash_decode(q, k_, v_, pos, **kw))
         # cache slots attended besides the current token
         seen = min(ctx, window - 1) if window else ctx
         elt = 1 if ctype == "int8" else 2
@@ -461,7 +483,8 @@ def kernel_phase(dev, timer):
                                         enable_gqa=True))
         variant = ctype + (f" window={window}" if window else "")
         record("flash_decode", f"{variant} B={b} KV={KV_HEADS} rep={REP} "
-               f"hd={HD} S={s} ctx={ctx}", err, "max|err| <= 2e-3",
+               f"hd={HD} S={s} ctx={ctx} ns={ns}", err,
+               "max|err| <= 2e-3, two calls bit-equal",
                timer(lambda: flash_decode(q, k_, v_, pos, **kw)),
                timer(lambda: flash_decode_plain(q, k_, v_, pos, **kw), reps=5),
                bound(nbytes, ops, "bf16"), lib_ms,
@@ -572,10 +595,12 @@ def kernel_phase(dev, timer):
         tol = 1e-5 * ref.abs().max().item()
         if not err <= tol:
             fail(f"K1 gemm_exact q4_k {name}: max|err| {err} > {tol}")
+        k1_bits(f"q4_k {name}", w, a, got)
         act = m * w.k + 2 * m * (w.k // 32) * 2 + m * w.n * 4
         ops = 2 * m * w.n * w.k
         record("gemm_exact", f"q4_k {name} M={m} N={w.n} K={w.k}", err,
-               f"max|err| <= {tol:.3e}", timer(lambda: gemm_exact(w, a)),
+               f"max|err| <= {tol:.3e}, == k1_order bit for bit",
+               timer(lambda: gemm_exact(w, a)),
                timer(lambda: gemm_exact_plain(w, a), reps=5),
                bound(kq_bytes("q4_K", w.n, w.k) + act, ops, "int8"), None,
                main=False,
@@ -834,9 +859,10 @@ def slice6_kernel_rows(dev, timer, record, randn):
             tol = 1e-4 * ref.abs().max().item()
             if not err <= tol:
                 fail(f"K1 gemm_exact {qtype} {name}: max|err| {err} > {tol}")
+            k1_bits(f"{qtype} {name}", w, a, got)
             act = m * k + 2 * m * (k // 32) * 2 + m * n * 4
             record("gemm_exact", f"{qtype} Mistral {name} M={m} N={n} K={k}",
-                   err, f"max|err| <= {tol:.3e}",
+                   err, f"max|err| <= {tol:.3e}, == k1_order bit for bit",
                    timer(lambda: gemm_exact(w, a)),
                    timer(lambda: gemm_exact_plain(w, a), reps=5),
                    bound(wbytes + act, 2 * m * n * k, "int8"), None,
@@ -978,10 +1004,12 @@ def slice7_kernel_rows(dev, timer, record, unfused, randn):
         tol = 1e-5 * ref.abs().max().item()
         if not err <= tol:
             fail(f"K1 gemm_exact q5_k {label}: max|err| {err} > {tol}")
+        k1_bits(f"q5_k {label}", w, a, got)
         act = m * k + 2 * m * (k // 32) * 2 + m * n * 4
         ops = 2 * m * n * k
         record("gemm_exact", f"q5_k {label} M={m} N={n} K={k}", err,
-               f"max|err| <= {tol:.3e}", timer(lambda: gemm_exact(w, a)),
+               f"max|err| <= {tol:.3e}, == k1_order bit for bit",
+               timer(lambda: gemm_exact(w, a)),
                timer(lambda: gemm_exact_plain(w, a), reps=5),
                bound(wbytes + act, ops, "int8"), None, main=False,
                layout_bnd=bound(lay + act, ops, "int8"))
@@ -1092,7 +1120,8 @@ def mistral_kernel_rows(dev, timer, record, randn, g):
     edge), bf16 and int8, each against its plain version, SDPA with the
     ring's boolean mask beside the bf16 rows."""
     from quant_gemm_tpu_torch.ops.attention import (
-        flash_decode, flash_decode_plain, flash_prefill, flash_prefill_plain)
+        decode_max_pieces, decode_s_hi, flash_decode, flash_decode_plain,
+        flash_prefill, flash_prefill_plain)
 
     # the ring: R = 4608 slots of a 2-layer stacked cache, all written
     b, layer, ring = 8, 1, M_RING
@@ -1119,11 +1148,29 @@ def mistral_kernel_rows(dev, timer, record, randn, g):
         kw = dict(k_current=kcur, v_current=vcur, layer=layer,
                   window=M_WINDOW, ring=ring, **sc)
         got = flash_decode(q, k_, v_, pos, **kw)
+        ns = flash_decode.last_pieces
         ref = flash_decode_plain(q, k_, v_, pos, **kw)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
         if not err <= 2e-3:
             fail(f"K3 flash_decode ring {ctype}: max|err| {err} > 2e-3")
+        same_bits(f"K3 flash_decode ring {ctype}", got,
+                  lambda: flash_decode(q, k_, v_, pos, **kw))
+        # the wide split: s_hi as the Server passes it at these positions
+        # and one tile a piece, against the call without s_hi
+        s_hi = decode_s_hi(min(int(pos.max()), M_WINDOW))
+        most = decode_max_pieces(M_WINDOW, ring, s_hi)
+        wkw = dict(kw, s_hi=s_hi, pieces=most)
+        wide = flash_decode(q, k_, v_, pos, **wkw)
+        torch.cuda.synchronize()
+        werr = (wide - got).abs().max().item()
+        if not werr <= 2e-3:
+            fail(f"K3 flash_decode ring {ctype} wide split (s_hi={s_hi}, "
+                 f"ns={most}): max|delta| {werr} from ns={ns} > 2e-3")
+        wide_ms = timer(lambda: flash_decode(q, k_, v_, pos, **wkw))
+        print(f"  K3 ring {ctype} wide split: s_hi={s_hi} ns={most} "
+              f"kernel_ms={wide_ms:.5f} max|delta| from ns={ns} "
+              f"{werr:.3e} [<= 2e-3]", flush=True)
         elt = 1 if ctype == "int8" else 2
         nbytes = 2 * b * M_KV * seen * (M_HD * elt + (4 if sc else 0)) \
             + 2 * b * M_KV * M_HD * 2 + 2 * b * M_HEADS * M_HD * 4 + b * 4
@@ -1147,8 +1194,8 @@ def mistral_kernel_rows(dev, timer, record, randn, g):
                                         enable_gqa=True))
         record("flash_decode", f"Mistral ring {ctype} window={M_WINDOW} "
                f"B={b} KV={M_KV} rep={M_REP} hd={M_HD} R={ring} "
-               f"pos={int(pos.min())}..{int(pos.max())}", err,
-               "max|err| <= 2e-3",
+               f"pos={int(pos.min())}..{int(pos.max())} ns={ns}", err,
+               "max|err| <= 2e-3, two calls bit-equal",
                timer(lambda: flash_decode(q, k_, v_, pos, **kw)),
                timer(lambda: flash_decode_plain(q, k_, v_, pos, **kw), reps=5),
                bound(nbytes, ops, "bf16"), lib_ms, main=False)
@@ -1372,7 +1419,8 @@ KERNEL_GROUPS = [("K6 gemm_exact_fused", "gemm_exact_fused_kernel"),
                  ("K2 norm_qkv", "norm_qkv"),
                  ("K3 flash_decode", "flash_decode"),
                  ("K4 gemm_dequant", "gemm_dequant_kernel"),
-                 ("K5 flash_prefill", "flash_prefill")]
+                 ("K5 flash_prefill", "flash_prefill"),
+                 ("K3/K5 split-S merge", "attn_merge_kernel")]
 
 
 def _group(name: str) -> str:
@@ -1425,7 +1473,8 @@ def device_breakdown(label, fn):
           f"idle share {out['idle_share']:.3f}, {len(kern)} device "
           "activities", flush=True)
     for k, v in out["groups"].items():
-        print(f"    {k}: {v['ms']:.3f} ms in {v['n']} launches", flush=True)
+        print(f"    {k}: {v['ms']:.3f} ms in {v['n']} launches "
+              f"({v['ms'] / busy:.1%} of busy)", flush=True)
     return out
 
 
@@ -1433,13 +1482,16 @@ def decode_breakdown(name, qp, cfg, dev, rng):
     """Device breakdown of one 8-slot decode step after a 48-token
     prefill."""
     from quant_gemm_tpu_torch.models import llama
+    from quant_gemm_tpu_torch.ops.attention import decode_s_hi
 
     cache = llama.KVCache.init(cfg, 8, device=dev)
     llama.forward(qp, cfg, torch.as_tensor(
         rng.integers(0, VOCAB, (8, 48)), device=dev), cache)
     nt = torch.as_tensor(rng.integers(0, VOCAB, (8, 1)), device=dev)
+    # with the bound the Server passes at 48 cached tokens (K3 one piece)
     device_breakdown(f"{name} decode step, 8 slots at 49 cached tokens",
-                     lambda: llama.forward(qp, cfg, nt, cache))
+                     lambda: llama.forward(qp, cfg, nt, cache,
+                                           s_hi=decode_s_hi(48)))
 
 
 def breakdowns(name, qp, cfg, dev, rng):

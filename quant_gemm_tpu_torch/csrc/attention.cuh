@@ -1,18 +1,14 @@
 // Shared device code of the attention kernels (flash_decode.cu,
-// flash_prefill.cu): staging one tile of cache rows, bf16 or int8, into
-// shared memory as float32, and the slot ranges a ring cache's window
-// covers.  Plain C interface, no PyTorch headers.
+// flash_prefill.cu): the slot ranges a ring cache's window covers and the
+// split-S merge both kernels launch.  Plain C interface, no PyTorch
+// headers.
 #pragma once
 
 #include <float.h>
 
-#include <type_traits>
-
 #include "common.cuh"
 
 namespace qgt {
-
-constexpr int TS = 32;  // cache rows per tile (one per lane)
 
 // x mod r in [0, r) for r > 0, also for negative x.
 __device__ __forceinline__ int ring_mod(int x, int r) {
@@ -49,48 +45,70 @@ __device__ __forceinline__ SlotRanges ring_ranges(int p, int n, int R) {
   return r;
 }
 
-// Stage cache rows [s0, s0 + cnt) of one head as float32: K into kt with
-// row stride kp, V into vt with row stride HD.  Each thread loads 8
-// elements of a row at a time (16 bytes of bf16, 8 of int8 codes), so
-// both caches spread a tile over as many threads, each storing 8 floats
-// per load.  Int8 codes convert exactly; with Q8 the rows' scales go to
-// kst/vst (one float each), which the caller applies to the scores and to
-// p, as the TPU kernel does, never to the codes.
-template <int HD, bool Q8>
-__device__ __forceinline__ void stage_kv(const void* kbase, const void* vbase,
-                                         const float* kscale,
-                                         const float* vscale, int s0, int cnt,
-                                         float* kt, int kp, float* vt,
-                                         float* kst, float* vst) {
-  using Elem = typename std::conditional<Q8, int8_t, __nv_bfloat16>::type;
-  using Vec = typename std::conditional<Q8, uint2, uint4>::type;
-  constexpr int PER = 8;  // elements per load
-  const Elem* kb = static_cast<const Elem*>(kbase);
-  const Elem* vb = static_cast<const Elem*>(vbase);
-  for (int e = threadIdx.x; e < cnt * (HD / PER); e += blockDim.x) {
-    const int j = e / (HD / PER), c = (e % (HD / PER)) * PER;
-    const size_t off = static_cast<size_t>(s0 + j) * HD + c;
-    const Vec kr = __ldg(reinterpret_cast<const Vec*>(kb + off));
-    const Vec vr = __ldg(reinterpret_cast<const Vec*>(vb + off));
-    const Elem* kh = reinterpret_cast<const Elem*>(&kr);
-    const Elem* vh = reinterpret_cast<const Elem*>(&vr);
+// The split-S merge of K3 and K5: out = the pieces of a row combined in
+// piece order by running max and sum, M = max m_p, L = sum l_p * exp(m_p
+// - M), out = sum o_p * exp(m_p - M) / L (L > 0 guarded), so every call
+// gives the same bits.  Pieces: po f32 [bg, ns, rows, HD] unnormalised
+// outputs and pml f32 [bg, ns, rows, 2] (max, sum), bg = slot * KV + kv
+// head; a piece no row of its tile attends holds max -FLT_MAX and sum 0
+// and weighs nothing.  With kcur (K3's current token, bf16 [bg, HD], and
+// the unscaled query q f32 [bg, rows, HD]) the token is folded in last,
+// as K3's one-piece body folds it.  One warp a row.
+template <int HD>
+__global__ void __launch_bounds__(256) attn_merge_kernel(
+    const float* __restrict__ po, const float* __restrict__ pml,
+    float* __restrict__ out, int nrow_all, int rows, int ns,
+    const float* __restrict__ q, const __nv_bfloat16* __restrict__ kcur,
+    const __nv_bfloat16* __restrict__ vcur, float scale) {
+  const int idx = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (idx >= nrow_all) return;
+  const int bg = idx / rows, row = idx % rows;
+  const size_t first = static_cast<size_t>(bg) * ns * rows + row;
+  float mmax = -FLT_MAX;
+  for (int p = 0; p < ns; ++p)
+    mmax = fmaxf(mmax, pml[(first + static_cast<size_t>(p) * rows) * 2]);
+  float l = 0.0f, acc[HD / 32];
 #pragma unroll
-    for (int t = 0; t < PER; ++t) {
-      if constexpr (Q8) {
-        kt[j * kp + c + t] = static_cast<float>(kh[t]);
-        vt[j * HD + c + t] = static_cast<float>(vh[t]);
-      } else {
-        kt[j * kp + c + t] = __bfloat162float(kh[t]);
-        vt[j * HD + c + t] = __bfloat162float(vh[t]);
-      }
-    }
+  for (int k = 0; k < HD / 32; ++k) acc[k] = 0.0f;
+  for (int p = 0; p < ns; ++p) {
+    const size_t pr = first + static_cast<size_t>(p) * rows;
+    const float w = expf(pml[pr * 2] - mmax);
+    l += pml[pr * 2 + 1] * w;
+#pragma unroll
+    for (int k = 0; k < HD / 32; ++k)
+      acc[k] += po[pr * HD + lane + 32 * k] * w;
   }
-  if constexpr (Q8) {
-    for (int j = threadIdx.x; j < cnt; j += blockDim.x) {
-      kst[j] = kscale[s0 + j];
-      vst[j] = vscale[s0 + j];
-    }
+  if (kcur != nullptr) {
+    const size_t qr = static_cast<size_t>(idx) * HD;
+    const size_t cr = static_cast<size_t>(bg) * HD;
+    float d = 0.0f;
+#pragma unroll
+    for (int k = 0; k < HD / 32; ++k)
+      d = fmaf(q[qr + lane + 32 * k] * scale,
+               __bfloat162float(kcur[cr + lane + 32 * k]), d);
+    const float sc = warp_sum(d);
+    const float m_new = fmaxf(mmax, sc);
+    const float alpha = expf(mmax - m_new);
+    const float pc = expf(sc - m_new);
+    l = l * alpha + pc;
+#pragma unroll
+    for (int k = 0; k < HD / 32; ++k)
+      acc[k] = acc[k] * alpha +
+               pc * __bfloat162float(vcur[cr + lane + 32 * k]);
   }
+  const float ld = l > 0.0f ? l : 1.0f;
+  float* o = out + static_cast<size_t>(idx) * HD;
+#pragma unroll
+  for (int k = 0; k < HD / 32; ++k) o[lane + 32 * k] = acc[k] / ld;
+}
+
+// Launch the merge of ns pieces over nrow_all = B * KV * rows rows.
+template <int HD>
+void attn_merge(const float* po, const float* pml, float* out, int nrow_all,
+                int rows, int ns, const float* q, const __nv_bfloat16* kcur,
+                const __nv_bfloat16* vcur, float scale, cudaStream_t st) {
+  attn_merge_kernel<HD><<<(nrow_all + 7) / 8, 256, 0, st>>>(
+      po, pml, out, nrow_all, rows, ns, q, kcur, vcur, scale);
 }
 
 }  // namespace qgt

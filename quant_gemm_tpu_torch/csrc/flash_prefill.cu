@@ -44,8 +44,9 @@
 // the wrapper's ops/attention.py::prefill_pieces picks the count from
 // host-known sizes).  With one piece the block writes out; otherwise
 // each piece writes its unnormalised sum and (max, sum) for each row, and
-// flash_prefill_merge_kernel combines the pieces in piece order by
-// running max and sum, so every call gives the same bits.  A piece that
+// attention.cuh's attn_merge_kernel (shared with K3) combines the pieces
+// in piece order by running max and sum, so every call gives the same
+// bits.  A piece that
 // no row of its tile attends (the causal bound, pos0 = 0, the window)
 // leaves max -FLT_MAX and sum 0 and weighs nothing.  The ranges' tile
 // order differs from the linear cache's, so the two agree to float32
@@ -342,37 +343,6 @@ __global__ void __launch_bounds__(WARPS * 32) flash_prefill_kernel(
   }
 }
 
-// out = the pieces combined in piece order: M = max m_p, L = sum l_p *
-// exp(m_p - M), out = sum o_p * exp(m_p - M) / L (L > 0 guarded); one
-// warp a row
-template <int HD>
-__global__ void __launch_bounds__(256) flash_prefill_merge_kernel(
-    const float* __restrict__ po, const float* __restrict__ pml,
-    float* __restrict__ out, int nrow_all, int rows, int ns) {
-  const int idx = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (idx >= nrow_all) return;
-  const int bg = idx / rows, row = idx % rows;
-  const size_t first = static_cast<size_t>(bg) * ns * rows + row;
-  float mmax = -FLT_MAX;
-  for (int p = 0; p < ns; ++p)
-    mmax = fmaxf(mmax, pml[(first + static_cast<size_t>(p) * rows) * 2]);
-  float l = 0.0f, acc[HD / 32];
-#pragma unroll
-  for (int k = 0; k < HD / 32; ++k) acc[k] = 0.0f;
-  for (int p = 0; p < ns; ++p) {
-    const size_t pr = first + static_cast<size_t>(p) * rows;
-    const float w = expf(pml[pr * 2] - mmax);
-    l += pml[pr * 2 + 1] * w;
-#pragma unroll
-    for (int k = 0; k < HD / 32; ++k)
-      acc[k] += po[pr * HD + lane + 32 * k] * w;
-  }
-  const float ld = l > 0.0f ? l : 1.0f;
-  float* o = out + static_cast<size_t>(idx) * HD;
-#pragma unroll
-  for (int k = 0; k < HD / 32; ++k) o[lane + 32 * k] = acc[k] / ld;
-}
-
 template <int HD, bool Q8>
 int launch(const void* q, const void* kc, const void* vc, const void* ksc,
            const void* vsc, const void* pos0, void* out, void* po, void* pml,
@@ -391,12 +361,11 @@ int launch(const void* q, const void* kc, const void* vc, const void* ksc,
       static_cast<float*>(out), static_cast<float*>(po),
       static_cast<float*>(pml), KV, rows, rep, S, kv_bstride, sc_bstride,
       window, ring, scale);
-  if (ns > 1) {
-    const int n = B * KV * rows;
-    flash_prefill_merge_kernel<HD><<<(n + 7) / 8, 256, 0, stream>>>(
-        static_cast<const float*>(po), static_cast<const float*>(pml),
-        static_cast<float*>(out), n, rows, ns);
-  }
+  if (ns > 1)
+    qgt::attn_merge<HD>(static_cast<const float*>(po),
+                        static_cast<const float*>(pml),
+                        static_cast<float*>(out), B * KV * rows, rows, ns,
+                        nullptr, nullptr, nullptr, 0.0f, stream);
   return static_cast<int>(cudaGetLastError());
 }
 

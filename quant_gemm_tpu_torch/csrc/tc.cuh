@@ -1,8 +1,17 @@
-// Tensor-core building blocks of the prefill kernels (gemm_dequant.cu,
-// flash_prefill.cu): the warp-level bf16 MMA m16n8k16 with float32
-// accumulation, ldmatrix, cp.async with zero fill, and the exact bf16
-// split of a float32.  sm_80 and later (built for sm_90a).  Plain C
-// interface, no PyTorch headers.
+// Tensor-core building blocks of the kernels on the tensor cores
+// (gemm_dequant.cu, flash_prefill.cu, flash_decode.cu, gemm_exact.cu):
+// the warp-level bf16 MMA m16n8k16 with float32 accumulation, the int8
+// MMA m16n8k32 with int32 accumulation, ldmatrix, cp.async with zero
+// fill, and the exact bf16 split of a float32.  sm_80 and later (built
+// for sm_90a).  Plain C interface, no PyTorch headers.
+//
+// Fragment layout of mma.sync.aligned.m16n8k32 with 8-bit operands, for
+// lane l, g = l / 4 and t = l % 4 (each register holds four bytes, the
+// lowest k in the low byte):
+//   A (16 x 32): a0 = (row g, k 4t..4t+3), a1 = (row g+8, k 4t..4t+3),
+//                a2 = (row g, k 16+4t..), a3 = (row g+8, k 16+4t..);
+//   B (32 x 8):  b0 = (k 4t..4t+3, col g), b1 = (k 16+4t.., col g);
+//   C (16 x 8):  c0, c1 = (row g, col 2t, 2t+1), c2, c3 = (row g+8, ...).
 //
 // Fragment layout of mma.sync.aligned.m16n8k16.row.col (PTX ISA), for
 // lane l, g = l / 4 and t = l % 4:
@@ -40,6 +49,31 @@ __device__ __forceinline__ void mma_bf16_zero(float (&c)[4],
       : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
         "f"(0.0f));
+}
+
+// c = a * b with 8-bit operands (A unsigned, or signed with S8), int32
+// accumulators starting at zero: exact
+template <bool S8>
+__device__ __forceinline__ void mma_s32_zero(int (&c)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  if constexpr (S8) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%10, %10, %10, %10};\n"
+        : "=r"(c[0]), "=r"(c[1]), "=r"(c[2]), "=r"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+          "r"(0));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%10, %10, %10, %10};\n"
+        : "=r"(c[0]), "=r"(c[1]), "=r"(c[2]), "=r"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+          "r"(0));
+  }
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

@@ -14,14 +14,18 @@ form) ``d_w * d_a * sumi + m_w * s_a`` with ``s_a`` the stored f16 ``s =
 d_a * sum(q)`` of
 Q8_1, not the float sum of the activations; q8_0 ``d_w * d_a * sumi``.
 The block terms are summed in float32 as the TPU kernel sums them.
-Kernel and plain version sum in different orders, so they agree to
-float32 rounding, not bit for bit.
+The plain version sums in another order, so the two agree to float32
+rounding; :func:`k1_order` sums the same terms in the kernel's order.
 
 Bound on an H100: bytes — the weight stream (per 32 weights: 18 bytes for
 q4_0, 20 q4_1, 22 q5_0, 24 q5_1, 34 q8_0, 24 for q4_k with its f32 d' and
-m' planes, 28 for q5_k) at 3.35 TB/s; the design (``csrc/gemm_exact.cu``) streams whole
-blocks with 16-byte loads (two for q8_0, and q5's 4-byte qh word), eight
-``__dp4a`` each, over a grid of ``N/4`` blocks.
+m' planes, 28 for q5_k) at 3.35 TB/s.  The design (``csrc/gemm_exact.cu``)
+computes each 32-block's sumi with one int8 ``mma.sync`` m16n8k32 over
+16 weight rows x 8 activation rows, from chunks of 32 blocks staged with
+16-byte ``cp.async``, and keeps the old kernel's summation order bit for
+bit (:func:`k1_order`), which K6 and K8 share (``common.cuh::k1_rows``):
+the kernel's output equals ``k1_order`` of the plain version's per-block
+terms exactly.
 
 :func:`gemm_exact` launches the CUDA kernel for CUDA tensors and runs
 :func:`gemm_exact_plain` for CPU tensors; ``gemm_exact.launches`` counts
@@ -72,14 +76,39 @@ def _check(w: PreparedWeight, a: Q8_1Tensor, mmax: int = MMAX) -> None:
         raise TypeError("Q8_1 activation must be int8 codes with f16 d/s")
 
 
-def gemm_exact_plain(w: PreparedWeight, a: Q8_1Tensor) -> torch.Tensor:
-    """Plain PyTorch version: the same float32 per-block terms, summed in
-    float32.
+def k1_warps(nb: int) -> int:
+    """Warps of K1's summation order for ``nb`` K blocks
+    (``common.cuh::k1_warps``)."""
+    return 4 if nb >= 128 else (2 if nb >= 64 else 1)
 
-    ``sumi`` is computed as a float64 product of the integer codes, which
-    is exact (every partial sum is an integer below 2^53) on any device and
-    whatever the matmul precision settings."""
-    _check(w, a, mmax=1 << 30)
+
+def k1_order(terms: torch.Tensor) -> torch.Tensor:
+    """K1's float32 sum of per-block terms ``[M, N, nb]`` (K6 and K8 keep
+    it): with ``nt = 32 * k1_warps(nb)`` virtual threads, thread t adds
+    the terms of blocks t, t + nt, ... in turn from 0; each group of 32
+    threads reduces with ``warp_sum``'s xor butterfly (lane 0's value);
+    the groups are added in order from 0.  Every add is one rounded
+    float32 add, so this equals the kernel bit for bit."""
+    nb = terms.shape[-1]
+    nt = 32 * k1_warps(nb)
+    t = torch.nn.functional.pad(terms.to(torch.float32), (0, -nb % nt))
+    t = t.reshape(*terms.shape[:-1], -1, nt)
+    acc = torch.zeros_like(t[..., 0, :])
+    for i in range(t.shape[-2]):
+        acc = acc + t[..., i, :]
+    acc = acc.reshape(*terms.shape[:-1], nt // 32, 32)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc[..., :o] + acc[..., o:2 * o]
+    s = torch.zeros_like(acc[..., 0, 0])
+    for g in range(nt // 32):
+        s = s + acc[..., g, 0]
+    return s
+
+
+def block_terms(w: PreparedWeight, a: Q8_1Tensor) -> torch.Tensor:
+    """The per-block float32 terms ``[M, N, nb]`` of :func:`gemm_exact`
+    (the golden's epilogue on the exact ``sumi``), each step rounded on
+    its own."""
     m, k = a.qs.shape
     nb = k // QK
     qw = layout.codes(w).to(torch.float64).reshape(w.n, nb, QK)
@@ -89,12 +118,26 @@ def gemm_exact_plain(w: PreparedWeight, a: Q8_1Tensor) -> torch.Tensor:
     da = a.d.to(torch.float32)[:, None]
     sa = a.s.to(torch.float32)[:, None]
     if w.qtype in OFFSET:
-        terms = dw * (da * sumi - float(OFFSET[w.qtype]) * sa)
-    elif w.m is not None:
-        terms = dw * da * sumi + w.m.to(torch.float32)[None] * sa
-    else:
-        terms = dw * da * sumi
-    return terms.sum(dim=-1)
+        return dw * (da * sumi - float(OFFSET[w.qtype]) * sa)
+    if w.m is not None:
+        return dw * da * sumi + w.m.to(torch.float32)[None] * sa
+    return dw * da * sumi
+
+
+def gemm_exact_plain(w: PreparedWeight, a: Q8_1Tensor) -> torch.Tensor:
+    """Plain PyTorch version: the same float32 per-block terms, summed in
+    float32.
+
+    ``sumi`` is computed as a float64 product of the integer codes, which
+    is exact (every partial sum is an integer below 2^53) on any device and
+    whatever the matmul precision settings."""
+    _check(w, a, mmax=1 << 30)
+    return block_terms(w, a).sum(dim=-1)
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when its data does not start on 16 bytes."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def gemm_exact(w: PreparedWeight, a: Q8_1Tensor) -> torch.Tensor:
@@ -111,6 +154,8 @@ def gemm_exact(w: PreparedWeight, a: Q8_1Tensor) -> torch.Tensor:
     m, k = a.qs.shape
     qa, da, sa = (t.contiguous() for t in a)
     _build.check_aligned("gemm_exact", w.qs, qa)
+    # the kernel copies the scale and qh planes from 16-byte boundaries
+    wp, da, sa = tuple(map(_aligned16, wp)), _aligned16(da), _aligned16(sa)
     out = torch.empty(m, w.n, dtype=torch.float32, device=dev)
     symbol = f"qgt_gemm_exact_{w.qtype}"
     fn = _build.function("gemm_exact", symbol,
@@ -174,5 +219,6 @@ def gemm_exact_fused(w: PreparedWeight, x: torch.Tensor) -> torch.Tensor:
 
 gemm_exact_fused.launches = 0
 
-__all__ = ["gemm_exact", "gemm_exact_plain", "gemm_exact_fused",
+__all__ = ["gemm_exact", "gemm_exact_plain", "k1_order", "k1_warps",
+           "block_terms", "gemm_exact_fused",
            "gemm_exact_fused_plain", "MMAX", "FUSED_QTYPES"]

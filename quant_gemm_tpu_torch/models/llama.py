@@ -448,7 +448,9 @@ class Step(NamedTuple):
     """What every layer of one forward call shares: each slot's token
     positions [B, T], the cache rows its tokens are written to [B, T], the
     rope tables, whether decode takes K2 (``norm_qkv``) and K8
-    (``attn_tail``), and the ring's slot count R (0: a linear cache)."""
+    (``attn_tail``), the ring's slot count R (0: a linear cache), and the
+    caller's static bound ``s_hi`` on every active slot's position (None:
+    no bound; it only shapes K3's grid, ``attention.decode_s_hi``)."""
 
     positions: torch.Tensor
     widx: torch.Tensor
@@ -456,10 +458,12 @@ class Step(NamedTuple):
     use_mega: bool
     use_mega_tail: bool
     ring: int
+    s_hi: Optional[int] = None
 
 
 def begin(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor,
-          cache: KVCache, *, act_mode: str = "q8_1", rope_cache=None):
+          cache: KVCache, *, act_mode: str = "q8_1", rope_cache=None,
+          s_hi: Optional[int] = None):
     """Check a call of T tokens per slot and embed them: returns the
     float32 hidden state [B, T, D] and the call's :class:`Step`."""
     check_config(cfg)
@@ -493,7 +497,7 @@ def begin(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor,
         gemm_megalayer.tail_supported(ly, cfg, b) for ly in qparams["layers"])
     x = qparams["embed"][tokens.to(dev)].to(torch.float32)
     return x, Step(positions, widx, rope_cache, use_mega, use_mega_tail,
-                   ring)
+                   ring, s_hi)
 
 
 def layer(lyr: dict, li: int, cfg: LlamaConfig, x: torch.Tensor,
@@ -534,7 +538,7 @@ def layer(lyr: dict, li: int, cfg: LlamaConfig, x: torch.Tensor,
         attn = ops.flash_decode(
             q.reshape(b, kv_heads, rep, hd), cache.k, cache.v, cache.pos,
             k_current=k_t, v_current=v_t, layer=li, window=cfg.window,
-            ring=step.ring, **scales).reshape(b, t, nq)
+            ring=step.ring, s_hi=step.s_hi, **scales).reshape(b, t, nq)
     else:
         bidx = torch.arange(b, device=x.device)[:, None]
         idx = step.widx
@@ -601,15 +605,17 @@ def head(qparams: dict, cfg: LlamaConfig, x: torch.Tensor,
 
 def forward(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor,
             cache: KVCache, *, act_mode: str = "q8_1", rope_cache=None,
-            ops: registry.Ops = registry.KERNELS):
+            ops: registry.Ops = registry.KERNELS,
+            s_hi: Optional[int] = None):
     """Run T tokens per slot (prefill when T > 1, decode when T = 1).
 
     Slots advance independently by their own ``cache.pos``.  Returns
     (logits [B, T, vocab] float32, cache), the cache updated in place.
     ``ops`` selects the kernels (default) or, on purpose, their plain
-    versions (``registry.PLAIN``)."""
+    versions (``registry.PLAIN``).  ``s_hi``: every active slot's
+    position is below it (JAX's ``attn_s_hi``; decode only)."""
     x, step = begin(qparams, cfg, tokens, cache, act_mode=act_mode,
-                    rope_cache=rope_cache)
+                    rope_cache=rope_cache, s_hi=s_hi)
     current = []
     for li, lyr in enumerate(qparams["layers"]):
         x, kv = layer(lyr, li, cfg, x, cache, step, ops)

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..utils import resolve_device, round_up
+from ..ops import attention
 from . import llama, sampling
 
 PENALTY_WINDOW = 64  # recent tokens a slot's repeat penalty sees
@@ -290,9 +291,15 @@ class Server:
         t0 = time.perf_counter()
         tokens = torch.as_tensor(self._pending_tok[:, None],
                                  device=self.device)
+        # K3's static bound from the batch's longest slot, capped by the
+        # window, as the JAX Server picks its attn_s_hi
+        max_ctx = int(max(self._hpos[s] for s in active))
+        if self.cfg.window:
+            max_ctx = min(max_ctx, self.cfg.window)
         logits, self.cache = llama.forward(
             self.qparams, self.cfg, tokens, self.cache,
-            act_mode=self.act_mode, rope_cache=self._rope)
+            act_mode=self.act_mode, rope_cache=self._rope,
+            s_hi=attention.decode_s_hi(max_ctx))
         nxt = sampling.sample(
             logits[:, -1], self._gens, self._temps, self._topk, self._topp,
             self._minp, self._recent, self._rpen, self._bias_ids,

@@ -38,8 +38,17 @@ the mask, the softmax sum takes p unscaled and the p.V sum ``p * v_scale``
 (``attention.py:109-138, 416-445``).
 
 K3's bound on an H100: bytes (the valid K and V rows, with int8 their
-scales, read once; q and the output); ``csrc/flash_decode.cu`` computes
-in float32 on the CUDA cores as the TPU kernel does.
+scales, read once; q and the output).  ``csrc/flash_decode.cu`` stages
+raw K/V tiles (bf16, or the int8 codes and their scales) with
+``cp.async`` in a three-stage ring and runs QK^T and PV on the tensor
+cores as K5 does (hi + lo bf16 q and p; int8 codes turned to bf16
+exactly in registers), the online softmax in float32.  Each slot's
+interval is cut into pieces along its logical order
+(:func:`decode_pieces` picks their number from host-known sizes and the
+caller's bound ``s_hi``, :func:`decode_piece_bounds` mirrors the
+kernel's cut); with one piece the kernel writes the output in one
+launch, with more the merge kernel K5 uses combines them in piece order
+and folds the current token last.  No position is read on the host.
 
 K5 (``csrc/flash_prefill.cu``): QK^T and PV on the tensor cores
 (``mma.sync`` bf16, float32 accumulation), the online softmax in float32.
@@ -52,8 +61,9 @@ the grid fills the card, the slot interval each (slot, kv head, 64-row
 tile) walks is cut into pieces (:func:`prefill_pieces` picks their
 number from host-known sizes, :func:`prefill_piece_bounds` mirrors the
 kernel's cut); each piece writes its (max, sum, unnormalised output)
-and a merge kernel combines them in piece order, so every call gives
-the same bits.
+and the merge kernel (``csrc/attention.cuh::attn_merge_kernel``, shared
+with K3) combines them in piece order, so every call gives the same
+bits.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version (``*_plain``, dense masked softmax in float32, the query scaled
@@ -75,6 +85,67 @@ NEG_INF = float(torch.finfo(torch.float32).min)
 #: K5's query rows per block and cache rows per tile (``ROWS``, ``KT`` of
 #: ``csrc/flash_prefill.cu``), and the H100's SMs
 PREFILL_ROWS, PREFILL_TILE, SMS = 64, 64, 132
+#: K3's query rows per block and cache rows per tile (``QR``, ``KT`` of
+#: ``csrc/flash_decode.cu``), its blocks resident on one SM (registers
+#: hold it to two), and the fewest slots worth a piece of their own: below
+#: about 512 a piece's bytes take less time than the merge's second launch
+DECODE_ROWS, DECODE_TILE, DECODE_PER_SM, DECODE_MIN_PIECE = 16, 64, 2, 512
+
+
+def decode_span(window: int, slots: int, s_hi=None) -> int:
+    """The longest interval a decode query can walk: the cache's (or the
+    ring's) ``slots``, at most ``window`` under a window, and below
+    ``s_hi`` when the caller promises every position is below it."""
+    span = min(slots, window) if window else slots
+    return span if s_hi is None else max(1, min(span, int(s_hi)))
+
+
+def decode_pieces(b: int, kv: int, rep: int, window: int, slots: int,
+                  s_hi=None) -> int:
+    """How many pieces K3 cuts each (slot, kv head)'s interval into, from
+    host-known sizes only (never ``pos``): at least two blocks per SM,
+    then as many as still fill the last wave of ``DECODE_PER_SM`` blocks
+    per SM (a part-filled second wave costs nearly a whole one), at most
+    one per ``DECODE_MIN_PIECE`` slots of the longest interval
+    (:func:`decode_span`), so a short context stays one launch, and no
+    piece empty there."""
+    blocks = b * kv * -(-rep // DECODE_ROWS)
+    span = decode_span(window, slots, s_hi)
+    tiles = -(-span // DECODE_TILE)
+    ns = -(-2 * SMS // blocks)
+    wave = DECODE_PER_SM * SMS
+    ns = max(ns, -(-blocks * ns // wave) * wave // blocks)
+    ns = max(1, min(ns, span // DECODE_MIN_PIECE))
+    return -(-tiles // -(-tiles // ns))  # none empty at `span`
+
+
+def decode_max_pieces(window: int, slots: int, s_hi=None) -> int:
+    """The widest cut K3 takes: one tile a piece at the longest
+    interval."""
+    return -(-decode_span(window, slots, s_hi) // DECODE_TILE)
+
+
+def decode_piece_bounds(length: int, ns: int) -> list:
+    """The kernel's cut of an interval of ``length`` cache slots (oldest
+    first) into ``ns`` pieces: ``[u0, u1)`` each, whole tiles of
+    ``DECODE_TILE`` slots, ``ceil(tiles / ns)`` tiles a piece; pieces past
+    the interval are empty."""
+    tiles = -(-length // DECODE_TILE)
+    per = -(-tiles // ns)
+    return [(min(length, p * per * DECODE_TILE),
+             min(length, (p + 1) * per * DECODE_TILE)) for p in range(ns)]
+
+
+def decode_s_hi(max_ctx: int):
+    """The static bound the Server passes with a decode step whose
+    longest slot is at ``max_ctx`` cached tokens (capped by the window):
+    the ``s_hi`` half of the JAX ``decode_ts_bucket``, 256 below 256, 512
+    below 512, else None.  (Its ``ts`` half is the TPU's tile size.)"""
+    if max_ctx < 256:
+        return 256
+    if max_ctx < 512:
+        return 512
+    return None
 
 
 def prefill_pieces(b: int, kv: int, rows: int, rep: int, window: int,
@@ -217,9 +288,10 @@ def _check_decode(q, k, v, pos, k_current, v_current, k_scale, v_scale,
 
 def flash_decode_plain(q, k, v, pos, *, k_current=None, v_current=None,
                        k_scale=None, v_scale=None, layer=None, window=0,
-                       ring=0) -> torch.Tensor:
+                       ring=0, s_hi=None, pieces=None) -> torch.Tensor:
     """Plain PyTorch version: dense masked softmax in float32 over the
-    valid cache slots plus the current token."""
+    valid cache slots plus the current token (``s_hi`` and ``pieces``
+    only shape the kernel's grid)."""
     _check_decode(q, k, v, pos, k_current, v_current, k_scale, v_scale,
                   layer, window, ring)
     f32 = torch.float32
@@ -262,15 +334,24 @@ def flash_decode_plain(q, k, v, pos, *, k_current=None, v_current=None,
 
 def flash_decode(q, k, v, pos, *, k_current=None, v_current=None,
                  k_scale=None, v_scale=None, layer=None, window=0,
-                 ring=0) -> torch.Tensor:
+                 ring=0, s_hi=None, pieces=None) -> torch.Tensor:
     """Causal decode attention; ``q`` [B, KV, rep, hd] float32, the cache
     ``[L, B, KV, S, hd]`` with ``layer=`` (or ``[B, KV, S, hd]``), bf16 or
     int8 with ``k_scale``/``v_scale``; ``pos`` int [B]; returns float32
-    [B, KV, rep, hd]."""
+    [B, KV, rep, hd].
+
+    ``s_hi``: the JAX argument's promise that every active slot's
+    ``pos`` is below it (:func:`decode_s_hi`); it only narrows the piece
+    count, and an inactive slot past it is still walked whole.
+    ``pieces`` forces the piece count (1 .. :func:`decode_max_pieces`;
+    tests).  ``flash_decode.last_pieces`` is the count of the last
+    launch."""
     _check_decode(q, k, v, pos, k_current, v_current, k_scale, v_scale,
                   layer, window, ring)
     kw = dict(k_current=k_current, v_current=v_current, k_scale=k_scale,
               v_scale=v_scale, layer=layer, window=window, ring=ring)
+    if s_hi is not None and s_hi < 1:
+        raise ValueError(f"flash_decode: s_hi must be >= 1, got {s_hi}")
     if _on_cpu("flash_decode", [q, k, v, pos, k_current, v_current,
                                 k_scale, v_scale]):
         return flash_decode_plain(q, k, v, pos, **kw)
@@ -286,23 +367,39 @@ def flash_decode(q, k, v, pos, *, k_current=None, v_current=None,
     kcur = k_current.to(torch.bfloat16).contiguous() if has_cur else None
     vcur = v_current.to(torch.bfloat16).contiguous() if has_cur else None
     out = torch.empty(b, kv, rep, hd, dtype=torch.float32, device=dev)
+    slots = ring or s
+    ns = decode_pieces(b, kv, rep, window, slots, s_hi)
+    if pieces is not None:
+        most = decode_max_pieces(window, slots, s_hi)
+        if not 1 <= pieces <= most:
+            raise ValueError(f"flash_decode: pieces must be in 1..{most}, "
+                             f"got {pieces}")
+        ns = int(pieces)
+    po = pml = null
+    if ns > 1:
+        # [B, KV, ns, rep, hd] unnormalised outputs, then (max, sum)
+        n = b * kv * ns * rep
+        part = torch.empty(n * (hd + 2), dtype=torch.float32, device=dev)
+        po, pml = _build.ptr(part), _build.ptr(part[n * hd:])
     P, I, L = _build.P, _build.I, _build.L
     fn = _build.function(
         "flash_decode", "qgt_flash_decode",
-        [P] * 9 + [I] * 5 + [L, L] + [I] * 4 + [_build.F, P])
+        [P] * 11 + [I] * 6 + [L, L] + [I] * 4 + [_build.F, P])
     with torch.cuda.device(dev):
         rc = fn(_build.ptr(qf), kp, vp, ksp, vsp, _build.ptr(pos32),
                 _build.ptr(kcur) if has_cur else null,
                 _build.ptr(vcur) if has_cur else null, _build.ptr(out),
-                b, kv, rep, hd, s, kstride, sstride, int(has_cur),
-                int(k_scale is not None), int(window), int(ring),
-                1.0 / math.sqrt(hd), _build.stream(dev))
+                po, pml, ns, b, kv, rep, hd, s, kstride, sstride,
+                int(has_cur), int(k_scale is not None), int(window),
+                int(ring), 1.0 / math.sqrt(hd), _build.stream(dev))
     _build.check("flash_decode", "qgt_flash_decode", rc)
     flash_decode.launches += 1
+    flash_decode.last_pieces = ns
     return out
 
 
 flash_decode.launches = 0
+flash_decode.last_pieces = 0
 
 
 def _check_prefill(q, k, v, pos0, rep, k_scale, v_scale, layer, window,
@@ -412,4 +509,5 @@ def flash_decode_ref(q, k, v, pos) -> torch.Tensor:
 
 __all__ = ["flash_decode", "flash_decode_plain", "flash_prefill",
            "flash_prefill_plain", "flash_decode_ref", "prefill_pieces",
-           "prefill_piece_bounds", "NEG_INF"]
+           "prefill_piece_bounds", "decode_pieces", "decode_piece_bounds",
+           "decode_max_pieces", "decode_span", "decode_s_hi", "NEG_INF"]

@@ -33,7 +33,11 @@ prefill kernels (K4's bf16 operand forms, K5): K4 at ragged M and an N no
 tile divides, bf16 and ``fused_quant`` bf16, NMSE <= ``FQ_NMSE`` (every
 product is exact, so only the float32 summation order differs); K5
 split over the slots at full Mistral-7B ring width ``atol=2e-3``; both
-kernels give the same bits on two calls.
+kernels give the same bits on two calls.  Decode on the tensor cores: K3
+at every linear and ring parametrisation with its piece count as chosen,
+forced to 1 and to its maximum, ``atol=2e-3`` and two calls bit-equal;
+K1 in all seven forms equal bit for bit to ``k1_order`` of the plain
+version's per-block terms (its summation order replayed).
 """
 
 from pathlib import Path
@@ -44,15 +48,18 @@ import torch
 
 from quant_gemm_tpu_torch.formats import kquants
 from quant_gemm_tpu_torch.formats import quant as tq
+from quant_gemm_tpu_torch.formats.blocks import Q8_1Tensor
 from quant_gemm_tpu_torch.kernels import layout, registry
 from quant_gemm_tpu_torch.kernels.gemm_dequant import (fake_quant_q8,
                                                        gemm_dequant,
                                                        gemm_dequant_plain)
 from quant_gemm_tpu_torch.kernels import gemm_megalayer
-from quant_gemm_tpu_torch.kernels.gemm_exact import (gemm_exact,
+from quant_gemm_tpu_torch.kernels.gemm_exact import (block_terms,
+                                                     gemm_exact,
                                                      gemm_exact_fused,
                                                      gemm_exact_fused_plain,
-                                                     gemm_exact_plain)
+                                                     gemm_exact_plain,
+                                                     k1_order)
 from quant_gemm_tpu_torch.kernels.gemm_exact_k16 import (
     gemm_exact_k16, gemm_exact_k16_plain)
 from quant_gemm_tpu_torch.kernels.gemm_megalayer import (attn_tail,
@@ -61,7 +68,8 @@ from quant_gemm_tpu_torch.kernels.gemm_megalayer import (attn_tail,
                                                          norm_qkv_plain)
 from quant_gemm_tpu_torch.models import gguf_loader, llama, serve
 from quant_gemm_tpu_torch.ops.activations import silu_mul
-from quant_gemm_tpu_torch.ops.attention import (flash_decode,
+from quant_gemm_tpu_torch.ops.attention import (decode_max_pieces,
+                                                flash_decode,
                                                 flash_decode_plain,
                                                 flash_prefill,
                                                 flash_prefill_plain)
@@ -436,6 +444,60 @@ def test_flash_decode_ring(dev, hd, rep, quant, current):
     assert flash_decode.launches == before + 1
     assert torch.isfinite(got).all()
     assert (got - ref).abs().max() <= 2e-3
+
+
+def _decode_case(dev, hd, rep, quant, window, ring, current, seed):
+    """The inputs of test_flash_decode (ring = 0) or
+    test_flash_decode_ring, as (q, k, v, pos, kwargs, slots)."""
+    rng = np.random.default_rng(seed)
+    b, kv, layers = (7, 2, 2) if ring else (5, 2, 3)
+    s = ring + 32 if ring else 300
+
+    def f(*shape):
+        return _t(rng.standard_normal(shape).astype(np.float32), dev)
+
+    q = f(b, kv, rep, hd)
+    shape = (layers, b, kv, s, hd)
+    if quant:
+        (kc, vc), kw = _int8_cache(rng, shape, dev)
+    else:
+        kc, vc, kw = f(*shape).to(torch.bfloat16), \
+            f(*shape).to(torch.bfloat16), {}
+    if current:
+        kw.update(k_current=f(b, kv, 1, hd).to(torch.bfloat16),
+                  v_current=f(b, kv, 1, hd).to(torch.bfloat16))
+    kw.update(layer=1, window=window, ring=ring)
+    pos = [0, 5, 199, 255, 256, 300, 1000] if ring else \
+        [0, 31, 33, s - 1, 10_000]
+    pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+    return q, kc, vc, pos, kw, ring or s
+
+
+@pytest.mark.parametrize("pieces", ["chosen", "one", "most"])
+@pytest.mark.parametrize("quant, window, ring, current",
+                         [(False, 0, 0, True), (True, 0, 0, True),
+                          (False, 40, 0, True), (True, 40, 0, True),
+                          (False, 200, 256, True), (True, 200, 256, True),
+                          (False, 200, 256, False), (True, 200, 256, False)])
+@pytest.mark.parametrize("hd, rep", [(64, 8), (128, 4)])
+def test_flash_decode_split(dev, hd, rep, quant, window, ring, current,
+                            pieces):
+    """K3 split over the walk: the linear and ring parametrisations above
+    with the piece count the wrapper picks, forced to 1 and to its most
+    (one tile a piece); within 2e-3 of plain, two calls bit-equal."""
+    q, kc, vc, pos, kw, slots = _decode_case(dev, hd, rep, quant, window,
+                                             ring, current, 25)
+    ns = {"chosen": None, "one": 1,
+          "most": decode_max_pieces(window, slots)}[pieces]
+    before = flash_decode.launches
+    got = flash_decode(q, kc, vc, pos, pieces=ns, **kw)
+    assert flash_decode.launches == before + 1
+    if ns is not None:
+        assert flash_decode.last_pieces == ns
+    ref = flash_decode_plain(q, kc, vc, pos, **kw)
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 2e-3
+    assert torch.equal(got, flash_decode(q, kc, vc, pos, pieces=ns, **kw))
 
 
 @pytest.mark.parametrize("quant", [False, True])
@@ -919,3 +981,33 @@ def test_flash_prefill_split_s_mistral_ring(dev, p0, quant):
     assert torch.isfinite(got).all()
     assert (got - ref).abs().max() <= 2e-3
     assert torch.equal(got, flash_prefill(q, kc, vc, pos0, **kw))
+
+
+# --- slice 9: K1 on the int8 tensor cores keeps its summation order ---
+
+ALL_FORMS = ["q4_0", "q4_1", "q5_0", "q5_1", "q8_0", "q4_k", "q5_k"]
+
+
+@pytest.mark.parametrize("k", [1056, 2048, 5632, 14336])
+@pytest.mark.parametrize("m", [1, 8, 12])
+@pytest.mark.parametrize("qtype", ALL_FORMS)
+def test_gemm_exact_k1_order_bit_exact(dev, qtype, m, k):
+    """K1's output equals k1_order of the plain version's per-block
+    terms, bit for bit: the old kernel's order, which K6 and K8 keep.
+    q4_k and q5_k as the effective forms of q4_1's and q5_1's blocks (a
+    K-quant tensor itself needs K % 256); N = 774 leaves a ragged row
+    tile."""
+    base = {"q4_k": "q4_1", "q5_k": "q5_1"}.get(qtype, qtype)
+    wf = np.random.default_rng(k + m).normal(0, 0.05, (774, k))
+    w = layout.prepare(tq.QUANTIZE[base](_t(wf.astype(np.float32), dev)))
+    if base != qtype:
+        w = w._replace(qtype=qtype, d=w.d.float(), m=w.m.float())
+    x = np.random.default_rng(m).standard_normal((m, k)).astype(np.float32)
+    a = tq.quantize_q8_1(_t(x, dev))
+    before = gemm_exact.launches
+    got = gemm_exact(w, a)
+    assert gemm_exact.launches == before + 1
+    cpu = layout.PreparedWeight(*(t.cpu() if isinstance(t, torch.Tensor)
+                                  else t for t in w))
+    want = k1_order(block_terms(cpu, Q8_1Tensor(*(t.cpu() for t in a))))
+    assert torch.equal(got.cpu(), want)

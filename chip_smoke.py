@@ -22,8 +22,10 @@ Run from the repository root on a machine with one NVIDIA H100:
    flushed before every timed launch) beside its bound (K-quant weights
    at their GGUF block bytes, the bound over the port's larger layout
    beside it) and, where one PyTorch call computes the same function,
-   that call's time (K6 and K8 also beside the unfused kernel chain they
-   replace);
+   that call's time (K2, K6 and K8 also beside the unfused kernel chain
+   they replace, K6 also beside K1 alone on the same codes; every K2 row
+   also equal bit for bit to quantize_q8_1 + K1 on rows whose RMSNorm is
+   exact);
 3. main path: the q4_0 W4A8 continuous-batching ``Server(qp, cfg,
    n_slots=8)`` at its defaults (prefill chunk 128, prompt caching) at
    TinyLlama-1.1B width (22 layers, random weights from a seed, quantized
@@ -123,7 +125,7 @@ piece count ``ns``; the Mistral ring rows run once more with the
 Server's ``s_hi`` at those positions and one tile a piece, within 2e-3
 of the first call); every K1 row (all seven forms) must equal
 ``gemm_exact.k1_order`` of the plain version's per-block terms bit
-for bit (the summation order K6 and K8 share); K4 also runs at M = 100
+for bit (the summation order K2, K6 and K8 share); K4 also runs at M = 100
 and 300 at Mistral's ``wgu`` (ragged rows, more than one row tile).  The
 profiler windows print each kernel group's share of the busy time.
 
@@ -323,6 +325,23 @@ def k1_bits(label, w, a, got) -> None:
              "version's terms (the summation order moved)")
 
 
+def k2_bits(label, w, dev) -> None:
+    """K2 runs K1's body and order: where its RMSNorm is exact (rows of
+    +-1, eps 0, so h = x * w) it equals quantize_q8_1 + K1 bit for bit."""
+    from quant_gemm_tpu_torch.formats.quant import quantize_q8_1
+    from quant_gemm_tpu_torch.kernels.gemm_exact import gemm_exact
+    from quant_gemm_tpu_torch.kernels.gemm_megalayer import norm_qkv
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.where(torch.rand(8, w.k, generator=g, device=dev) < 0.5,
+                    -1.0, 1.0)
+    nw = 1.0 + 0.3 * torch.randn(w.k, generator=g, device=dev)
+    if not torch.equal(norm_qkv(w, x, nw, 0.0),
+                       gemm_exact(w, quantize_q8_1(x * nw))):
+        fail(f"K2 norm_qkv {label}: differs from quantize_q8_1 + K1 on rows "
+             "whose RMSNorm is exact")
+
+
 def nmse(got, ref) -> float:
     got, ref = got.double(), ref.double()
     return ((got - ref).pow(2).sum() / ref.pow(2).sum()).item()
@@ -386,6 +405,13 @@ def kernel_phase(dev, timer):
               f"{lay} library_ms={lib} max_abs_err={err:.3e} [{check}]",
               flush=True)
 
+    def unfused(label, ms, key="unfused_ms"):
+        """The time of the unfused kernel chain a fused row replaces
+        (``key`` "k1_ms": of K1 alone on the same codes)."""
+        rows[-1][key] = ms
+        what = "K1 alone" if key == "k1_ms" else "unfused"
+        print(f"  {'':13s} {what} ({label}): {ms:.5f} ms", flush=True)
+
     # K1: exact decode GEMM at M = 8
     m = 8
     for name, w in [*weights.items(), *m_weights.items()]:
@@ -418,12 +444,15 @@ def kernel_phase(dev, timer):
         if not err <= tol:
             fail(f"K2 norm_qkv {name}: max|err| {err} > {tol}")
         nbytes = q4_bytes(w.n, w.k) + m * w.k * 4 + w.k * 4 + m * w.n * 4
+        k2_bits(name, w, dev)
         record("norm_qkv", f"{name} M={m} N={w.n} K={w.k}", err,
-               f"max|err| <= {tol:.3e}",
+               f"max|err| <= {tol:.3e}, == quantize_q8_1 + K1 on exact rows",
                timer(lambda: norm_qkv(w, x, nw, 1e-5)),
                timer(lambda: norm_qkv_plain(w, x, nw, 1e-5), reps=5),
                bound(nbytes, 2 * m * w.n * w.k, "int8"), None,
                main=w is wqkv)
+        unfused("rms_norm + quantize_q8_1 + K1", timer(
+            lambda: gemm_exact(w, quantize_q8_1(rms_norm(x, nw, 1e-5)))))
 
     # K3: flash decode, B=8 slots at context 512 over the stacked cache:
     # bf16, int8 codes with per-token scales, and a window of 256
@@ -667,11 +696,6 @@ def kernel_phase(dev, timer):
                   f"N={n} K={k}: ms={ms:.5f} bound_ms={b[0]:.5f} ({b[1]})",
                   flush=True)
 
-    def unfused(label, ms):
-        """The time of the unfused kernel chain a fused row replaces."""
-        rows[-1]["unfused_ms"] = ms
-        print(f"  {'':13s} unfused ({label}): {ms:.5f} ms", flush=True)
-
     # K6: K1 with the Q8_1 quantization of a float32 x inside, M = 8, on
     # the q4_0 decode shapes (run (a)) and the Q4_K_M q4_K ones (run (c));
     # bit-identical to quantize_q8_1 + K1, also where a block is all zero
@@ -707,6 +731,8 @@ def kernel_phase(dev, timer):
                    q4k_layout_bytes(w.n, w.k) + act, ops, "int8"))
         unfused("quantize_q8_1 + K1",
                 timer(lambda: gemm_exact(w, quantize_q8_1(x))))
+        a = quantize_q8_1(x)
+        unfused("the same codes", timer(lambda: gemm_exact(w, a)), "k1_ms")
 
     # K8: the layer tail wo .. w_down in one launch, M = 8 (the serving
     # batch, run (b)) and 1, against its plain chain on the layer update
@@ -919,6 +945,7 @@ def slice7_kernel_rows(dev, timer, record, unfused, randn):
         gemm_exact_plain)
     from quant_gemm_tpu_torch.kernels.gemm_megalayer import (
         norm_qkv, norm_qkv_plain)
+    from quant_gemm_tpu_torch.ops.rms_norm import rms_norm
 
     g = torch.Generator(device=dev).manual_seed(77)
     effective = {"q4_k": ("q4_K", kquants.to_effective),
@@ -955,12 +982,17 @@ def slice7_kernel_rows(dev, timer, record, unfused, randn):
                 fail(f"K2 norm_qkv {qtype} {label}: max|err| {err} > {tol}")
             act = m * k * 4 + k * 4 + m * n * 4
             ops = 2 * m * n * k
+            k2_bits(f"{qtype} {label}", w, dev)
             record("norm_qkv", f"{qtype} {label} M={m} N={n} K={k}", err,
-                   f"max|err| <= {tol:.3e}",
+                   f"max|err| <= {tol:.3e}, == quantize_q8_1 + K1 on exact "
+                   "rows",
                    timer(lambda: norm_qkv(w, x, nw, 1e-5)),
                    timer(lambda: norm_qkv_plain(w, x, nw, 1e-5), reps=5),
                    bound(wbytes + act, ops, "int8"), None, main=False,
                    layout_bnd=lay and bound(lay + act, ops, "int8"))
+            unfused("rms_norm + quantize_q8_1 + K1", timer(
+                lambda: gemm_exact(w, tq.quantize_q8_1(rms_norm(x, nw,
+                                                                1e-5)))))
 
     # K6: q4_1 and q8_0 at the four decode GEMMs, bit-equal to
     # quantize_q8_1 + K1, also on zero and f16-saturating blocks
@@ -992,6 +1024,9 @@ def slice7_kernel_rows(dev, timer, record, unfused, randn):
                          "int8"), None, main=False)
             unfused("quantize_q8_1 + K1",
                     timer(lambda: gemm_exact(w, tq.quantize_q8_1(x))))
+            a = tq.quantize_q8_1(x)
+            unfused("the same codes", timer(lambda: gemm_exact(w, a)),
+                    "k1_ms")
 
     # K1 (M = 8) and K4 (M = 128, bf16) on q5_k
     for label in ("wqkv", "w_down"):
@@ -2412,9 +2447,10 @@ def main() -> int:
             "variants": [{k: r.get(k) for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                 "layout_bound_ms", "library_ms", "max_abs_err",
-                "unfused_ms")} for r in every if not r["main"]]})
-        if any("unfused_ms" in r for r in mine):
-            kernels[-1]["unfused_ms"] = sum(r["unfused_ms"] for r in mine)
+                "unfused_ms", "k1_ms")} for r in every if not r["main"]]})
+        for key in ("unfused_ms", "k1_ms"):
+            if any(key in r for r in mine):
+                kernels[-1][key] = sum(r[key] for r in mine)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,10 @@
 // gemm_dequant.cu, norm_qkv.cu, gemm_exact_fused.cu, attn_tail.cu): the
 // in-kernel Q8_1 quantizer, the per-32 weight formats (q4_0, q4_1, q5_0,
 // q5_1, q8_0, q4_k, q5_k: where a block's codes and scales are, its exact dot
-// with Q8_1 codes, its epilogue, its dequantized values), the block loop
-// and K1's summation order.  Plain C interface, no PyTorch headers.
+// with Q8_1 codes, its epilogue, its dequantized values), and K8's block
+// loop in K1's summation order (k1_rows; K1, K2 and K6 run k1.cuh's
+// tensor-core body, which keeps that order).  Plain C interface, no
+// PyTorch headers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -118,43 +120,76 @@ __device__ __forceinline__ void store_scale(__half* p, float v) {
   *p = __float2half_rn(v);  // exact: v holds an f16 value
 }
 
-// Q8_1 of the M x K values get(m, i) into codes qa [M, K] and scales da,
-// sa [M, K/32] (f16 values as ScaleT), with quantize_q8_1_block: the
-// (row, block) pairs in groups of four, warp w of nwarps taking groups
-// w, w + nwarps, ...  The values of U groups are fetched before any of
-// them is quantized, so that 4 U loads per lane are in flight.
-template <int U, typename ScaleT, typename Get>
-__device__ __forceinline__ void quantize_rows(Get get, int M, int K,
-                                              int8_t* qa, ScaleT* da,
-                                              ScaleT* sa, int warp,
-                                              int nwarps, int lane) {
-  const int nb = K / QK, pairs = M * nb;
+// Q8_1 of the M x nblk*32 values of a tile, with quantize_q8_1_block:
+// get4(m, j) gives the values j .. j+3 of row m (j % 4 == 0), and put(m,
+// b, e, code) takes the four codes e .. e+3 of block b of row m (and the
+// block's d and s, which every lane of the block holds).  The (row,
+// block) pairs go in groups of four, warp w of nwarps taking groups w, w
+// + nwarps, ...  The values of U groups are fetched before any of them is
+// quantized, so that U loads per lane are in flight.
+template <int U, typename Get4, typename Put>
+__device__ __forceinline__ void quantize_each(Get4 get4, int M, int nblk,
+                                              Put put, int warp, int nwarps,
+                                              int lane) {
+  const int pairs = M * nblk;
   const int sub = lane >> 3, e = (lane & 7) * 4;  // pair in group, element
   for (int g0 = warp; 4 * g0 < pairs; g0 += U * nwarps) {
     float h[U][4];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int p = 4 * (g0 + u * nwarps) + sub;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        h[u][j] = p < pairs ? get(p / nb, (p % nb) * QK + e + j) : 0.0f;
+      const float4 v = p < pairs ? get4(p / nblk, (p % nblk) * QK + e)
+                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      h[u][0] = v.x;
+      h[u][1] = v.y;
+      h[u][2] = v.z;
+      h[u][3] = v.w;
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int p = 4 * (g0 + u * nwarps) + sub;
       if (4 * (g0 + u * nwarps) < pairs) {  // uniform across the warp
         const Q8_1Code c = quantize_q8_1_block(h[u]);
-        if (p < pairs) {
-          *reinterpret_cast<int*>(qa + (p / nb) * K + (p % nb) * QK + e) =
-              c.q4;
-          if (e == 0) {
-            store_scale(da + p, c.d);
-            store_scale(sa + p, c.s);
-          }
-        }
+        if (p < pairs) put(p / nblk, p % nblk, e, c);
       }
     }
   }
+}
+
+// quantize_each into codes qa (row m at qa + m * qstride bytes) and scales
+// da, sa (row m at m * sstride elements; f16 values as ScaleT).
+template <int U, typename ScaleT, typename Get4>
+__device__ __forceinline__ void quantize_tile(Get4 get4, int M, int nblk,
+                                              int8_t* qa, int qstride,
+                                              ScaleT* da, ScaleT* sa,
+                                              int sstride, int warp,
+                                              int nwarps, int lane) {
+  quantize_each<U>(
+      get4, M, nblk,
+      [&](int m, int b, int e, const Q8_1Code& c) {
+        *reinterpret_cast<int*>(qa + m * qstride + b * QK + e) = c.q4;
+        if (e == 0) {
+          store_scale(da + m * sstride + b, c.d);
+          store_scale(sa + m * sstride + b, c.s);
+        }
+      },
+      warp, nwarps, lane);
+}
+
+// Q8_1 of the M x K values get(m, i) into codes qa [M, K] and scales da,
+// sa [M, K/32] (quantize_tile over whole rows, one value at a time).
+template <int U, typename ScaleT, typename Get>
+__device__ __forceinline__ void quantize_rows(Get get, int M, int K,
+                                              int8_t* qa, ScaleT* da,
+                                              ScaleT* sa, int warp,
+                                              int nwarps, int lane) {
+  const int nb = K / QK;
+  quantize_tile<U>(
+      [&](int m, int i) {
+        return make_float4(get(m, i), get(m, i + 1), get(m, i + 2),
+                           get(m, i + 3));
+      },
+      M, nb, qa, K, da, sa, nb, warp, nwarps, lane);
 }
 
 // Exact int32 dot of one q4_0 block (16 bytes; byte j = code j | code j+16
@@ -488,9 +523,10 @@ __device__ __forceinline__ void exact_partial(
   }
 }
 
-// K1's summation order, which K6 and K8 keep so that their GEMMs equal
-// quantize_q8_1 + K1 bit for bit.  Warps per K1 block: enough that each
-// thread keeps at least one K block to itself.
+// K1's summation order, which K2, K6 (k1.cuh) and K8 (k1_rows) keep so
+// that their GEMMs equal quantize_q8_1 + K1 bit for bit.  Warps of the
+// order: enough that each virtual thread keeps at least one K block to
+// itself.
 __host__ __device__ constexpr int k1_warps(int nb) {
   return nb >= 128 ? 4 : (nb >= 64 ? 2 : 1);
 }

@@ -157,6 +157,13 @@ def check_aligned(name: str, *tensors) -> None:
                              "16-byte aligned")
 
 
+def aligned16(t):
+    """``t``, or a copy of it when its data does not start on 16 bytes
+    (for kernels that load an operand 16 bytes at a time and take no
+    view at an odd offset)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 P = ctypes.c_void_p  # pointer / stream argument type
 I = ctypes.c_int
 L = ctypes.c_longlong  # element strides
@@ -174,4 +181,4 @@ def stream(device) -> ctypes.c_void_p:
 
 
 __all__ = ["build", "load", "function", "check", "check_aligned",
-           "source_names", "BUILD_DIR", "BUILD_LOG"]
+           "aligned16", "source_names", "BUILD_DIR", "BUILD_LOG"]

@@ -23,9 +23,9 @@ m' planes, 28 for q5_k) at 3.35 TB/s.  The design (``csrc/gemm_exact.cu``)
 computes each 32-block's sumi with one int8 ``mma.sync`` m16n8k32 over
 16 weight rows x 8 activation rows, from chunks of 32 blocks staged with
 16-byte ``cp.async``, and keeps the old kernel's summation order bit for
-bit (:func:`k1_order`), which K6 and K8 share (``common.cuh::k1_rows``):
-the kernel's output equals ``k1_order`` of the plain version's per-block
-terms exactly.
+bit (:func:`k1_order`), which K2, K6 (``csrc/k1.cuh``, the same body) and
+K8 (``common.cuh::k1_rows``) share: the kernel's output equals
+``k1_order`` of the plain version's per-block terms exactly.
 
 :func:`gemm_exact` launches the CUDA kernel for CUDA tensors and runs
 :func:`gemm_exact_plain` for CPU tensors; ``gemm_exact.launches`` counts
@@ -36,16 +36,18 @@ gemm_exact.py::gemm_exact_fused``: ``gemm_exact(w, quantize_q8_1(x))``
 for a float32 ``x`` [M <= 12, K], **bit-identical** to quantizing first
 and running K1 (the JAX contract, ``tests/test_kernels.py::
 test_fused_exact_bit_identical`` / ``test_fused_exact_degenerate_blocks``):
-the in-kernel quantizer is ``quantize_q8_1`` step for step and the sums
-follow K1's order (``csrc/gemm_exact_fused.cu``).  Its plain version is
-that unfused chain on the plain K1.  Bound: bytes, K1's weight stream plus
-``M*K*4`` bytes of ``x``; the kernel quantizes ``x`` once per block of a
-persistent grid into shared memory, so its ``M*K*9/8`` bytes of codes
-and scales must fit one block's 227 KB (the launch raises otherwise).
-K6 takes the per-32 weights without a qh plane, :data:`FUSED_QTYPES`
-(q4_0, q4_1, q4_k and q8_0, the JAX body ``_kernel_w8_fused`` for the
-last); the q5 forms keep quantize + K1, as in JAX.
-``gemm_exact_fused.launches`` counts launches.
+the in-kernel quantizer is ``quantize_q8_1`` step for step and the GEMM
+is K1's own tensor-core body and order (``csrc/k1.cuh``, shared with K1
+and K2).  Its plain version is that unfused chain on the plain K1.
+Bound: bytes, K1's weight stream plus ``M*K*4`` bytes of ``x``; the
+persistent grid runs in clusters of 8 blocks, each quantizing an eighth
+of ``x`` under its first weight chunks' loads and storing the codes in
+the shared memory of all eight, or, where those codes do not fit beside
+the weight ring (M 9-12 at large K), each block quantizes each chunk as
+it is staged (``csrc/gemm_exact_fused.cu``).  K6 takes the per-32
+weights without a qh plane, :data:`FUSED_QTYPES` (q4_0, q4_1, q4_k and
+q8_0, the JAX body ``_kernel_w8_fused`` for the last); the q5 forms keep
+quantize + K1, as in JAX.  ``gemm_exact_fused.launches`` counts launches.
 """
 
 from __future__ import annotations
@@ -83,8 +85,8 @@ def k1_warps(nb: int) -> int:
 
 
 def k1_order(terms: torch.Tensor) -> torch.Tensor:
-    """K1's float32 sum of per-block terms ``[M, N, nb]`` (K6 and K8 keep
-    it): with ``nt = 32 * k1_warps(nb)`` virtual threads, thread t adds
+    """K1's float32 sum of per-block terms ``[M, N, nb]`` (K2, K6 and K8
+    keep it): with ``nt = 32 * k1_warps(nb)`` virtual threads, thread t adds
     the terms of blocks t, t + nt, ... in turn from 0; each group of 32
     threads reduces with ``warp_sum``'s xor butterfly (lane 0's value);
     the groups are added in order from 0.  Every add is one rounded
@@ -135,11 +137,6 @@ def gemm_exact_plain(w: PreparedWeight, a: Q8_1Tensor) -> torch.Tensor:
     return block_terms(w, a).sum(dim=-1)
 
 
-def _aligned16(t: torch.Tensor) -> torch.Tensor:
-    """``t``, or a copy of it when its data does not start on 16 bytes."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def gemm_exact(w: PreparedWeight, a: Q8_1Tensor) -> torch.Tensor:
     """``C[M, N]`` float32 of a per-32 ``w`` [N, K] (``layout.QTYPES``)
     and Q8_1 ``a`` [M, K]."""
@@ -155,7 +152,8 @@ def gemm_exact(w: PreparedWeight, a: Q8_1Tensor) -> torch.Tensor:
     qa, da, sa = (t.contiguous() for t in a)
     _build.check_aligned("gemm_exact", w.qs, qa)
     # the kernel copies the scale and qh planes from 16-byte boundaries
-    wp, da, sa = tuple(map(_aligned16, wp)), _aligned16(da), _aligned16(sa)
+    wp = tuple(map(_build.aligned16, wp))
+    da, sa = _build.aligned16(da), _build.aligned16(sa)
     out = torch.empty(m, w.n, dtype=torch.float32, device=dev)
     symbol = f"qgt_gemm_exact_{w.qtype}"
     fn = _build.function("gemm_exact", symbol,
@@ -202,7 +200,9 @@ def gemm_exact_fused(w: PreparedWeight, x: torch.Tensor) -> torch.Tensor:
         raise ValueError("gemm_exact_fused: all operands must be on one "
                          "CUDA device (or all on the CPU)")
     m, k = x.shape
-    x = x.to(torch.float32).contiguous()
+    # float4 loads of x; the planes copied from 16-byte boundaries
+    x = _build.aligned16(x.to(torch.float32).contiguous())
+    wp = tuple(map(_build.aligned16, wp))
     _build.check_aligned("gemm_exact_fused", w.qs)
     out = torch.empty(m, w.n, dtype=torch.float32, device=dev)
     symbol = f"qgt_gemm_exact_fused_{w.qtype}"

@@ -6,13 +6,18 @@ the min-plane formats q4_1 and q4_k, and the q5 family q5_0, q5_1 and
 q5_k through the qh plane; JAX's K2 takes no q8_0).  Replaces the Pallas
 kernel ``norm_qkv`` (``_qkv_kernel`` with ``has_min`` / ``has_qh``).  Its
 plain version is exactly ``rms_norm -> quantize_q8_1 -> gemm_exact_plain``,
-the equivalence the JAX docstring states.  The kernel normalises in
-another float32 summation order, and a last-ulp difference can move a
-Q8_1 code across a .5 rounding tie, so kernel and plain version agree to
-a tolerance (``2e-3 * max|C|``), not bit for bit.  Bound on an H100:
-bytes (the ``wqkv`` stream); every block of ``csrc/norm_qkv.cu``
-recomputes the M <= 8 rows' norm and codes in shared memory and then runs
-K1's inner loop, over the weight's format, on 16 weight rows.
+the equivalence the JAX docstring states.  The kernel (``csrc/norm_qkv.cu``)
+runs K1's tensor-core body and summation order (``csrc/k1.cuh``), so
+where its normalised rows equal the plain version's (rows of +-1 with
+eps 0) it equals ``quantize_q8_1`` + K1 bit for bit; elsewhere it
+normalises in another float32 summation order, a last-ulp difference can
+move a Q8_1 code across a .5 rounding tie, and kernel and plain version
+agree to a tolerance (``2e-3 * max|C|``).  Bound on an H100: bytes (the
+``wqkv`` stream); a persistent grid of clusters of 8 blocks, each block
+normalising and quantizing an eighth of the M <= 8 rows' K blocks under
+its first weight chunks' loads and storing the codes in the shared memory
+of all eight, then streaming its 32-row tiles through the int8 tensor
+cores.
 
 K8 :func:`attn_tail`: everything after attention (``wo`` + residual +
 RMSNorm + Q8_1 + ``wgu`` + SiLU*gate + Q8_1 + ``w_down`` + residual) in
@@ -119,9 +124,11 @@ def norm_qkv(w: PreparedWeight, x: torch.Tensor, norm_w: torch.Tensor,
         raise ValueError("norm_qkv: all operands must be on one CUDA device "
                          "(or all on the CPU)")
     m = x.shape[0]
-    x = x.to(torch.float32).contiguous()
-    nw = norm_w.to(torch.float32).contiguous()
-    wp = planes(w)
+    # float4 loads of x and the norm weight; the planes copied from
+    # 16-byte boundaries
+    x = _build.aligned16(x.to(torch.float32).contiguous())
+    nw = _build.aligned16(norm_w.to(torch.float32).contiguous())
+    wp = tuple(map(_build.aligned16, planes(w)))
     _build.check_aligned("norm_qkv", w.qs)
     out = torch.empty(m, w.n, dtype=torch.float32, device=dev)
     symbol = f"qgt_norm_qkv_{w.qtype}"

@@ -14,10 +14,11 @@ ring, ``atol=2e-3``, K4 NMSE <= 1e-4, K8 ``2e-3 * max|out - x|`` on the layer
 update (K2's rule), and its wo and w_down stages bit for bit equal to
 ``quantize_q8_1`` + K1 on inputs where the glue between them is exact;
 through the model, with both op sets started from the same hidden state
-at every layer, each layer's update and the logits NMSE <= 1e-4.  Exact: K6 equals ``quantize_q8_1`` + K1 bit for bit, and
-K2 equals its own summation order replayed in float32 where its RMSNorm
-is exact (rows of +-1, eps 0), which pins its in-kernel Q8_1 codes to
-``quantize_q8_1``'s.  Slice 6: K1 in the q4_1/q5_0/q5_1/q8_0 forms
+at every layer, each layer's update and the logits NMSE <= 1e-4.
+Exact: K6 equals ``quantize_q8_1`` + K1 bit for bit, and K2 equals
+``quantize_q8_1`` + K1 bit for bit where its RMSNorm is exact (rows of
++-1, eps 0), in every form (both run K1's body and order), also
+replayed from a CUDA graph.  K1 in the q4_1/q5_0/q5_1/q8_0 forms
 ``1e-4 * max|C|``, K4 in them (bf16 and float32 activations) NMSE <=
 1e-4, K9 ``rms_norm_pallas`` ``1e-5 * max|y|`` (its own sum order and
 ``rsqrtf``), K10 ``softmax_pallas`` ``atol=1e-6``; the spec runner on the
@@ -125,42 +126,33 @@ def test_norm_qkv(weight, dev, m):
     assert (got - ref).abs().max() <= 2e-3 * ref.abs().max()
 
 
-def _k2_order(terms):
-    """K2's float32 sum of the per-block terms [M, N, nb]: lane l adds
-    blocks l, l + 32, ... in turn, then the xor-butterfly over 32 lanes
-    (``csrc/norm_qkv.cu``, ``common.cuh::warp_sum``)."""
-    nb = terms.shape[-1]
-    t = torch.nn.functional.pad(terms, (0, -nb % 32))
-    t = t.reshape(*terms.shape[:-1], -1, 32)
-    acc = torch.zeros_like(t[..., 0, :])
-    for i in range(t.shape[-2]):
-        acc = acc + t[..., i, :]
-    lanes = torch.arange(32)
-    for o in (16, 8, 4, 2, 1):
-        acc = acc + acc[..., lanes ^ o]
-    return acc[..., 0]
+K2_FORMS = ["q4_0", "q4_1", "q4_k", "q5_0", "q5_1", "q5_k"]
 
 
-@pytest.mark.parametrize("m", [1, 8])
-def test_norm_qkv_codes_exact(weight, dev, m):
+@pytest.mark.parametrize("k", [1056, 2048, 4096, 16384])
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("qtype", K2_FORMS)
+def test_norm_qkv_codes_exact(dev, qtype, m, k):
     """Rows of +-1 and eps 0 make K2's RMSNorm exact (h = x * w), so its
-    output must equal, bit for bit, the q4_0 terms of quantize_q8_1(h)
-    summed in K2's order: the shared in-kernel quantizer gives
-    quantize_q8_1's codes and scales."""
+    output must equal quantize_q8_1(h) + K1 bit for bit: the shared
+    in-kernel quantizer gives quantize_q8_1's codes and scales, and the
+    GEMM is K1's body in K1's order (``k1_order`` of the plain terms).
+    K 16384 quantizes each chunk as it is staged (the codes of the whole
+    row do not fit beside the weight ring); N = 774 leaves a ragged row
+    tile."""
+    w = _weight_any(qtype, k, dev, rows=774)
     rng = np.random.default_rng(31)
-    x = np.where(rng.random((m, K)) < 0.5, -1.0, 1.0).astype(np.float32)
-    nw = rng.normal(1, 0.3, K).astype(np.float32)
-    got = norm_qkv(weight, _t(x, dev), _t(nw, dev), 0.0).cpu()
-    a = tq.quantize_q8_1(torch.from_numpy(x * nw))
-    w = layout.PreparedWeight(*(t.cpu() if isinstance(t, torch.Tensor)
-                                else t for t in weight))
-    nb = K // 32
-    qw = layout.codes(w).to(torch.float64).reshape(N, nb, 32)
-    qa = a.qs.to(torch.float64).reshape(m, nb, 32)
-    sumi = torch.einsum("mbk,nbk->mnb", qa, qw).to(torch.float32)
-    terms = w.d.float()[None] * (a.d.float()[:, None] * sumi
-                                 - 8.0 * a.s.float()[:, None])
-    assert torch.equal(got, _k2_order(terms))
+    x = np.where(rng.random((m, k)) < 0.5, -1.0, 1.0).astype(np.float32)
+    nw = rng.normal(1, 0.3, k).astype(np.float32)
+    before = norm_qkv.launches
+    got = norm_qkv(w, _t(x, dev), _t(nw, dev), 0.0)
+    assert norm_qkv.launches == before + 1
+    a = tq.quantize_q8_1(_t(x * nw, dev))
+    assert torch.equal(got, gemm_exact(w, a))
+    cpu = layout.PreparedWeight(*(t.cpu() if isinstance(t, torch.Tensor)
+                                  else t for t in w))
+    want = k1_order(block_terms(cpu, Q8_1Tensor(*(t.cpu() for t in a))))
+    assert torch.equal(got.cpu(), want)
 
 
 def _degenerate(x):
@@ -173,13 +165,15 @@ def _degenerate(x):
     return x
 
 
-@pytest.mark.parametrize("k", [2048, 5632])
+@pytest.mark.parametrize("k", [2048, 5632, 14336])
 @pytest.mark.parametrize("m", [1, 8, 12])
 @pytest.mark.parametrize("qtype", ["q4_0", "q4_k", "q4_1", "q8_0"])
 def test_gemm_exact_fused(dev, qtype, m, k):
     """K6 equals quantize_q8_1 + K1 bit for bit, degenerate blocks
-    included, in every form it has (q4_1 and q8_0 since slice 7); N = 774
-    is not a multiple of K1's four rows."""
+    included, in every form it has (q4_0, q4_k, q4_1 and q8_0), with
+    the codes resident in shared memory and, at K 14336 and M 12 (q8_0:
+    also M 8), quantized chunk by chunk; N = 774 leaves a ragged row
+    tile."""
     g = torch.Generator(device=dev).manual_seed(41)
     if qtype != "q4_k":
         w = layout.prepare(tq.QUANTIZE[qtype](
@@ -666,8 +660,9 @@ def test_fused_decode_through_kernels(dev, monkeypatch, fused, tail):
 NEW32 = ["q4_1", "q5_0", "q5_1", "q8_0"]
 
 
-def _weight32(qtype, k, dev, seed=41):
-    w = np.random.default_rng(seed).normal(0, 0.05, (N, k)).astype(np.float32)
+def _weight32(qtype, k, dev, seed=41, rows=N):
+    w = np.random.default_rng(seed).normal(0, 0.05, (rows, k)).astype(
+        np.float32)
     return layout.prepare(tq.QUANTIZE[qtype](_t(w, dev)))
 
 
@@ -789,12 +784,12 @@ K2_NEW = ["q4_1", "q4_k", "q5_0", "q5_1", "q5_k"]
 ALL32 = ["q4_0", "q4_1", "q5_0", "q5_1", "q8_0", "q4_k", "q5_k"]
 
 
-def _weight_any(qtype, k, dev, seed=41):
+def _weight_any(qtype, k, dev, seed=41, rows=N):
     """A per-32 weight of any form: q4_k / q5_k as the effective form of
     q4_1 / q5_1 blocks with float32 planes (a K-quant tensor itself
     needs K % 256 == 0; the kernels take any K % 32 == 0)."""
     base = {"q4_k": "q4_1", "q5_k": "q5_1"}.get(qtype, qtype)
-    w = _weight32(base, k, dev, seed)
+    w = _weight32(base, k, dev, seed, rows)
     if base != qtype:
         w = w._replace(qtype=qtype, d=w.d.float(), m=w.m.float())
     return w
@@ -1011,3 +1006,40 @@ def test_gemm_exact_k1_order_bit_exact(dev, qtype, m, k):
                                   else t for t in w))
     want = k1_order(block_terms(cpu, Q8_1Tensor(*(t.cpu() for t in a))))
     assert torch.equal(got.cpu(), want)
+
+
+# --- K2 and K6 on K1's body, captured in a CUDA graph ---
+
+
+def test_k2_and_k6_replay_in_a_cuda_graph(dev):
+    """K2 and K6 read nothing on the host and allocate only their output
+    at launch, so a CUDA graph captures them: replays over new inputs
+    copied into the captured buffers equal eager calls bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(53)
+    k, m = 2048, 8
+    wqkv = _weight_any("q5_1", k, dev, rows=2560)
+    wgu = layout.prepare(tq.quantize_q4_0(
+        torch.randn(1024, k, generator=g, device=dev) * k ** -0.5))
+    x = torch.randn(m, k, generator=g, device=dev)
+    nw = 1.0 + 0.1 * torch.randn(k, generator=g, device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):  # first launches: the occupancy queries
+        norm_qkv(wqkv, x, nw, EPS)
+        gemm_exact_fused(wgu, x)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = (norm_qkv.launches, gemm_exact_fused.launches)
+    with torch.cuda.graph(graph):
+        qkv = norm_qkv(wqkv, x, nw, EPS)
+        gu = gemm_exact_fused(wgu, qkv[:, :k].contiguous())
+    assert (norm_qkv.launches, gemm_exact_fused.launches) == (
+        before[0] + 1, before[1] + 1)
+    for scale in (1.0, 3.0):
+        x.copy_(scale * torch.randn(m, k, generator=g, device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = norm_qkv(wqkv, x, nw, EPS)
+        assert torch.equal(qkv, want)
+        assert torch.equal(gu, gemm_exact_fused(wgu, want[:, :k]
+                                                .contiguous()))

@@ -13,10 +13,13 @@ Run from the repository root on a machine with one NVIDIA H100:
    Mistral path's ring; K1 and K4
    also with q4_K weights in their effective form at the Q4_K_M shapes;
    K7 with q6_K at its three shapes and with q3_K and q2_K at the
-   lm_head's; K6 on q4_0 at the q4_0 decode shapes and on q4_K at the
-   Q4_K_M ones, each equal bit for bit to quantize_q8_1 + K1, also on
-   zero and f16-saturating blocks; K8 at M = 8 and 1, and its wo and
-   w_down stages bit for bit on inputs that make the glue exact), against
+   lm_head's, each equal bit for bit to ``k1_order`` of its block terms
+   and beside K1's q8_0 form at the same N and K; K6 on q4_0 at the q4_0
+   decode shapes and on q4_K at the Q4_K_M ones, each equal bit for bit
+   to quantize_q8_1 + K1, also on zero and f16-saturating blocks; K8 at
+   TinyLlama-1.1B and Mistral-7B-v0.1 width, M = 8 and 1, beside K6 on
+   its three weights, and its wo and w_down stages bit for bit at both
+   widths on inputs that make the glue exact), against
    its plain PyTorch version at the stated tolerance, timed with CUDA
    events (L2
    flushed before every timed launch) beside its bound (K-quant weights
@@ -118,14 +121,15 @@ Run from the repository root on a machine with one NVIDIA H100:
 9. prints one JSON line of the kernels, the card, and last the result
    line; each phase's seconds on its own line.
 
-K4's bf16-operand forms, K5, K3 and K1 run on the tensor cores: every
-K3, K4 and K5 row of the kernel phase calls the kernel a second time and
-fails unless the two outputs are equal bit for bit (K3 rows print their
+K4's bf16-operand forms, K5, K3, K1 and the kernels on K1's body (K2,
+K6, K7, K8) run on the tensor cores: every K3, K4, K5, K7 and K8 row of
+the kernel phase calls the kernel a second time and fails unless the two
+outputs are equal bit for bit (K3 rows print their
 piece count ``ns``; the Mistral ring rows run once more with the
 Server's ``s_hi`` at those positions and one tile a piece, within 2e-3
 of the first call); every K1 row (all seven forms) must equal
 ``gemm_exact.k1_order`` of the plain version's per-block terms bit
-for bit (the summation order K2, K6 and K8 share); K4 also runs at M = 100
+for bit (the summation order K2, K6, K7 and K8 share); K4 also runs at M = 100
 and 300 at Mistral's ``wgu`` (ragged rows, more than one row tile).  The
 profiler windows print each kernel group's share of the busy time.
 
@@ -260,9 +264,10 @@ def q4k_layout_bytes(n: int, k: int) -> int:
 
 
 def k16_layout_bytes(w) -> int:
-    """A K16 weight as the port stores it: int8 codes plus f32 scp (and
-    q2_K's mp) per 16."""
-    return w.n * w.k + w.n * (w.k // 16) * 4 * (2 if w.mp is not None else 1)
+    """A K16 weight as the port stores it: int8 codes plus an int8 sc per
+    16 and an f16 d per 256 (and q2_K's mn and dmin as much again)."""
+    scales = w.n * (w.k // 16) + w.n * (w.k // 256) * 2
+    return w.n * w.k + scales * (2 if w.dmin is not None else 1)
 
 
 # llama.cpp's Q4_K_M mix (llama_tensor_get_type) at TinyLlama-1.1B width:
@@ -316,8 +321,9 @@ def same_bits(label, got, fn) -> None:
 
 
 def k1_bits(label, w, a, got) -> None:
-    """K1 keeps the summation order K6 and K8 share: its output equals
-    ``k1_order`` of the plain version's per-block terms bit for bit."""
+    """K1 keeps the summation order K2, K6, K7 and K8 share: its output
+    equals ``k1_order`` of the plain version's per-block terms bit for
+    bit."""
     from quant_gemm_tpu_torch.kernels.gemm_exact import block_terms, k1_order
 
     if not torch.equal(got, k1_order(block_terms(w, a))):
@@ -349,15 +355,17 @@ def nmse(got, ref) -> float:
 
 def kernel_phase(dev, timer):
     from quant_gemm_tpu_torch.formats import kquants
-    from quant_gemm_tpu_torch.formats.quant import quantize_q4_0, quantize_q8_1
+    from quant_gemm_tpu_torch.formats.quant import (quantize_q4_0,
+                                                    quantize_q8_0,
+                                                    quantize_q8_1)
     from quant_gemm_tpu_torch.kernels import layout
     from quant_gemm_tpu_torch.kernels.gemm_dequant import (
         gemm_dequant, gemm_dequant_plain)
     from quant_gemm_tpu_torch.kernels.gemm_exact import (
         gemm_exact, gemm_exact_fused, gemm_exact_fused_plain,
-        gemm_exact_plain)
+        gemm_exact_plain, k1_order)
     from quant_gemm_tpu_torch.kernels.gemm_exact_k16 import (
-        gemm_exact_k16, gemm_exact_k16_plain)
+        gemm_exact_k16, gemm_exact_k16_plain, k16_block_terms)
     from quant_gemm_tpu_torch.kernels.gemm_megalayer import (
         attn_tail, attn_tail_plain, norm_qkv, norm_qkv_plain)
     from quant_gemm_tpu_torch.kernels.registry import (fold_q8_1,
@@ -406,10 +414,13 @@ def kernel_phase(dev, timer):
               flush=True)
 
     def unfused(label, ms, key="unfused_ms"):
-        """The time of the unfused kernel chain a fused row replaces
-        (``key`` "k1_ms": of K1 alone on the same codes)."""
+        """The time of the unfused kernel chain a fused row replaces, or
+        (``key``) of another yardstick beside the row: "k1_ms" K1 alone on
+        the same codes, "k6_ms" K6 on each of the same weights, summed,
+        "k1_q8_0_ms" K1's q8_0 form at the same N, K and codes."""
         rows[-1][key] = ms
-        what = "K1 alone" if key == "k1_ms" else "unfused"
+        what = {"unfused_ms": "unfused", "k1_ms": "K1 alone",
+                "k6_ms": "K6 summed", "k1_q8_0_ms": "K1 q8_0"}[key]
         print(f"  {'':13s} {what} ({label}): {ms:.5f} ms", flush=True)
 
     # K1: exact decode GEMM at M = 8
@@ -672,14 +683,26 @@ def kernel_phase(dev, timer):
         tol = 1e-5 * ref.abs().max().item()
         if not err <= tol:
             fail(f"K7 gemm_exact_k16 {qtype} {name}: max|err| {err} > {tol}")
+        if not torch.equal(got, k1_order(k16_block_terms(w, a))):
+            fail(f"K7 gemm_exact_k16 {qtype} {name}: differs from k1_order "
+                 "of its block terms (the summation order moved)")
+        same_bits(f"K7 gemm_exact_k16 {qtype} {name}", got,
+                  lambda: gemm_exact_k16(w, a))
         act = m * k + m * (k // 32) * 2 + m * n * 4  # codes, d_a, out
         record("gemm_exact_k16", f"{qtype} {name} M={m} N={n} K={k}", err,
-               f"max|err| <= {tol:.3e}", timer(lambda: gemm_exact_k16(w, a)),
+               f"max|err| <= {tol:.3e}, == k1_order bit for bit, two calls "
+               "bit-equal", timer(lambda: gemm_exact_k16(w, a)),
                timer(lambda: gemm_exact_k16_plain(w, a), reps=5),
                bound(kq_bytes(qtype, n, k) + act, 2 * m * n * k, "int8"),
                None, main=qtype == "q6_K",
                layout_bnd=bound(k16_layout_bytes(w) + act, 2 * m * n * k,
                                 "int8"))
+        # K7's yardstick: K1's q8_0 form (8.5 bits a weight against
+        # compact q6_K's 8.5625) at the same N, K and codes
+        w8 = layout.prepare(quantize_q8_0(randn(n, k, scale=k ** -0.5)))
+        unfused("same N, K and codes", timer(lambda: gemm_exact(w8, a)),
+                "k1_q8_0_ms")
+        del w8
         if qtype == "q6_K":
             # the prefill route of the same weight (M = 128): dequantize
             # to float32 and multiply, plain torch, not a kernel of the
@@ -735,66 +758,86 @@ def kernel_phase(dev, timer):
         unfused("the same codes", timer(lambda: gemm_exact(w, a)), "k1_ms")
 
     # K8: the layer tail wo .. w_down in one launch, M = 8 (the serving
-    # batch, run (b)) and 1, against its plain chain on the layer update
-    wo, wgu, wd = weights["wo"], weights["wgu"], weights["w_down"]
-    nw = 1.0 + 0.1 * randn(DIM)
-
-    def tail_kernels(attn, x):
-        """The same chain through the unfused kernels (K1 and eager
-        quantize, RMSNorm, SiLU)."""
-        xm = x + gemm_exact(wo, quantize_q8_1(attn))
-        gu = gemm_exact(wgu, quantize_q8_1(rms_norm(xm, nw, 1e-5)))
-        ff = silu_mul(gu[:, :D_FF], gu[:, D_FF:])
-        return xm + gemm_exact(wd, quantize_q8_1(ff))
-
-    for m in (8, 1):
-        attn, x = randn(m, DIM), randn(m, DIM, scale=3.0)
-        args = (attn, x, nw, wo, wgu, wd, 1e-5, D_FF)
-        got, ref = attn_tail(*args), attn_tail_plain(*args)
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        tol = 2e-3 * (ref - x).abs().max().item()
-        if not err <= tol:
-            fail(f"K8 attn_tail M={m}: max|err| {err} > {tol}")
-        nbytes = sum(q4_bytes(w.n, w.k) for w in (wo, wgu, wd)) \
-            + 3 * m * DIM * 4 + DIM * 4
-        ops = 2 * m * sum(w.n * w.k for w in (wo, wgu, wd))
-        record("attn_tail", f"M={m} dim={DIM} d_ff={D_FF}", err,
-               f"max|err| <= {tol:.3e} (2e-3 x max|update|)",
-               timer(lambda: attn_tail(*args)),
-               timer(lambda: attn_tail_plain(*args), reps=5),
-               bound(nbytes, ops, "int8"), None, main=m == 8)
-        unfused("3 x (quantize_q8_1 + K1), RMSNorm, SiLU",
-                timer(lambda: tail_kernels(attn, x)))
-
-    # K8's GEMM stages equal quantize_q8_1 + K1 bit for bit.  With x = 0
-    # and w_down's scales 0, out is the wo stage; with wo's scales 0, rows
-    # of mostly +1 (an exact RMSNorm at eps 0) and positive gate weights
-    # (gate outputs far above 17, where SiLU is the identity in float32),
-    # out is x + the w_down stage
+    # batch, run (b)) and 1, against its plain chain on the layer update,
+    # at TinyLlama-1.1B width and at Mistral-7B-v0.1's, beside the unfused
+    # kernel chain and K6 on each of its three weights, summed; its wo and
+    # w_down stages equal quantize_q8_1 + K1 bit for bit at both widths
     def zero_scales(w):
         return w._replace(d=torch.zeros_like(w.d))
 
-    m = 8
-    attn = randn(m, DIM)
-    got = attn_tail(attn, torch.zeros(m, DIM, device=dev), nw, wo, wgu,
-                    zero_scales(wd), 1e-5, D_FF)
-    if not torch.equal(got, gemm_exact(wo, quantize_q8_1(attn))):
-        fail("K8 attn_tail: its wo stage differs from quantize_q8_1 + K1")
-    gate = 0.5 + 0.5 * torch.rand(D_FF, DIM, generator=g, device=dev)
-    wgu_pos = layout.prepare(quantize_q4_0(torch.cat(
-        [gate, randn(D_FF, DIM, scale=DIM ** -0.5)])))
-    x = torch.where(torch.rand(m, DIM, generator=g, device=dev) < 0.1,
-                    -1.0, 1.0)
-    got = attn_tail(attn, x, nw.abs(), zero_scales(wo), wgu_pos, wd, 0.0,
-                    D_FF)
-    gu = gemm_exact(wgu_pos, quantize_q8_1(rms_norm(x, nw.abs(), 0.0)))
-    want = x + gemm_exact(wd, quantize_q8_1(silu_mul(gu[:, :D_FF],
-                                                     gu[:, D_FF:])))
-    if not (gu[:, :D_FF].min() > 100.0 and torch.equal(got, want)):
-        fail("K8 attn_tail: its w_down stage differs from quantize_q8_1 + K1")
-    print(f"  {'attn_tail':13s} wo and w_down stages at M={m}: equal to "
-          "quantize_q8_1 + K1", flush=True)
+    for label, dim, dff in (("TinyLlama", DIM, D_FF),
+                            ("Mistral", M_DIM, M_D_FF)):
+        if label == "TinyLlama":
+            wo, wgu, wd = weights["wo"], weights["wgu"], weights["w_down"]
+        else:
+            wo, wgu, wd = (weight(dim, dim), weight(2 * dff, dim),
+                           weight(dim, dff))
+        nw = 1.0 + 0.1 * randn(dim)
+
+        def tail_kernels(attn, x):
+            """The same chain through the unfused kernels (K1 and eager
+            quantize, RMSNorm, SiLU)."""
+            xm = x + gemm_exact(wo, quantize_q8_1(attn))
+            gu = gemm_exact(wgu, quantize_q8_1(rms_norm(xm, nw, 1e-5)))
+            ff = silu_mul(gu[:, :dff], gu[:, dff:])
+            return xm + gemm_exact(wd, quantize_q8_1(ff))
+
+        for m in (8, 1):
+            attn, x = randn(m, dim), randn(m, dim, scale=3.0)
+            args = (attn, x, nw, wo, wgu, wd, 1e-5, dff)
+            got, ref = attn_tail(*args), attn_tail_plain(*args)
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            tol = 2e-3 * (ref - x).abs().max().item()
+            if not err <= tol:
+                fail(f"K8 attn_tail {label} M={m}: max|err| {err} > {tol}")
+            same_bits(f"K8 attn_tail {label} M={m}", got,
+                      lambda: attn_tail(*args))
+            nbytes = sum(q4_bytes(w.n, w.k) for w in (wo, wgu, wd)) \
+                + 3 * m * dim * 4 + dim * 4
+            ops = 2 * m * sum(w.n * w.k for w in (wo, wgu, wd))
+            record("attn_tail", f"{label} M={m} dim={dim} d_ff={dff}", err,
+                   f"max|err| <= {tol:.3e} (2e-3 x max|update|), two calls "
+                   "bit-equal", timer(lambda: attn_tail(*args)),
+                   timer(lambda: attn_tail_plain(*args), reps=5),
+                   bound(nbytes, ops, "int8"), None,
+                   main=label == "TinyLlama" and m == 8)
+            unfused("3 x (quantize_q8_1 + K1), RMSNorm, SiLU",
+                    timer(lambda: tail_kernels(attn, x)))
+            ffx = randn(m, dff)
+            unfused("wo, wgu, w_down", sum(
+                timer(lambda: gemm_exact_fused(w, xx))
+                for w, xx in ((wo, attn), (wgu, x), (wd, ffx))), "k6_ms")
+
+        # with x = 0 and w_down's scales 0, out is the wo stage; with wo's
+        # scales 0, rows of mostly +1 (an exact RMSNorm at eps 0) and
+        # positive gate weights (gate outputs far above 17, where SiLU is
+        # the identity in float32), out is x + the w_down stage
+        m = 8
+        attn = randn(m, dim)
+        got = attn_tail(attn, torch.zeros(m, dim, device=dev), nw, wo, wgu,
+                        zero_scales(wd), 1e-5, dff)
+        if not torch.equal(got, gemm_exact(wo, quantize_q8_1(attn))):
+            fail(f"K8 attn_tail {label}: its wo stage differs from "
+                 "quantize_q8_1 + K1")
+        gate = 0.5 + 0.5 * torch.rand(dff, dim, generator=g, device=dev)
+        wgu_pos = layout.prepare(quantize_q4_0(torch.cat(
+            [gate, randn(dff, dim, scale=dim ** -0.5)])))
+        del gate
+        x = torch.where(torch.rand(m, dim, generator=g, device=dev) < 0.1,
+                        -1.0, 1.0)
+        got = attn_tail(attn, x, nw.abs(), zero_scales(wo), wgu_pos, wd, 0.0,
+                        dff)
+        gu = gemm_exact(wgu_pos, quantize_q8_1(rms_norm(x, nw.abs(), 0.0)))
+        want = x + gemm_exact(wd, quantize_q8_1(silu_mul(gu[:, :dff],
+                                                         gu[:, dff:])))
+        if not (gu[:, :dff].min() > 100.0 and torch.equal(got, want)):
+            fail(f"K8 attn_tail {label}: its w_down stage differs from "
+                 "quantize_q8_1 + K1")
+        print(f"  {'attn_tail':13s} {label} wo and w_down stages at M={m}: "
+              "equal to quantize_q8_1 + K1", flush=True)
+        del wgu_pos
+    del wo, wgu, wd
     mistral_kernel_rows(dev, timer, record, randn, g)
     slice6_kernel_rows(dev, timer, record, randn)
     slice7_kernel_rows(dev, timer, record, unfused, randn)
@@ -2447,8 +2490,9 @@ def main() -> int:
             "variants": [{k: r.get(k) for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                 "layout_bound_ms", "library_ms", "max_abs_err",
-                "unfused_ms", "k1_ms")} for r in every if not r["main"]]})
-        for key in ("unfused_ms", "k1_ms"):
+                "unfused_ms", "k1_ms", "k6_ms", "k1_q8_0_ms")}
+                for r in every if not r["main"]]})
+        for key in ("unfused_ms", "k1_ms", "k6_ms", "k1_q8_0_ms"):
             if any(key in r for r in mine):
                 kernels[-1][key] = sum(r[key] for r in mine)
     print(json.dumps({"kernels": kernels}), flush=True)

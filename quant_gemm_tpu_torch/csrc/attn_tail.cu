@@ -9,47 +9,58 @@
 // Replaces the Pallas kernel quant_gemm_tpu/kernels/gemm_megalayer.py::
 // attn_tail (body _tail_kernel).  Each GEMM stage equals quantize_q8_1 +
 // K1 bit for bit for the same float input, as the JAX kernel promises
-// ("bit-identical GEMM stages"): the Q8_1 codes come from the shared
-// quantizer and every output is summed in K1's order (common.cuh::
-// quantize_q8_1_block, k1_rows).  RMSNorm and SiLU sum and round in this
+// ("bit-identical GEMM stages"): each stage is K1's own body, mode and
+// order (k1.cuh, STREAMED) on Q8_1 codes made by the shared quantizer
+// (common.cuh::quantize_tile).  RMSNorm and SiLU sum and round in this
 // kernel's own float32 order, so a code of the next stage can move
 // across a .5 rounding tie against the plain chain: the two agree to a
 // tolerance on the layer update out - x, not bit for bit.
 //
 // Bound on an H100: bytes, the three weights (38.8M q4_0 weights, 21.8 MB
-// per TinyLlama-1.1B layer).  Design: one cooperative launch of SMs x
-// occupancy blocks of 16 warps, three grid barriers
-// (cooperative_groups::this_grid().sync()); in each stage the block's
-// warps form groups of K1's 1, 2 or 4 warps (k1_warps of the stage's K),
-// each group K1's block on NC = 2 weight rows at a time (the rows of a
-// block do not enter an output's order; two rows and accumulators for 8
-// activation rows keep the kernel at 64 registers, two blocks per SM):
-//   1. every block quantizes attn into shared memory; the groups take
-//      wo's row groups, grid-strided, into the scratch o; sync;
-//   2. every block forms xm = x + o, normalises and quantizes it into
-//      shared memory; a block task is one 32-column block of ff, 16 row
-//      groups: a group takes gate rows j, j+1 and then up rows j+dff,
-//      j+dff+1, and the thread that emitted gate output (c, m) emits the
-//      up output too, so SiLU*gate needs no barrier; the block
-//      quantizes its 32 ff columns straight into the scratch codes; sync;
-//   3. every block copies the ff codes (45 KB at M = 8, dff = 5632) into
-//      shared memory; the groups take w_down's row groups and add the
-//      residual.
-// A grid larger than the blocks that can be resident at once would hang
-// at a barrier, so the host sizes it from the occupancy and launches
-// with cudaLaunchCooperativeKernel, which refuses a grid that does not
-// fit.  Data written in the launch (o, the ff codes) is read back with
-// __ldcg (L2), never through the non-coherent path.
-#include <cooperative_groups.h>
-
-#include "common.cuh"
+// per TinyLlama-1.1B layer).  Design: one cooperative launch of a
+// persistent grid (as many blocks as are resident at once; the launch
+// refuses a grid that does not fit) that alternates grid-wide Q8_1 passes
+// and GEMM stages on k1.cuh's int8 mma.sync body, with five grid barriers
+// (cooperative_groups::this_grid().sync()):
+//   q. the codes of attn: every warp of the grid quantizes its share of
+//      the M x dim/32 blocks into the scratch codes;
+//   1. wo, the codes STREAMED from the scratch (K1's mode); the epilogue
+//      writes xm = x + o into the scratch xm;
+//   q. every block sums the squares of each row of xm in one fixed order
+//      (one warp a row, as K2 on one slice) and quantizes its share of
+//      rms_norm(xm) into the scratch codes;
+//   2. wgu; a row tile holds 16 gate rows and their 16 up rows (k1.cuh's
+//      PAIRED epilogue), so the thread that holds gate output (j, m) holds
+//      up output (j, m) too and writes ff = silu(g) * u into the scratch
+//      ff with no barrier;
+//   q. the codes of ff, as for attn;
+//   3. w_down; the epilogue writes out = xm + the stage.
+// Why passes and not K2's / K6's cluster prologue (codes resident in
+// shared memory, each block of a cluster of 8 quantizing an eighth, a
+// design this kernel had first): inside this launch every cluster
+// quantizes the whole activation, and on the H100 that prologue took
+// most of the wgu and w_down stages' time; in a pass over the grid each
+// warp quantizes a few blocks, and the pass and its barrier cost less
+// (PERF.md).  Before each barrier in front of a GEMM stage
+// every block prefetches into L2 the weight bytes of its first two
+// chunks of that stage (which do not depend on the previous one), so the
+// barrier and the pass run under that stream.  Data written in the launch
+// (the codes, xm, ff) is read back through L2 (cp.async.cg, __ldcg),
+// never through the non-coherent path.  The launch reads nothing on the
+// host beyond the occupancy query at the first call and allocates
+// nothing: the wrapper passes the scratch.
+#include "k1.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
+using qgt::Q4_0W;
+using qgt::k1::FloatActT;
+using qgt::k1::NormActT;
+using qgt::k1::Planes;
+using qgt::k1::Q8_1Act;
+using qgt::k1::Store;
 
-constexpr int NWARPS = 16;  // warps per block
-constexpr int NC = 2;       // weight rows per K1 block
 constexpr int MMAX_TAIL = 8;
 
 struct TailArgs {
@@ -57,178 +68,143 @@ struct TailArgs {
   const float* x;     // [M, dim] residual
   const float* nw;    // [dim] mlp norm weight
   float eps;
-  const uint8_t* wo_q;  // q4_0 [dim, dim]
-  const __half* wo_d;
+  const uint8_t* wo_q;  // q4_0 [dim, dim]: qs, d
+  const uint8_t* wo_d;
   const uint8_t* gu_q;  // q4_0 [2 dff, dim]: gate rows, then up rows
-  const __half* gu_d;
+  const uint8_t* gu_d;
   const uint8_t* dn_q;  // q4_0 [dim, dff]
-  const __half* dn_d;
-  float* o;        // scratch [M, dim]
-  int8_t* fq;      // scratch Q8_1 of ff: codes [M, dff]
-  float* fd;       // d [M, dff/32]
-  float* fs;       // s [M, dff/32]
-  float* out;      // [M, dim]
+  const uint8_t* dn_d;
+  float* xm;     // scratch [M, dim]
+  float* ff;     // scratch [M, dff]
+  int8_t* qa;    // scratch Q8_1 codes [M, K] of the stage's input
+  __half* da;    // and its scales [M, K/32]
+  __half* sa;
+  float* out;  // [M, dim]
   int M, dim, dff;
 };
 
-// The block's warps as groups of K1 blocks for a stage whose K has nb
-// 32-blocks: this thread's group, its index t in it and the group size.
-struct Groups {
-  int gwarps, gthreads, count, group, t;
-  __device__ explicit Groups(int nb)
-      : gwarps(qgt::k1_warps(nb)),
-        gthreads(gwarps * 32),
-        count(NWARPS / gwarps),
-        group(threadIdx.x / gthreads),
-        t(threadIdx.x % gthreads) {}
-  __device__ void sync() const { qgt::group_sync(group, gthreads); }
+// stages 1 and 3: out[m, n] = add[m, n] + the stage (xm = x + o; out =
+// xm + the w_down stage), add read through L2
+struct AddEpi {
+  static constexpr bool PAIRED = false;
+  const float* add;
+  float* out;
+  int N;
+  __device__ static int ntiles(int N) { return Store::ntiles(N); }
+  __device__ static int row(int tile, int r, int N) {
+    return Store::row(tile, r, N);
+  }
+  __device__ __forceinline__ void operator()(int n, int m, float v) const {
+    const size_t k = static_cast<size_t>(m) * N + n;
+    out[k] = __fadd_rn(__ldcg(add + k), v);
+  }
 };
 
-using Red = float (*)[NC][MMAX_TAIL];
+// stage 2: ff = silu(g) * u = (g * sigmoid(g)) * u (ops/activations.py)
+// for gate row j (rows j of tile j / 16) and up row j + N/2
+struct GluEpi {
+  static constexpr bool PAIRED = true;
+  float* ff;
+  int dff;
+  __device__ static int ntiles(int N) { return N / 32; }
+  __device__ static int row(int tile, int r, int N) {
+    return r < 16 ? 16 * tile + r : N / 2 + 16 * tile + r - 16;
+  }
+  __device__ __forceinline__ void operator()(int j, int m, float g,
+                                             float u) const {
+    const float sg = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-g)));
+    ff[static_cast<size_t>(m) * dff + j] = __fmul_rn(__fmul_rn(g, sg), u);
+  }
+};
 
-// K1's outputs of rows n0 .. n0+NC-1 of the q4_0 weight (wq, wd) [N, K]
-// for the activation codes in shared memory, emit(c, m, sum) per output
-template <typename Emit>
-__device__ __forceinline__ void k1_block(const Groups& g, Red red,
-                                         const uint8_t* wq, const __half* wd,
-                                         int n0, int N, int nb,
-                                         const int8_t* qa, const float* da,
-                                         const float* sa, int M, Emit emit) {
-  qgt::k1_rows<NC, float, qgt::Q4_0W, MMAX_TAIL>(
-      wq, qgt::Q4_0W{wd}, n0, N, nb, qa, da, sa, M, g.t, g.gthreads,
-      red + g.group * g.gwarps, [&] { g.sync(); }, emit);
-  g.sync();  // red is rewritten by the group's next K1 block
+// Q8_1 of the M x K values get4 gives into the scratch codes (rows of K)
+// and scales (rows of K/32), the (row, block) pairs split over every warp
+// of the grid
+template <typename Get4>
+__device__ __forceinline__ void quantize_grid(Get4 get4, int M, int K,
+                                              int8_t* qa, __half* da,
+                                              __half* sa) {
+  constexpr int W = qgt::k1::WARPS;
+  qgt::quantize_tile<1>(get4, M, K / qgt::QK, qa, K, da, sa, K / qgt::QK,
+                        blockIdx.x * W + (threadIdx.x >> 5), gridDim.x * W,
+                        threadIdx.x & 31);
 }
 
-__global__ void __launch_bounds__(NWARPS * 32) attn_tail_kernel(TailArgs a) {
+__global__ void __launch_bounds__(qgt::k1::THREADS)
+    attn_tail_kernel(TailArgs a) {
   cg::grid_group grid = cg::this_grid();
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float red[NWARPS][NC][MMAX_TAIL];
+  __shared__ float rv[16];  // row sums of squares, rsqrt factors
   const int M = a.M, dim = a.dim, dff = a.dff;
-  const int nbd = dim / qgt::QK, nbf = dff / qgt::QK;
-  const int kmax = dim > dff ? dim : dff;
-  int8_t* qa = reinterpret_cast<int8_t*>(smem);                 // [M, K]
-  float* da = reinterpret_cast<float*>(smem + M * kmax);        // [M, nb]
-  float* sa = da + M * (kmax / qgt::QK);                        // [M, nb]
-  float* rinv = sa + M * (kmax / qgt::QK);                      // [M]
-  float* ffb = rinv + MMAX_TAIL;                                // [M, 32]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Planes po{{a.wo_d, nullptr, nullptr, nullptr}};
+  const Planes pg{{a.gu_d, nullptr, nullptr, nullptr}};
+  const Planes pd{{a.dn_d, nullptr, nullptr, nullptr}};
+  const Q8_1Act codes{a.qa, a.da, a.sa};
 
-  // 1. Q8_1 of attn into shared memory, then wo's rows into o
-  qgt::quantize_rows<4>(
-      [&](int m, int i) { return a.attn[static_cast<size_t>(m) * dim + i]; },
-      M, dim, qa, da, sa, warp, NWARPS, lane);
-  __syncthreads();
-  const Groups gd(nbd);  // stages 1 and 2: K = dim
-  for (int r = blockIdx.x * gd.count + gd.group; r < dim / NC;
-       r += gridDim.x * gd.count) {
-    const int n0 = r * NC;
-    k1_block(gd, red, a.wo_q, a.wo_d, n0, dim, nbd, qa, da, sa, M,
-             [&](int c, int m, float s) {
-               a.o[static_cast<size_t>(m) * dim + n0 + c] = s;
-             });
-  }
+  qgt::k1::prefetch_first<Q4_0W, AddEpi>(a.wo_q, po, dim, dim);
+  const FloatActT<> attn{a.attn, dim};
+  quantize_grid([&](int m, int i) { return attn.get4(m, i); }, M, dim, a.qa,
+                a.da, a.sa);
   grid.sync();
-
-  // 2. xm = x + o, RMSNorm (ops/rms_norm.py's steps), Q8_1 into shared
-  //    memory; then gate/up rows, SiLU*gate and Q8_1 of ff per 32 columns
-  for (int m = warp; m < M; m += NWARPS) {
-    float s = 0.0f;
-#pragma unroll 8
-    for (int i = lane; i < dim; i += 32) {
-      const size_t k = static_cast<size_t>(m) * dim + i;
-      const float xm = __fadd_rn(a.x[k], __ldcg(a.o + k));
-      s = __fadd_rn(s, __fmul_rn(xm, xm));
-    }
-    s = qgt::warp_sum(s);
-    if (lane == 0)
-      rinv[m] = rsqrtf(__fadd_rn(__fdiv_rn(s, static_cast<float>(dim)), a.eps));
-  }
-  __syncthreads();
-  qgt::quantize_rows<4>(
-      [&](int m, int i) {
-        const size_t k = static_cast<size_t>(m) * dim + i;
-        const float xm = __fadd_rn(a.x[k], __ldcg(a.o + k));
-        return __fmul_rn(__fmul_rn(xm, rinv[m]), a.nw[i]);
-      },
-      M, dim, qa, da, sa, warp, NWARPS, lane);
-  __syncthreads();
-  for (int task = blockIdx.x; task < nbf; task += gridDim.x) {
-    for (int r = gd.group; r < qgt::QK / NC; r += gd.count) {
-      const int j = task * qgt::QK + r * NC;
-      float* f = ffb + r * NC;  // f[m * QK + c]: ff column j + c
-      k1_block(gd, red, a.gu_q, a.gu_d, j, 2 * dff, nbd, qa, da, sa, M,
-               [&](int c, int m, float s) { f[m * qgt::QK + c] = s; });
-      k1_block(gd, red, a.gu_q, a.gu_d, j + dff, 2 * dff, nbd, qa, da, sa,
-               M, [&](int c, int m, float s) {
-                 // silu(g) * u = (g * sigmoid(g)) * u, ops/activations.py
-                 const float g = f[m * qgt::QK + c];
-                 const float sg = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-g)));
-                 f[m * qgt::QK + c] = __fmul_rn(__fmul_rn(g, sg), s);
-               });
-    }
-    __syncthreads();
-    if (warp < (M + 3) / 4) {  // four rows a warp, one block each
-      const int m = 4 * warp + (lane >> 3), e = (lane & 7) * 4;
-      float h[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) h[j] = m < M ? ffb[m * qgt::QK + e + j] : 0.0f;
-      const qgt::Q8_1Code c = qgt::quantize_q8_1_block(h);
-      if (m < M) {
-        *reinterpret_cast<int*>(a.fq + static_cast<size_t>(m) * dff +
-                                task * qgt::QK + e) = c.q4;
-        if (e == 0) {
-          a.fd[m * nbf + task] = c.d;
-          a.fs[m * nbf + task] = c.s;
-        }
-      }
-    }
-    __syncthreads();  // ffb is rewritten by the next task
-  }
+  qgt::k1::gemm<Q4_0W, 1, qgt::k1::STREAMED>(a.wo_q, po, codes,
+                                             AddEpi{a.x, a.xm, dim}, M, dim,
+                                             dim);
+  qgt::k1::prefetch_first<Q4_0W, GluEpi>(a.gu_q, pg, 2 * dff, dim);
   grid.sync();
-
-  // 3. the ff codes into shared memory, then w_down's rows + residual
-  const int4* src = reinterpret_cast<const int4*>(a.fq);
-  int4* dst = reinterpret_cast<int4*>(qa);
-  for (int i = threadIdx.x; i < M * dff / 16; i += blockDim.x)
-    dst[i] = __ldcg(src + i);
-  for (int i = threadIdx.x; i < M * nbf; i += blockDim.x) {
-    da[i] = __ldcg(a.fd + i);
-    sa[i] = __ldcg(a.fs + i);
-  }
+  NormActT<true> h{a.xm, a.nw, a.eps, dim, nullptr};
+  h.partial<1>(rv, M, threadIdx.x >> 5, qgt::k1::WARPS, threadIdx.x & 31);
   __syncthreads();
-  const Groups gf(nbf);  // K = dff
-  for (int r = blockIdx.x * gf.count + gf.group; r < dim / NC;
-       r += gridDim.x * gf.count) {
-    const int n0 = r * NC;
-    k1_block(gf, red, a.dn_q, a.dn_d, n0, dim, nbf, qa, da, sa, M,
-             [&](int c, int m, float s) {
-               const size_t k = static_cast<size_t>(m) * dim + n0 + c;
-               a.out[k] = __fadd_rn(__fadd_rn(a.x[k], __ldcg(a.o + k)), s);
-             });
-  }
+  h.combine<1>(rv, M, threadIdx.x);
+  __syncthreads();  // the rsqrt factors
+  quantize_grid([&](int m, int i) { return h.get4(m, i); }, M, dim, a.qa,
+                a.da, a.sa);
+  grid.sync();
+  qgt::k1::gemm<Q4_0W, 1, qgt::k1::STREAMED>(a.gu_q, pg, codes,
+                                             GluEpi{a.ff, dff}, M, 2 * dff,
+                                             dim);
+  qgt::k1::prefetch_first<Q4_0W, AddEpi>(a.dn_q, pd, dim, dff);
+  grid.sync();
+  const FloatActT<true> ff{a.ff, dff};
+  quantize_grid([&](int m, int i) { return ff.get4(m, i); }, M, dff, a.qa,
+                a.da, a.sa);
+  grid.sync();
+  qgt::k1::gemm<Q4_0W, 1, qgt::k1::STREAMED>(a.dn_q, pd, codes,
+                                             AddEpi{a.xm, a.out, dim}, M,
+                                             dim, dff);
 }
 
-size_t smem_bytes(int M, int dim, int dff) {
+// The scratch: xm, ff, then the codes and scales of the widest input,
+// each segment on 16 bytes.
+struct Scratch {
+  size_t xm, ff, qa, da, sa, total;
+};
+
+Scratch scratch(int M, int dim, int dff) {
+  auto up16 = [](size_t n) { return (n + 15) & ~static_cast<size_t>(15); };
   const size_t kmax = dim > dff ? dim : dff;
-  return M * kmax + 2 * sizeof(float) * M * (kmax / qgt::QK) +
-         sizeof(float) * (MMAX_TAIL + MMAX_TAIL * qgt::QK);
+  Scratch s;
+  s.xm = 0;
+  s.ff = s.xm + up16(4 * static_cast<size_t>(M) * dim);
+  s.qa = s.ff + up16(4 * static_cast<size_t>(M) * dff);
+  s.da = s.qa + up16(static_cast<size_t>(M) * kmax);
+  s.sa = s.da + up16(2 * M * (kmax / qgt::QK));
+  s.total = s.sa + up16(2 * M * (kmax / qgt::QK));
+  return s;
 }
 
 }  // namespace
 
-// Bytes of the scratch buffer qgt_attn_tail_q4_0 takes: o f32 [M, dim],
-// the ff codes int8 [M, dff] and their d, s f32 [M, dff/32].
+// Bytes of the scratch buffer qgt_attn_tail_q4_0 takes: xm f32 [M, dim],
+// ff f32 [M, dff] and the Q8_1 codes int8 [M, K] and scales f16
+// [M, K/32] x 2 of the widest stage input.
 QGT_EXPORT int qgt_attn_tail_workspace(int M, int dim, int dff) {
-  return 4 * M * dim + M * dff + 8 * M * (dff / qgt::QK);
+  return static_cast<int>(scratch(M, dim, dff).total);
 }
 
-// out f32 [M, dim] = the tail above, attn/x f32 [M, dim], nw f32 [dim],
-// q4_0 wo [dim, dim], wgu [2 dff, dim], w_down [dim, dff] (qs uint8
-// [N, K/2], d f16 [N, K/32]); ws: qgt_attn_tail_workspace bytes, 16-byte
-// aligned.  Returns cudaErrorNotSupported where the device has no
-// cooperative launch, and cudaErrorCooperativeLaunchTooLarge where not
-// one block fits on an SM.
+// out f32 [M, dim] = the tail above, attn/x f32 [M, dim], nw f32 [dim]
+// (16-byte aligned), q4_0 wo [dim, dim], wgu [2 dff, dim], w_down [dim,
+// dff] (qs uint8 [N, K/2], d f16 [N, K/32], 16-byte aligned); ws:
+// qgt_attn_tail_workspace bytes, 16-byte aligned.  Returns the launch's
+// error where the card refuses the cooperative launch.
 QGT_EXPORT int qgt_attn_tail_q4_0(const void* attn, const void* x,
                                   const void* nw, float eps,
                                   const void* wo_q, const void* wo_d,
@@ -236,51 +212,51 @@ QGT_EXPORT int qgt_attn_tail_q4_0(const void* attn, const void* x,
                                   const void* dn_q, const void* dn_d,
                                   void* ws, void* out, int M, int dim,
                                   int dff, void* stream) {
-  if (M < 1 || M > MMAX_TAIL || dim < 1 || dff < 1 || dim % qgt::QK ||
-      dff % qgt::QK)
+  if (M < 1 || M > MMAX_TAIL || dim < qgt::QK || dff < qgt::QK ||
+      dim % qgt::QK || dff % qgt::QK)
     return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, coop = 0, sms = 0, occ = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (!coop) return static_cast<int>(cudaErrorNotSupported);
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const size_t smem = smem_bytes(M, dim, dff);
-  e = cudaFuncSetAttribute(attn_tail_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, attn_tail_kernel,
-                                                    NWARPS * 32, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (occ < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-
-  unsigned char* w = static_cast<unsigned char*>(ws);
+  uint8_t* w = static_cast<uint8_t*>(ws);
+  const Scratch s = scratch(M, dim, dff);
   TailArgs a;
   a.attn = static_cast<const float*>(attn);
   a.x = static_cast<const float*>(x);
   a.nw = static_cast<const float*>(nw);
   a.eps = eps;
   a.wo_q = static_cast<const uint8_t*>(wo_q);
-  a.wo_d = static_cast<const __half*>(wo_d);
+  a.wo_d = static_cast<const uint8_t*>(wo_d);
   a.gu_q = static_cast<const uint8_t*>(gu_q);
-  a.gu_d = static_cast<const __half*>(gu_d);
+  a.gu_d = static_cast<const uint8_t*>(gu_d);
   a.dn_q = static_cast<const uint8_t*>(dn_q);
-  a.dn_d = static_cast<const __half*>(dn_d);
-  a.o = reinterpret_cast<float*>(w);
-  a.fq = reinterpret_cast<int8_t*>(w + 4 * M * dim);
-  a.fd = reinterpret_cast<float*>(w + 4 * M * dim + M * dff);
-  a.fs = a.fd + M * (dff / qgt::QK);
+  a.dn_d = static_cast<const uint8_t*>(dn_d);
+  a.xm = reinterpret_cast<float*>(w + s.xm);
+  a.ff = reinterpret_cast<float*>(w + s.ff);
+  a.qa = reinterpret_cast<int8_t*>(w + s.qa);
+  a.da = reinterpret_cast<__half*>(w + s.da);
+  a.sa = reinterpret_cast<__half*>(w + s.sa);
   a.out = static_cast<float*>(out);
   a.M = M;
   a.dim = dim;
   a.dff = dff;
-  void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel(attn_tail_kernel, dim3(occ * sms),
-                                  dim3(NWARPS * 32), args, smem,
-                                  static_cast<cudaStream_t>(stream));
+
+  using qgt::k1::Smem;
+  static qgt::k1::Occupancy occ;
+  const int smem = qgt::k1::tail(Smem<Q4_0W, 1, qgt::k1::STREAMED>::TEND,
+                                 qgt::k1::STREAMED, M, dim)
+                       .total;
+  int resident = 0;
+  cudaError_t e = occ.get(attn_tail_kernel, smem, 1, &resident);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeCooperative;
+  at[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(resident);
+  cfg.blockDim = dim3(qgt::k1::THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, attn_tail_kernel, a);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,9 @@
-// Shared device code of the port's per-32 kernels (gemm_exact.cu,
-// gemm_dequant.cu, norm_qkv.cu, gemm_exact_fused.cu, attn_tail.cu): the
-// in-kernel Q8_1 quantizer, the per-32 weight formats (q4_0, q4_1, q5_0,
-// q5_1, q8_0, q4_k, q5_k: where a block's codes and scales are, its exact dot
-// with Q8_1 codes, its epilogue, its dequantized values), and K8's block
-// loop in K1's summation order (k1_rows; K1, K2 and K6 run k1.cuh's
-// tensor-core body, which keeps that order).  Plain C interface, no
-// PyTorch headers.
+// Shared device code of the port's per-32 kernels (k1.cuh and the
+// kernels on it, gemm_dequant.cu): the in-kernel Q8_1 quantizer, the
+// per-32 weight formats (q4_0, q4_1, q5_0, q5_1, q8_0, q4_k, q5_k: their
+// scale planes, the golden's epilogue on an exact dot with Q8_1 codes,
+// K4's dequantized values), and the warp count of K1's summation order
+// (k1_warps).  Plain C interface, no PyTorch headers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -176,76 +174,11 @@ __device__ __forceinline__ void quantize_tile(Get4 get4, int M, int nblk,
       warp, nwarps, lane);
 }
 
-// Q8_1 of the M x K values get(m, i) into codes qa [M, K] and scales da,
-// sa [M, K/32] (quantize_tile over whole rows, one value at a time).
-template <int U, typename ScaleT, typename Get>
-__device__ __forceinline__ void quantize_rows(Get get, int M, int K,
-                                              int8_t* qa, ScaleT* da,
-                                              ScaleT* sa, int warp,
-                                              int nwarps, int lane) {
-  const int nb = K / QK;
-  quantize_tile<U>(
-      [&](int m, int i) {
-        return make_float4(get(m, i), get(m, i + 1), get(m, i + 2),
-                           get(m, i + 3));
-      },
-      M, nb, qa, K, da, sa, nb, warp, nwarps, lane);
-}
-
-// Exact int32 dot of one q4_0 block (16 bytes; byte j = code j | code j+16
-// << 4, raw codes 0..15) with its 32 int8 activation codes (a0: codes
-// 0..15, a1: codes 16..31): eight dp4a.
-__device__ __forceinline__ int dot_q4_0_q8(uint4 w, int4 a0, int4 a1) {
-  const unsigned lo = 0x0F0F0F0Fu;
-  int s = 0;
-  s = __dp4a(static_cast<int>(w.x & lo), a0.x, s);
-  s = __dp4a(static_cast<int>(w.y & lo), a0.y, s);
-  s = __dp4a(static_cast<int>(w.z & lo), a0.z, s);
-  s = __dp4a(static_cast<int>(w.w & lo), a0.w, s);
-  s = __dp4a(static_cast<int>((w.x >> 4) & lo), a1.x, s);
-  s = __dp4a(static_cast<int>((w.y >> 4) & lo), a1.y, s);
-  s = __dp4a(static_cast<int>((w.z >> 4) & lo), a1.z, s);
-  s = __dp4a(static_cast<int>((w.w >> 4) & lo), a1.w, s);
-  return s;
-}
-
-// Exact int32 dot of one q5 block: the q4_0 byte layout of the low four
-// bits and the 32 fifth bits qh (bit j: code j, llama.cpp's block qh).
-// bit4(b) moves bits 0..3 of b to bit 4 of bytes 0..3, so each dp4a
-// operand holds four 5-bit codes 0..31 (positive as signed bytes).
+// bit4(b) moves bits 0..3 of b to bit 4 of bytes 0..3 (a q5 code's fifth
+// bit beside its low four).
 __device__ __forceinline__ unsigned bit4(unsigned b) {
   return ((b & 1u) << 4) | ((b & 2u) << 11) | ((b & 4u) << 18) |
          ((b & 8u) << 25);
-}
-
-__device__ __forceinline__ int dot_q5_q8(uint4 w, unsigned h, int4 a0,
-                                         int4 a1) {
-  const unsigned lo = 0x0F0F0F0Fu;
-  int s = 0;
-  s = __dp4a(static_cast<int>((w.x & lo) | bit4(h)), a0.x, s);
-  s = __dp4a(static_cast<int>((w.y & lo) | bit4(h >> 4)), a0.y, s);
-  s = __dp4a(static_cast<int>((w.z & lo) | bit4(h >> 8)), a0.z, s);
-  s = __dp4a(static_cast<int>((w.w & lo) | bit4(h >> 12)), a0.w, s);
-  s = __dp4a(static_cast<int>(((w.x >> 4) & lo) | bit4(h >> 16)), a1.x, s);
-  s = __dp4a(static_cast<int>(((w.y >> 4) & lo) | bit4(h >> 20)), a1.y, s);
-  s = __dp4a(static_cast<int>(((w.z >> 4) & lo) | bit4(h >> 24)), a1.z, s);
-  s = __dp4a(static_cast<int>(((w.w >> 4) & lo) | bit4(h >> 28)), a1.w, s);
-  return s;
-}
-
-// Exact int32 dot of one q8_0 block (32 signed codes, w0: 0..15, w1:
-// 16..31) with its 32 int8 activation codes: eight signed dp4a.
-__device__ __forceinline__ int dot_q8_q8(int4 w0, int4 w1, int4 a0, int4 a1) {
-  int s = 0;
-  s = __dp4a(w0.x, a0.x, s);
-  s = __dp4a(w0.y, a0.y, s);
-  s = __dp4a(w0.z, a0.z, s);
-  s = __dp4a(w0.w, a0.w, s);
-  s = __dp4a(w1.x, a1.x, s);
-  s = __dp4a(w1.y, a1.y, s);
-  s = __dp4a(w1.z, a1.z, s);
-  s = __dp4a(w1.w, a1.w, s);
-  return s;
 }
 
 // The golden's per-block epilogues (ref/gemm.py::gemm_wxa8,
@@ -302,20 +235,12 @@ __device__ __forceinline__ void values8(const int (&q)[8], float2 s,
                : static_cast<float>(q[i] - static_cast<int>(off)) * s.x;
 }
 
-// The per-32 weight formats: where a block's codes and scales are
-// (Block, load, scales), its exact dot with the Q8_1 codes (dot), the
-// golden's epilogue (term, ref/gemm.py::gemm_wxa8 order) and K4's
-// dequantized values (dequant8).  Codes: qs [N, nb*16] bytes (q4/q5, the
-// low four bits) or [N, nb*32] int8 (q8_0), at wq.
+// The per-32 weight formats: their scale planes (scales), the golden's
+// epilogue on a block's exact dot sumi with the Q8_1 codes (term,
+// ref/gemm.py::gemm_wxa8 order) and K4's dequantized values (dequant8).
+// Codes: qs [N, nb*16] bytes (q4/q5, the low four bits) or [N, nb*32]
+// int8 (q8_0), at wq.
 struct Q4W {  // the 4-bit code layout of q4_0, q4_1 and q4_k
-  using Block = uint4;
-  __device__ __forceinline__ static Block load(const uint8_t* wq, size_t row,
-                                               int nb, int b) {
-    return __ldg(reinterpret_cast<const uint4*>(wq + row * nb * 16) + b);
-  }
-  __device__ __forceinline__ static int dot(Block w, int4 a0, int4 a1) {
-    return dot_q4_0_q8(w, a0, a1);
-  }
   __device__ __forceinline__ static void codes8(const uint8_t* wq,
                                                 size_t blk, int qtr,
                                                 int (&q)[8]) {
@@ -326,14 +251,6 @@ struct Q4W {  // the 4-bit code layout of q4_0, q4_1 and q4_k
 // The 4-bit formats take their codes from Q4W (aggregates with their
 // scale planes as the only members, so Q4_0W{d} initializes them).
 #define QGT_Q4_CODES                                                        \
-  using Block = Q4W::Block;                                                 \
-  __device__ __forceinline__ static Block load(const uint8_t* wq,           \
-                                               size_t row, int nb, int b) { \
-    return Q4W::load(wq, row, nb, b);                                       \
-  }                                                                         \
-  __device__ __forceinline__ static int dot(Block w, int4 a0, int4 a1) {    \
-    return Q4W::dot(w, a0, a1);                                             \
-  }                                                                         \
   __device__ __forceinline__ static void codes8(const uint8_t* wq,          \
                                                 size_t blk, int qtr,        \
                                                 int (&q)[8]) {              \
@@ -386,11 +303,6 @@ struct Q4_1W {  // d, m f16 [N, nb]: d_w * d_a * sumi + m_w * s_a
 
 #undef QGT_Q4_CODES
 
-struct Q5Block {
-  uint4 q;     // low four bits, the q4_0 layout
-  unsigned h;  // fifth bits, bit j of code j
-};
-
 // q5_0 and q5_1: d (and m) f16 [N, nb], qh u32 [N, nb]; q5_k (a q5_K
 // tensor in its effective q5_1 form): d', m' f32 [N, nb], qh u32 [N, nb]
 template <bool HAS_MIN, typename S = __half>
@@ -398,14 +310,6 @@ struct Q5W {
   const S* d;
   const S* m;
   const unsigned* qh;
-  using Block = Q5Block;
-  __device__ __forceinline__ Block load(const uint8_t* wq, size_t row, int nb,
-                                        int b) const {
-    return {Q4W::load(wq, row, nb, b), __ldg(qh + row * nb + b)};
-  }
-  __device__ __forceinline__ static int dot(const Block& w, int4 a0, int4 a1) {
-    return dot_q5_q8(w.q, w.h, a0, a1);
-  }
   __device__ __forceinline__ void codes8(const uint8_t* wq, size_t blk,
                                          int qtr, int (&q)[8]) const {
     q4_codes8(wq, blk, qtr, q);
@@ -428,22 +332,8 @@ using Q5_0W = Q5W<false>;
 using Q5_1W = Q5W<true>;
 using Q5_KW = Q5W<true, float>;
 
-struct Q8Block {
-  int4 lo;  // codes 0..15
-  int4 hi;  // codes 16..31
-};
-
 struct Q8_0W {  // int8 codes [N, nb*32], d f16 [N, nb]: d_w * d_a * sumi
   const __half* d;
-  using Block = Q8Block;
-  __device__ __forceinline__ static Block load(const uint8_t* wq, size_t row,
-                                               int nb, int b) {
-    const int4* p = reinterpret_cast<const int4*>(wq + row * nb * 32) + 2 * b;
-    return {__ldg(p), __ldg(p + 1)};
-  }
-  __device__ __forceinline__ static int dot(const Block& w, int4 a0, int4 a1) {
-    return dot_q8_q8(w.lo, w.hi, a0, a1);
-  }
   __device__ __forceinline__ static void codes8(const uint8_t* wq,
                                                 size_t blk, int qtr,
                                                 int (&q)[8]) {
@@ -478,115 +368,10 @@ __device__ __forceinline__ void dequant8(const W& fmt, const uint8_t* wq,
   values8<W::MIN>(q, fmt.scales(blk), W::OFF, v);
 }
 
-// Partial sums acc[c][m] of C[m, n0 + c] over the blocks b = b0, b0 +
-// bstride, ... < nb, for NC consecutive weight rows (columns of C) and M
-// <= MM rows, the block terms summed in float32 as the TPU kernel sums
-// them.  Weights: the codes at wq and the planes of format W.
-// Activations (global or shared memory): qa int8 [M, nb*32], da/sa
-// [M, nb] of ScaleT.
-template <int NC, typename ScaleT, typename W, int MM = MMAX>
-__device__ __forceinline__ void exact_partial(
-    const uint8_t* __restrict__ wq, const W fmt, int n0, int N, int nb,
-    const int8_t* qa, const ScaleT* da, const ScaleT* sa, int M, int b0,
-    int bstride, float (&acc)[NC][MM]) {
-  const int K = nb * QK;
-  for (int b = b0; b < nb; b += bstride) {
-    typename W::Block w[NC];
-    float2 sw[NC];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      if (n0 + c < N) {
-        const size_t row = static_cast<size_t>(n0 + c);
-        w[c] = fmt.load(wq, row, nb, b);
-        sw[c] = fmt.scales(row * nb + b);
-      } else {
-        w[c] = typename W::Block{};
-        sw[c] = make_float2(0.0f, 0.0f);
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < MM; ++m) {
-      if (m < M) {
-        const int4* ap =
-            reinterpret_cast<const int4*>(qa + static_cast<size_t>(m) * K) +
-            2 * b;
-        const int4 a0 = ap[0];
-        const int4 a1 = ap[1];
-        const float dam = to_f32(da[m * nb + b]);
-        const float sam = to_f32(sa[m * nb + b]);
-#pragma unroll
-        for (int c = 0; c < NC; ++c)
-          acc[c][m] = __fadd_rn(
-              acc[c][m], W::term(sw[c], dam, sam, W::dot(w[c], a0, a1)));
-      }
-    }
-  }
-}
-
-// K1's summation order, which K2, K6 (k1.cuh) and K8 (k1_rows) keep so
-// that their GEMMs equal quantize_q8_1 + K1 bit for bit.  Warps of the
-// order: enough that each virtual thread keeps at least one K block to
-// itself.
+// K1's summation order (k1.cuh): the warps that split a row's K blocks,
+// enough that each virtual thread keeps at least one block to itself.
 __host__ __device__ constexpr int k1_warps(int nb) {
   return nb >= 128 ? 4 : (nb >= 64 ? 2 : 1);
-}
-
-// Barrier over the nthreads threads (whole warps) of group `group`: its
-// own named barrier (id group + 1; 0 is __syncthreads), or __syncwarp for
-// a single warp.
-__device__ __forceinline__ void group_sync(int group, int nthreads) {
-  if (nthreads == 32) {
-    __syncwarp();
-  } else {
-    asm volatile("bar.sync %0, %1;" ::"r"(group + 1), "r"(nthreads)
-                 : "memory");
-  }
-}
-
-// C[m, n0 + c] (c < NC, m < M <= MM) in K1's order: the nthreads threads
-// t = 0 .. nthreads-1 of a group of whole warps split the K blocks
-// (exact_partial from b0 = t by nthreads), each warp reduces its partial
-// sums with warp_sum into red[t / 32], and after sync() thread t adds
-// red[0], red[1], ... in warp order for outputs u = t, t + nthreads, ...
-// of the NC * M (c = u / M, m = u % M) and calls emit(c, m, sum), so one
-// output always goes to the same thread.  Neither NC nor MM enters an
-// output's order: K1 (NC = 4, MM = 12) and a caller with other values
-// get the same bits whenever nthreads = 32 * k1_warps(nb).  Rows n0 + c
-// >= N are not emitted.  The caller syncs again before red is rewritten.
-template <int NC, typename ScaleT, typename W, int MM = MMAX, typename Sync,
-          typename Emit>
-__device__ __forceinline__ void k1_rows(const uint8_t* __restrict__ wq,
-                                        const W fmt, int n0, int N, int nb,
-                                        const int8_t* qa, const ScaleT* da,
-                                        const ScaleT* sa, int M, int t,
-                                        int nthreads, float (*red)[NC][MM],
-                                        Sync sync, Emit emit) {
-  float acc[NC][MM];
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int m = 0; m < MM; ++m) acc[c][m] = 0.0f;
-  exact_partial<NC, ScaleT, W, MM>(wq, fmt, n0, N, nb, qa, da, sa, M, t,
-                                   nthreads, acc);
-  const int warp = t >> 5, lane = t & 31;
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int m = 0; m < MM; ++m) {
-      if (m < M) {
-        const float v = warp_sum(acc[c][m]);
-        if (lane == 0) red[warp][c][m] = v;
-      }
-    }
-  sync();
-  for (int u = t; u < NC * M; u += nthreads) {
-    const int c = u / M, m = u % M;
-    if (n0 + c < N) {
-      float s = 0.0f;
-      for (int w = 0; w < nthreads / 32; ++w) s += red[w][c][m];
-      emit(c, m, s);
-    }
-  }
 }
 
 }  // namespace qgt

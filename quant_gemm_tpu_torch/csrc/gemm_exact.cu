@@ -12,8 +12,9 @@
 // rounded on its own (common.cuh's W::term); the terms are summed in
 // float32, as the TPU kernel sums them.
 //
-// The order of that sum is common.cuh::k1_rows's, bit for bit, because
-// K2, K6 and K8 are held bit-equal to quantize_q8_1 + K1: with nt = 32 *
+// The order of that sum is the old CUDA-core kernel's, bit for bit,
+// because K2, K6 and K8 are held bit-equal to quantize_q8_1 + K1 (and
+// run this body): with nt = 32 *
 // k1_warps(nb) virtual threads, thread t adds the terms of blocks b = t,
 // t + nt, ... in turn from 0, each group of 32 threads reduces with
 // warp_sum's xor butterfly (lane 0's value), and the groups are added in
@@ -34,25 +35,23 @@ namespace {
 
 using qgt::k1::Q8_1Act;
 
+using qgt::k1::Planes;
+
 template <typename W, int MT>
 __global__ void __launch_bounds__(qgt::k1::THREADS)
-    gemm_exact_kernel(const uint8_t* __restrict__ wq,
-                      const uint8_t* __restrict__ wd,
-                      const uint8_t* __restrict__ wm,
-                      const uint8_t* __restrict__ wqh, Q8_1Act act,
-                      float* __restrict__ out, int M, int N, int K) {
-  qgt::k1::gemm<W, MT, qgt::k1::STREAMED>(wq, wd, wm, wqh, act, out, M, N,
-                                          K);
+    gemm_exact_kernel(const uint8_t* __restrict__ wq, Planes wp,
+                      Q8_1Act act, float* __restrict__ out, int M, int N,
+                      int K) {
+  qgt::k1::gemm<W, MT, qgt::k1::STREAMED>(wq, wp, act,
+                                          qgt::k1::Store{out, N}, M, N, K);
 }
 
 template <typename W, int MT>
-int launch_mt(const void* wq, const void* wd, const void* wm,
-              const void* wqh, Q8_1Act act, void* out, int M, int N, int K,
-              cudaStream_t stream) {
+int launch_mt(const void* wq, Planes wp, Q8_1Act act, void* out, int M,
+              int N, int K, cudaStream_t stream) {
   static qgt::k1::Occupancy occ;
   return qgt::k1::launch<W, MT, qgt::k1::STREAMED>(
-      gemm_exact_kernel<W, MT>, occ, wq, wd, wm, wqh, act, out, M, N, K,
-      stream);
+      gemm_exact_kernel<W, MT>, occ, wq, wp, act, out, M, N, K, stream);
 }
 
 template <typename W>
@@ -65,9 +64,11 @@ int launch(const void* wq, const void* wd, const void* wm, const void* wqh,
   const Q8_1Act act{static_cast<const int8_t*>(qa),
                     static_cast<const __half*>(da),
                     static_cast<const __half*>(sa)};
-  if (M <= 8)
-    return launch_mt<W, 1>(wq, wd, wm, wqh, act, out, M, N, K, st);
-  return launch_mt<W, 2>(wq, wd, wm, wqh, act, out, M, N, K, st);
+  const Planes wp{{static_cast<const uint8_t*>(wd),
+                   static_cast<const uint8_t*>(wm),
+                   static_cast<const uint8_t*>(wqh), nullptr}};
+  if (M <= 8) return launch_mt<W, 1>(wq, wp, act, out, M, N, K, st);
+  return launch_mt<W, 2>(wq, wp, act, out, M, N, K, st);
 }
 
 }  // namespace

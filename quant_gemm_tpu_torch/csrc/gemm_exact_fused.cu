@@ -30,14 +30,14 @@ namespace {
 
 using qgt::k1::FloatAct;
 
+using qgt::k1::Planes;
+
 template <typename W, int MT, int MODE>
 __global__ void __launch_bounds__(qgt::k1::THREADS)
-    gemm_exact_fused_kernel(const uint8_t* __restrict__ wq,
-                            const uint8_t* __restrict__ wd,
-                            const uint8_t* __restrict__ wm,
-                            const uint8_t* __restrict__ wqh, FloatAct act,
-                            float* __restrict__ out, int M, int N, int K) {
-  qgt::k1::gemm<W, MT, MODE>(wq, wd, wm, wqh, act, out, M, N, K);
+    gemm_exact_fused_kernel(const uint8_t* __restrict__ wq, Planes wp,
+                            FloatAct act, float* __restrict__ out, int M,
+                            int N, int K) {
+  qgt::k1::gemm<W, MT, MODE>(wq, wp, act, qgt::k1::Store{out, N}, M, N, K);
 }
 
 template <typename W, int MT, int MODE>
@@ -45,9 +45,11 @@ int launch_mode(const void* wq, const void* wd, const void* wm,
                 FloatAct act, void* out, int M, int N, int K,
                 cudaStream_t stream) {
   static qgt::k1::Occupancy occ;
+  const Planes wp{{static_cast<const uint8_t*>(wd),
+                   static_cast<const uint8_t*>(wm), nullptr, nullptr}};
   return qgt::k1::launch<W, MT, MODE>(gemm_exact_fused_kernel<W, MT, MODE>,
-                                      occ, wq, wd, wm, nullptr, act, out, M,
-                                      N, K, stream);
+                                      occ, wq, wp, act, out, M, N, K,
+                                      stream);
 }
 
 template <typename W, int MT>

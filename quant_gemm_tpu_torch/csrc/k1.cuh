@@ -1,17 +1,19 @@
 // K1's exact decode GEMM body on the int8 tensor cores, shared by K1
 // (gemm_exact.cu: Q8_1 activations from global memory), K2 (norm_qkv.cu:
-// RMSNorm + Q8_1 of a float32 x in the kernel) and K6
-// (gemm_exact_fused.cu: Q8_1 of a float32 x in the kernel).  C[m, n] =
-// sum_b term_b over the 32-blocks b, term_b the golden's per-format
-// epilogue on the exact int32 dot sumi (common.cuh's W::term), summed in
-// float32 in K1's order (below), so K2 and K6 equal quantize_q8_1 + K1
-// bit for bit whenever their Q8_1 codes equal quantize_q8_1's.
+// RMSNorm + Q8_1 of a float32 x in the kernel), K6 (gemm_exact_fused.cu:
+// Q8_1 of a float32 x in the kernel), K7 (gemm_exact_k16.cu: the per-16
+// K-quants) and K8 (attn_tail.cu: three GEMM stages in one launch).
+// C[m, n] = sum_b term_b over the 32-blocks b, term_b the golden's
+// per-format epilogue on the exact int32 dot sumi (common.cuh's W::term;
+// K7: the sum of its two 16-element sub-blocks' terms), summed in float32
+// in K1's order (below), so K2, K6 and K8 equal quantize_q8_1 + K1 bit
+// for bit whenever their Q8_1 codes equal quantize_q8_1's.
 //
-// The order (common.cuh::k1_rows's, which K8 keeps): with nt = 32 *
-// k1_warps(nb) virtual threads, thread t adds the terms of blocks b = t,
-// t + nt, ... in turn from 0, each group of 32 threads reduces with
-// warp_sum's xor butterfly (lane 0's value), and the groups are added in
-// order from 0 (kernels/gemm_exact.py::k1_order replays it).
+// The order: with nt = 32 * k1_warps(nb) virtual threads, thread t adds
+// the terms of blocks b = t, t + nt, ... in turn from 0, each group of 32
+// threads reduces with warp_sum's xor butterfly (lane 0's value), and the
+// groups are added in order from 0 (kernels/gemm_exact.py::k1_order
+// replays it).
 //
 // Design (bound: the weight stream's bytes at M <= 12):
 // * one int8 MMA per 32-block: mma.sync m16n8k32 (u8 x s8, s8 x s8 for
@@ -21,7 +23,9 @@
 //   their low nibbles and 16+4t .. 16+4t+3 in their high ones: exactly
 //   its two k groups, so & 0x0F0F0F0F and >> 4 build it (q5 ORs in the
 //   fifth bits from qh; q8_0's 32 bytes are the fragment as stored).
-//   ldmatrix reads both operands from shared memory.
+//   ldmatrix reads both operands from shared memory.  K7's int8 codes
+//   load as q8_0's, and the halves of that fragment feed two m16n8k16
+//   MMAs, one per 16-element sub-block, so each gives sumi_j exactly.
 // * the order replayed in registers: warp_sum's butterfly at offsets 16,
 //   8 and 4 adds lanes of one residue mod 4, so a group's 32 virtual
 //   threads split into four subtrees of eight.  The four warps of a row
@@ -34,18 +38,18 @@
 // * the weight stream hidden: a persistent grid (as many blocks as fit,
 //   each walking row tiles of 32 rows) streams each tile's K blocks in
 //   chunks of 32 (one group's run: blocks r nt + 32 g .. + 31), codes and
-//   the scale and qh planes staged with 16-byte cp.async in a ring of
-//   three, across tile boundaries, so the next chunks load while this one
-//   is computed.  A plane row segment that does not start on 16 bytes (an
+//   the scale planes staged with 16-byte cp.async in a ring of three,
+//   across tile boundaries, so the next chunks load while this one is
+//   computed.  A plane row segment that does not start on 16 bytes (an
 //   f16 plane at odd n * nb) is copied from the 16-byte boundary below it
 //   and read at its offset.  The walk's bookkeeping is a cursor, with no
 //   division in the loop; a full chunk takes a body without per-block
 //   guards.
 // * where the activation codes come from (Mode):
-//   - STREAMED (K1): the Q8_1 codes and f16 scales in global memory,
-//     staged with each chunk in the ring;
-//   - RESIDENT (K2, K6 where it fits): the [M, K] codes are resident in
-//     shared memory (rows of K + 16 bytes, an odd multiple of 16, so
+//   - STREAMED (K1, K7, K8): the Q8_1 codes and f16 scales in global
+//     memory, staged with each chunk in the ring;
+//   - RESIDENT (K2, K6): the [M, K] codes are resident
+//     in shared memory (rows of K + 16 bytes, an odd multiple of 16, so
 //     ldmatrix reads 8 rows without bank conflicts; rows past M read row
 //     M - 1, whose outputs are dropped) with f16 scale planes.  The blocks
 //     run in clusters of CLUSTER = 8: each normalises and quantizes one
@@ -72,6 +76,11 @@
 //   its slice of row m (one warp, lane l the float4s l, l + 32, ...,
 //   then warp_sum), and every block adds the slices' sums in rank order
 //   (a CHUNKED launch: one slice, the whole row).
+// * where the outputs go (Epi): out[m, n] (Store), or K8's epilogues; a
+//   row tile is 32 consecutive weight rows, or (Epi::PAIRED, K8's wgu)
+//   16 gate rows j .. j + 15 and the 16 up rows j + N/2 .., so that the
+//   thread that holds gate output (j, m) holds up output (j, m) too.
+//   The order of an output's sum does not depend on its row's place.
 // Launches read nothing on the host and allocate nothing (the occupancy
 // of a kernel is queried at the first launch of each shared-memory
 // size), so a CUDA graph can capture them.
@@ -100,35 +109,66 @@ constexpr int CLUSTER = 8;  // blocks that share one RESIDENT prologue
 
 enum Mode { STREAMED, RESIDENT, CHUNKED };
 
+// K7's per-16 K-quant formats (q6_K, q3_K: MIN false; q2_K: MIN):
+// shifted int8 codes [N, K], per weight row f16 d [K/256] and int8 sc
+// [K/16], and for q2_K f16 dmin [K/256] and int8 mn [K/16].  Sub-block j
+// of a 32-block of row n adds (scp_j * d_a) * sumi_j [+ mp_j * (sumq_j *
+// d_a)], scp_j = d * sc_j and mp_j = -(dmin * mn_j) (exact in float32:
+// an f16 times an integer below 256), sumq_j the sum of the sub-block's
+// activation codes, each step rounded on its own.
+template <bool HAS_MIN>
+struct K16W {
+  static constexpr bool MIN = HAS_MIN;
+};
+
 // What the body needs of a weight format beyond common.cuh's W: code bytes
-// a block, the scale planes' element type, and whether it has a qh plane.
+// a block, the scale planes' element type, whether it has a qh plane, and
+// its (up to four) planes: plane i holds es(i) bytes for every per(i)
+// K blocks of a weight row (es 0: no plane).  The per-32 formats: d, m
+// (min formats) and qh; K7's: sc (two int8 a block), mn (q2_K), d and
+// dmin (one f16 a super-block of 8 blocks).
+template <typename S_, int BB_, bool MIN, bool QH>
+struct Fmt32 {
+  using S = S_;
+  static constexpr int BB = BB_;
+  static constexpr bool HAS_QH = QH;
+  static constexpr bool K16 = false;
+  __host__ __device__ static constexpr int es(int i) {
+    return i == 0 ? static_cast<int>(sizeof(S_))
+                  : i == 1 ? (MIN ? static_cast<int>(sizeof(S_)) : 0)
+                           : i == 2 ? (QH ? 4 : 0) : 0;
+  }
+  __host__ __device__ static constexpr int per(int) { return 1; }
+};
+
 template <typename W>
 struct Fmt;
 template <>
-struct Fmt<Q4_0W> {
-  using S = __half;
-  static constexpr int BB = 16;
-  static constexpr bool HAS_QH = false;
-};
+struct Fmt<Q4_0W> : Fmt32<__half, 16, false, false> {};
 template <>
-struct Fmt<Q4_1W> : Fmt<Q4_0W> {};
+struct Fmt<Q4_1W> : Fmt32<__half, 16, true, false> {};
 template <>
-struct Fmt<Q4_KW> {
-  using S = float;
-  static constexpr int BB = 16;
-  static constexpr bool HAS_QH = false;
-};
+struct Fmt<Q4_KW> : Fmt32<float, 16, true, false> {};
 template <bool MIN, typename T>
-struct Fmt<Q5W<MIN, T>> {
-  using S = T;
-  static constexpr int BB = 16;
-  static constexpr bool HAS_QH = true;
-};
+struct Fmt<Q5W<MIN, T>> : Fmt32<T, 16, MIN, true> {};
 template <>
-struct Fmt<Q8_0W> {
+struct Fmt<Q8_0W> : Fmt32<__half, 32, false, false> {};
+template <bool MIN>
+struct Fmt<K16W<MIN>> {
   using S = __half;
   static constexpr int BB = 32;
   static constexpr bool HAS_QH = false;
+  static constexpr bool K16 = true;
+  __host__ __device__ static constexpr int es(int i) {
+    return i > 3 || ((i == 1 || i == 3) && !MIN) ? 0 : 2;
+  }
+  __host__ __device__ static constexpr int per(int i) { return i < 2 ? 1 : 8; }
+};
+
+// The weight's scale and bit planes in Fmt's order (null where it has
+// none), each 16-byte aligned.
+struct Planes {
+  const uint8_t* p[4];
 };
 
 // Row bytes in shared memory: codes at an odd multiple of 16 (ldmatrix
@@ -138,26 +178,40 @@ __host__ __device__ constexpr int plane_rb(int esize) {
   return CB * esize + 16;
 }
 
+// Weight plane i's row bytes in a stage (0: no plane), and the bytes of
+// the 32 rows of planes 0 .. i - 1.
+template <typename F>
+__host__ __device__ constexpr int plane_bytes(int i) {
+  return F::es(i) ? (CB / F::per(i) * F::es(i) + 31) / 16 * 16 : 0;
+}
+template <typename F>
+__host__ __device__ constexpr int planes_before(int i) {
+  return i == 0 ? 0 : planes_before<F>(i - 1) + ROWS * plane_bytes<F>(i - 1);
+}
+
 // The ring of STAGES chunks (weights, and the activations unless they
 // are RESIDENT), then the subtree sums of a group: [WQ][ROWS][MA].
 template <typename W, int MT, int MODE>
 struct Smem {
   using F = Fmt<W>;
+  static_assert(!F::K16 || MODE == STREAMED, "K7 streams its activations");
   static constexpr bool STAGED = MODE != RESIDENT;
   static constexpr int MA = 8 * MT;  // activation rows of the MMAs
   static constexpr int WRB = CB * F::BB + 16;
   static constexpr int ARB = CB * 32 + 16;
-  static constexpr int PD = plane_rb(sizeof(typename F::S));
-  static constexpr int PH = plane_rb(4);
   static constexpr int PA = plane_rb(2);
   static constexpr int WC = 0;
-  static constexpr int WD = WC + ROWS * WRB;
-  static constexpr int WM = WD + ROWS * PD;
-  static constexpr int WH = WM + (W::MIN ? ROWS * PD : 0);
-  static constexpr int AC = WH + (F::HAS_QH ? ROWS * PH : 0);
+  // weight plane i's row bytes and offset in a stage
+  __host__ __device__ static constexpr int prb(int i) {
+    return plane_bytes<F>(i);
+  }
+  __host__ __device__ static constexpr int wp(int i) {
+    return ROWS * WRB + planes_before<F>(i);
+  }
+  static constexpr int AC = ROWS * WRB + planes_before<F>(4);
   static constexpr int AD = AC + (STAGED ? MA * ARB : 0);
   static constexpr int AS = AD + (STAGED ? MA * PA : 0);
-  static constexpr int STAGE = AS + (STAGED ? MA * PA : 0);
+  static constexpr int STAGE = AS + (STAGED && !F::K16 ? MA * PA : 0);
   static constexpr int T = STAGES * STAGE;
   static constexpr int TEND = T + WQ * ROWS * MA * 4;
 };
@@ -239,10 +293,10 @@ __device__ __forceinline__ uint32_t bit4x(uint32_t x) {
   return ((x & 15u) * 0x02040810u) & 0x10101010u;
 }
 
-// Where a step of a block's walk is: its row tile's first row, its chunk's
-// index in the tile, group and run.
+// Where a step of a block's walk is: its row tile, its chunk's index in
+// the tile, group and run.
 struct Cursor {
-  int n0, c, g, r;
+  int tile, c, g, r;
 };
 
 template <typename S>
@@ -254,16 +308,27 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
 
-// The activation sources.  K1: Q8_1 codes int8 [M, K] and f16 scales
-// [M, K/32] in global memory (STREAMED).
+// A float4 of data at p (16-byte aligned): through the non-coherent
+// cache, or (COH: data written earlier in the same launch, K8) from L2.
+template <bool COH>
+__device__ __forceinline__ float4 ld4(const float* p) {
+  if constexpr (COH)
+    return __ldcg(reinterpret_cast<const float4*>(p));
+  else
+    return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// The activation sources.  K1, K7: Q8_1 codes int8 [M, K] and f16 scales
+// [M, K/32] in global memory (STREAMED; K7 reads no sa).
 struct Q8_1Act {
   const int8_t* qa;
   const __half* da;
   const __half* sa;
 };
 
-// K6: a float32 x [M, K] (16-byte aligned), quantized as it is.
-struct FloatAct {
+// K6 and K8: a float32 x [M, K] (16-byte aligned), quantized as it is.
+template <bool COH = false>
+struct FloatActT {
   static constexpr bool NORM = false;
   const float* x;
   int K;
@@ -280,15 +345,16 @@ struct FloatAct {
                   (b0 + i % (b1 - b0)) * QK);
   }
   __device__ __forceinline__ float4 get4(int m, int i) const {
-    return __ldg(reinterpret_cast<const float4*>(
-        x + static_cast<size_t>(m) * K + i));
+    return ld4<COH>(x + static_cast<size_t>(m) * K + i);
   }
 };
+using FloatAct = FloatActT<>;
 
-// K2: rms_norm(x, nw, eps) of a float32 x [M <= WARPS, K] in
+// K2 and K8: rms_norm(x, nw, eps) of a float32 x [M <= WARPS, K] in
 // ops/rms_norm.py's op order, x * rsqrt(mean(x^2) + eps) * nw, each step
 // rounded on its own; x and nw 16-byte aligned.
-struct NormAct {
+template <bool COH = false>
+struct NormActT {
   static constexpr bool NORM = true;
   const float* x;
   const float* nw;
@@ -307,15 +373,13 @@ struct NormAct {
                                           int nwarps, int lane) const {
     using P = Peers<CL>;
     const int nb = K / QK, me = P::rank();
-    const int j0 = P::slice(me, nb) * (QK / 4),
-              j1 = P::slice(me + 1, nb) * (QK / 4);
+    const int j0 = P::slice(me, nb) * QK, j1 = P::slice(me + 1, nb) * QK;
     for (int m = warp; m < M; m += nwarps) {
-      const float4* xr =
-          reinterpret_cast<const float4*>(x + static_cast<size_t>(m) * K);
+      const float* xr = x + static_cast<size_t>(m) * K;
       float s = 0.0f;
 #pragma unroll 8
-      for (int j = j0 + lane; j < j1; j += 32) {
-        const float4 v = __ldg(xr + j);
+      for (int j = j0 + 4 * lane; j < j1; j += 128) {
+        const float4 v = ld4<COH>(xr + j);
         s = __fadd_rn(s, __fmul_rn(v.x, v.x));
         s = __fadd_rn(s, __fmul_rn(v.y, v.y));
         s = __fadd_rn(s, __fmul_rn(v.z, v.z));
@@ -335,18 +399,16 @@ struct NormAct {
     }
     rinv = rv + 8;
   }
-  // FloatAct::prefetch, and the norm weight's lines of those blocks
+  // FloatAct's prefetch, and the norm weight's lines of those blocks
   __device__ __forceinline__ void prefetch(int M, int b0, int b1, int t,
                                            int nt) const {
-    FloatAct{x, K}.prefetch(M, b0, b1, t, nt);
+    FloatActT<COH>{x, K}.prefetch(M, b0, b1, t, nt);
     for (int i = t; i < b1 - b0; i += nt)
       prefetch_l2(nw + (b0 + i) * QK);
   }
   __device__ __forceinline__ float4 get4(int m, int i) const {
-    const float4 v =
-        __ldg(reinterpret_cast<const float4*>(x + static_cast<size_t>(m) * K +
-                                              i));
-    const float4 w = __ldg(reinterpret_cast<const float4*>(nw + i));
+    const float4 v = ld4<COH>(x + static_cast<size_t>(m) * K + i);
+    const float4 w = ld4<false>(nw + i);
     const float r = rinv[m];
     return make_float4(__fmul_rn(__fmul_rn(v.x, r), w.x),
                        __fmul_rn(__fmul_rn(v.y, r), w.y),
@@ -354,25 +416,37 @@ struct NormAct {
                        __fmul_rn(__fmul_rn(v.w, r), w.w));
   }
 };
+using NormAct = NormActT<>;
 
-// out [M, N] float32 of the weight (codes wq, planes wd, wm, wqh as W's
-// format has them) and the activation `act`, run by every thread of a
-// block of THREADS threads with Tail(...).total bytes of dynamic shared
-// memory, gridDim.x blocks walking the row tiles.
-template <typename W, int MT, int MODE, typename Act>
+// The plain epilogue: out[m, n] = the sum, float32 [M, N]; row tile t is
+// weight rows 32 t .. 32 t + 31.
+struct Store {
+  static constexpr bool PAIRED = false;
+  float* out;
+  int N;
+  __device__ static int ntiles(int N) { return (N + ROWS - 1) / ROWS; }
+  __device__ static int row(int tile, int r, int) { return tile * ROWS + r; }
+  __device__ __forceinline__ void operator()(int n, int m, float v) const {
+    out[static_cast<size_t>(m) * N + n] = v;
+  }
+};
+
+// out [M, N] float32 of the weight (codes wq, planes wp as W's format has
+// them) and the activation `act`, run by every thread of a block of
+// THREADS threads with Tail(...).total bytes of dynamic shared memory,
+// gridDim.x blocks walking the row tiles; each output goes to epi(n, m,
+// sum) (Epi::PAIRED: epi(j, m, gate, up) for gate row j and up row j +
+// N/2).
+template <typename W, int MT, int MODE, typename Act, typename Epi>
 __device__ __forceinline__ void gemm(const uint8_t* __restrict__ wq,
-                                     const uint8_t* __restrict__ wd,
-                                     const uint8_t* __restrict__ wm,
-                                     const uint8_t* __restrict__ wqh,
-                                     Act act, float* __restrict__ out, int M,
-                                     int N, int K) {
+                                     const Planes& wp, Act act, Epi epi,
+                                     int M, int N, int K) {
   using F = Fmt<W>;
   using Sm = Smem<W, MT, MODE>;
   using S = typename F::S;
   constexpr int BB = F::BB;
-  constexpr int ES = sizeof(S);
   constexpr int UMAX =  // outputs a thread
-      (ROWS * Sm::MA + THREADS - 1) / THREADS;
+      Epi::PAIRED ? 2 : (ROWS * Sm::MA + THREADS - 1) / THREADS;
   extern __shared__ __align__(16) uint8_t ksm[];
 
   const Tail tl = tail(Sm::TEND, MODE, M, K);
@@ -393,11 +467,11 @@ __device__ __forceinline__ void gemm(const uint8_t* __restrict__ wq,
   // this block's steps: the chunks of row tile blockIdx.x, then of tile
   // blockIdx.x + gridDim.x, ..., so the pipeline runs on across its
   // tiles; a cursor walks them without divisions
-  const int ntiles = (N + ROWS - 1) / ROWS;
+  const int ntiles = Epi::ntiles(N);
   const int nstep =
       (ntiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x *
       nchunk;
-  Cursor at_issue{static_cast<int>(blockIdx.x) * ROWS, 0, 0, 0};
+  Cursor at_issue{static_cast<int>(blockIdx.x), 0, 0, 0};
   Cursor at_step = at_issue;
   auto advance = [&](Cursor& cur) {
     if (++cur.r == runs(cur.g)) {
@@ -406,11 +480,17 @@ __device__ __forceinline__ void gemm(const uint8_t* __restrict__ wq,
     }
     if (++cur.c == nchunk) {
       cur.c = cur.g = cur.r = 0;
-      cur.n0 += gridDim.x * ROWS;
+      cur.tile += gridDim.x;
     }
   };
+  // where plane i's segment of weight row n starts, from K block b0
+  auto plane_start = [&](auto ic, int n, int b0) {
+    constexpr int i = decltype(ic)::value;
+    return (static_cast<size_t>(n) * (nb / F::per(i)) + b0 / F::per(i)) *
+           F::es(i);
+  };
   auto issue = [&](int buf) {
-    const int n0 = at_issue.n0, g = at_issue.g, r = at_issue.r;
+    const int tile = at_issue.tile, g = at_issue.g, r = at_issue.r;
     advance(at_issue);
     const int b0 = (r << lnt) + 32 * g, nblk = min(CB, nb - b0);
     uint8_t* st = ksm + buf * Sm::STAGE;
@@ -419,30 +499,40 @@ __device__ __forceinline__ void gemm(const uint8_t* __restrict__ wq,
     for (int i = 0; i < (ROWS * WCH + THREADS - 1) / THREADS; ++i) {
       const int e = tid + i * THREADS, row = e / WCH, ch = e % WCH;
       if (e >= ROWS * WCH) break;
-      const bool ok = n0 + row < N && ch < nblk * BB / 16;
+      const int n = Epi::row(tile, row, N);
+      const bool ok = n < N && ch < nblk * BB / 16;
       const size_t off =
-          ok ? (static_cast<size_t>(n0 + row) * nb + b0) * BB + ch * 16 : 0;
+          ok ? (static_cast<size_t>(n) * nb + b0) * BB + ch * 16 : 0;
       cp_async16(st + Sm::WC + row * Sm::WRB + ch * 16, wq + off,
                  ok ? 16 : 0);
     }
-    // plane rows: d (and m, qh) of the 32 weight rows
-    constexpr int PCH = Sm::PD / 16, HCH = Sm::PH / 16;
-    for (int e = tid; e < ROWS * PCH; e += THREADS) {
-      const int row = e / PCH, ch = e % PCH;
-      if (n0 + row >= N) continue;
-      const size_t start = (static_cast<size_t>(n0 + row) * nb + b0) * ES;
-      copy_plane(st + Sm::WD + row * Sm::PD, wd, start, nblk * ES, ch);
-      if constexpr (W::MIN)
-        copy_plane(st + Sm::WM + row * Sm::PD, wm, start, nblk * ES, ch);
-    }
-    if constexpr (F::HAS_QH) {
-      for (int e = tid; e < ROWS * HCH; e += THREADS) {
-        const int row = e / HCH, ch = e % HCH;
-        if (n0 + row >= N) continue;
-        const size_t start = (static_cast<size_t>(n0 + row) * nb + b0) * 4;
-        copy_plane(st + Sm::WH + row * Sm::PH, wqh, start, nblk * 4, ch);
+    // plane rows of the 32 weight rows: planes i and i + 1 in one loop
+    // where they have one shape (d and m; K7's sc and mn, d and dmin)
+    auto stage_planes = [&](auto ic) {
+      constexpr int i = decltype(ic)::value;
+      constexpr bool PAIR = F::es(i + 1) == F::es(i) &&
+                            F::per(i + 1) == F::per(i);
+      if constexpr (F::es(i) != 0) {
+        constexpr int CH = Sm::prb(i) / 16;
+        const int nbytes = (nblk + F::per(i) - 1) / F::per(i) * F::es(i);
+        for (int e = tid; e < ROWS * CH; e += THREADS) {
+          const int row = e / CH, ch = e % CH;
+          const int n = Epi::row(tile, row, N);
+          if (n >= N) continue;
+          const size_t start = plane_start(ic, n, b0);
+          copy_plane(st + Sm::wp(i) + row * Sm::prb(i), wp.p[i], start,
+                     nbytes, ch);
+          if constexpr (PAIR)
+            copy_plane(st + Sm::wp(i + 1) + row * Sm::prb(i + 1),
+                       wp.p[i + 1], start, nbytes, ch);
+        }
       }
-    }
+      return PAIR || F::es(i + 1) == 0;
+    };
+    if (!stage_planes(std::integral_constant<int, 0>{}))
+      stage_planes(std::integral_constant<int, 1>{});
+    if (!stage_planes(std::integral_constant<int, 2>{}))
+      stage_planes(std::integral_constant<int, 3>{});
     if constexpr (MODE == STREAMED) {
       // the chunk's activation codes, da and sa rows
       constexpr int ACH = Sm::PA / 16, ACH2 = CB * 32 / 16;
@@ -465,9 +555,10 @@ __device__ __forceinline__ void gemm(const uint8_t* __restrict__ wq,
         copy_plane(st + Sm::AD + m * Sm::PA,
                    reinterpret_cast<const uint8_t*>(act.da), start, nblk * 2,
                    ch);
-        copy_plane(st + Sm::AS + m * Sm::PA,
-                   reinterpret_cast<const uint8_t*>(act.sa), start, nblk * 2,
-                   ch);
+        if constexpr (!F::K16)
+          copy_plane(st + Sm::AS + m * Sm::PA,
+                     reinterpret_cast<const uint8_t*>(act.sa), start,
+                     nblk * 2, ch);
       }
     } else if constexpr (MODE == CHUNKED) {
       // the chunk's blocks quantized into the stage (plain stores, seen
@@ -478,6 +569,20 @@ __device__ __forceinline__ void gemm(const uint8_t* __restrict__ wq,
           reinterpret_cast<__half*>(st + Sm::AD),
           reinterpret_cast<__half*>(st + Sm::AS), Sm::PA / 2, warp, WARPS,
           lane);
+    }
+  };
+  // thread tid's output k: (row of the tile, activation row), false where
+  // it has none
+  auto slot = [&](int k, int& row, int& m) {
+    if constexpr (Epi::PAIRED) {
+      row = tid / M + 16 * k;
+      m = tid % M;
+      return tid < 16 * M;
+    } else {
+      const int u = tid + k * THREADS;
+      row = u / M;
+      m = u % M;
+      return u < ROWS * M;
     }
   };
 
@@ -557,28 +662,32 @@ __device__ __forceinline__ void gemm(const uint8_t* __restrict__ wq,
     cp_async_commit();
     cp_async_wait<STAGES - 1>();
     __syncthreads();  // this step's chunk landed
-    const int n0 = at_step.n0, c = at_step.c, g = at_step.g, r = at_step.r;
+    const int tile = at_step.tile, c = at_step.c, g = at_step.g,
+              r = at_step.r;
     advance(at_step);
     const int b0 = (r << lnt) + 32 * g, nblk = min(CB, nb - b0);
     const bool last_run = r + 1 == runs(g);
     const uint8_t* st = ksm + buf * Sm::STAGE;
     buf = buf + 1 == STAGES ? 0 : buf + 1;
 
-    // this lane's plane rows: weight rows rt * 16 + gq (+ 8), activation
-    // rows 8 mt + 2 tq (+ 1), each at its segment's offset
-    const uint8_t* wrow[2];
-    const uint8_t* mrow[2];
-    const uint8_t* hrow[2];
+    // this lane's plane rows: weight rows rt * 16 + gq (+ 8), each at its
+    // segment's offset
+    const uint8_t* prow[4][2] = {};
+    auto plane_rows = [&](auto ic) {
+      constexpr int i = decltype(ic)::value;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = rt * 16 + gq + 8 * h;
-      const size_t at = static_cast<size_t>(n0 + row) * nb + b0;
-      wrow[h] = st + Sm::WD + row * Sm::PD + plane_offset(at * ES);
-      mrow[h] = st + Sm::WM + row * Sm::PD + plane_offset(at * ES);
-      hrow[h] = st + Sm::WH + row * Sm::PH + plane_offset(at * 4);
-    }
+      for (int h = 0; h < 2; ++h) {
+        const int row = rt * 16 + gq + 8 * h;
+        prow[i][h] = st + Sm::wp(i) + row * Sm::prb(i) +
+                     plane_offset(plane_start(ic, Epi::row(tile, row, N), b0));
+      }
+    };
+    plane_rows(std::integral_constant<int, 0>{});
+    if constexpr (F::es(1) != 0) plane_rows(std::integral_constant<int, 1>{});
+    if constexpr (F::es(2) != 0) plane_rows(std::integral_constant<int, 2>{});
+    if constexpr (F::es(3) != 0) plane_rows(std::integral_constant<int, 3>{});
     // the activation code row this lane's ldmatrix reads, and the da / sa
-    // rows of its outputs
+    // rows of its outputs (activation rows 8 mt + 2 tq (+ 1))
     const uint8_t* brow[MT];
     const uint8_t* drow[MT][2];
     const uint8_t* srow[MT][2];
@@ -637,9 +746,9 @@ __device__ __forceinline__ void gemm(const uint8_t* __restrict__ wq,
             if constexpr (F::HAS_QH) {
               const int v = h ? vb : va;
               const uint32_t q0 =
-                  reinterpret_cast<const uint32_t*>(hrow[0])[v];
+                  reinterpret_cast<const uint32_t*>(prow[2][0])[v];
               const uint32_t q1 =
-                  reinterpret_cast<const uint32_t*>(hrow[1])[v];
+                  reinterpret_cast<const uint32_t*>(prow[2][1])[v];
               wr[h][0] |= bit4x(q0 >> (4 * tq));
               wr[h][1] |= bit4x(q1 >> (4 * tq));
               wr[h][2] |= bit4x(q0 >> (16 + 4 * tq));
@@ -662,25 +771,82 @@ __device__ __forceinline__ void gemm(const uint8_t* __restrict__ wq,
           for (int h = 0; h < 2; ++h) {
             const int v = h ? vb : va;
             if (!FULL && v >= nblk) break;  // uniform across the warp
-            int cs[4];
-            mma_s32_zero<BB == 32>(cs, wr[h], B[2 * h], B[2 * h + 1]);
-            float2 sw[2];
+            float dam[2];
 #pragma unroll
             for (int e = 0; e < 2; ++e)
-              sw[e] = make_float2(plane_at<S>(wrow[e], v),
-                                  W::MIN ? plane_at<S>(mrow[e], v) : 0.0f);
-            float dam[2], sam[2];
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
               dam[e] = plane_at<__half>(drow[mt][e], v);
-              sam[e] = plane_at<__half>(srow[mt][e], v);
-            }
             float* lf = leaf[2 * jp + h][mt];
+            if constexpr (F::K16) {
+              // sub-blocks 2v (k 0..15: a0, a1, b0) and 2v + 1 (a2, a3,
+              // b1), one m16n8k16 each; q2_K's sumq against ones
+              int cs[2][4];
+              [[maybe_unused]] int cq[2][4];
 #pragma unroll
-            // e: row gq + 8 (e / 2), activation row 2 tq + e % 2
-            for (int e = 0; e < 4; ++e)
-              lf[e] = __fadd_rn(
-                  lf[e], W::term(sw[e >> 1], dam[e & 1], sam[e & 1], cs[e]));
+              for (int s = 0; s < 2; ++s) {
+                mma_s8_k16_zero(cs[s], wr[h][2 * s], wr[h][2 * s + 1],
+                                B[2 * h + s]);
+                if constexpr (W::MIN)
+                  mma_s8_k16_zero(cq[s], 0x01010101u, 0x01010101u,
+                                  B[2 * h + s]);
+              }
+              // scp_j = d * sc_j, mp_j = -(dmin * mn_j) of rows gq, gq + 8
+              float scp[2][2], mp[2][2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float d = plane_at<__half>(prow[2][e], v >> 3);
+                const int8_t* sc =
+                    reinterpret_cast<const int8_t*>(prow[0][e]) + 2 * v;
+                float dm = 0.0f;
+                const int8_t* mn = sc;
+                if constexpr (W::MIN) {
+                  dm = plane_at<__half>(prow[3][e], v >> 3);
+                  mn = reinterpret_cast<const int8_t*>(prow[1][e]) + 2 * v;
+                }
+#pragma unroll
+                for (int s = 0; s < 2; ++s) {
+                  scp[e][s] = __fmul_rn(d, static_cast<float>(sc[s]));
+                  mp[e][s] = W::MIN
+                                 ? -__fmul_rn(dm, static_cast<float>(mn[s]))
+                                 : 0.0f;
+                }
+              }
+#pragma unroll
+              // e: row gq + 8 (e / 2), activation row 2 tq + e % 2
+              for (int e = 0; e < 4; ++e) {
+                float t[2];
+#pragma unroll
+                for (int s = 0; s < 2; ++s) {
+                  const float da = dam[e & 1];
+                  t[s] = __fmul_rn(__fmul_rn(scp[e >> 1][s], da),
+                                   static_cast<float>(cs[s][e]));
+                  if constexpr (W::MIN)
+                    t[s] = __fadd_rn(
+                        t[s], __fmul_rn(mp[e >> 1][s],
+                                        __fmul_rn(static_cast<float>(
+                                                      cq[s][e]),
+                                                  da)));
+                }
+                lf[e] = __fadd_rn(lf[e], __fadd_rn(t[0], t[1]));
+              }
+            } else {
+              int cs[4];
+              mma_s32_zero<BB == 32>(cs, wr[h], B[2 * h], B[2 * h + 1]);
+              float2 sw[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                sw[e] = make_float2(
+                    plane_at<S>(prow[0][e], v),
+                    W::MIN ? plane_at<S>(prow[1][e], v) : 0.0f);
+              float sam[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                sam[e] = plane_at<__half>(srow[mt][e], v);
+#pragma unroll
+              // e: row gq + 8 (e / 2), activation row 2 tq + e % 2
+              for (int e = 0; e < 4; ++e)
+                lf[e] = __fadd_rn(lf[e], W::term(sw[e >> 1], dam[e & 1],
+                                                 sam[e & 1], cs[e]));
+            }
           }
         }
       }
@@ -715,9 +881,8 @@ __device__ __forceinline__ void gemm(const uint8_t* __restrict__ wq,
       // the group into the output's sum, groups in order
 #pragma unroll
       for (int k = 0; k < UMAX; ++k) {
-        const int u = tid + k * THREADS;
-        if (u < ROWS * M) {
-          const int row = u / M, m = u % M;
+        int row, m;
+        if (slot(k, row, m)) {
           const float* tp = tsum + row * Sm::MA + m;
           constexpr int TS = ROWS * Sm::MA;
           sums[k] += (tp[0] + tp[2 * TS]) + (tp[TS] + tp[3 * TS]);
@@ -726,16 +891,59 @@ __device__ __forceinline__ void gemm(const uint8_t* __restrict__ wq,
       // tsum is written again only after a later step's barrier
     }
     if (c == nchunk - 1) {  // the tile's last group: its outputs
+      if constexpr (Epi::PAIRED) {
+        int row, m;
+        if (slot(0, row, m)) epi(16 * tile + row, m, sums[0], sums[1]);
+      } else {
 #pragma unroll
-      for (int k = 0; k < UMAX; ++k) {
-        const int u = tid + k * THREADS;
-        if (u < ROWS * M) {
-          const int row = u / M, m = u % M;
-          if (n0 + row < N)
-            out[static_cast<size_t>(m) * N + n0 + row] = sums[k];
+        for (int k = 0; k < UMAX; ++k) {
+          int row, m;
+          if (slot(k, row, m)) {
+            const int n = Epi::row(tile, row, N);
+            if (n < N) epi(n, m, sums[k]);
+          }
         }
-        sums[k] = 0.0f;
       }
+#pragma unroll
+      for (int k = 0; k < UMAX; ++k) sums[k] = 0.0f;
+    }
+  }
+}
+
+// The weight bytes (codes and planes) of this block's first STAGES - 1
+// chunks of the GEMM above, prefetched into L2: K8 issues them before
+// the grid barrier in front of a stage, so that the stage's first loads
+// need not wait for the device memory.
+template <typename W, typename Epi>
+__device__ __forceinline__ void prefetch_first(const uint8_t* wq,
+                                               const Planes& wp, int N,
+                                               int K) {
+  using F = Fmt<W>;
+  const int nb = K / QK, nt = 32 * k1_warps(nb);
+  const int tile = blockIdx.x;
+  if (tile >= Epi::ntiles(N)) return;
+  int g = 0, r = 0;
+  for (int j = 0; j < STAGES - 1; ++j) {
+    const int b0 = r * nt + 32 * g;
+    if (g >= nt / 32 || b0 >= nb) break;
+    const int nblk = min(CB, nb - b0);
+    for (int row = threadIdx.x; row < ROWS; row += THREADS) {
+      const int n = Epi::row(tile, row, N);
+      if (n >= N) continue;
+      const uint8_t* p = wq + (static_cast<size_t>(n) * nb + b0) * F::BB;
+      for (int o = 0; o < nblk * F::BB; o += 128) prefetch_l2(p + o);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (F::es(i) && wp.p[i] != nullptr)
+          prefetch_l2(wp.p[i] + (static_cast<size_t>(n) * (nb / F::per(i)) +
+                                 b0 / F::per(i)) * F::es(i));
+    }
+    // the next chunk of the walk: the group's next run, or the next group
+    if (b0 + nt < nb) {
+      ++r;
+    } else {
+      r = 0;
+      ++g;
     }
   }
 }
@@ -801,13 +1009,13 @@ struct Occupancy {
   }
 };
 
-// Launch `kernel` (a __global__ that runs gemm<W, MT, MODE, Act>) as a
-// persistent grid: as many blocks as fit at once, at most one a row tile
-// (RESIDENT: in clusters of CLUSTER, the last one padded).
+// Launch `kernel` (a __global__ (wq, planes, act, out, M, N, K) that runs
+// gemm<W, MT, MODE, Act, Store>) as a persistent grid: as many blocks as
+// fit at once, at most one a row tile (RESIDENT: in clusters of CLUSTER,
+// the last one padded).
 template <typename W, int MT, int MODE, typename Act, typename Kernel>
-int launch(Kernel* kernel, Occupancy& occ, const void* wq, const void* wd,
-           const void* wm, const void* wqh, Act act, void* out, int M, int N,
-           int K, cudaStream_t stream) {
+int launch(Kernel* kernel, Occupancy& occ, const void* wq, Planes wp,
+           Act act, void* out, int M, int N, int K, cudaStream_t stream) {
   constexpr int CL = MODE == RESIDENT ? CLUSTER : 1;
   const int smem = tail(Smem<W, MT, MODE>::TEND, MODE, M, K).total;
   if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
@@ -828,11 +1036,8 @@ int launch(Kernel* kernel, Occupancy& occ, const void* wq, const void* wd,
   cfg.stream = stream;
   cfg.attrs = at;
   cfg.numAttrs = CL > 1 ? 1 : 0;
-  e = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const uint8_t*>(wq),
-      static_cast<const uint8_t*>(wd), static_cast<const uint8_t*>(wm),
-      static_cast<const uint8_t*>(wqh), act, static_cast<float*>(out), M, N,
-      K);
+  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const uint8_t*>(wq), wp,
+                         act, static_cast<float*>(out), M, N, K);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,14 +31,13 @@ namespace {
 
 using qgt::k1::NormAct;
 
+using qgt::k1::Planes;
+
 template <typename W, int MODE>
 __global__ void __launch_bounds__(qgt::k1::THREADS)
-    norm_qkv_kernel(const uint8_t* __restrict__ wq,
-                    const uint8_t* __restrict__ wd,
-                    const uint8_t* __restrict__ wm,
-                    const uint8_t* __restrict__ wqh, NormAct act,
+    norm_qkv_kernel(const uint8_t* __restrict__ wq, Planes wp, NormAct act,
                     float* __restrict__ out, int M, int N, int K) {
-  qgt::k1::gemm<W, 1, MODE>(wq, wd, wm, wqh, act, out, M, N, K);
+  qgt::k1::gemm<W, 1, MODE>(wq, wp, act, qgt::k1::Store{out, N}, M, N, K);
 }
 
 template <typename W, int MODE>
@@ -46,8 +45,11 @@ int launch_mode(const void* wq, const void* wd, const void* wm,
                 const void* wqh, NormAct act, void* out, int M, int N, int K,
                 cudaStream_t stream) {
   static qgt::k1::Occupancy occ;
-  return qgt::k1::launch<W, 1, MODE>(norm_qkv_kernel<W, MODE>, occ, wq, wd,
-                                     wm, wqh, act, out, M, N, K, stream);
+  const Planes wp{{static_cast<const uint8_t*>(wd),
+                   static_cast<const uint8_t*>(wm),
+                   static_cast<const uint8_t*>(wqh), nullptr}};
+  return qgt::k1::launch<W, 1, MODE>(norm_qkv_kernel<W, MODE>, occ, wq, wp,
+                                     act, out, M, N, K, stream);
 }
 
 template <typename W>

@@ -1,7 +1,7 @@
 // Tensor-core building blocks of the kernels on the tensor cores
-// (gemm_dequant.cu, flash_prefill.cu, flash_decode.cu, gemm_exact.cu):
-// the warp-level bf16 MMA m16n8k16 with float32 accumulation, the int8
-// MMA m16n8k32 with int32 accumulation, ldmatrix, cp.async with zero
+// (gemm_dequant.cu, flash_prefill.cu, flash_decode.cu, k1.cuh): the
+// warp-level bf16 MMA m16n8k16 with float32 accumulation, the int8 MMAs
+// m16n8k32 and m16n8k16 with int32 accumulation, ldmatrix, cp.async with zero
 // fill, and the exact bf16 split of a float32.  sm_80 and later (built
 // for sm_90a).  Plain C interface, no PyTorch headers.
 //
@@ -74,6 +74,19 @@ __device__ __forceinline__ void mma_s32_zero(int (&c)[4],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
           "r"(0));
   }
+}
+
+// c = a * b, m16n8k16 with signed 8-bit operands, int32 accumulators
+// starting at zero (exact): A a0 = (row g, k 4t..4t+3), a1 = (row g+8,
+// k 4t..4t+3), B b0 = (k 4t..4t+3, col g), C as above; the two halves
+// of an m16n8k32 fragment, (a0, a1, b0) and (a2, a3, b1)
+__device__ __forceinline__ void mma_s8_k16_zero(int (&c)[4], uint32_t a0,
+                                                uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %7, %7, %7};\n"
+      : "=r"(c[0]), "=r"(c[1]), "=r"(c[2]), "=r"(c[3])
+      : "r"(a0), "r"(a1), "r"(b0), "r"(0));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

@@ -23,8 +23,8 @@ m' planes, 28 for q5_k) at 3.35 TB/s.  The design (``csrc/gemm_exact.cu``)
 computes each 32-block's sumi with one int8 ``mma.sync`` m16n8k32 over
 16 weight rows x 8 activation rows, from chunks of 32 blocks staged with
 16-byte ``cp.async``, and keeps the old kernel's summation order bit for
-bit (:func:`k1_order`), which K2, K6 (``csrc/k1.cuh``, the same body) and
-K8 (``common.cuh::k1_rows``) share: the kernel's output equals
+bit (:func:`k1_order`), which K2, K6, K7 and K8 share (``csrc/k1.cuh``,
+the same body): the kernel's output equals
 ``k1_order`` of the plain version's per-block terms exactly.
 
 :func:`gemm_exact` launches the CUDA kernel for CUDA tensors and runs
@@ -85,8 +85,8 @@ def k1_warps(nb: int) -> int:
 
 
 def k1_order(terms: torch.Tensor) -> torch.Tensor:
-    """K1's float32 sum of per-block terms ``[M, N, nb]`` (K2, K6 and K8
-    keep it): with ``nt = 32 * k1_warps(nb)`` virtual threads, thread t adds
+    """K1's float32 sum of per-block terms ``[M, N, nb]`` (K2, K6, K7 and
+    K8 keep it): with ``nt = 32 * k1_warps(nb)`` virtual threads, thread t adds
     the terms of blocks t, t + nt, ... in turn from 0; each group of 32
     threads reduces with ``warp_sum``'s xor butterfly (lane 0's value);
     the groups are added in order from 0.  Every add is one rounded

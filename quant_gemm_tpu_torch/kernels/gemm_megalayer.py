@@ -26,15 +26,20 @@ one cooperative launch, q4_0, M <= 8.  Replaces the Pallas kernel
 ``models/llama.py::layer`` through the plain functions, so on the CPU it
 is bit-identical to the unfused layer tail.  On the card each of the
 kernel's three GEMM stages equals ``quantize_q8_1`` + K1 bit for bit for
-the same float input (the JAX kernel's "bit-identical GEMM stages": K1's
-summation order, ``csrc/common.cuh::k1_rows``); the RMSNorm and the SiLU
-round in the kernel's own float32 order, so a Q8_1 code can flip at a .5
-tie against the plain chain: the two are compared on the layer update
-``out - x`` (``2e-3 * max|out - x|``, K2's rule).  Bound on an H100:
-bytes, the three weights (21.8 MB per TinyLlama-1.1B layer, 0.0065 ms at
-3.35 TB/s); ``csrc/attn_tail.cu`` runs the three stages across the grid
-with three grid barriers.  The wrapper raises where the card refuses the
-cooperative launch; it never falls back to the unfused chain.
+the same float input (the JAX kernel's "bit-identical GEMM stages"): each
+runs K1's body, mode and order (``csrc/k1.cuh``, the codes STREAMED) on
+codes made by the shared quantizer; the RMSNorm and the SiLU round in
+the kernel's own float32 order, so a Q8_1 code can flip at a .5 tie
+against the plain chain: the two are compared on the layer update ``out
+- x`` (``2e-3 * max|out - x|``, K2's rule).  Bound on an H100: bytes, the
+three weights (21.8 MB per TinyLlama-1.1B layer, 0.0065 ms at 3.35
+TB/s); ``csrc/attn_tail.cu`` runs a persistent cooperative grid that
+alternates grid-wide Q8_1 passes (attn; RMSNorm of ``xm``; ``ff``) with
+the three GEMM stages, five grid barriers, each stage's first weight
+chunks prefetched into L2 before the barriers in front of it, ``xm``,
+``ff`` and the codes in a scratch buffer the wrapper allocates.  The
+wrapper raises where the card refuses the cooperative launch; it never
+falls back to the unfused chain.
 
 :data:`ENABLE_TAIL` is the JAX package's switch for K8, off by default
 as there (it measured a loss on the TPU, ``gemm_megalayer.py:68-75``);
@@ -197,8 +202,11 @@ def attn_tail(attn: torch.Tensor, x: torch.Tensor, norm_w: torch.Tensor,
         raise ValueError("attn_tail: all operands must be on one CUDA "
                          "device (or all on the CPU)")
     m, dim = x.shape
-    attn, x, nw = (t.to(torch.float32).contiguous()
+    # float4 loads of attn and the norm weight; the scale planes copied
+    # from 16-byte boundaries
+    attn, x, nw = (_build.aligned16(t.to(torch.float32).contiguous())
                    for t in (attn, x, norm_w))
+    wd = [_build.aligned16(w.d) for w in (wo, wgu, w_down)]
     _build.check_aligned("attn_tail", wo.qs, wgu.qs, w_down.qs)
     size = _build.function("attn_tail", "qgt_attn_tail_workspace",
                            [_build.I] * 3)
@@ -210,8 +218,8 @@ def attn_tail(attn: torch.Tensor, x: torch.Tensor, norm_w: torch.Tensor,
         + [_build.P])
     with torch.cuda.device(dev):
         rc = fn(_build.ptr(attn), _build.ptr(x), _build.ptr(nw), float(eps),
-                *(_build.ptr(t) for w in (wo, wgu, w_down)
-                  for t in (w.qs, w.d)),
+                *(_build.ptr(t) for w, d in zip((wo, wgu, w_down), wd)
+                  for t in (w.qs, d)),
                 _build.ptr(ws), _build.ptr(out), m, dim, d_ff,
                 _build.stream(dev))
     _build.check("attn_tail", "qgt_attn_tail_q4_0", rc)

@@ -41,11 +41,18 @@ themselves).
 
 * ``qs: int8[N, K]`` — the shifted codes (q6_K ``q - 32``, q3_K ``q'``,
   q2_K ``q``), so a 16-element sub-block is 16 contiguous bytes;
-* ``scp: float32[N, K/16]`` — ``d * sc`` per 16-element sub-block;
-* ``mp: float32[N, K/16]`` — q2_K's additive ``-dmin * mn``, else None.
+* ``d: float16[N, K/256]`` and ``sc: int8[N, K/16]`` — the container's
+  super-block scale and per-16 sub-scales;
+* q2_K also ``dmin: float16[N, K/256]`` and ``mn: int8[N, K/16]`` (its
+  4-bit mins), else None.
 
-That reads 10 bits per weight (q2_K 12) against q6_K's 6.5625 in the
-file: the price of byte-aligned codes for ``__dp4a``.
+The per-16 scale ``scp = d * sc`` and q2_K's additive ``mp = -(dmin *
+mn)`` are properties computed as the containers compute them
+(``kquants.Q6_KTensor.scp``, ``Q2_KTensor.mp``): an f16 times an integer
+below 256 is exact in float32, and K7 forms the same products in
+registers, so no output bit depends on the layout.  That reads 8.5625
+bits per weight (q2_K 9.125) against q6_K's 6.5625 in the file (3.4375
+q3_K, 2.625 q2_K): the price of byte-aligned codes for the int8 MMA.
 """
 
 from __future__ import annotations
@@ -91,8 +98,24 @@ class PreparedK16(NamedTuple):
     n: int
     k: int
     qs: torch.Tensor  # int8 [N, K] shifted codes
-    scp: torch.Tensor  # float32 [N, K/16]
-    mp: Optional[torch.Tensor] = None  # float32 [N, K/16] (q2_k)
+    d: torch.Tensor  # float16 [N, K/256]
+    sc: torch.Tensor  # int8 [N, K/16]
+    dmin: Optional[torch.Tensor] = None  # float16 [N, K/256] (q2_k)
+    mn: Optional[torch.Tensor] = None  # int8 [N, K/16] (q2_k)
+
+    @property
+    def scp(self) -> torch.Tensor:
+        """float32 [N, K/16]: ``d * sc`` per 16-element sub-block."""
+        return (self.d.to(torch.float32).repeat_interleave(16, dim=-1)
+                * self.sc.to(torch.float32))
+
+    @property
+    def mp(self) -> Optional[torch.Tensor]:
+        """float32 [N, K/16]: q2_K's additive ``-(dmin * mn)``, else None."""
+        if self.dmin is None:
+            return None
+        return -(self.dmin.to(torch.float32).repeat_interleave(16, dim=-1)
+                 * self.mn.to(torch.float32))
 
 
 _CONTAINERS = {Q4_0Tensor: "q4_0", Q4_1Tensor: "q4_1", Q5_0Tensor: "q5_0",
@@ -143,9 +166,21 @@ def prepare_k16(t) -> PreparedK16:
         raise NotImplementedError(
             f"prepare_k16 takes q6_K/q3_K/q2_K, not {type(t).__name__}")
     n, k = t.qs.shape
-    mp = None if t.mp is None else t.mp.contiguous()
-    return PreparedK16(qtype, n, k, t.qs.to(torch.int8).contiguous(),
-                       t.scp.contiguous(), mp)
+
+    def plane(x, dtype):
+        return x.to(dtype).contiguous()
+
+    mins = ((plane(t.dmin, torch.float16), plane(t.mn, torch.int8))
+            if qtype == "q2_k" else ())
+    return PreparedK16(qtype, n, k, plane(t.qs, torch.int8),
+                       plane(t.d, torch.float16), plane(t.sc, torch.int8),
+                       *mins)
+
+
+def k16_planes(w: PreparedK16) -> tuple:
+    """A per-16 weight's planes in K7's argument order: d, sc, then q2_K's
+    dmin and mn."""
+    return tuple(t for t in (w.d, w.sc, w.dmin, w.mn) if t is not None)
 
 
 def codes(w: PreparedWeight) -> torch.Tensor:
@@ -177,12 +212,13 @@ def dequantize_k16(w: PreparedK16) -> torch.Tensor:
     """``qs * scp (+ mp)`` per 16-element sub-block, float32 [N, K] (the
     JAX ``_k16_dequant_gemm``'s weight)."""
     x = w.qs.to(torch.float32) * w.scp.repeat_interleave(16, dim=-1)
-    if w.mp is not None:
-        x = x + w.mp.repeat_interleave(16, dim=-1)
+    mp = w.mp
+    if mp is not None:
+        x = x + mp.repeat_interleave(16, dim=-1)
     return x
 
 
 __all__ = ["QTYPES", "OFFSET", "HAS_MIN", "HAS_QH", "F32_PLANES",
            "PreparedWeight", "PreparedK16",
-           "planes", "prepare", "prepare_k16",
+           "planes", "k16_planes", "prepare", "prepare_k16",
            "codes", "dequantize", "dequantize_k16"]

@@ -29,7 +29,13 @@ q8_0, q4_k, q5_k) is undone step by step:
 * then the port's own ``layout.prepare``.
 
 A ``PreparedK16``'s ``qs_t`` / ``scp_t`` / ``mp_t`` ``[K (padded) or K/16,
-N (padded)]`` are transposed and cropped into ``layout.PreparedK16``.
+N (padded)]`` are transposed and cropped; the port's layout keeps the
+container's planes (f16 ``d`` per 256 and integer ``sc`` per 16, q2_K's
+``dmin`` and ``mn``), which JAX keeps only as the products ``scp = d *
+sc`` and ``mp = -(dmin * mn)``, so each super-block's products are
+factored back (:func:`_factor`): every exact factoring gives K7 the same
+products, and the one chosen (the largest integer at the largest
+product, ``d`` positive where it can be) is the encoders' own.
 """
 
 from __future__ import annotations
@@ -93,6 +99,37 @@ def planar_from_jax(pw):
     return Q5_1Tensor(packed, qh, d, scales(pw.m_t))
 
 
+#: the integer range of each per-16 format's sub-scales (q2_K's mins too)
+K16_SCALES = {"q6_k": (-128, 127), "q3_k": (-32, 31), "q2_k": (0, 15)}
+
+
+def _factor(p: torch.Tensor, lo: int, hi: int):
+    """float32 products ``p`` [N, nsb, 16] (16 per super-block) -> f16
+    ``d`` [N, nsb] and int8 ``s`` [N, nsb, 16] in [lo, hi] with ``d * s ==
+    p`` in float32, bit for bit: of the candidates ``d = +-max|p| / j``
+    (``j`` from the largest integer down, the positive ``d`` first) the
+    first that is an f16 value and gives every ``p / d`` an integer in
+    range.  Raises where no candidate does."""
+    big = p.abs().amax(-1)
+    d = torch.zeros_like(big)
+    s = torch.zeros_like(p)
+    done = big == 0
+    for j in range(max(hi, -lo), 0, -1):
+        for sign in (1.0, -1.0):
+            cand = big / j * sign
+            q = torch.round(p / cand[..., None])
+            ok = ((cand.to(torch.float16).to(torch.float32) == cand)
+                  & (q * cand[..., None] == p).all(-1)
+                  & (q >= lo).all(-1) & (q <= hi).all(-1) & ~done)
+            d = torch.where(ok, cand, d)
+            s = torch.where(ok[..., None], q, s)
+            done = done | ok
+    if not bool(done.all()):
+        raise ValueError("a per-16 scale plane has no f16 x integer "
+                         f"factoring in [{lo}, {hi}]")
+    return d.to(torch.float16), s.to(torch.int8)
+
+
 def _k16_from_jax(pw, dev) -> layout.PreparedK16:
     n, k = int(pw.n), int(pw.k)
 
@@ -100,9 +137,13 @@ def _k16_from_jax(pw, dev) -> layout.PreparedK16:
         return torch.tensor(np.ascontiguousarray(np.asarray(x_t).T[:n, :cols]),
                             device=dev)
 
-    mp = None if pw.mp_t is None else t(pw.mp_t, k // 16)
+    lo, hi = K16_SCALES[pw.qtype]
+    planes = _factor(t(pw.scp_t, k // 16).reshape(n, -1, 16), lo, hi)
+    if pw.mp_t is not None:
+        planes += _factor(-t(pw.mp_t, k // 16).reshape(n, -1, 16),
+                          *K16_SCALES["q2_k"])
     return layout.PreparedK16(pw.qtype, n, k, t(pw.qs_t, k),
-                              t(pw.scp_t, k // 16), mp)
+                              *(x.reshape(n, -1) for x in planes))
 
 
 def _prepared(pw, dev):

@@ -15,6 +15,15 @@
   tensors; ``rms_norm_pallas.launches`` counts launches.
 * :func:`rms_norm_ref` — the golden (numpy, the sum of squares in
   float64), a copy of the JAX package's.
+
+:func:`rms_norm` and :func:`rms_norm_pallas_plain` give the same bits on
+the card as on the CPU wherever the two devices' sums of squares agree
+(every sum exact, say; they add in other orders): the division by C is
+the IEEE quotient by a tensor divisor (``formats/quant.py::div``; CUDA's
+``torch.mean`` and division by a Python scalar multiply by the rounded
+1/C instead), and the reciprocal square root :func:`rsqrt` is the CPU's
+``torch.rsqrt``, the IEEE ``1 / sqrt``, on both (CUDA's ``torch.rsqrt``
+is ``rsqrtf``, within 2 ulp).
 """
 
 from __future__ import annotations
@@ -22,17 +31,28 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..formats.quant import div
 from ..kernels import _build
 
 EPS_DEFAULT = 1e-5
 
 
+def rsqrt(v: torch.Tensor) -> torch.Tensor:
+    """``1 / sqrt(v)``, the square root and the quotient each rounded as
+    IEEE float32 rounds them, on every device: ``torch.rsqrt`` on the CPU;
+    on the card, where ``torch.rsqrt`` is CUDA's ``rsqrtf``, the IEEE
+    square root divided into a tensor of ones (the CPU's ``torch.sqrt``
+    is not correctly rounded, its ``torch.rsqrt`` is)."""
+    if v.device.type == "cpu":
+        return torch.rsqrt(v)
+    return torch.ones_like(v) / torch.sqrt(v)
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = EPS_DEFAULT) -> torch.Tensor:
     x32 = x.to(torch.float32)
-    ms = torch.mean(x32 * x32, dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(ms + eps)
-            * weight.to(torch.float32)).to(x.dtype)
+    ms = div(torch.sum(x32 * x32, dim=-1, keepdim=True), x32.shape[-1])
+    return (x32 * rsqrt(ms + eps) * weight.to(torch.float32)).to(x.dtype)
 
 
 def _check(x: torch.Tensor, weight: torch.Tensor) -> None:
@@ -49,8 +69,8 @@ def rms_norm_pallas_plain(x: torch.Tensor, weight: torch.Tensor,
     """Plain PyTorch version, in ``_rms_kernel``'s order: the sum of
     squares divided by C (not ``mean``)."""
     _check(x, weight)
-    ms = torch.sum(x * x, dim=-1, keepdim=True) / float(x.shape[1])
-    return x * torch.rsqrt(ms + eps) * weight.to(torch.float32)
+    ms = div(torch.sum(x * x, dim=-1, keepdim=True), x.shape[1])
+    return x * rsqrt(ms + eps) * weight.to(torch.float32)
 
 
 def rms_norm_pallas(x: torch.Tensor, weight: torch.Tensor,
@@ -90,5 +110,5 @@ def rms_norm_ref(x, weight, eps: float = EPS_DEFAULT) -> np.ndarray:
     return x / rms * np.asarray(weight, np.float32)
 
 
-__all__ = ["rms_norm", "rms_norm_pallas", "rms_norm_pallas_plain",
+__all__ = ["rms_norm", "rms_norm_pallas", "rms_norm_pallas_plain", "rsqrt",
            "rms_norm_ref", "EPS_DEFAULT"]

@@ -62,7 +62,7 @@ from quant_gemm_tpu_torch.kernels.gemm_exact import (block_terms,
                                                      gemm_exact_plain,
                                                      k1_order)
 from quant_gemm_tpu_torch.kernels.gemm_exact_k16 import (
-    gemm_exact_k16, gemm_exact_k16_plain)
+    gemm_exact_k16, gemm_exact_k16_plain, k16_block_terms)
 from quant_gemm_tpu_torch.kernels.gemm_megalayer import (attn_tail,
                                                          attn_tail_plain,
                                                          norm_qkv,
@@ -191,17 +191,30 @@ def test_gemm_exact_fused(dev, qtype, m, k):
         assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
 
 
+# K8's widths: TinyLlama-1.1B and Mistral-7B-v0.1 (dim, d_ff), and one
+# whose d_ff codes do not fit beside the ring (its w_down stage CHUNKED)
+TAIL_WIDTHS = [(2048, 5632), (4096, 14336), (512, 19456)]
+
+
+def _tail_weights(dim, dff, g, dev, gate=None):
+    def lin(n, k, w=None):
+        w = torch.randn(n, k, generator=g, device=dev) * k ** -0.5 \
+            if w is None else w
+        return layout.prepare(tq.quantize_q4_0(w))
+
+    wgu = lin(2 * dff, dim, None if gate is None else torch.cat(
+        [gate, torch.randn(dff, dim, generator=g, device=dev)
+         * dim ** -0.5]))
+    return lin(dim, dim), wgu, lin(dim, dff)
+
+
+@pytest.mark.parametrize("dim, dff", TAIL_WIDTHS)
 @pytest.mark.parametrize("m", [1, 8])
-def test_attn_tail(dev, m):
-    """K8 against its plain chain on the layer update out - x."""
-    dim, dff = 1024, 2048
+def test_attn_tail(dev, m, dim, dff):
+    """K8 against its plain chain on the layer update out - x, and two
+    calls bit-equal."""
     g = torch.Generator(device=dev).manual_seed(43)
-
-    def lin(n, k):
-        return layout.prepare(tq.quantize_q4_0(
-            torch.randn(n, k, generator=g, device=dev) * k ** -0.5))
-
-    wo, wgu, wd = lin(dim, dim), lin(2 * dff, dim), lin(dim, dff)
+    wo, wgu, wd = _tail_weights(dim, dff, g, dev)
     attn = torch.randn(m, dim, generator=g, device=dev)
     x = torch.randn(m, dim, generator=g, device=dev) * 3.0
     nw = 1.0 + 0.1 * torch.randn(dim, generator=g, device=dev)
@@ -211,33 +224,28 @@ def test_attn_tail(dev, m):
     ref = attn_tail_plain(attn, x, nw, wo, wgu, wd, EPS, dff)
     assert torch.isfinite(got).all()
     assert (got - ref).abs().max() <= 2e-3 * (ref - x).abs().max()
+    assert torch.equal(got, attn_tail(attn, x, nw, wo, wgu, wd, EPS, dff))
 
 
+@pytest.mark.parametrize("dim, dff", TAIL_WIDTHS)
 @pytest.mark.parametrize("m", [1, 8])
 @pytest.mark.parametrize("stage", ["wo", "w_down"])
-def test_attn_tail_stages_exact(dev, stage, m):
+def test_attn_tail_stages_exact(dev, stage, m, dim, dff):
     """K8's GEMM stages equal quantize_q8_1 + K1 bit for bit, at
-    TinyLlama-1.1B width (K1's 2 warps for K = dim, 4 for K = d_ff).
+    TinyLlama-1.1B and Mistral-7B-v0.1 width and with a d_ff whose codes
+    are quantized chunk by chunk.
     wo: x = 0 and w_down's scales 0, so out is the wo stage.  w_down:
     wo's scales 0 (xm = x), rows of mostly +1 and a few -1 with eps 0 (the
     RMSNorm is exact) and positive gate weights, so every gate output is
     far above 17, where SiLU is the identity in float32; ff is then
     exact and out = x + the w_down stage."""
-    dim, dff = 2048, 5632
     g = torch.Generator(device=dev).manual_seed(47)
-
-    def lin(n, k, w=None):
-        w = torch.randn(n, k, generator=g, device=dev) * k ** -0.5 \
-            if w is None else w
-        return layout.prepare(tq.quantize_q4_0(w))
 
     def zero_scales(w):
         return w._replace(d=torch.zeros_like(w.d))
 
     gate = 0.5 + 0.5 * torch.rand(dff, dim, generator=g, device=dev)
-    up = torch.randn(dff, dim, generator=g, device=dev) * dim ** -0.5
-    wo, wgu, wd = lin(dim, dim), lin(2 * dff, dim, torch.cat([gate, up])), \
-        lin(dim, dff)
+    wo, wgu, wd = _tail_weights(dim, dff, g, dev, gate)
     attn = torch.randn(m, dim, generator=g, device=dev)
     nw = 0.5 + torch.rand(dim, generator=g, device=dev)
     if stage == "wo":
@@ -267,17 +275,23 @@ def _kquant(qtype, n, k, dev, seed=21):
     return kquants.random_blocks(qtype, n, k, k ** -0.5, g)
 
 
+@pytest.mark.parametrize("k", [1024, 2048, 5632, 14336])
 @pytest.mark.parametrize("m", [1, 8, 12])
 @pytest.mark.parametrize("qtype", ["q6_K", "q3_K", "q2_K"])
-def test_gemm_exact_k16(dev, qtype, m):
-    """K7 for each per-16 format; N = 774 is not a multiple of the four
-    rows a block owns."""
-    w = layout.prepare_k16(_kquant(qtype, 774, K, dev))
-    a = tq.quantize_q8_1(_act(m, 1, dev))
+def test_gemm_exact_k16(dev, qtype, m, k):
+    """K7 for each per-16 format against its plain version; N = 774
+    leaves a ragged row tile.  Its output equals k1_order of its
+    per-block terms bit for bit (the two sub-block terms of a 32-block
+    added, then K1's order), so two calls give the same bits."""
+    w = layout.prepare_k16(_kquant(qtype, 774, k, dev))
+    x = np.random.default_rng(k + m).standard_normal((m, k))
+    a = tq.quantize_q8_1(_t(x.astype(np.float32), dev))
     before = gemm_exact_k16.launches
     got, ref = gemm_exact_k16(w, a), gemm_exact_k16_plain(w, a)
     assert gemm_exact_k16.launches == before + 1
     assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+    assert torch.equal(got, k1_order(k16_block_terms(w, a)))
+    assert torch.equal(got, gemm_exact_k16(w, a))
 
 
 @pytest.mark.parametrize("m", [1, 8, 12, 16, 100])
@@ -1043,3 +1057,61 @@ def test_k2_and_k6_replay_in_a_cuda_graph(dev):
         assert torch.equal(qkv, want)
         assert torch.equal(gu, gemm_exact_fused(wgu, want[:, :k]
                                                 .contiguous()))
+
+
+# --- K7 and K8 on K1's body: captured in a CUDA graph; RMSNorm's bits ---
+
+
+def test_k7_and_k8_replay_in_a_cuda_graph(dev):
+    """K7 and K8 (a cooperative launch of clusters with two grid
+    barriers; its scratch allocated by the wrapper) read nothing on the
+    host, so a CUDA graph captures them: replays over new inputs copied
+    into the captured buffers equal eager calls bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(59)
+    m, dim, dff = 8, 2048, 5632
+    wo, wgu, wd = _tail_weights(dim, dff, g, dev)
+    w16 = layout.prepare_k16(_kquant("q6_K", 2048, dff, dev))
+    attn = torch.randn(m, dim, generator=g, device=dev)
+    x = torch.randn(m, dim, generator=g, device=dev)
+    nw = 1.0 + 0.1 * torch.randn(dim, generator=g, device=dev)
+    a = tq.quantize_q8_1(torch.randn(m, dff, generator=g, device=dev))
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):  # first launches: the occupancy queries
+        attn_tail(attn, x, nw, wo, wgu, wd, EPS, dff)
+        gemm_exact_k16(w16, a)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = (attn_tail.launches, gemm_exact_k16.launches)
+    with torch.cuda.graph(graph):
+        out = attn_tail(attn, x, nw, wo, wgu, wd, EPS, dff)
+        c = gemm_exact_k16(w16, a)
+    assert (attn_tail.launches, gemm_exact_k16.launches) == (
+        before[0] + 1, before[1] + 1)
+    for scale in (1.0, 3.0):
+        attn.copy_(scale * torch.randn(m, dim, generator=g, device=dev))
+        x.copy_(torch.randn(m, dim, generator=g, device=dev))
+        new = tq.quantize_q8_1(scale * torch.randn(m, dff, generator=g,
+                                                   device=dev))
+        for t, v in zip(a, new):
+            t.copy_(v)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, attn_tail(attn, x, nw, wo, wgu, wd, EPS,
+                                          dff))
+        assert torch.equal(c, gemm_exact_k16(w16, a))
+
+
+@pytest.mark.parametrize("c", [1056, 2560, 5632])
+def test_rms_norm_on_the_card_bit_equal_to_cpu(dev, c):
+    """ops/rms_norm.py's rms_norm and rms_norm_pallas_plain on the card
+    equal the CPU's bits at widths whose 1/C is not a float32 value.  The
+    rows hold multiples of 1/8 below 4, so every sum of squares is exact
+    in any order and only the division by C and the rsqrt can differ."""
+    rng = np.random.default_rng(c)
+    x = (rng.integers(-31, 32, (8, c)) / 8.0).astype(np.float32)
+    w = rng.standard_normal(c).astype(np.float32)
+    xc, wc = torch.from_numpy(x), torch.from_numpy(w)
+    for fn in (rms_norm, rms_norm_pallas_plain):
+        got = fn(_t(x, dev), _t(w, dev), EPS).cpu()
+        assert torch.equal(got, fn(xc, wc, EPS)), fn.__name__

@@ -19,8 +19,12 @@ Tolerances:
   algebra of K3's int8 QK^T / PV and of K1's ``mma.sync`` m16n8k32 (every
   MMA emulated from the PTX fragment layout): exact, integers and
   products of integers;
-* ``k1_order``: bit for bit against a scalar replay of
-  ``common.cuh::k1_rows``; against ``gemm_exact_plain`` NMSE <= 1e-10
+* K7's fragments: the halves of K1's q8_0 fragment through two int8
+  m16n8k16 give each 16-element sub-block's dot, a fragment of ones its
+  activation codes' sum (q2_K's ``sumq``): exact;
+* ``k1_order``: bit for bit against a scalar replay of K1's order (each
+  virtual thread's sum, then the butterfly, as a CUDA-core loop runs it);
+  against ``gemm_exact_plain`` NMSE <= 1e-10
   (the same float32 terms, summed in another order); against the JAX
   ``gemm_exact`` (Pallas in interpret mode) ``rtol=1e-5, atol=1e-5 *
   max|C|``, K1's tolerance in ``tests/test_torch_kernels.py``;
@@ -405,8 +409,8 @@ def test_k1_fragment_algebra(qtype, m):
                                                   32 * blk:32 * blk + 32].T)
 
 
-def _k1_rows_scalar(terms):
-    """``common.cuh::k1_rows`` thread by thread in float32: thread t adds
+def _k1_order_scalar(terms):
+    """K1's order thread by thread in float32: thread t adds
     blocks t, t + nt, ..., each warp's lane 0 after the xor butterfly,
     the warps added in order."""
     nb = terms.shape[-1]
@@ -428,6 +432,57 @@ def _k1_rows_scalar(terms):
     return out
 
 
+def _mma_m16n8k16_s8(afrag, bfrag):
+    """``mma.sync`` m16n8k16 with 8-bit operands from its fragments
+    (tc.cuh's layout): afrag[lane] = 2 registers of 4 values (a0: row g,
+    k 4t..4t+3; a1: row g+8), bfrag[lane] = 1 register (k 4t.., col g);
+    returns C [16, 8]."""
+    a = np.zeros((16, 16), np.int64)
+    b = np.zeros((16, 8), np.int64)
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        for h in range(2):
+            a[g + 8 * h, 4 * t:4 * t + 4] = afrag[lane][h]
+        b[4 * t:4 * t + 4, g] = bfrag[lane]
+    return a @ b
+
+
+@pytest.mark.parametrize("qtype", ["q6_K", "q3_K", "q2_K"])
+def test_k7_sub_block_fragments(qtype):
+    """K7 loads a 32-block's int8 codes as K1 loads q8_0's; the halves of
+    that m16n8k32 fragment, (a0, a1, b0) and (a2, a3, b1), through two
+    m16n8k16, give each 16-element sub-block's exact dot sumi_j, and an A
+    fragment of ones gives q2_K's sumq_j, the sum of the sub-block's
+    activation codes."""
+    from quant_gemm_tpu_torch.formats import kquants as tk
+
+    w = layout.prepare_k16(tk.random_blocks(
+        qtype, 16, 512, 0.05, torch.Generator().manual_seed(6)))
+    qs = w.qs.numpy().astype(np.int64)
+    acts = np.random.default_rng(7).integers(-127, 128, (8, 512))
+    ones = [np.ones(4, np.int64)] * 2
+    for blk in range(512 // 32):
+        afr, bfr = [], []
+        for ln in range(32):
+            g, t = ln // 4, ln % 4
+            regs = [None] * 4
+            for h in range(2):
+                raw = qs[g + 8 * h, 32 * blk:32 * blk + 32]
+                regs[h] = raw[4 * t:4 * t + 4]
+                regs[2 + h] = raw[16 + 4 * t:20 + 4 * t]
+            afr.append(regs)
+            a = acts[g, 32 * blk:32 * blk + 32]
+            bfr.append([a[4 * t:4 * t + 4], a[16 + 4 * t:20 + 4 * t]])
+        for s in range(2):
+            k0 = 32 * blk + 16 * s
+            c = _mma_m16n8k16_s8([r[2 * s:2 * s + 2] for r in afr],
+                                 [r[s] for r in bfr])
+            assert np.array_equal(c, qs[:, k0:k0 + 16] @ acts[:, k0:k0 + 16].T)
+            c = _mma_m16n8k16_s8([ones] * 32, [r[s] for r in bfr])
+            assert np.array_equal(c, np.broadcast_to(
+                acts[:, k0:k0 + 16].sum(-1), (16, 8)))
+
+
 @pytest.mark.parametrize("nb", [1, 5, 32, 33, 64, 100, 128, 176, 448])
 def test_k1_order_replays_k1_rows(nb):
     """The vectorised k1_order equals the scalar replay bit for bit, at
@@ -437,7 +492,7 @@ def test_k1_order_replays_k1_rows(nb):
         -3, 4, (2, 3, nb))).astype(np.float32)
     got = k1_order(torch.from_numpy(terms)).numpy()
     assert np.array_equal(got.view(np.uint32),
-                          _k1_rows_scalar(terms).view(np.uint32))
+                          _k1_order_scalar(terms).view(np.uint32))
 
 
 @pytest.mark.parametrize("m", [8, 3])

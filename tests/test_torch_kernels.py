@@ -44,9 +44,10 @@ from quant_gemm_tpu_torch.kernels import layout, registry
 from quant_gemm_tpu_torch.kernels.gemm_dequant import (gemm_dequant,
                                                        gemm_dequant_plain)
 from quant_gemm_tpu_torch.kernels.gemm_exact import (gemm_exact,
-                                                     gemm_exact_plain)
+                                                     gemm_exact_plain,
+                                                     k1_order)
 from quant_gemm_tpu_torch.kernels.gemm_exact_k16 import (
-    gemm_exact_k16, gemm_exact_k16_plain)
+    gemm_exact_k16, gemm_exact_k16_plain, k16_block_terms)
 from quant_gemm_tpu_torch.kernels.gemm_megalayer import (norm_qkv,
                                                          norm_qkv_plain)
 from quant_gemm_tpu_torch.ops.rms_norm import rms_norm
@@ -186,6 +187,24 @@ def test_gemm_exact_k16_matches_jax(k16_weights, qt, m):
     _close_rel(got, jk.gemm_k16_ref(jt, a_np), 1e-5)
     if qt == "q6_K":
         _close_rel(got, jk.gemm_q6k_ref(jt, a_np), 1e-5)
+
+
+@pytest.mark.parametrize("m", [1, 8, 12])
+@pytest.mark.parametrize("qt", list(K16_QUANTIZE))
+def test_k16_block_terms_in_k1_order(k16_weights, qt, m):
+    """K7's own sum on the card: each 32-block's two sub-block terms
+    added, then K1's order (``k1_order``).  It agrees with the plain
+    version's sum, the Pallas kernel and the golden to K7's 1e-5, and the
+    block terms add up the plain version's per-16 terms."""
+    jt, jw, pw = k16_weights[qt]
+    a_np, a_t = _q8_1(_act(m, 19))
+    terms = k16_block_terms(pw, a_t)
+    assert terms.shape == (m, pw.n, pw.k // 32)
+    got = k1_order(terms).numpy()
+    _close_rel(got, gemm_exact_k16_plain(pw, a_t).numpy(), 1e-5)
+    _close_rel(got, j_gemm_k16(jw, jq.device_put(a_np), interpret=True),
+               1e-5)
+    _close_rel(got, jk.gemm_k16_ref(jt, a_np), 1e-5)
 
 
 @pytest.mark.parametrize("m, route", [(1, "gemm_exact_k16"),
@@ -349,5 +368,5 @@ def test_wrappers_raise_off_cpu_and_cuda(weight):
         "q6_K", 8, K, 0.05, torch.Generator().manual_seed(0)))
     with pytest.raises(ValueError):
         gemm_exact_k16(layout.PreparedK16(
-            w16.qtype, w16.n, w16.k, w16.qs.to("meta"), w16.scp.to("meta")),
-            Q8_1Tensor(*(t.to("meta") for t in a)))
+            w16.qtype, w16.n, w16.k, w16.qs.to("meta"), w16.d.to("meta"),
+            w16.sc.to("meta")), Q8_1Tensor(*(t.to("meta") for t in a)))

@@ -136,3 +136,84 @@ def test_random_blocks_are_valid(qt):
     assert torch.isfinite(x).all()
     assert abs(float(x.mean())) < 0.003 and 0.02 < float(x.std()) < 0.04
     assert tk.k16_qtype(t) == (None if qt == "q4_K" else qt.lower())
+
+
+K16 = ["q6_K", "q3_K", "q2_K"]
+
+
+def _k16_sources(qt):
+    """A per-16 container from random bytes, from the JAX encoder and from
+    ``random_blocks``, each beside the JAX container of the same bits."""
+    nbytes, tdec, tenc = tk.CODECS[qt]
+    raw = np.random.default_rng(nbytes).integers(0, 256, (6, 4, nbytes),
+                                                 dtype=np.uint8)
+    yield JAX[qt][0](raw), tdec(torch.from_numpy(raw))
+    x = np.random.default_rng(9).normal(0, 0.05, (8, 512)).astype(np.float32)
+    j = JAX_QUANTIZE[qt](x)
+    yield j, getattr(tk, type(j).__name__)(
+        *(torch.from_numpy(np.ascontiguousarray(np.asarray(f))) for f in j))
+    t = tk.random_blocks(qt, 16, 1024, 0.03, torch.Generator().manual_seed(4))
+    yield JAX[qt][0](tenc(t).numpy()), t
+
+
+@pytest.mark.parametrize("qt", K16)
+def test_compact_k16_layout_keeps_the_products(qt):
+    """``layout.PreparedK16`` keeps the container's f16 d and int8 sc (q2_K
+    also dmin and mn), 8.5625 (q2_K 9.125) bits a weight; its ``scp`` and
+    ``mp`` are the containers' and JAX's products bit for bit, and
+    ``dequantize_k16`` the container's values."""
+    from quant_gemm_tpu_torch.kernels import layout
+
+    for j, t in _k16_sources(qt):
+        w = layout.prepare_k16(t)
+        n, k = w.n, w.k
+        assert (w.d.dtype, w.sc.dtype) == (torch.float16, torch.int8)
+        assert w.d.shape == (n, k // 256) and w.sc.shape == (n, k // 16)
+        assert (w.dmin is None) == (w.mn is None) == (qt != "q2_K")
+        planes = sum(p.numel() * p.element_size()
+                     for p in layout.k16_planes(w))
+        assert 8 * (w.qs.numel() + planes) == n * k * (
+            9.125 if qt == "q2_K" else 8.5625)
+        with np.errstate(all="ignore"):
+            _assert_same_floats(j.scp, w.scp)
+            _assert_same_floats(t.scp, w.scp)
+            if qt == "q2_K":
+                _assert_same_floats(j.mp, w.mp)
+                _assert_same_floats(t.mp, w.mp)
+            else:
+                assert w.mp is None
+            np.testing.assert_array_equal(
+                _bits(tk.DEQUANT[type(t)](t).numpy()),
+                _bits(layout.dequantize_k16(w).numpy()))
+
+
+@pytest.mark.parametrize("qt", K16)
+def test_factor_recovers_the_encoders_planes(qt):
+    """``convert._factor`` turns the products JAX keeps (``scp``, q2_K's
+    ``-mp``) back into the encoder's own d and sc (dmin and mn); on any
+    blocks its factors give the same products bit for bit."""
+    from quant_gemm_tpu_torch.kernels import layout
+    from quant_gemm_tpu_torch.models import convert
+
+    lo_hi = convert.K16_SCALES[qt.lower()]
+    for i, (j, t) in enumerate(_k16_sources(qt)):
+        if i == 0:  # random bytes: f16 fields may be inf or NaN
+            continue
+        w = layout.prepare_k16(t)
+        n = w.n
+        d, sc = convert._factor(w.scp.reshape(n, -1, 16), *lo_hi)
+        got = layout.PreparedK16(w.qtype, n, w.k, w.qs, d.reshape(n, -1),
+                                 sc.reshape(n, -1))
+        _assert_same_floats(w.scp, got.scp)
+        if i == 1:  # the encoder's planes themselves
+            assert torch.equal(d.reshape(n, -1), w.d)
+            assert torch.equal(sc.reshape(n, -1), w.sc)
+        if qt == "q2_K":
+            dmin, mn = convert._factor(-w.mp.reshape(n, -1, 16),
+                                       *convert.K16_SCALES["q2_k"])
+            got = got._replace(dmin=dmin.reshape(n, -1),
+                               mn=mn.reshape(n, -1))
+            _assert_same_floats(w.mp, got.mp)
+            if i == 1:
+                assert torch.equal(dmin.reshape(n, -1), w.dmin)
+                assert torch.equal(mn.reshape(n, -1), w.mn)

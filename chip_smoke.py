@@ -118,8 +118,30 @@ Run from the repository root on a machine with one NVIDIA H100:
    order differs), beside ``torch.matmul`` on the weight dequantized and
    the activation fake-quantized in advance, and its prologue bit for bit
    through a q8_0 identity weight at both K;
-9. prints one JSON line of the kernels, the card, and last the result
-   line; each phase's seconds on its own line.
+9. prints one JSON line of the kernels (the ten TPU kernels and the two
+   activation quantize launches), the card, and last the result line;
+   each phase's seconds on its own line.
+
+The activation quantize (``kernels/act_quant.py``, not a TPU kernel):
+every decode GEMM that K2, K6 or K8 do not serve quantizes its input with
+one ``quantize_q8_1`` launch and every K4 call takes its bf16 operand from
+one ``quantize_fold_q8_1`` launch; the kernel phase holds both bit for bit
+to their torch twins at the TinyLlama and Mistral shapes, and every
+serving run's launch rules count them.  Captured against eager: every
+Server run (the q4_0 bf16, q8, (a) and (b) runs, Q4_K_M and (c), each
+formats file and its FUSED_DECODE run, (m1) and (m3)) runs first eagerly
+(``serve.CUDA_GRAPHS = False``) and then, in a new Server on the same
+traffic, replaying its decode steps and prefill chunks from CUDA graphs;
+the transcripts must be equal token for token and the launches the card
+ran equal too (a replay moves no Python counter: each graph's launches
+per replay, as its capture counted them, times its replays); each pair
+prints its graphs (launches per replay, replays, seconds of each key's
+first call and capture), both median decode steps and prefill tok/s, and
+the profiler's view of one decode replay (the q4_0 bf16, Q4_K_M and m1
+pairs also of one 128-token chunk replay).  The eager profiler windows
+list the "other" group by kernel name (its 12 largest), and the q4_0
+decode step and chunk run once more with the quantize routed through
+the torch twin's chain, as before its launch.
 
 K4's bf16-operand forms, K5, K3, K1 and the kernels on K1's body (K2,
 K6, K7, K8) run on the tensor cores: every K3, K4, K5, K7 and K8 row of
@@ -841,7 +863,37 @@ def kernel_phase(dev, timer):
     mistral_kernel_rows(dev, timer, record, randn, g)
     slice6_kernel_rows(dev, timer, record, randn)
     slice7_kernel_rows(dev, timer, record, unfused, randn)
+    act_quant_rows(timer, record, randn)
     return rows
+
+
+def act_quant_rows(timer, record, randn):
+    """The activation quantizers' launches (not TPU kernels) at the
+    serving path's shapes, bit for bit against their torch twins: Q8_1 at
+    a decode step's M = 8 over K 2048 (wo, wgu, lm_head) and 5632
+    (w_down), the bf16 fold at a chunk's M = 128 over the same K (main),
+    and both at Mistral's K 4096 and 14336.  Each input has an all-zero
+    block per row.  Bound: bytes (x read, codes and f16 scales, or the
+    fold, written); yardstick the twin's eager chain, no library call."""
+    from quant_gemm_tpu_torch.kernels import act_quant
+
+    for k, main in ((DIM, True), (D_FF, True), (M_DIM, False),
+                    (M_D_FF, False)):
+        for m, fn, plain in (
+                (8, act_quant.quantize_q8_1, act_quant.quantize_q8_1_plain),
+                (128, act_quant.quantize_fold_q8_1,
+                 act_quant.quantize_fold_q8_1_plain)):
+            x = randn(m, k, scale=3.0)
+            x[:, :32] = 0.0
+            got, want = fn(x), plain(x)
+            same = (all(torch.equal(a, b) for a, b in zip(got, want))
+                    if m == 8 else torch.equal(got, want))
+            if not same:
+                fail(f"{fn.__name__} M={m} K={k}: not bit-equal to the twin")
+            out = m * k + 4 * m * (k // 32) if m == 8 else 2 * m * k
+            record(fn.__name__, f"M={m} K={k}", 0.0, "bit-equal to the twin",
+                   timer(lambda: fn(x)), timer(lambda: plain(x)),
+                   bound(4 * m * k + out, 0, "f32"), None, main=main)
 
 
 # the spec runner's full-width shapes (Mistral-7B-v0.1): K9 at a decode
@@ -1355,27 +1407,111 @@ def chunks(prompts, reuse, chunk=128, bucket=16):
     return out
 
 
-def serve_traffic(name, qp, cfg, dev, prompts, reuse, counters, **kw):
-    """A warm-up request, then the requests (16, or the first 8) through
-    ``Server(qp, cfg, n_slots=8, **kw)`` with every counter set to 0 just
-    before and read just after.  Checks what every run must show; returns
-    (launches, stats, {request id: generated tokens})."""
-    from quant_gemm_tpu_torch.models import serve
-
-    warm = serve.Server(qp, cfg, n_slots=8, device=dev, **kw)
-    warm.submit(list(range(1, 65)), max_new=2)  # first-use costs
-    warm.run_until_done()
-    del warm
-    srv = serve.Server(qp, cfg, n_slots=8, device=dev, **kw)
+def drive(srv, prompts, max_new, counters):
+    """Submit ``prompts`` to ``srv``, set every counter to 0 just before
+    the run and read it just after: returns ({request id: generated
+    tokens}, the launches the card ran, wall seconds).  A replayed graph
+    moves no counter: the launches add ``srv.replay_launches()`` (each
+    graph's launches per replay, as its capture counted them, times its
+    replays, less the capture's own count)."""
     for p in prompts:
-        srv.submit(p, max_new=32)
-    for fn, attr in counters.values():
-        setattr(fn, attr, 0)
+        srv.submit(p, max_new=max_new)
+    zero(counters)
     t0 = time.perf_counter()
     results = srv.run_until_done()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    return results, served_launches(srv, counters), wall
+
+
+def zero(counters):
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+
+
+def served_launches(srv, counters):
+    """The launches the card ran since the counters were set to 0: their
+    moves plus ``srv.replay_launches()``."""
+    extra = srv.replay_launches()
+    if set(extra) - set(counters):
+        fail(f"graph launches of uncounted kernels: {extra}")
+    return {k: getattr(fn, attr) + extra.get(k, 0)
+            for k, (fn, attr) in counters.items()}
+
+
+@contextlib.contextmanager
+def graphs(on: bool):
+    """``serve.CUDA_GRAPHS`` set for the block, restored after it."""
+    from quant_gemm_tpu_torch.models import serve
+
+    old = serve.CUDA_GRAPHS
+    serve.CUDA_GRAPHS = on
+    try:
+        yield
+    finally:
+        serve.CUDA_GRAPHS = old
+
+
+def captured_pair(name, eager, captured, chunk_window=False):
+    """Hold a captured run (``serve.CUDA_GRAPHS`` on) to the eager run of
+    the same Server and traffic, both ``(server, results, launches,
+    wall)``: transcripts and launches equal; prints the graphs (launches
+    per replay by counter, replays, seconds of each key's eager first call
+    and capture), both runs' median decode step and prefill tok/s, and
+    the profiler's view of one replay of the most-replayed decode graph
+    (and with ``chunk_window`` of the chunk graph of 128 tokens)."""
+    (se, re_, le, we), (sc, rc, lc, wc) = eager, captured
+    if rc != re_:
+        diff = [r for r in re_ if rc.get(r) != re_[r]]
+        fail(f"{name}: captured transcripts differ from eager ones "
+             f"(requests {diff})")
+    if lc != le:
+        fail(f"{name}: captured launches {lc} differ from eager {le}")
+    if not sc.graphs:
+        fail(f"{name}: the captured run replayed no graph")
+    st_e, st_c = se.stats(), sc.stats()
+    print(f"    captured vs eager (same call): all {len(rc)} transcripts "
+          f"equal, launches equal; {st_c['graphs']} graphs captured in "
+          f"{st_c['capture_seconds']:.3f} s (first eager call + capture "
+          f"each), {st_c['graph_replays']} replays; wall {wc:.2f} vs "
+          f"{we:.2f} s", flush=True)
+    for key, g in sorted(sc.graphs.items(), key=lambda kv: str(kv[0])):
+        print(f"      {key[0]} {key[1]}: {sum(g.launches.values())} counted "
+              f"launches per replay {json.dumps(g.launches)}, {g.replays} "
+              f"replays, {g.capture_s:.3f} s", flush=True)
+    pre = [st["prefill_tokens"] / st["prefill_seconds"]
+           for st in (st_c, st_e)]
+    med = [st["decode_step_ms_median"] for st in (st_c, st_e)]
+    print(f"    median decode step captured {med[0]:.3f} ms vs eager "
+          f"{med[1]:.3f} ms; prefill "
+          f"captured {pre[0]:.1f} vs eager {pre[1]:.1f} tok/s (captured "
+          "includes each key's first call and capture)", flush=True)
+    dec = max((kg for kg in sc.graphs.items() if kg[0][0] == "decode"),
+              key=lambda kg: kg[1].replays)
+    device_breakdown(f"{name} captured decode replay (s_hi {dec[0][1]})",
+                     dec[1].graph.replay, graph=True)
+    chunk = sc.graphs.get(("chunk", 128) + dec[0][2:])
+    if chunk_window and chunk is not None:
+        device_breakdown(f"{name} captured chunk replay (128 tokens)",
+                         chunk.graph.replay, graph=True)
+
+
+def serve_traffic(name, qp, cfg, dev, prompts, reuse, counters,
+                  chunk_window=False, **kw):
+    """A warm-up request, then the requests (16, or the first 8) through
+    ``Server(qp, cfg, n_slots=8, **kw)`` eagerly, then again through a
+    new Server replaying CUDA graphs (``captured_pair``).  Checks what
+    every run must show; returns the eager run's (launches, stats,
+    {request id: generated tokens}), which the captured run equals."""
+    from quant_gemm_tpu_torch.models import serve
+
+    with graphs(False):
+        warm = serve.Server(qp, cfg, n_slots=8, device=dev, **kw)
+        warm.submit(list(range(1, 65)), max_new=2)  # first-use costs
+        warm.run_until_done()
+        del warm
+        srv = serve.Server(qp, cfg, n_slots=8, device=dev, **kw)
+        results, launches, wall = drive(srv, prompts, 32, counters)
     st = srv.stats()
     if sorted(results) != list(range(len(prompts))):
         fail(f"{name}: not every request finished: {sorted(results)}")
@@ -1390,13 +1526,37 @@ def serve_traffic(name, qp, cfg, dev, prompts, reuse, counters, **kw):
           f"prompt tokens "
           f"prefilled and {st['cached_prompt_tokens']} reused from the "
           f"cache, {st['generated_tokens']} generated, "
-          f"{st['decode_steps']} decode steps in {wall:.2f} s", flush=True)
+          f"{st['decode_steps']} decode steps in {wall:.2f} s (eager)",
+          flush=True)
     pre = st["prefill_tokens"] / st["prefill_seconds"]
     dec = st["decode_tokens"] / st["decode_seconds"]
-    print(f"    prefill {pre:.1f} tok/s, decode {dec:.1f} tok/s, median "
-          f"decode step {st['decode_step_ms_median']:.3f} ms", flush=True)
+    print(f"    eager: prefill {pre:.1f} tok/s, decode {dec:.1f} tok/s, "
+          f"median decode step {st['decode_step_ms_median']:.3f} ms",
+          flush=True)
     print(f"    launches: {json.dumps(launches)}", flush=True)
+    with graphs(True):
+        cap = serve.Server(qp, cfg, n_slots=8, device=dev, **kw)
+        captured = (cap, *drive(cap, prompts, 32, counters))
+        captured_pair(name, (srv, results, launches, wall), captured,
+                      chunk_window)
     return launches, st, results
+
+
+@contextlib.contextmanager
+def twin_quantize():
+    """The activation quantizers routed through their torch twins for
+    the block, restored after it: the eager chain of about 27 ops that
+    each GEMM ran before the hand launch, for the "before" profiler
+    windows.  The counters keep the wrappers."""
+    from quant_gemm_tpu_torch.kernels import act_quant
+
+    old = act_quant.quantize_q8_1, act_quant.quantize_fold_q8_1
+    act_quant.quantize_q8_1 = act_quant.quantize_q8_1_plain
+    act_quant.quantize_fold_q8_1 = act_quant.quantize_fold_q8_1_plain
+    try:
+        yield
+    finally:
+        act_quant.quantize_q8_1, act_quant.quantize_fold_q8_1 = old
 
 
 @contextlib.contextmanager
@@ -1420,7 +1580,15 @@ RUN_C = "Q4_K_M FUSED_DECODE"
 
 def check_launches(name, launches, want):
     """Every kernel of the path launched, each exactly as often as the
-    path says."""
+    path says.  A serving run's rules (those with K1, K7 and K4 counts)
+    add the activation quantize: one ``quantize_q8_1`` launch per decode
+    GEMM that K2, K6 or K8 do not serve (each K1 and K7 call) and one
+    ``quantize_fold_q8_1`` per K4 call, unless they name their own."""
+    want = dict(want)
+    if "gemm_exact_k16" in want:
+        want.setdefault("quantize_q8_1",
+                        want["gemm_exact"] + want["gemm_exact_k16"])
+        want.setdefault("quantize_fold_q8_1", want["gemm_dequant"])
     never = [k for k, v in want.items() if v and not launches[k]]
     if never:
         fail(f"{name}: kernels of the path never launched: {never}")
@@ -1490,7 +1658,8 @@ def decode_case(qp, cfg, rng, dev, qtype="bf16"):
     return check(qp, cfg, nt, cache)
 
 
-KERNEL_GROUPS = [("K6 gemm_exact_fused", "gemm_exact_fused_kernel"),
+KERNEL_GROUPS = [("Q8_1 quantize (act_quant)", "act_quant_kernel"),
+                 ("K6 gemm_exact_fused", "gemm_exact_fused_kernel"),
                  ("K8 attn_tail", "attn_tail_kernel"),
                  ("K7 gemm_exact_k16", "gemm_exact_k16_kernel"),
                  ("K1 gemm_exact", "gemm_exact_kernel"),
@@ -1499,6 +1668,9 @@ KERNEL_GROUPS = [("K6 gemm_exact_fused", "gemm_exact_fused_kernel"),
                  ("K4 gemm_dequant", "gemm_dequant_kernel"),
                  ("K5 flash_prefill", "flash_prefill"),
                  ("K3/K5 split-S merge", "attn_merge_kernel")]
+
+
+OTHER = "other (eager element ops, reductions, copies)"
 
 
 def _group(name: str) -> str:
@@ -1510,14 +1682,17 @@ def _group(name: str) -> str:
         return "library matmul (plain K16 prefill route)"
     if low.startswith(("memcpy", "memset")):
         return "memcpy/memset"
-    return "other (eager element ops, reductions, copies)"
+    return OTHER
 
 
-def device_breakdown(label, fn):
+def device_breakdown(label, fn, graph=False):
     """One call of ``fn`` under ``torch.profiler`` (after one untraced
     call): the device's busy time by kernel group, and its idle share
-    between the first kernel's start and the last one's end.  Fails when
-    the profiler traced no device activity, or none of a hand kernel."""
+    between the first kernel's start and the last one's end; the "other"
+    group by kernel name, its 12 largest.  Fails when the profiler traced
+    no device activity, or none of a hand kernel.  ``graph``: ``fn``
+    replays a CUDA graph; should the profiler see none of its kernels,
+    the replay is timed with CUDA events instead, and said so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1530,15 +1705,35 @@ def device_breakdown(label, fn):
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern and graph:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        ms = a.elapsed_time(b)
+        print(f"  {label}: CUPTI showed none of the graph's kernels; the "
+              f"replay timed with CUDA events: {ms:.3f} ms (no busy/idle "
+              "split)", flush=True)
+        return {"host_ms": host_ms, "device_span_ms": ms, "busy_ms": None,
+                "idle_share": None, "groups": {}}
     if not kern:
         fail(f"{label}: torch.profiler traced no device activity")
     span = (max(e.time_range.end for e in kern)
             - min(e.time_range.start for e in kern)) / 1e3
     groups: dict = {}
+    other: dict = {}
     for e in kern:
-        g = groups.setdefault(_group(e.name), [0.0, 0])
-        g[0] += e.time_range.elapsed_us() / 1e3
+        ms = e.time_range.elapsed_us() / 1e3
+        name = _group(e.name)
+        g = groups.setdefault(name, [0.0, 0])
+        g[0] += ms
         g[1] += 1
+        if name == OTHER:
+            o = other.setdefault(e.name, [0.0, 0])
+            o[0] += ms
+            o[1] += 1
     if not any(k.startswith("K") for k in groups):
         fail(f"{label}: torch.profiler traced none of the hand kernels")
     busy = sum(g[0] for g in groups.values())
@@ -1553,6 +1748,9 @@ def device_breakdown(label, fn):
     for k, v in out["groups"].items():
         print(f"    {k}: {v['ms']:.3f} ms in {v['n']} launches "
               f"({v['ms'] / busy:.1%} of busy)", flush=True)
+    for name, (ms, n) in sorted(other.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"      other by name: {ms:.3f} ms in {n}: {name[:110]}",
+              flush=True)
     return out
 
 
@@ -1572,12 +1770,13 @@ def decode_breakdown(name, qp, cfg, dev, rng):
                                            s_hi=decode_s_hi(48)))
 
 
-def breakdowns(name, qp, cfg, dev, rng):
+def breakdowns(name, qp, cfg, dev, rng, decode=True):
     """Device breakdown of one 8-slot decode step and one 128-token
-    prefill chunk of one slot."""
+    prefill chunk of one slot (eager)."""
     from quant_gemm_tpu_torch.models import llama
 
-    decode_breakdown(name, qp, cfg, dev, rng)
+    if decode:
+        decode_breakdown(name, qp, cfg, dev, rng)
     c1 = llama.KVCache.init(cfg, 1, device=dev)
     toks = torch.as_tensor(rng.integers(0, VOCAB, (1, 128)), device=dev)
     device_breakdown(f"{name} prefill chunk of 128 tokens at pos0 128",
@@ -1615,7 +1814,8 @@ def main_path(dev, counters, prompts, reuse):
         kw = {} if qtype == "bf16" else {"cache_qtype": "q8"}
         name = f"Server(qp, cfg, n_slots=8{', cache_qtype=q8' if kw else ''})"
         launches, st, results = serve_traffic(name, qp, cfg, dev, prompts,
-                                              reuse, counters, **kw)
+                                              reuse, counters,
+                                              chunk_window=not kw, **kw)
         # every decode step runs K2 and K3 once per layer and K1 for wo,
         # wgu, w_down and lm_head; prefill (M >= 16) never reaches K1, and
         # every chunk of 64 tokens or more runs K5 once per layer
@@ -1687,7 +1887,13 @@ def main_path(dev, counters, prompts, reuse):
         report_cases([(f"{RUN_B} decode step",
                        decode_case(qp, cfg, rng, dev))])
 
-    # the device's view of one 8-slot decode step, unfused and fused
+    # the device's view of one 8-slot decode step and one chunk, eager:
+    # first with the quantize as it ran before its hand launch (the torch
+    # twin's chain), then as it runs now, unfused and fused
+    with twin_quantize():
+        breakdowns("q4_0 (twin quantize chain, as before)", qp, cfg, dev,
+                   np.random.default_rng(3))
+    breakdowns("q4_0", qp, cfg, dev, np.random.default_rng(3), decode=False)
     for name, sw in (("q4_0", {"fused": False}), (RUN_A, {"fused": True}),
                      (RUN_B, {"fused": True, "tail": True})):
         with switches(**sw):
@@ -1814,7 +2020,7 @@ def q4_k_m_path(dev, counters, prompts, reuse):
     n_chunks = chunks(prompts, reuse)
     name = "Server(qp, cfg, n_slots=8) on the Q4_K_M file"
     launches, st, _ = serve_traffic(name, qp, cfg, dev, prompts, reuse,
-                                    counters)
+                                    counters, chunk_window=True)
     # a decode step: K1 on the q4_K linears (fused wqkv, or q and k of a
     # split one; wo, wgu; w_down unless q6_K), 4 per layer; K7 on the
     # q6_K attn_v and ffn_down of the more-bits layers and the lm_head;
@@ -2092,26 +2298,20 @@ def mistral_path(dev, counters):
     # wrap the ring in prefill
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, VOCAB, n).tolist() for n in M_PROMPTS]
-    warm = serve.Server(qp, cfg, n_slots=8, device=dev)
-    warm.submit(list(range(1, 200)), max_new=2)  # first-use costs
-    warm.run_until_done()
-    del warm
-    torch.cuda.empty_cache()
-    srv = serve.Server(qp, cfg, n_slots=8, device=dev)
-    if (srv.max_chunk, srv.cache_prompt) != (min(128, M_RING_CHUNK), False):
-        fail(f"ring Server: chunk {srv.max_chunk}, cache_prompt "
-             f"{srv.cache_prompt}; expected 128, False")
-    if tuple(srv.cache.k.shape) != (M_LAYERS, 8, M_KV, ring, M_HD):
-        fail(f"ring Server cache {tuple(srv.cache.k.shape)}")
-    for pr in prompts:
-        srv.submit(pr, max_new=64)
-    for fn, attr in counters.values():
-        setattr(fn, attr, 0)
-    t0 = time.perf_counter()
-    results = srv.run_until_done()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    with graphs(False):
+        warm = serve.Server(qp, cfg, n_slots=8, device=dev)
+        warm.submit(list(range(1, 200)), max_new=2)  # first-use costs
+        warm.run_until_done()
+        del warm
+        torch.cuda.empty_cache()
+        srv = serve.Server(qp, cfg, n_slots=8, device=dev)
+        if (srv.max_chunk, srv.cache_prompt) != (min(128, M_RING_CHUNK),
+                                                 False):
+            fail(f"ring Server: chunk {srv.max_chunk}, cache_prompt "
+                 f"{srv.cache_prompt}; expected 128, False")
+        if tuple(srv.cache.k.shape) != (M_LAYERS, 8, M_KV, ring, M_HD):
+            fail(f"ring Server cache {tuple(srv.cache.k.shape)}")
+        results, launches, wall = drive(srv, prompts, 64, counters)
     st = srv.stats()
     if sorted(results) != [0, 1, 2, 3] or any(
             len(t) != 64 for t in results.values()):
@@ -2133,17 +2333,26 @@ def mistral_path(dev, counters):
     print(f"  (m1) Server(qp, cfg, n_slots=8) on the ring: 4 requests "
           f"(prompts {list(M_PROMPTS)}), {st['prefill_tokens']} prompt "
           f"tokens in {len(n_chunks)} chunks, {st['generated_tokens']} "
-          f"generated, {steps} decode steps in {wall:.2f} s, cache "
-          f"{list(srv.cache.k.shape)}, 0 reused", flush=True)
-    print(f"    prefill {st['prefill_tokens'] / st['prefill_seconds']:.1f} "
-          f"tok/s, decode {st['decode_tokens'] / st['decode_seconds']:.1f} "
+          f"generated, {steps} decode steps in {wall:.2f} s (eager), "
+          f"cache {list(srv.cache.k.shape)}, 0 reused", flush=True)
+    print(f"    eager: prefill "
+          f"{st['prefill_tokens'] / st['prefill_seconds']:.1f} tok/s, "
+          f"decode {st['decode_tokens'] / st['decode_seconds']:.1f} "
           f"tok/s, median decode step {st['decode_step_ms_median']:.3f} ms",
           flush=True)
     print(f"    per decode step: K2 {M_LAYERS}, K3 {M_LAYERS}, K1 "
-          f"{3 * M_LAYERS + 1}; per chunk: K4 {4 * M_LAYERS + 1}, K5 "
+          f"{3 * M_LAYERS + 1}, Q8_1 quantize {3 * M_LAYERS + 1}; per "
+          f"chunk: K4 and its quantize-fold {4 * M_LAYERS + 1}, K5 "
           f"{M_LAYERS} at 64 tokens or more; K6, K7, K8 0", flush=True)
     print(f"    launches: {json.dumps(launches)}", flush=True)
-    del srv
+    eager = (srv, results, launches, wall)
+    with graphs(True):
+        cap = serve.Server(qp, cfg, n_slots=8, device=dev)
+        captured_pair(RUN_M1, eager, (cap, *drive(cap, prompts, 64,
+                                                   counters)),
+                      chunk_window=True)
+    staging_copies(cfg, cap.cache, dev)
+    del srv, cap, eager
     torch.cuda.empty_cache()
 
     # (m2) kernels against plain versions on the ring: a 128-token chunk
@@ -2178,7 +2387,7 @@ def mistral_path(dev, counters):
         if not (layer_e <= 1e-4 and logit_e <= 1e-4):
             fail(f"ring vs linear, {what}: the ring disagrees")
 
-    mistral_shift(qp, dev, rng)
+    mistral_shift(qp, dev, rng, counters)
 
     # the device's view of one ring decode step past R and one chunk,
     # with the model's RoPE tables made once, as the Server makes them
@@ -2203,23 +2412,77 @@ def mistral_path(dev, counters):
     return launches
 
 
-def mistral_shift(qp, dev, rng):
+def staging_copies(cfg, cache, dev):
+    """CUDA-event times of the copies a staged prefill makes
+    (``Server._prefill``: slot 0 of ``cache`` into a one-slot cache only
+    where a prefix is reused, so never on the ring; back into the slot
+    at every admission), each against its bound: the slab read and
+    written once at 3.35 TB/s."""
+    from quant_gemm_tpu_torch.models import llama
+
+    c1 = llama.KVCache.init(cfg, 1, "q8" if cache.quantized else "bf16",
+                            device=dev)
+    stage, view = c1.buffers(), [t[:, :1] for t in cache.buffers()]
+    nbytes = sum(t.numel() * t.element_size() for t in stage)
+    times = []
+    for pairs in (list(zip(stage, view)), list(zip(view, stage))):
+        for dst, src in pairs:  # warm
+            dst.copy_(src)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for dst, src in pairs:
+            dst.copy_(src)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    bnd = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"  staging copies of one slot ({nbytes} bytes): extract "
+          f"(prefix reuse only) {times[0]:.3f} ms, insert (every "
+          f"admission) {times[1]:.3f} ms (bound {bnd:.3f} ms each: read "
+          "and written once)", flush=True)
+    del c1
+
+
+def mistral_shift(qp, dev, rng, counters):
     """(m3) context_shift on the linear windowed cache at max_seq 4608: a
     4600-token prompt generates 64 tokens, its slot shifted to the
-    window's 4096 tokens at 4607; then one decode step from a shifted
-    cache against the same step from an unshifted one (max_seq 4736),
-    layer by layer."""
+    window's 4096 tokens at 4607, eagerly and captured, each run's
+    launches counted and held to the route; then one decode step from a
+    shifted cache against the same step from an unshifted one (max_seq
+    4736), layer by layer."""
     from quant_gemm_tpu_torch.models import llama, serve
 
     cfg = mistral_cfg(ring=False, max_seq=M_RING)
-    srv = serve.Server(qp, cfg, n_slots=8, context_shift=True, device=dev)
-    rid = srv.submit(rng.integers(0, VOCAB, M_SHIFT_PROMPT).tolist(),
-                     max_new=64)
-    trace = []
-    while srv.queue or any(s is not None for s in srv.slots):
-        srv.step()
-        trace.append(int(srv.cache.pos[0]))
-    toks = srv.finished[rid].generated
+    prompt = rng.integers(0, VOCAB, M_SHIFT_PROMPT).tolist()
+    runs = {}
+    for on in (False, True):
+        with graphs(on):
+            srv = serve.Server(qp, cfg, n_slots=8, context_shift=True,
+                               device=dev)
+            rid = srv.submit(prompt, max_new=64)
+            trace = []
+            zero(counters)
+            t0 = time.perf_counter()
+            while srv.queue or any(s is not None for s in srv.slots):
+                srv.step()
+                trace.append(int(srv.cache.pos[0]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = served_launches(srv, counters)
+        steps = srv.stats()["decode_steps"]
+        n_chunks = chunks([prompt], [0], srv.max_chunk)
+        check_launches(f"(m3) context shift, graphs {on}", launches, {
+            "gemm_exact": steps * (3 * M_LAYERS + 1),
+            "norm_qkv": steps * M_LAYERS, "flash_decode": steps * M_LAYERS,
+            "gemm_dequant": len(n_chunks) * (4 * M_LAYERS + 1),
+            "flash_prefill": M_LAYERS * sum(t >= 64 for t in n_chunks),
+            "gemm_exact_fused": 0, "attn_tail": 0, "gemm_exact_k16": 0,
+            "k16_dequant_gemm": 0})
+        runs[on] = (srv, {rid: srv.finished[rid].generated}, trace, wall,
+                    launches)
+    srv, res, trace, _, _ = runs[False]
+    toks = res[rid]
     low = min(trace)
     if len(toks) != 64 or not all(0 <= t < VOCAB for t in toks):
         fail(f"m3: {len(toks)} tokens generated, expected 64 in the vocab")
@@ -2232,7 +2495,12 @@ def mistral_shift(qp, dev, rng):
           f"prompt; "
           f"position after each step {trace[0]}..{max(trace)}, shifted to "
           f"{M_WINDOW} and on to {trace[-1]}", flush=True)
-    del srv
+    if runs[True][2] != trace:
+        fail("m3: the captured run's positions differ from the eager run's")
+    print(f"    launches: {json.dumps(runs[False][4])}", flush=True)
+    (se, re_, _, we, le), (sc, rc, _, wc, lc) = runs[False], runs[True]
+    captured_pair("(m3) context shift", (se, re_, le, we), (sc, rc, lc, wc))
+    del srv, runs
     torch.cuda.empty_cache()
 
     big = mistral_cfg(ring=False, max_seq=M_LIN_SEQ)
@@ -2375,7 +2643,8 @@ def spec_phase(dev, counters):
         "gemm_dequant": len(gemm) * (1 + 3 + len(SPEC_GEMM)) + len(a16),
         "gemm_exact": len(q8) * (1 + len(SPEC_GEMM)),
         "flash_decode": 1, "flash_prefill": 1, "norm_qkv": 0,
-        "gemm_exact_k16": 0, "gemm_exact_fused": 0, "attn_tail": 0})
+        "gemm_exact_k16": 0, "gemm_exact_fused": 0, "attn_tail": 0,
+        "quantize_q8_1": 0, "quantize_fold_q8_1": 0})
     return launches
 
 
@@ -2400,6 +2669,13 @@ KERNEL_INFO = {
                         "quant_gemm_tpu/ops/rms_norm.py:56"),
     "softmax_pallas": ("quant_gemm_tpu_torch/csrc/softmax.cu",
                        "quant_gemm_tpu/ops/softmax.py:68"),
+    # not TPU kernels: the one XLA fusion of JAX's standalone quantize
+    "quantize_q8_1": ("quant_gemm_tpu_torch/csrc/act_quant.cu",
+                      "none (not a TPU kernel; the XLA fusion of "
+                      "quant_gemm_tpu/kernels/registry.py:148)"),
+    "quantize_fold_q8_1": ("quant_gemm_tpu_torch/csrc/act_quant.cu",
+                           "none (not a TPU kernel; the XLA fusion of "
+                           "quant_gemm_tpu/kernels/registry.py:148)"),
 }
 # the run whose launches the kernels line reports: the default q4_0
 # server's, or the first run that takes the kernel
@@ -2451,6 +2727,11 @@ def main() -> int:
     from quant_gemm_tpu_torch.ops.softmax import softmax_pallas
 
     counters["rms_norm_pallas"] = (rms_norm_pallas, "launches")
+    from quant_gemm_tpu_torch.kernels import act_quant
+
+    counters["quantize_q8_1"] = (act_quant.quantize_q8_1, "launches")
+    counters["quantize_fold_q8_1"] = (act_quant.quantize_fold_q8_1,
+                                      "launches")
     counters["softmax_pallas"] = (softmax_pallas, "launches")
     prompts, reuse = traffic(np.random.default_rng(0))
     by_run = main_path(dev, counters, prompts, reuse)

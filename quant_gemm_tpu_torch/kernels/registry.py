@@ -13,12 +13,14 @@ weights the port serves:
     when :data:`FUSED_DECODE` is True and K6 has the weight's form
     (``gemm_exact.FUSED_QTYPES``: every form without a qh plane), as
     ``registry.py:199-205`` routes it; otherwise, and at any M,
-    it is quantized to Q8_1 by the torch twin
-    (``formats.quant.quantize_q8_1``);
+    it is quantized to Q8_1 by one launch (``act_quant.quantize_q8_1``,
+    bit-equal to the torch twin ``formats.quant.quantize_q8_1``);
   - a Q8_1 activation of M <= :data:`DECODE_M_MAX` rows takes K1
     (``gemm_exact``);
   - anything else is folded to bf16 (``qs * d``, as ``gemm_pallas.py:
-    554-562``) and takes K4 (``gemm_dequant``).  A float activation passed
+    554-562``) and takes K4 (``gemm_dequant``); a float activation with
+    ``quantize_act`` is quantized and folded in one launch
+    (``act_quant.quantize_fold_q8_1``).  A float activation passed
     without ``quantize_act`` is cast to bf16 for K4; the model only passes
     such activations in bf16 already;
 
@@ -26,7 +28,8 @@ weights the port serves:
   ``registry.py:177-195`` routes them:
 
   - at M <= :data:`DECODE_M_MAX` the activation is quantized to Q8_1 (if
-    it is not already) and takes K7 (``gemm_exact_k16``);
+    it is not already; ``act_quant.quantize_q8_1``) and takes K7
+    (``gemm_exact_k16``);
   - at M > :data:`DECODE_M_MAX` (prefill), or for a float activation
     without ``quantize_act``, a Q8_1 activation is dequantized to float32
     (``qs * d``, keeping the A8 rounding; not K4's bf16 fold), a float one
@@ -39,7 +42,12 @@ Any other weight type raises: nothing falls back to a plain version.
 
 :data:`KERNELS` and :data:`PLAIN` name the eight operations of the port;
 the model takes one of them (``ops=``), so a run can go through the plain
-versions on purpose — on the card too — for a comparison.
+versions on purpose — on the card too — for a comparison.  The
+activation quantizers go with them (:func:`quantize`,
+:func:`quantize_fold`): the launches of :mod:`.act_quant` on CUDA tensors
+beside any op set but :data:`PLAIN`, the torch twins on CPU tensors or
+beside it.  :func:`counters` reads every launch counter of the serving
+path.
 
 :data:`LADDER` is the JAX package's named kernel ladder (``kernels/
 registry.py::KERNELS``), each rung ``fn(w, act)`` with ``w`` a planar SoA
@@ -78,7 +86,7 @@ from ..formats.blocks import Q8_1Tensor
 from ..formats.quant import expand_scale, quantize_q8_1
 from ..ops.attention import (flash_decode, flash_decode_plain,
                              flash_prefill, flash_prefill_plain)
-from . import gemm_xla, layout
+from . import act_quant, gemm_xla, layout
 from .gemm_dequant import gemm_dequant, gemm_dequant_plain
 from .gemm_exact import (FUSED_QTYPES, gemm_exact, gemm_exact_fused,
                          gemm_exact_fused_plain, gemm_exact_plain)
@@ -113,7 +121,7 @@ PLAIN = Ops(gemm_exact_plain, gemm_dequant_plain, norm_qkv_plain,
 DECODE_M_MAX = 12
 
 # Decode W4A8 with a float activation: quantize inside the exact kernel
-# (K6, True) or quantize with the torch twin and run K1 (False).  Both are
+# (K6, True) or quantize in a launch of its own and run K1 (False).  Both are
 # bit-identical.  False is the JAX default: the fused kernel measured 4-10
 # us slower per GEMM on a TPU v5e (quant_gemm_tpu registry); its H100
 # times are in PERF.md.
@@ -124,6 +132,30 @@ def fold_q8_1(act: Q8_1Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     """Q8_1 -> ``qs * d`` as ``dtype`` (exact in float32, then rounded to
     bf16 by default)."""
     return (act.qs.to(torch.float32) * expand_scale(act.d)).to(dtype)
+
+
+def _twins(ops: Ops, x: torch.Tensor) -> bool:
+    return ops is PLAIN or x.device.type == "cpu"
+
+
+def quantize(x: torch.Tensor, ops: Ops = KERNELS) -> Q8_1Tensor:
+    """Q8_1 of a float32 ``x`` [M, K]: one launch (``act_quant.
+    quantize_q8_1``) on a CUDA tensor, the torch twin
+    (:func:`quantize_q8_1`, looked up here at each call) on a CPU one or
+    with ``ops=PLAIN``; the same bits."""
+    if _twins(ops, x):
+        return quantize_q8_1(x)
+    return act_quant.quantize_q8_1(x)
+
+
+def quantize_fold(x: torch.Tensor, ops: Ops = KERNELS) -> torch.Tensor:
+    """``fold_q8_1(quantize(x))``, K4's bf16 operand on the prefill
+    route: one launch (``act_quant.quantize_fold_q8_1``) on a CUDA
+    tensor, the twin then :func:`fold_q8_1` on a CPU one or with
+    ``ops=PLAIN``."""
+    if _twins(ops, x):
+        return fold_q8_1(quantize_q8_1(x))
+    return act_quant.quantize_fold_q8_1(x)
 
 
 def k16_dequant_gemm(w: PreparedK16, a: torch.Tensor) -> torch.Tensor:
@@ -148,7 +180,7 @@ def dispatch(w, act, quantize_act: bool = False, ops: Ops = KERNELS):
                 act = act.qs.to(torch.float32) * expand_scale(act.d)
             return k16_dequant_gemm(w, act)
         if not isinstance(act, Q8_1Tensor):
-            act = quantize_q8_1(act.to(torch.float32))
+            act = quantize(act.to(torch.float32), ops)
         return ops.gemm_exact_k16(w, act)
     if not isinstance(w, PreparedWeight):
         raise TypeError(f"dispatch: no kernel serves {type(w).__name__} "
@@ -156,12 +188,26 @@ def dispatch(w, act, quantize_act: bool = False, ops: Ops = KERNELS):
     if quantize_act and not isinstance(act, Q8_1Tensor):
         if FUSED_DECODE and m <= DECODE_M_MAX and w.qtype in FUSED_QTYPES:
             return ops.gemm_exact_fused(w, act.to(torch.float32))
-        act = quantize_q8_1(act.to(torch.float32))
+        if m > DECODE_M_MAX:
+            return ops.gemm_dequant(w, quantize_fold(act.to(torch.float32),
+                                                   ops))
+        act = quantize(act.to(torch.float32), ops)
     if isinstance(act, Q8_1Tensor):
         if m <= DECODE_M_MAX:
             return ops.gemm_exact(w, act)
         return ops.gemm_dequant(w, fold_q8_1(act))
     return ops.gemm_dequant(w, act.to(torch.bfloat16))
+
+
+def counters() -> dict:
+    """Every launch counter of the serving path by name: each kernel
+    wrapper's and activation quantizer's ``launches``, and
+    ``k16_dequant_gemm.calls`` (the per-16 prefill matmul)."""
+    out = {name: fn.launches for name, fn in KERNELS._asdict().items()}
+    out["quantize_q8_1"] = act_quant.quantize_q8_1.launches
+    out["quantize_fold_q8_1"] = act_quant.quantize_fold_q8_1.launches
+    out["k16_dequant_gemm"] = k16_dequant_gemm.calls
+    return out
 
 
 def _prepared(w) -> PreparedWeight:
@@ -242,4 +288,5 @@ LADDER = {
 }
 
 __all__ = ["Ops", "KERNELS", "PLAIN", "LADDER", "DECODE_M_MAX",
-           "FUSED_DECODE", "fold_q8_1", "k16_dequant_gemm", "dispatch"]
+           "FUSED_DECODE", "fold_q8_1", "quantize", "quantize_fold",
+           "counters", "k16_dequant_gemm", "dispatch"]

@@ -322,6 +322,11 @@ class KVCache:
                        torch.zeros(shape, dtype=torch.bfloat16, device=dev),
                        pos)
 
+    def buffers(self) -> list:
+        """The k, v (and q8 scale) tensors."""
+        return [t for t in (self.k, self.v, self.ks, self.vs)
+                if t is not None]
+
     def clone(self) -> "KVCache":
         return KVCache(*(None if t is None else t.clone()
                          for t in (self.k, self.v, self.pos, self.ks,
@@ -391,7 +396,8 @@ def shift_context(cache: KVCache, cfg: LlamaConfig, keep: int,
         else:
             cache.k[:, bb, :, :keep] = x.to(cache.k.dtype)
         cache.v[:, bb, :, :keep] = v
-    cache.pos = (pos - delta).to(torch.int32)
+    # in place: a captured decode step reads this storage
+    cache.pos.copy_(pos - delta)
     return cache
 
 
@@ -461,11 +467,28 @@ class Step(NamedTuple):
     s_hi: Optional[int] = None
 
 
+def routes(qparams: dict, cfg: LlamaConfig, b: int, t: int):
+    """``(use_mega, use_mega_tail)`` of a call of ``t`` tokens for ``b``
+    slots: K2 (``norm_qkv``) on every layer or on none, as in JAX (a
+    q8_0, per-16 or SplitLinear wqkv anywhere turns it off for the whole
+    model), and K8 (``attn_tail``) when every layer is
+    ``tail_supported`` (which reads ``gemm_megalayer.ENABLE_TAIL``);
+    both only at decode (t = 1)."""
+    use_mega = t == 1 and all(
+        gemm_megalayer.supported(ly["wqkv"], cfg.dim, b)
+        for ly in qparams["layers"])
+    use_mega_tail = t == 1 and all(
+        gemm_megalayer.tail_supported(ly, cfg, b) for ly in qparams["layers"])
+    return use_mega, use_mega_tail
+
+
 def begin(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor,
           cache: KVCache, *, act_mode: str = "q8_1", rope_cache=None,
-          s_hi: Optional[int] = None):
+          s_hi: Optional[int] = None, route=None):
     """Check a call of T tokens per slot and embed them: returns the
-    float32 hidden state [B, T, D] and the call's :class:`Step`."""
+    float32 hidden state [B, T, D] and the call's :class:`Step`.
+    ``route``: :func:`routes` of the call, when the caller decided it
+    once (the Server, per graph); None walks the layers here."""
     check_config(cfg)
     if act_mode != "q8_1":
         raise NotImplementedError(f"act_mode {act_mode!r} is not ported "
@@ -488,13 +511,7 @@ def begin(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor,
         # (the start clamp of JAX's dynamic_update_slice, which overflowing
         # and inactive slots rely on)
         widx = pos0.clamp(0, cache.k.shape[3] - t)[:, None] + rows
-    # K2 on every layer or on none, as in JAX: a q8_0, per-16 or
-    # SplitLinear wqkv anywhere turns it off for the whole model
-    use_mega = t == 1 and all(
-        gemm_megalayer.supported(ly["wqkv"], cfg.dim, b)
-        for ly in qparams["layers"])
-    use_mega_tail = t == 1 and all(
-        gemm_megalayer.tail_supported(ly, cfg, b) for ly in qparams["layers"])
+    use_mega, use_mega_tail = route or routes(qparams, cfg, b, t)
     x = qparams["embed"][tokens.to(dev)].to(torch.float32)
     return x, Step(positions, widx, rope_cache, use_mega, use_mega_tail,
                    ring, s_hi)
@@ -591,7 +608,9 @@ def end(cache: KVCache, step: Step, current: list) -> None:
         bufs = (cache.k, cache.v, cache.ks, cache.vs)
         for buf, vals in zip(bufs, zip(*current)):
             buf[:, bidx, :, row] = torch.stack(vals).transpose(0, 1)
-    cache.pos = (step.positions[:, -1] + 1).to(torch.int32)
+    # in place, so that a CUDA graph of the step reads and writes the same
+    # storage on every replay
+    cache.pos.copy_(step.positions[:, -1] + 1)
 
 
 def head(qparams: dict, cfg: LlamaConfig, x: torch.Tensor,
@@ -606,16 +625,17 @@ def head(qparams: dict, cfg: LlamaConfig, x: torch.Tensor,
 def forward(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor,
             cache: KVCache, *, act_mode: str = "q8_1", rope_cache=None,
             ops: registry.Ops = registry.KERNELS,
-            s_hi: Optional[int] = None):
+            s_hi: Optional[int] = None, route=None):
     """Run T tokens per slot (prefill when T > 1, decode when T = 1).
 
     Slots advance independently by their own ``cache.pos``.  Returns
     (logits [B, T, vocab] float32, cache), the cache updated in place.
     ``ops`` selects the kernels (default) or, on purpose, their plain
     versions (``registry.PLAIN``).  ``s_hi``: every active slot's
-    position is below it (JAX's ``attn_s_hi``; decode only)."""
+    position is below it (JAX's ``attn_s_hi``; decode only).  ``route``:
+    :func:`routes`, decided once by the caller (default: here)."""
     x, step = begin(qparams, cfg, tokens, cache, act_mode=act_mode,
-                    rope_cache=rope_cache, s_hi=s_hi)
+                    rope_cache=rope_cache, s_hi=s_hi, route=route)
     current = []
     for li, lyr in enumerate(qparams["layers"]):
         x, kv = layer(lyr, li, cfg, x, cache, step, ops)
@@ -627,5 +647,5 @@ def forward(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor,
 
 __all__ = ["LlamaConfig", "init_params", "quantize_params", "init_qparams",
            "rope_for", "SplitLinear", "KVCache", "shift_context", "Step",
-           "begin", "layer", "end", "head", "forward",
+           "routes", "begin", "layer", "end", "head", "forward",
            "FLASH_PREFILL_T_MIN"]

@@ -22,6 +22,28 @@ keeps its newest ``window`` (or ``max_seq // 2``) tokens
 (``llama.shift_context``) and generation goes on; otherwise such a
 request finishes there.
 
+On the card each decode step and each prefill chunk is replayed from a
+CUDA graph, the counterpart of JAX's jitted ``_decode_step`` and
+``_prefill_step`` (``quant_gemm_tpu/models/serve.py:47-81``): one graph
+per decode ``s_hi`` (256, 512 or None, as JAX compiles at most three
+``attn_s_hi`` programs) and one per chunk length, keyed also on the
+module settings that choose the route (:func:`graph_key`), all in one
+memory pool.  The
+first call of a key runs eagerly on a side stream (the kernels' builds
+and occupancy queries happen there) and gives that step's result; then
+the key is captured and every later call replays it.  The graph reads
+its tokens from a static device buffer, writes the cache and
+``cache.pos`` in place and leaves its logits in a static output; sampling
+stays eager after the replay (JAX samples inside its jit).  As JAX
+prefills a one-slot cache and inserts it (``serve.py:180-215``), the
+Server prefills into a one-slot staging cache: the slot is copied into
+it first where a reused prefix continues (JAX's extract), and the
+staging cache is copied into the slot after the last chunk (JAX's
+insert), so the chunk graphs never bake a slot's address in.
+:data:`CUDA_GRAPHS` = False runs the steps eagerly on the card too (the
+counterpart of ``jax.disable_jit()``); on the CPU the Server always runs
+eagerly.  A capture that fails raises: nothing falls back to eager.
+
 Options outside the slice raise ``NotImplementedError``: grammar
 sampling, ``n_probs``, ``prefill_a16`` and ``w_down_a16``.
 """
@@ -37,12 +59,42 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..kernels import gemm_megalayer, registry
 from ..utils import resolve_device, round_up
 from ..ops import attention
 from . import llama, sampling
 
 PENALTY_WINDOW = 64  # recent tokens a slot's repeat penalty sees
 BIAS_SLOTS = 8  # sparse logit-bias entries per request
+
+#: replay each decode step and prefill chunk from a CUDA graph on the card
+#: (read per call); False runs them eagerly, as ``jax.disable_jit()``
+CUDA_GRAPHS = True
+
+
+def graph_key(kind: str, size) -> tuple:
+    """The key of a captured step: ``kind`` "decode" with its ``s_hi``
+    or "chunk" with its length, and every module setting whose route a
+    graph bakes in, read now: ``registry.FUSED_DECODE`` and
+    ``gemm_megalayer.ENABLE_TAIL`` (K6, K8), ``registry.DECODE_M_MAX``
+    (K1/K7 against K4) and ``llama.FLASH_PREFILL_T_MIN`` (K5 against the
+    dense prefill attention)."""
+    return (kind, size, registry.FUSED_DECODE, gemm_megalayer.ENABLE_TAIL,
+            registry.DECODE_M_MAX, llama.FLASH_PREFILL_T_MIN)
+
+
+@dataclasses.dataclass
+class Graph:
+    """A captured step: the graph, its static output, the launches one
+    replay makes by counter (what the counters moved during the capture,
+    which ran nothing), the seconds of its eager first call and capture,
+    and its replays."""
+
+    graph: object
+    out: torch.Tensor
+    launches: dict
+    capture_s: float
+    replays: int = 0
 
 
 @dataclasses.dataclass
@@ -111,8 +163,19 @@ class Server:
         self.cache_prompt = cache_prompt and not cfg.ring
         self.context_shift = context_shift
         self._shift_keep = max(cfg.window or cfg.max_seq // 2, 1)
+        self.cache_qtype = cache_qtype
         self.cache = llama.KVCache.init(cfg, n_slots, cache_qtype,
                                         device=self.device)
+        # the one-slot cache every prefill runs on, made at first use
+        self._stage: Optional[llama.KVCache] = None
+        # static device buffers the steps read their tokens from
+        self._tokens = torch.zeros(n_slots, 1, dtype=torch.int64,
+                                   device=self.device)
+        self._chunk_tokens: dict[int, torch.Tensor] = {}
+        self._routes: dict[tuple, tuple] = {}  # graph key -> llama.routes
+        #: the captured steps by :func:`graph_key`
+        self.graphs: dict[tuple, Graph] = {}
+        self._pool = None  # the graphs' shared memory pool
         self.slots: list[Optional[Request]] = [None] * n_slots
         self.queue: list[Request] = []
         self.finished: dict[int, Request] = {}
@@ -171,33 +234,119 @@ class Server:
         self.queue.append(r)
         return r.rid
 
+    # -- the steps, eager or replayed ----------------------------------------
+
+    def _captured(self) -> bool:
+        return CUDA_GRAPHS and self.device.type == "cuda"
+
+    def _forward(self, key: tuple, tokens: torch.Tensor,
+                 cache: llama.KVCache, s_hi=None):
+        """The step of ``key`` as a call: the forward of the static
+        ``tokens`` on ``cache`` with its routes decided once per key;
+        returns the logits."""
+        route = self._routes.get(key)
+        if route is None:
+            route = self._routes[key] = llama.routes(
+                self.qparams, self.cfg, *tokens.shape)
+        return lambda: llama.forward(
+            self.qparams, self.cfg, tokens, cache, act_mode=self.act_mode,
+            rope_cache=self._rope, s_hi=s_hi, route=route)[0]
+
+    def _run(self, key: tuple, fn) -> torch.Tensor:
+        """``fn()`` eagerly, or replayed from the graph of ``key`` (its
+        static output, valid until the next replay of that graph)."""
+        if not self._captured():
+            return fn()
+        g = self.graphs.get(key)
+        if g is None:
+            return self._capture(key, fn)
+        g.graph.replay()
+        g.replays += 1
+        return g.out
+
+    def _capture(self, key: tuple, fn) -> torch.Tensor:
+        """Run ``fn`` eagerly on a side stream (this step's result: the
+        kernels' builds and occupancy queries happen here, outside the
+        capture), then capture it into the pool as ``self.graphs[key]``.
+        Raises if the capture fails."""
+        t0 = time.perf_counter()
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = fn()
+        cur.wait_stream(side)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        before = registry.counters()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool):
+            static = fn()
+        moved = {k: v - before[k] for k, v in registry.counters().items()
+                 if v != before[k]}
+        self.graphs[key] = Graph(graph, static, moved,
+                                 time.perf_counter() - t0)
+        return out
+
+    def replay_launches(self) -> dict:
+        """By counter, what to add to the counters' moves to get the
+        launches the card ran: a capture counts one step's launches
+        without running them (the eager first call of its key ran that
+        step, counted), and each replay runs them unseen."""
+        out: collections.Counter = collections.Counter()
+        for g in self.graphs.values():
+            for name, n in g.launches.items():
+                out[name] += n * (g.replays - 1)
+        return dict(out)
+
+    def _chunk(self, tokens: list, t: int, cache: llama.KVCache):
+        """One bucket-padded prefill chunk of ``tokens`` (length <= t) on
+        ``cache`` through the static [1, t] buffer; returns the logits of
+        its last real token."""
+        buf = self._chunk_tokens.get(t)
+        if buf is None:
+            buf = self._chunk_tokens[t] = torch.zeros(
+                1, t, dtype=torch.int64, device=self.device)
+        padded = np.zeros((1, t), np.int64)
+        padded[0, : len(tokens)] = tokens
+        buf.copy_(torch.from_numpy(padded))
+        key = graph_key("chunk", t)
+        logits = self._run(key, self._forward(key, buf, cache))
+        return logits[0, len(tokens) - 1].clone()
+
+    def _staging(self) -> llama.KVCache:
+        if self._stage is None:
+            self._stage = llama.KVCache.init(self.cfg, 1, self.cache_qtype,
+                                             device=self.device)
+        return self._stage
+
     def _prefill(self, slot: int, prompt: list, start: int = 0):
-        """Chunked prefill of ``prompt[start:]`` straight into its slot (a
-        view of the server cache: no per-request cache copy), whose first
-        ``start`` rows already hold the prompt's prefix; returns the last
-        prompt position's logits."""
+        """Chunked prefill of ``prompt[start:]`` into its slot, whose
+        first ``start`` rows already hold the prompt's prefix, through
+        the staging cache: the slot copied in where ``start`` > 0 (else
+        the staging cache's rows from an earlier prefill stay, past
+        ``pos`` and so masked, as a fresh cache's zeros are), the chunks
+        run, and the staging cache copied into the slot, as JAX extracts
+        and inserts it.  Returns the last prompt position's logits."""
         c = self.cache
         one = slice(slot, slot + 1)
-        c1 = llama.KVCache(
-            c.k[:, one], c.v[:, one],
-            torch.full((1,), start, dtype=torch.int32, device=self.device),
-            *((c.ks[:, one], c.vs[:, one]) if c.quantized else ()))
+        slab = [t[:, one] for t in c.buffers()]
+        c1 = self._staging()
+        if start:
+            for dst, src in zip(c1.buffers(), slab):
+                dst.copy_(src)
+        c1.pos.fill_(start)
         off = start
         while off < len(prompt):
             part = prompt[off: off + self.max_chunk]
             t = max(self.bucket, round_up(len(part), self.bucket))
-            padded = np.zeros((1, t), np.int64)
-            padded[0, : len(part)] = part
             # the padded tail writes garbage past the real tokens; pos
             # advances only by the real length so the next chunk overwrites
-            logits, c1 = llama.forward(
-                self.qparams, self.cfg,
-                torch.as_tensor(padded, device=self.device), c1,
-                act_mode=self.act_mode, rope_cache=self._rope)
-            last = logits[0, len(part) - 1]
-            c1.pos = torch.full((1,), off + len(part), dtype=torch.int32,
-                                device=self.device)
+            last = self._chunk(part, t, c1)
+            c1.pos.fill_(off + len(part))
             off += len(part)
+        for dst, src in zip(slab, c1.buffers()):
+            dst.copy_(src)
         self.cache.pos[slot] = len(prompt)
         return last
 
@@ -289,17 +438,16 @@ class Server:
             self._history = [[] for _ in range(self.n_slots)]
             self._hpos = self.cache.pos.cpu().numpy().astype(np.int64)
         t0 = time.perf_counter()
-        tokens = torch.as_tensor(self._pending_tok[:, None],
-                                 device=self.device)
+        self._tokens.copy_(torch.from_numpy(self._pending_tok[:, None]))
         # K3's static bound from the batch's longest slot, capped by the
         # window, as the JAX Server picks its attn_s_hi
         max_ctx = int(max(self._hpos[s] for s in active))
         if self.cfg.window:
             max_ctx = min(max_ctx, self.cfg.window)
-        logits, self.cache = llama.forward(
-            self.qparams, self.cfg, tokens, self.cache,
-            act_mode=self.act_mode, rope_cache=self._rope,
-            s_hi=attention.decode_s_hi(max_ctx))
+        s_hi = attention.decode_s_hi(max_ctx)
+        key = graph_key("decode", s_hi)
+        logits = self._run(key, self._forward(key, self._tokens,
+                                              self.cache, s_hi))
         nxt = sampling.sample(
             logits[:, -1], self._gens, self._temps, self._topk, self._topp,
             self._minp, self._recent, self._rpen, self._bias_ids,
@@ -350,8 +498,14 @@ class Server:
     def stats(self) -> dict:
         """Serving counters, plus host-clock seconds spent in prefill
         (admission, first token included) and in decode steps; both end
-        in a device-to-host read, so they cover the device work."""
+        in a device-to-host read, so they cover the device work.  The
+        graphs' first calls and captures are inside those seconds;
+        ``capture_seconds`` is their sum."""
         return {
+            "graphs": len(self.graphs),
+            "graph_replays": sum(g.replays for g in self.graphs.values()),
+            "capture_seconds": sum(g.capture_s
+                                   for g in self.graphs.values()),
             "decode_steps": self._n_steps,
             "generated_tokens": self._n_tokens,
             "prefill_tokens": self._n_prefill_tokens,
@@ -377,4 +531,4 @@ class Server:
         return {rid: r.generated for rid, r in self.finished.items()}
 
 
-__all__ = ["Server", "Request"]
+__all__ = ["Server", "Request", "Graph", "graph_key", "CUDA_GRAPHS"]

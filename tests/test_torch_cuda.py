@@ -38,7 +38,12 @@ kernels give the same bits on two calls.  Decode on the tensor cores: K3
 at every linear and ring parametrisation with its piece count as chosen,
 forced to 1 and to its maximum, ``atol=2e-3`` and two calls bit-equal;
 K1 in all seven forms equal bit for bit to ``k1_order`` of the plain
-version's per-block terms (its summation order replayed).
+version's per-block terms (its summation order replayed).  The
+activation quantizers (``kernels/act_quant.py``): codes, scales and the
+bf16 fold bit for bit equal to the torch twins on the CPU, also at .5
+ties, on zero and f16-saturating blocks; K1 and K3 replay bit-equal from
+a CUDA graph; a 2-layer Server's captured transcripts equal its eager
+ones, token for token, on the linear cache and the ring, bf16 and q8.
 """
 
 from pathlib import Path
@@ -50,7 +55,7 @@ import torch
 from quant_gemm_tpu_torch.formats import kquants
 from quant_gemm_tpu_torch.formats import quant as tq
 from quant_gemm_tpu_torch.formats.blocks import Q8_1Tensor
-from quant_gemm_tpu_torch.kernels import layout, registry
+from quant_gemm_tpu_torch.kernels import act_quant, layout, registry
 from quant_gemm_tpu_torch.kernels.gemm_dequant import (fake_quant_q8,
                                                        gemm_dequant,
                                                        gemm_dequant_plain)
@@ -1115,3 +1120,167 @@ def test_rms_norm_on_the_card_bit_equal_to_cpu(dev, c):
     for fn in (rms_norm, rms_norm_pallas_plain):
         got = fn(_t(x, dev), _t(w, dev), EPS).cpu()
         assert torch.equal(got, fn(xc, wc, EPS)), fn.__name__
+
+
+# --- the activation quantizers as hand launches; the captured Server ---
+
+
+def _edge_rows(m, k, seed):
+    """float32 [m, k]: normal rows, with per row one all-zero block, one
+    block of .5 ties (amax 127, so d = 1 and the codes land on halves)
+    and one whose amax / 127 saturates f16 (and its sum with it)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    nb = k // 32
+    for r in range(m):
+        b0, b1, b2 = (3 * r) % nb, (3 * r + 1) % nb, (3 * r + 2) % nb
+        x[r, 32 * b0:32 * b0 + 32] = 0.0
+        ties = rng.integers(-120, 120, 32) + 0.5
+        ties[rng.integers(0, 32)] = 127.0
+        x[r, 32 * b1:32 * b1 + 32] = ties
+        x[r, 32 * b2:32 * b2 + 32] = np.abs(rng.standard_normal(32)) * 1e7
+    return x
+
+
+@pytest.mark.parametrize("k", [2048, 4096, 5632, 14336])
+@pytest.mark.parametrize("m", [1, 8, 128])
+def test_act_quant_on_the_card_bit_equal_to_cpu(dev, m, k):
+    """``act_quant.quantize_q8_1`` (codes, d, s) and ``quantize_fold_q8_1``
+    (bf16 ``qs * d``) on the card equal the torch twins on the CPU bit for
+    bit, at .5 ties, on all-zero blocks and where the f16 scale and sum
+    saturate; one launch each."""
+    x = _edge_rows(m, k, seed=m + k)
+    xc = torch.from_numpy(x)
+    before = (act_quant.quantize_q8_1.launches,
+              act_quant.quantize_fold_q8_1.launches)
+    got = act_quant.quantize_q8_1(_t(x, dev))
+    fold = act_quant.quantize_fold_q8_1(_t(x, dev))
+    assert (act_quant.quantize_q8_1.launches,
+            act_quant.quantize_fold_q8_1.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    want = tq.quantize_q8_1(xc)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert torch.equal(fold.cpu(), registry.fold_q8_1(want))
+
+
+@pytest.mark.parametrize("m, route", [(8, "quantize_q8_1"),
+                                      (128, "quantize_fold_q8_1")])
+def test_dispatch_quantizes_with_one_launch(weight, dev, m, route):
+    """On CUDA tensors ``dispatch`` quantizes a float activation with one
+    launch (decode: codes for K1; prefill: the bf16 fold for K4), with
+    the bits of the twin route; ``ops=PLAIN`` launches nothing."""
+    x = _act(m, 61, dev)
+    before = registry.counters()
+    got = registry.dispatch(weight, x, quantize_act=True)
+    moved = {k: v - before[k] for k, v in registry.counters().items()
+             if v != before[k]}
+    kernel = "gemm_exact" if m <= registry.DECODE_M_MAX else "gemm_dequant"
+    assert moved == {route: 1, kernel: 1}
+    a = tq.quantize_q8_1(x)
+    want = (gemm_exact(weight, a) if kernel == "gemm_exact"
+            else gemm_dequant(weight, registry.fold_q8_1(a)))
+    assert torch.equal(got, want)
+    before = registry.counters()
+    plain = registry.dispatch(weight, x, quantize_act=True,
+                              ops=registry.PLAIN)
+    assert registry.counters() == before
+    assert torch.isfinite(plain).all()
+
+
+def test_k1_and_k3_replay_in_a_cuda_graph(dev):
+    """K1 and K3 (split over the window, its merge) read nothing on the
+    host, so a CUDA graph captures them with the activation quantize:
+    replays over new inputs copied into the captured buffers equal eager
+    calls bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(67)
+    m, k = 8, 2048
+    w = layout.prepare(tq.quantize_q4_0(
+        torch.randn(1024, k, generator=g, device=dev) * k ** -0.5))
+    x = torch.randn(m, k, generator=g, device=dev)
+    b, kv, rep, hd, s, layers = 8, 4, 8, 64, 2048, 2
+    q = torch.randn(b, kv, rep, hd, generator=g, device=dev)
+    kc = torch.randn(layers, b, kv, s, hd, generator=g,
+                     device=dev).to(torch.bfloat16)
+    vc = torch.randn(layers, b, kv, s, hd, generator=g,
+                     device=dev).to(torch.bfloat16)
+    kcur = torch.randn(b, kv, 1, hd, generator=g,
+                       device=dev).to(torch.bfloat16)
+    pos = torch.full((b,), 600, dtype=torch.int32, device=dev)
+    kw = dict(k_current=kcur, v_current=kcur, layer=1)
+
+    def step():
+        return (gemm_exact(w, act_quant.quantize_q8_1(x)),
+                flash_decode(q, kc, vc, pos, **kw))
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):  # first launches outside the capture
+        step()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = (gemm_exact.launches, flash_decode.launches)
+    with torch.cuda.graph(graph):
+        c, o = step()
+    assert flash_decode.last_pieces > 1
+    assert (gemm_exact.launches, flash_decode.launches) == (
+        before[0] + 1, before[1] + 1)
+    for scale, p in ((1.0, 700), (3.0, 1900)):
+        x.copy_(scale * torch.randn(m, k, generator=g, device=dev))
+        q.copy_(torch.randn(b, kv, rep, hd, generator=g, device=dev))
+        pos.fill_(p)
+        graph.replay()
+        torch.cuda.synchronize()
+        want_c, want_o = step()
+        assert torch.equal(c, want_c)
+        assert torch.equal(o, want_o)
+
+
+@pytest.mark.parametrize("qtype", ["bf16", "q8"])
+@pytest.mark.parametrize("ring", [False, True])
+def test_server_captured_equals_eager(dev, monkeypatch, qtype, ring):
+    """A 2-layer Server replaying its decode steps and prefill chunks
+    from CUDA graphs gives the transcripts of the same Server run
+    eagerly (``serve.CUDA_GRAPHS = False``), token for token, on the
+    linear cache (with prefix reuse) and on the ring; every decode graph
+    is replayed, its launches per replay are those of an eager step, and
+    the counters with ``replay_launches`` equal the eager run's."""
+    cfg = llama.LlamaConfig(vocab=256, dim=512, n_layers=2, n_heads=8,
+                            n_kv_heads=2, d_ff=1024, max_seq=256)
+    if ring:
+        cfg = cfg._replace(max_seq=1024, window=96, ring=True,
+                           ring_chunk=64)
+    qp = llama.init_qparams(cfg, seed=1, device=dev)
+    rng = np.random.default_rng(3)
+    a = rng.integers(0, 256, 150 if ring else 100).tolist()
+    prompts = [a, rng.integers(0, 256, 30).tolist(),
+               a[:64] + rng.integers(0, 256, 20).tolist()]
+    runs = {}
+    for graphs in (False, True):
+        monkeypatch.setattr(serve, "CUDA_GRAPHS", graphs)
+        srv = serve.Server(qp, cfg, n_slots=2, cache_qtype=qtype,
+                           device=dev)
+        for p, n in zip(prompts, (6, 40, 5)):
+            srv.submit(p, max_new=n)
+        before = registry.counters()
+        out = srv.run_until_done()
+        ran = {k: v - before[k] + srv.replay_launches().get(k, 0)
+               for k, v in registry.counters().items()}
+        runs[graphs] = (out, srv, ran)
+    (eager, se, ran_e), (captured, sc, ran_c) = runs[False], runs[True]
+    assert captured == eager
+    assert ran_c == ran_e
+    assert se.graphs == {} and sc.graphs
+    assert sc.stats()["cached_prompt_tokens"] == \
+        se.stats()["cached_prompt_tokens"] == (0 if ring else 64)
+    for key, g in sc.graphs.items():
+        assert g.replays >= 1 or key[0] == "chunk", key
+        layers = cfg.n_layers
+        if key[0] == "decode":
+            assert g.launches["flash_decode"] == layers
+            assert g.launches["norm_qkv"] == layers
+            assert g.launches["gemm_exact"] == \
+                g.launches["quantize_q8_1"] == 3 * layers + 1
+        else:
+            assert g.launches["gemm_dequant"] == \
+                g.launches["quantize_fold_q8_1"] == 4 * layers + 1

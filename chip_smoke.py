@@ -105,10 +105,11 @@ Run from the repository root on a machine with one NVIDIA H100:
    through K4 on float32 activations, and M = 8 through K1 for a Q8_1
    one); K9, K10, K1, K4 (and K3, K5) launches counted from 0 against the
    phase's; the kernel phase holds K9 and K10 at those shapes, at the
-   definitions' own 5 x 512 and at a ragged 7 x 1000 (both one warp per
-   row), and K1 (M = 8) and K4 (M = 128, bf16 and float32 activations,
-   beside ``torch.matmul`` on the weight dequantized in advance) in the
-   q4_1, q5_0, q5_1 and q8_0 forms at Mistral's ``wqkv`` and ``w_down``;
+   definitions' own 5 x 512 and at a ragged 7 x 1000, each twice (the
+   same bits), and K1 (M = 8) and K4 (M = 128, bf16 and float32
+   activations, beside ``torch.matmul`` on the weight dequantized in
+   advance) in the q4_0, q4_1, q5_0, q5_1 and q8_0 forms at Mistral's
+   ``wqkv`` and ``w_down``;
    slice 7's rows: K2 in the q4_1, q4_k, q5_0, q5_1 and q5_k forms at
    TinyLlama's and Mistral's ``wqkv``, K6 in q4_1 and q8_0 at TinyLlama's
    four decode GEMMs (bit for bit against quantize_q8_1 + K1), K1 and K4
@@ -143,8 +144,9 @@ list the "other" group by kernel name (its 12 largest), and the q4_0
 decode step and chunk run once more with the quantize routed through
 the torch twin's chain, as before its launch.
 
-K4's bf16-operand forms, K5, K3, K1 and the kernels on K1's body (K2,
-K6, K7, K8) run on the tensor cores: every K3, K4, K5, K7 and K8 row of
+K4 (every form: a float32 operand as three bf16 pieces), K5, K3, K1
+and the kernels on K1's body (K2, K6, K7, K8) run on the tensor cores;
+every K3, K4, K5, K7, K8, K9 and K10 row of
 the kernel phase calls the kernel a second time and fails unless the two
 outputs are equal bit for bit (K3 rows print their
 piece count ``ns``; the Mistral ring rows run once more with the
@@ -177,9 +179,13 @@ sys.path.insert(0, str(ROOT))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# H100 SXM published peaks (NVIDIA data sheet, dense)
+# H100 SXM published peaks (NVIDIA data sheet, dense); "bf16x3": a
+# float32-accurate product as three bf16 passes (K4's float32 forms, as
+# JAX's Precision.HIGHEST on the TPU), the least work that gives one on
+# this card
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "bf16x3": 989e12 / 3,
+            "f32": 67e12}
 
 # TinyLlama-1.1B (huggingface.co/TinyLlama/TinyLlama-1.1B-Chat-v1.0
 # config.json): hidden 2048, intermediate 5632, 22 layers, 32 heads,
@@ -336,7 +342,7 @@ FQ_NMSE = 1e-8
 
 
 def same_bits(label, got, fn) -> None:
-    """K3, K4 and K5 are deterministic: a second call gives the same
+    """K3-K5, K7-K10 are deterministic: a second call gives the same
     bits."""
     if not torch.equal(got, fn()):
         fail(f"{label}: two calls differ (the kernel is not deterministic)")
@@ -907,19 +913,21 @@ SPEC_GEMM = {"wqkv": (M_HEADS * M_HD + 2 * M_KV * M_HD, M_DIM),
              "w_down": (M_DIM, M_D_FF)}
 
 
-# a ragged C <= 1024: the warp-per-row kernels with no multiple of 32
+# a ragged C <= 1024: a short row with no multiple of 32 elements
 RAGGED_ROWS = (7, 1000)
 
 
 def slice6_kernel_rows(dev, timer, record, randn):
     """K9 and K10 against their plain versions at the definitions' own R x
-    C (one warp per row), at ``RAGGED_ROWS`` and at the spec runner's
-    full-width shapes (one block per row), beside ``torch.nn.functional.
-    rms_norm`` and ``torch.softmax`` (yardsticks the port never calls); K1
-    (M = 8) and K4 (M = 128, bf16 and float32 activations) in the q4_1,
-    q5_0, q5_1 and q8_0 forms at Mistral's wqkv and w_down, K4 beside
-    ``torch.matmul`` on the weight dequantized in advance (no PyTorch call
-    applies K1's per-block integer scales)."""
+    C, at ``RAGGED_ROWS`` and at the spec runner's full-width shapes (the
+    row plan, ``ops/rows.py::plan``, splits 8 x 32000 over clusters), bit
+    for bit equal to the plain steps on the sum taken in the kernel's
+    order (``rows.ordered_sum``), two calls bit-equal, beside ``torch.nn.
+    functional.rms_norm`` and ``torch.softmax`` (yardsticks the port never
+    calls); K1 (M = 8) and K4 (M = 128, bf16 and float32 activations) in
+    the q4_0, q4_1, q5_0, q5_1 and q8_0 forms at Mistral's wqkv and
+    w_down, K4 beside ``torch.matmul`` on the weight dequantized in
+    advance (no PyTorch call applies K1's per-block integer scales)."""
     from quant_gemm_tpu_torch.formats import quant as tq
     from quant_gemm_tpu_torch.specs import spec_runner
     from quant_gemm_tpu_torch.kernels import layout
@@ -927,8 +935,10 @@ def slice6_kernel_rows(dev, timer, record, randn):
         gemm_dequant, gemm_dequant_plain)
     from quant_gemm_tpu_torch.kernels.gemm_exact import (gemm_exact,
                                                          gemm_exact_plain)
+    from quant_gemm_tpu_torch.ops import rows
     from quant_gemm_tpu_torch.ops.rms_norm import (rms_norm_pallas,
-                                                   rms_norm_pallas_plain)
+                                                   rms_norm_pallas_plain,
+                                                   rsqrt)
     from quant_gemm_tpu_torch.ops.softmax import (softmax_pallas,
                                                   softmax_pallas_plain)
 
@@ -949,9 +959,16 @@ def slice6_kernel_rows(dev, timer, record, randn):
         tol = 1e-5 * ref.abs().max().item()
         if not err <= tol:
             fail(f"K9 rms_norm_pallas {r}x{c}: max|err| {err} > {tol}")
+        same_bits(f"K9 rms_norm_pallas {r}x{c}", got,
+                  lambda: rms_norm_pallas(x, w, eps))
+        ms = tq.div(rows.ordered_sum(x * x, rows.plan(r, c))[:, None], c)
+        if not torch.equal(got, x * rsqrt(ms + eps) * w):
+            fail(f"K9 rms_norm_pallas {r}x{c}: differs from the plain steps "
+                 "on its sum of squares in the kernel's order")
         lib = torch.nn.functional.rms_norm
         record("rms_norm_pallas", f"R={r} C={c}", err,
-               f"max|err| <= {tol:.3e}",
+               f"max|err| <= {tol:.3e}, == ordered_sum steps, two calls "
+               "bit-equal",
                timer(lambda: rms_norm_pallas(x, w, eps)),
                timer(lambda: rms_norm_pallas_plain(x, w, eps), reps=5),
                bound(8 * r * c + 4 * c, 3 * r * c, "f32"),
@@ -963,12 +980,21 @@ def slice6_kernel_rows(dev, timer, record, randn):
         err = (got - ref).abs().max().item()
         if not err <= 1e-6:
             fail(f"K10 softmax_pallas {r}x{c}: max|err| {err} > 1e-6")
-        record("softmax_pallas", f"R={r} C={c}", err, "max|err| <= 1e-6",
+        same_bits(f"K10 softmax_pallas {r}x{c}", got,
+                  lambda: softmax_pallas(x))
+        e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+        if not torch.equal(got, e / rows.ordered_sum(e, rows.plan(r, c))[
+                :, None]):
+            fail(f"K10 softmax_pallas {r}x{c}: differs from exp(x - max) "
+                 "over its sum in the kernel's order")
+        record("softmax_pallas", f"R={r} C={c}", err,
+               "max|err| <= 1e-6, == ordered_sum steps, two calls "
+               "bit-equal",
                timer(lambda: softmax_pallas(x)),
                timer(lambda: softmax_pallas_plain(x), reps=5),
                bound(8 * r * c, 5 * r * c, "f32"),
                timer(lambda: torch.softmax(x, -1)), main=main)
-    for qtype in ("q4_1", "q5_0", "q5_1", "q8_0"):
+    for qtype in ("q4_0", "q4_1", "q5_0", "q5_1", "q8_0"):
         for name, (n, k) in SPEC_GEMM.items():
             w = layout.prepare(tq.QUANTIZE[qtype](randn(n, k, scale=k ** -0.5)))
             wbytes = n * k // 32 * Q32_BLOCK_BYTES[qtype]
@@ -990,8 +1016,8 @@ def slice6_kernel_rows(dev, timer, record, randn):
                    main=False)
             m = 128
             x = randn(m, k)
-            for adt, kind in ((torch.bfloat16, "bf16"),
-                              (torch.float32, "f32")):
+            for adt, kind, peak in ((torch.bfloat16, "bf16", "bf16"),
+                                    (torch.float32, "f32", "bf16x3")):
                 a = x.to(adt)
                 got, ref = gemm_dequant(w, a), gemm_dequant_plain(w, a)
                 # yardstick: one matmul on the weight dequantized in
@@ -1014,7 +1040,7 @@ def slice6_kernel_rows(dev, timer, record, randn):
                        f"M={m} N={n} K={k}", err, f"NMSE {e:.3e} <= 1e-4",
                        timer(lambda: gemm_dequant(w, a)),
                        timer(lambda: gemm_dequant_plain(w, a), reps=5),
-                       bound(wbytes + act, 2 * m * n * k, kind),
+                       bound(wbytes + act, 2 * m * n * k, peak),
                        timer(lambda: torch.matmul(a, wd.T)), main=False)
                 del wd
             del w
@@ -1170,8 +1196,8 @@ def slice7_kernel_rows(dev, timer, record, unfused, randn):
         for label, (n, k) in SPEC_GEMM.items():
             w, wbytes, _ = weight(qtype, n, k)
             x = randn(mm, k)
-            for adt, kind in ((torch.bfloat16, "bf16"),
-                              (torch.float32, "f32")):
+            for adt, kind, peak in ((torch.bfloat16, "bf16", "bf16"),
+                                    (torch.float32, "f32", "bf16x3")):
                 got = gemm_dequant(w, x, fused_quant=True, a_dtype=adt)
                 ref = gemm_dequant_plain(w, x, fused_quant=True, a_dtype=adt)
                 # yardstick: one matmul on the weight dequantized and the
@@ -1198,7 +1224,7 @@ def slice7_kernel_rows(dev, timer, record, unfused, randn):
                        timer(lambda: gemm_dequant_plain(
                            w, x, fused_quant=True, a_dtype=adt), reps=5),
                        bound(wbytes + mm * k * 4 + mm * n * 4,
-                             2 * mm * n * k, kind),
+                             2 * mm * n * k, peak),
                        timer(lambda: torch.matmul(xq, wd.T)), main=False)
                 del wd, xq
             del w

@@ -32,37 +32,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
-// Sum and max over a block of whole warps, the result in every thread:
-// each warp reduces with shuffles, then every thread combines the warps'
-// values from red[] (32 floats of shared memory) in warp order, so all
-// threads hold the same bits.  Every thread of the block must call them.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  __syncthreads();  // red may still be read from a previous call
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = 0.0f;
-  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) s += red[w];
-  return s;
-}
-
-__device__ __forceinline__ float block_max(float v, float* red) {
-  v = warp_max(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float m = red[0];
-  for (int w = 1; w < static_cast<int>(blockDim.x >> 5); ++w)
-    m = fmaxf(m, red[w]);
-  return m;
-}
-
 // Sum and max over the 8 lanes of an aligned group (xor 4, 2, 1).
 __device__ __forceinline__ int group8_sum_int(int v) {
 #pragma unroll

@@ -26,55 +26,57 @@
 // per byte at M = 128, above the ~295 where the bf16 tensor cores, not
 // the memory, become the limit; Mistral-7B's wgu, N 28672 x K 4096, is
 // 0.0304 ms of bf16 tensor-core work), bytes only below M of about 80.
+// The float32 forms do three bf16 passes: 3 * 2*M*N*K operations at the
+// bf16 rate (Mistral-7B's w_down, M 128, N 4096 x K 14336: 0.0456 ms).
 //
-// bf16 operands (A bf16 with fq = 0, or fq = 2): the tensor cores, with
-// exact per-block scaling.  Every per-32 code is a small integer (q - 8,
-// q - 16, q, or the int8 q of q8_0), exact in bf16, and so is every
-// operand value, so each product A * code is exact in a bf16
-// mma.sync.m16n8k16 with float32 accumulation.  Per quant block b the
-// kernel runs two MMAs (k 0..15, 16..31) into a zeroed fragment T_b and
-// folds it in with the block's scales: acc = fma(d[n,b], T_b, acc) and,
-// for the min formats, acc = fma(m[n,b], sa[m,b], acc) with sa[m,b] the
-// float32 sum of the block's operand values.  The weight is never
-// rounded to bf16, so the result differs from the plain version's float32
-// product only in summation order (NMSE ~1e-13).  mma.sync and not wgmma:
-// the scales apply after every 32-deep block, which needs the accumulator
-// in registers every two k16 steps.  Tile: 64 x 64 outputs per 128-thread
+// Every form runs on the tensor cores, with exact per-block scaling.
+// Every per-32 code is a small integer (q - 8, q - 16, q, the int8 q of
+// q8_0, or q4_k / q5_k's 0..31), exact in bf16.  A bf16 operand (A bf16
+// with fq = 0, or fq = 2) is one piece; a float32 operand (A float32
+// with fq = 0, or fq = 1, from an f32 or a bf16 A) is split into three
+// bf16 pieces, hi = bf16(a), mid = bf16(a - hi), lo = bf16(a - hi - mid),
+// with hi + mid + lo == a exactly wherever the pieces stay normal in bf16
+// (|a| >= 2^-103 or a == 0): JAX's Precision.HIGHEST, the multi-pass bf16
+// product of gemm_pallas.py::_dot, on Hopper.  Each product piece * code
+// is exact in a bf16 mma.sync.m16n8k16 with float32 accumulation.  Per
+// quant block b the kernel runs the pieces' MMAs (k 0..15, 16..31; lo,
+// mid, hi) into one zeroed fragment T_b and folds it in with the block's
+// scales: acc = fma(d[n,b], T_b, acc) and, for the min formats, acc =
+// fma(m[n,b], sa[m,b], acc) with sa[m,b] the float32 sum of the block's
+// unsplit operand values.  The weight is never rounded to bf16, so the
+// result differs from the plain version's float32 product only in
+// summation order (NMSE ~1e-13).  mma.sync and not wgmma: the scales
+// apply after every 32-deep block, which needs the accumulator in
+// registers every two k16 steps.  Tile: 64 x 64 outputs per 128-thread
 // block, four warps of 64 x 16 (each B fragment converted once serves
-// four MMAs; on the H100 this beat 32 x 32 and 16 x 64 warp tiles, 128-
-// wide block tiles and 8-block stages); stages of 4 quant blocks (A rows in
-// bf16, the raw code bytes, the qh words, sa) double-buffered with
-// cp.async 16-byte copies (zero-filled past M and N), the scale planes
-// through registers into shared memory as float32.  The k order inside
-// an MMA is permuted so that lane (g, t) holds elements 4t .. 4t+3 of its
-// row (one 8-byte A load, one 4-byte code load covering both k16 steps):
-// the low nibbles of bytes 4t .. 4t+3 are elements 4t .. 4t+3, the high
-// nibbles 16 + 4t .. 16 + 4t+3.  A code becomes an exact bf16 by OR-ing
-// it into 0x4300 (128 + q) and subtracting 128 + off (__hsub2); the q5
-// forms add the fifth bit first (common.cuh::bit4); q8_0 converts int8
-// through float.  Where the output tiles do not fill the 132 SMs, K is
-// split into pieces of whole quant blocks (grid z; the wrapper's
-// kernels/gemm_dequant.py::k4_grid picks the piece length), each piece
-// writes float32 partials, and gemm_dequant_kernel_reduce adds them in
-// piece order, so every output is the same sum in the same order on
-// every call: K4 stays deterministic.  gemm_dequant_kernel_prologue runs
-// first where the operand needs it: fq = 2 writes A' in bf16, the min
+// four MMAs a piece, and the three pieces of a float32 operand; on the
+// H100 this beat 32 x 32 and 16 x 64 warp tiles, 128-wide block tiles
+// and 8-block stages for bf16); stages of TcTile<P>::KB quant blocks (A
+// rows of each piece in bf16, the raw code bytes, the qh words, sa)
+// double-buffered with cp.async 16-byte copies (zero-filled past M and
+// N), the scale planes through registers into shared memory as float32.
+// A stage holds 4 quant blocks for one piece and 2 for three, so three
+// blocks of two stages fit an SM either way (at most 75,776 bytes a
+// block with the float32 forms).  The k order inside an MMA is permuted
+// so that lane (g, t) holds elements 4t .. 4t+3 of its row (one 8-byte A
+// load, one 4-byte code load covering both k16 steps): the low nibbles of
+// bytes 4t .. 4t+3 are elements 4t .. 4t+3, the high nibbles 16 + 4t ..
+// 16 + 4t+3.  A code becomes an exact bf16 by OR-ing it into 0x4300 (128
+// + q) and subtracting 128 + off (__hsub2); the q5 forms add the fifth
+// bit first (common.cuh::bit4); q8_0 converts int8 through float.  Where
+// the output tiles do not fill the 132 SMs, K is split into pieces of
+// whole quant blocks (grid z; the wrapper's kernels/gemm_dequant.py::
+// k4_grid picks the piece length), each piece writes float32 partials,
+// and gemm_dequant_kernel_reduce adds them in piece order, so every
+// output is the same sum in the same order on every call: K4 stays
+// deterministic.  gemm_dequant_kernel_prologue runs first where the
+// operand needs it: fq = 2 writes A' in bf16, a float32 operand its three
+// planes (of A, or of A' = fake_quant(A) in float32 for fq = 1), the min
 // formats get sa.
-//
-// float32 operands (A float32 with fq = 0, or fq = 1; only the JAX
-// ladder's pallas_f32 and fused_quant rungs reach them): the CUDA-core
-// body, a 64 x 32 output tile per 128-thread block, one 32-deep quant
-// block per K step, A and W expanded to float32 in shared memory
-// (common.cuh::dequant8) and float32 FMA, with the fake quantization in
-// its A-tile prologue (two shuffles among the four lanes of a 32-block).
-// The tensor cores would need a 3-piece bf16 split of A for float32
-// operands, and their bound would first be restated; they stay here.
 #include "common.cuh"
 #include "tc.cuh"
 
 namespace {
-
-constexpr int BM = 64, BN = 32, BK = qgt::QK, THREADS = 128;
 
 // eight consecutive activations as float (16-byte aligned: K % 32 == 0)
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[8]) {
@@ -111,92 +113,29 @@ __device__ __forceinline__ void fake_quant8(float (&f)[8], int fq) {
   }
 }
 
-template <typename AT, typename W>
-__global__ void __launch_bounds__(THREADS)
-    gemm_dequant_kernel(const AT* __restrict__ a,
-                        const uint8_t* __restrict__ wq, const W fmt,
-                        float* __restrict__ out, int M, int N, int K,
-                        int fq) {
-  __shared__ __align__(16) float as[BK][BM];
-  __shared__ __align__(16) float ws[BK][BN];
-  const int nb = K / qgt::QK;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int t = threadIdx.x, tx = t % 8, ty = t / 8;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int b = 0; b < nb; ++b) {
-    // activation tile: 64 rows x 32 values = 256 vectors of 8, lanes 4j
-    // .. 4j + 3 of a warp on one row's block (the loop is uniform)
-    for (int v = t; v < BM * BK / 8; v += THREADS) {
-      const int row = v / (BK / 8), k8 = (v % (BK / 8)) * 8;
-      float f[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-      if (m0 + row < M)
-        load8(a + static_cast<size_t>(m0 + row) * K + b * BK + k8, f);
-      if (fq) fake_quant8(f, fq);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) as[k8 + i][row] = f[i];
-    }
-    // weight tile: 32 rows x 32 values; thread = (row, quarter), the
-    // quarter's values 4 qtr .. 4 qtr + 3 and 16 + 4 qtr .. 16 + 4 qtr + 3
-    {
-      const int col = t / 4, qtr = t % 4;
-      float v[8] = {0, 0, 0, 0, 0, 0, 0, 0};  // past N: every weight is 0
-      if (n0 + col < N)
-        qgt::dequant8(fmt, wq, static_cast<size_t>(n0 + col), nb, b, qtr, v);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ws[4 * qtr + i][col] = v[i];
-        ws[16 + 4 * qtr + i][col] = v[4 + i];
-      }
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
-      const float4 wv = *reinterpret_cast<const float4*>(&ws[kk][tx * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[i][j] = fmaf(ar[i], wr[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N)
-        out[static_cast<size_t>(m) * N + n] = acc[i][j];
-    }
-  }
-}
-
-// ---- the tensor-core body (bf16 operands) ----
-
-constexpr int TBM = 64, TBN = 64, TKB = 4;  // output tile, quant blocks/stage
+constexpr int TBM = 64, TBN = 64;           // output tile
 constexpr int TWARPS = 4, TTHREADS = 32 * TWARPS;
 constexpr int WARPS_M = 1;                  // warps along M
 constexpr int WTM = TBM / WARPS_M, WTN = TBN * WARPS_M / TWARPS;  // warp tile
 constexpr int TI = WTM / 16, TJ = WTN / 8;  // its m16 and n8 tiles
 constexpr int TMINB = 3;                    // blocks an SM must hold
 constexpr int TSTAGES = 2;                  // stages in flight
-// every thread stages the same number of A, code, qh, sa and scale
-// entries (loops of a fixed trip count, which the compiler unrolls)
-static_assert(TBM * TKB * qgt::QK * 2 / 16 % TTHREADS == 0 &&
-                  TBN * TKB * 16 / 16 % TTHREADS == 0 &&
-                  TBN * TKB % TTHREADS == 0 && TBM * TKB % TTHREADS == 0,
-              "tile entries must split evenly over the block's threads");
-constexpr int AST = TKB * qgt::QK * 2 + 32;  // A row bytes (== 32 mod 128)
+
+// The stage of an operand of P bf16 pieces (1: bf16, 3: float32): KB
+// quant blocks, A rows of KB * 64 bytes a piece padded to AST (== 32 mod
+// 128: the 8-byte fragment loads of a half-warp hit 16 distinct banks)
+template <int P>
+struct TcTile {
+  static_assert(P == 1 || P == 3, "an operand is one or three bf16 pieces");
+  static constexpr int KB = P == 1 ? 4 : 2;
+  static constexpr int AST = KB * qgt::QK * 2 + 32;
+  // every thread stages the same number of A, code, qh, sa and scale
+  // entries (loops of a fixed trip count, which the compiler unrolls)
+  static_assert(TBM * KB * qgt::QK * 2 / 16 % TTHREADS == 0 &&
+                    TBN * KB * 16 / 16 % TTHREADS == 0 &&
+                    TBN * KB % TTHREADS == 0 && TBM * KB % TTHREADS == 0,
+                "tile entries must split evenly over the block's threads");
+};
 
 // where a format's codes are: bytes per block, and whether a qh plane
 // gives the fifth bits
@@ -216,18 +155,19 @@ struct TcFmt<qgt::Q5W<HM, S>> {
   static constexpr bool QH = true;
 };
 
-// shared memory of one stage, in bytes: A [TBM][AST], codes [TBN][WST],
-// qh [TBN][TKB] u32, sa [TBM][TKB] f32, d and m [TKB][TBN] f32
-template <typename W>
+// shared memory of one stage, in bytes: A [P][TBM][AST], codes
+// [TBN][WST], qh [TBN][KB] u32, sa [TBM][KB] f32, d and m [KB][TBN] f32
+template <typename W, int P>
 struct TcSmem {
-  static constexpr int WST = TKB * TcFmt<W>::BYTES + 16;  // odd x 16 bytes
+  static constexpr int KB = TcTile<P>::KB, AST = TcTile<P>::AST;
+  static constexpr int WST = KB * TcFmt<W>::BYTES + 16;  // odd x 16 bytes
   static constexpr int A = 0;
-  static constexpr int CODES = A + TBM * AST;
+  static constexpr int CODES = A + P * TBM * AST;
   static constexpr int QH = CODES + TBN * WST;
-  static constexpr int SA = QH + TBN * TKB * 4;
-  static constexpr int D = SA + TBM * TKB * 4;
-  static constexpr int MN = D + TKB * TBN * 4;
-  static constexpr int STAGE = MN + TKB * TBN * 4;
+  static constexpr int SA = QH + TBN * KB * 4;
+  static constexpr int D = SA + TBM * KB * 4;
+  static constexpr int MN = D + KB * TBN * 4;
+  static constexpr int STAGE = MN + KB * TBN * 4;
 };
 
 // bytes 0, 1 (sel 0x4140) or 2, 3 (0x4342) of x, each a code 0..31, as
@@ -249,16 +189,18 @@ __device__ __forceinline__ uint32_t int8_bf16(uint32_t x, int shift) {
 
 // Output tile (blockIdx.y, blockIdx.x) over the quant blocks of K piece
 // blockIdx.z ([z * chunk, (z + 1) * chunk) of the nb blocks): out [M, N]
-// when gridDim.z == 1, else partials part [gridDim.z, M, N].  a: bf16
-// operand [M, K]; sa: [M, nb] row-block sums (min formats).
-template <typename W>
+// when gridDim.z == 1, else partials part [gridDim.z, M, N].  a: the
+// operand's P bf16 planes [P, M, K] (hi, mid, lo); sa: [M, nb] row-block
+// sums (min formats).
+template <typename W, int P>
 __global__ void __launch_bounds__(TTHREADS, TMINB)
     gemm_dequant_kernel_tc(const __nv_bfloat16* __restrict__ a,
                            const uint8_t* __restrict__ wq, const W fmt,
                            const float* __restrict__ sa,
                            float* __restrict__ out, int M, int N, int K,
                            int chunk) {
-  using S = TcSmem<W>;
+  using S = TcSmem<W, P>;
+  constexpr int TKB = S::KB, AST = S::AST;
   constexpr int BYTES = TcFmt<W>::BYTES;
   constexpr bool QH = TcFmt<W>::QH;
   constexpr bool MIN = W::MIN;
@@ -305,20 +247,27 @@ __global__ void __launch_bounds__(TTHREADS, TMINB)
       if (MIN) sm[kb * TBN + n] = sreg[u].y;
     }
   };
-  // A rows, code bytes, qh words and sa of stage st into buffer buf
+  // A rows of every piece, code bytes, qh words and sa of stage st into
+  // buffer buf
   auto issue = [&](int st, int buf) {
     uint8_t* base = tsm + buf * S::STAGE;
     const int bs = kb0 + st * TKB, nkb = min(TKB, kb1 - bs);
     constexpr int ACH = TKB * qgt::QK * 2 / 16;  // 16-byte chunks a row
 #pragma unroll
-    for (int u = 0; u < TBM * ACH / TTHREADS; ++u) {
-      const int c = tid + TTHREADS * u, row = c / ACH, ch = c % ACH;
-      if (ch / 4 < nkb) {
-        const bool ok = m0 + row < M;
-        const __nv_bfloat16* src =
-            ok ? a + static_cast<size_t>(m0 + row) * K + bs * qgt::QK + ch * 8
-               : a;
-        qgt::cp_async16(base + S::A + row * AST + ch * 16, src, ok ? 16 : 0);
+    for (int p = 0; p < P; ++p) {  // plane p of [P, M, K]
+      const __nv_bfloat16* ap = a + p * static_cast<size_t>(M) * K;
+#pragma unroll
+      for (int u = 0; u < TBM * ACH / TTHREADS; ++u) {
+        const int c = tid + TTHREADS * u, row = c / ACH, ch = c % ACH;
+        if (ch / 4 < nkb) {
+          const bool ok = m0 + row < M;
+          const __nv_bfloat16* src =
+              ok ? ap + static_cast<size_t>(m0 + row) * K + bs * qgt::QK +
+                       ch * 8
+                 : a;
+          qgt::cp_async16(base + S::A + (p * TBM + row) * AST + ch * 16, src,
+                          ok ? 16 : 0);
+        }
       }
     }
     constexpr int WCH = TKB * BYTES / 16;
@@ -359,6 +308,33 @@ __global__ void __launch_bounds__(TTHREADS, TMINB)
               ok ? sa + static_cast<size_t>(m0 + r) * nb + bs + kb : sa,
               ok ? 4 : 0);
       }
+    }
+  };
+
+  // the A fragments of k16 step s of quant block kb, rows of one piece
+  // from base + S::A
+  auto load_a = [&](uint32_t(&af)[TI][4], const uint8_t* base, int kb,
+                    int s) {
+#pragma unroll
+    for (int i = 0; i < TI; ++i) {
+      const uint8_t* ap = base + S::A + (wm * WTM + i * 16 + g) * AST +
+                          (kb * qgt::QK + s * 16 + 4 * t) * 2;
+      const uint2 lo = *reinterpret_cast<const uint2*>(ap);
+      const uint2 hi = *reinterpret_cast<const uint2*>(ap + 8 * AST);
+      af[i][0] = lo.x;
+      af[i][1] = hi.x;
+      af[i][2] = lo.y;
+      af[i][3] = hi.y;
+    }
+  };
+  // a B fragment from four codes of the lane's column
+  auto b_frag = [&](uint32_t x4, uint32_t& b0, uint32_t& b1) {
+    if constexpr (BYTES == 32) {
+      b0 = int8_bf16(x4, 0);
+      b1 = int8_bf16(x4, 16);
+    } else {
+      b0 = codes_bf16(x4, 0x4140u, bias);
+      b1 = codes_bf16(x4, 0x4342u, bias);
     }
   };
 
@@ -412,37 +388,43 @@ __global__ void __launch_bounds__(TTHREADS, TMINB)
           }
         }
       }
-      float tb[TI][TJ][4];  // T_b, started by the first k16 step's MMA
+      float tb[TI][TJ][4];  // T_b, started by the first MMA
 #pragma unroll
       for (int s = 0; s < 2; ++s) {
-        uint32_t af[TI][4];
+        if constexpr (P == 1) {
+          uint32_t af[TI][4];
+          load_a(af, base, kb, s);
 #pragma unroll
-        for (int i = 0; i < TI; ++i) {
-          const uint8_t* ap = base + S::A + (wm * WTM + i * 16 + g) * AST +
-                              (kb * qgt::QK + s * 16 + 4 * t) * 2;
-          const uint2 lo = *reinterpret_cast<const uint2*>(ap);
-          const uint2 hi = *reinterpret_cast<const uint2*>(ap + 8 * AST);
-          af[i][0] = lo.x;
-          af[i][1] = hi.x;
-          af[i][2] = lo.y;
-          af[i][3] = hi.y;
-        }
+          for (int j = 0; j < TJ; ++j) {
+            uint32_t b0, b1;
+            b_frag(x[j][s], b0, b1);
 #pragma unroll
-        for (int j = 0; j < TJ; ++j) {
-          uint32_t b0, b1;
-          if constexpr (BYTES == 32) {
-            b0 = int8_bf16(x[j][s], 0);
-            b1 = int8_bf16(x[j][s], 16);
-          } else {
-            b0 = codes_bf16(x[j][s], 0x4140u, bias);
-            b1 = codes_bf16(x[j][s], 0x4342u, bias);
+            for (int i = 0; i < TI; ++i) {
+              if (s == 0)
+                qgt::mma_bf16_zero(tb[i][j], af[i], b0, b1);
+              else
+                qgt::mma_bf16(tb[i][j], af[i], b0, b1);
+            }
           }
+        } else {
+          // each B fragment converted once for the three pieces, which
+          // run smallest first: lo, mid, hi
+          uint32_t bf[TJ][2];
 #pragma unroll
-          for (int i = 0; i < TI; ++i) {
-            if (s == 0)
-              qgt::mma_bf16_zero(tb[i][j], af[i], b0, b1);
-            else
-              qgt::mma_bf16(tb[i][j], af[i], b0, b1);
+          for (int j = 0; j < TJ; ++j) b_frag(x[j][s], bf[j][0], bf[j][1]);
+#pragma unroll
+          for (int p = P - 1; p >= 0; --p) {
+            uint32_t af[TI][4];
+            load_a(af, base + p * TBM * AST, kb, s);
+#pragma unroll
+            for (int j = 0; j < TJ; ++j)
+#pragma unroll
+              for (int i = 0; i < TI; ++i) {
+                if (s == 0 && p == P - 1)
+                  qgt::mma_bf16_zero(tb[i][j], af[i], bf[j][0], bf[j][1]);
+                else
+                  qgt::mma_bf16(tb[i][j], af[i], bf[j][0], bf[j][1]);
+              }
           }
         }
       }
@@ -488,26 +470,41 @@ __global__ void __launch_bounds__(TTHREADS, TMINB)
 }
 
 // The operand pass before the tensor-core body, one lane per 8 values,
-// four lanes per 32-block: with fq = 2, A' = bf16(fake_quant(A)) into a2;
-// with sa, the block's float32 sum of the operand values (the lane's 8 in
-// order, then the lanes xor 1, xor 2), every call in the same order.
+// four lanes per 32-block: A' = fake_quant(A) where fq != 0 (rounded to
+// bf16 for fq = 2); into a2 the operand's planes: with P = 1 and fq = 2,
+// A' in bf16; with P = 3, the pieces hi, mid, lo of A (fq = 0) or A'
+// (fq = 1) as planes [3, M, K]; with sa, the block's float32 sum of the
+// unsplit operand values (the lane's 8 in order, then the lanes xor 1,
+// xor 2), every call in the same order.
 template <typename AT>
 __global__ void __launch_bounds__(256)
-    gemm_dequant_kernel_prologue(const AT* __restrict__ a, int fq,
+    gemm_dequant_kernel_prologue(const AT* __restrict__ a, int fq, int P,
                                  __nv_bfloat16* __restrict__ a2,
                                  float* __restrict__ sa, int M, int K) {
   const size_t v = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const bool in = v < static_cast<size_t>(M) * K / 8;
   float f[8] = {0, 0, 0, 0, 0, 0, 0, 0};
   if (in) load8(a + v * 8, f);
-  if (fq) fake_quant8(f, 2);  // the whole warp takes part
+  if (fq) fake_quant8(f, fq);  // the whole warp takes part
   if (in && a2) {
-    uint4 pk;
-    pk.x = qgt::pack_bf16(f[0], f[1]);
-    pk.y = qgt::pack_bf16(f[2], f[3]);
-    pk.z = qgt::pack_bf16(f[4], f[5]);
-    pk.w = qgt::pack_bf16(f[6], f[7]);
-    *reinterpret_cast<uint4*>(a2 + v * 8) = pk;
+    float r[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) r[i] = f[i];
+    for (int p = 0; p < P; ++p) {  // r: what the pieces so far leave
+      uint4 pk;
+      float h[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        h[i] = __bfloat162float(__float2bfloat16_rn(r[i]));
+        r[i] = __fsub_rn(r[i], h[i]);  // exact (Sterbenz)
+      }
+      pk.x = qgt::pack_bf16(h[0], h[1]);
+      pk.y = qgt::pack_bf16(h[2], h[3]);
+      pk.z = qgt::pack_bf16(h[4], h[5]);
+      pk.w = qgt::pack_bf16(h[6], h[7]);
+      *reinterpret_cast<uint4*>(a2 + p * static_cast<size_t>(M) * K + v * 8) =
+          pk;
+    }
   }
   if (sa) {
     float s = 0.0f;
@@ -536,38 +533,45 @@ int blocks_for(size_t n, int threads) {
   return static_cast<int>((n + threads - 1) / threads);
 }
 
-// the bf16-operand path: prologue (fq = 2 or a min format), the tensor-
-// core body over chunk-block K pieces, the reduce when there are several
-template <typename W>
+// The prologue where the operand needs it (fq = 2, P = 3 or a min
+// format), the tensor-core body over chunk-block K pieces, the reduce
+// when there are several.
+template <typename W, int P>
 int launch_tc(const void* a, int a_f32, int fq, const void* wq, const W fmt,
               float* out, float* part, float* sa, void* a2, int M, int N,
               int K, int chunk, cudaStream_t s) {
+  using S = TcSmem<W, P>;
   const int nb = K / qgt::QK;
   if (chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int pieces = (nb + chunk - 1) / chunk;
-  if ((pieces > 1 && !part) || (W::MIN && !sa) || (fq == 2 && !a2))
+  const bool planes = P == 3 || fq == 2;  // the operand is written to a2
+  if ((pieces > 1 && !part) || (W::MIN && !sa) || (planes && !a2))
     return static_cast<int>(cudaErrorInvalidValue);
   const __nv_bfloat16* op = static_cast<const __nv_bfloat16*>(a);
-  if (fq == 2 || W::MIN) {
+  if (planes || W::MIN) {
     const size_t lanes = static_cast<size_t>(M) * K / 8;
     const int grid = blocks_for(lanes, 256);
-    __nv_bfloat16* a2p = fq == 2 ? static_cast<__nv_bfloat16*>(a2) : nullptr;
+    __nv_bfloat16* a2p = planes ? static_cast<__nv_bfloat16*>(a2) : nullptr;
     float* sap = W::MIN ? sa : nullptr;
     if (a_f32)
       gemm_dequant_kernel_prologue<float><<<grid, 256, 0, s>>>(
-          static_cast<const float*>(a), fq, a2p, sap, M, K);
+          static_cast<const float*>(a), fq, P, a2p, sap, M, K);
     else
       gemm_dequant_kernel_prologue<__nv_bfloat16><<<grid, 256, 0, s>>>(
-          op, fq, a2p, sap, M, K);
-    if (fq == 2) op = a2p;
+          op, fq, P, a2p, sap, M, K);
+    if (planes) op = a2p;
   }
-  constexpr int smem = TSTAGES * TcSmem<W>::STAGE;
+  constexpr int smem = TSTAGES * S::STAGE;
   cudaError_t e = cudaFuncSetAttribute(
-      gemm_dequant_kernel_tc<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      gemm_dequant_kernel_tc<W, P>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess && P == 3)  // three blocks an SM need the most
+    e = cudaFuncSetAttribute(gemm_dequant_kernel_tc<W, P>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((N + TBN - 1) / TBN, (M + TBM - 1) / TBM, pieces);
-  gemm_dequant_kernel_tc<W><<<grid, TTHREADS, smem, s>>>(
+  gemm_dequant_kernel_tc<W, P><<<grid, TTHREADS, smem, s>>>(
       op, static_cast<const uint8_t*>(wq), fmt, sa, pieces > 1 ? part : out,
       M, N, K, chunk);
   if (pieces > 1) {
@@ -579,11 +583,11 @@ int launch_tc(const void* a, int a_f32, int fq, const void* wq, const W fmt,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The body by operand type: bf16 operands (A bf16 with fq = 0, or fq = 2)
-// on the tensor cores; float32 operands (A float32 with fq = 0, or fq =
-// 1) on the CUDA-core body.  Scratch (tensor cores only): part [pieces,
-// M, N] f32 when K is split, sa [M, K/32] f32 for the min formats, a2
-// [M, K] bf16 for fq = 2.
+// Every form on the tensor cores: a bf16 operand (A bf16 with fq = 0, or
+// fq = 2) as one piece, a float32 operand (A float32 with fq = 0, or fq =
+// 1) as three.  Scratch: part [pieces, M, N] f32 when K is split, sa [M,
+// K/32] f32 for the min formats, a2 bf16 [M, K] for fq = 2 and [3, M, K]
+// for a float32 operand.
 template <typename W>
 int launch(const void* a, int a_f32, int fq, const void* wq, const W fmt,
            void* out, void* part, void* sa, void* a2, int M, int N, int K,
@@ -591,19 +595,14 @@ int launch(const void* a, int a_f32, int fq, const void* wq, const W fmt,
   if (M < 1 || N < 1 || K % qgt::QK || fq < 0 || fq > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint8_t* w = static_cast<const uint8_t*>(wq);
   float* o = static_cast<float*>(out);
-  if ((!a_f32 && fq == 0) || fq == 2)
-    return launch_tc(a, a_f32, fq, wq, fmt, o, static_cast<float*>(part),
-                     static_cast<float*>(sa), a2, M, N, K, chunk, s);
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  if (a_f32)
-    gemm_dequant_kernel<float, W><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(a), w, fmt, o, M, N, K, fq);
-  else
-    gemm_dequant_kernel<__nv_bfloat16, W><<<grid, THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(a), w, fmt, o, M, N, K, fq);
-  return static_cast<int>(cudaGetLastError());
+  float* pp = static_cast<float*>(part);
+  float* sp = static_cast<float*>(sa);
+  if ((a_f32 && fq == 0) || fq == 1)
+    return launch_tc<W, 3>(a, a_f32, fq, wq, fmt, o, pp, sp, a2, M, N, K,
+                           chunk, s);
+  return launch_tc<W, 1>(a, a_f32, fq, wq, fmt, o, pp, sp, a2, M, N, K, chunk,
+                         s);
 }
 
 const __half* h(const void* p) { return static_cast<const __half*>(p); }

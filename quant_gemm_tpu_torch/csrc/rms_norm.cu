@@ -3,52 +3,95 @@
 // Replaces the Pallas kernel quant_gemm_tpu/ops/rms_norm.py::
 // rms_norm_pallas (body _rms_kernel): out[r, :] = x[r, :] * rsqrt(sum(x[r,
 // :]^2) / C + eps) * w, in that order, the sum of squares in float32.
+// Every step is IEEE-rounded as the plain version's (ops/rms_norm.py::
+// rms_norm_pallas_plain) is: each square, the quotient by C, 1 / sqrt as
+// the correctly rounded square root and reciprocal (not rsqrtf), so the
+// two differ only in the order of the sum of squares.
 //
 // Bound on an H100: bytes -- x read once and out written once (8 R C
-// bytes, and the 4 C of w), at 3.35 TB/s; a row takes 3 operations an
-// element.  Design (rows.cuh): one warp per row for C <= 1024, else one
-// block of 256 threads per row (the TPU kernel's 256-row tiles do not
-// carry over: a Hopper block holds one row in flight, not a VMEM tile of
-// many); coalesced scalar loads and stores, so a ragged C runs in place.
-// The second pass reads the row again from L1/L2
-// (16 KB at C = 4096), not from device memory.
+// bytes, and the 4 C of w), at 3.35 TB/s; 3 operations an element.
+// Design (rows.cuh): the row plan of ops/rows.py, every row in registers
+// (read once, all loads up front), split over a thread-block cluster
+// where the rows alone would leave the SMs idle; w is read at the output,
+// from L2, one vector at a time like x.
 #include "rows.cuh"
 
 namespace {
 
-template <bool WARP_ROW>
-__global__ void __launch_bounds__(qgt::ROW_THREADS)
+template <int VW, int HOLD, bool STREAM, bool CL>
+__global__ void __launch_bounds__(qgt::rows::BLOCK_MAX)
     rms_norm_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                    float* __restrict__ out, float eps, int R, int C) {
+                    float* __restrict__ out, float eps, int R, int C,
+                    qgt::rows::Plan p) {
   __shared__ float red[32];
-  const qgt::RowCtx c = qgt::row_ctx<WARP_ROW>();
-  if (c.row >= R) return;  // a whole spare warp (WARP_ROW only)
-  const float* xr = x + static_cast<size_t>(c.row) * C;
+  __shared__ float cred[1];
+  constexpr int STEP = HOLD / VW;  // vectors a chunk
+  const int nv = (C + VW - 1) / VW;
+  const qgt::rows::Ctx c = qgt::rows::ctx<CL>(p, R, nv);
+  const size_t off = static_cast<size_t>(c.live ? c.row : 0) * C;
+  const float* xr = x + off;
+  const int chunks = STREAM ? (p.per + STEP - 1) / STEP : 1;
+  float v[HOLD];
   float ss = 0.0f;
-  qgt::for_row(xr, C, c, [&](int, float v) { ss = fmaf(v, v, ss); });
-  ss = qgt::row_sum<WARP_ROW>(ss, red);
-  const float r = rsqrtf(ss / static_cast<float>(C) + eps);
-  qgt::map_row(xr, out + static_cast<size_t>(c.row) * C, C, c,
-               [&](int i, float v) { return v * r * __ldg(w + i); });
+  for (int k = 0; k < chunks; ++k) {
+    qgt::rows::load<VW>(xr, c, p, k * STEP, 0.0f, v);
+    const float part = qgt::rows::tree(
+        v, [](float a) { return __fmul_rn(a, a); }, qgt::rows::Add());
+    ss = k == 0 ? part : __fadd_rn(ss, part);
+  }
+  ss = qgt::rows::reduce<CL>(ss, qgt::rows::Add(), p, red, cred);
+  if (CL) qgt::rows::cluster_arrive();  // done with the other CTAs' cred
+  const float r = __frcp_rn(__fsqrt_rn(
+      __fadd_rn(__fdiv_rn(ss, static_cast<float>(C)), eps)));
+  for (int k = 0; k < chunks; ++k) {
+    if (STREAM) qgt::rows::load<VW>(xr, c, p, k * STEP, 0.0f, v);
+    qgt::rows::store<VW>(out + off, c, p, k * STEP, v,
+                         [&](int i, float(&e)[VW]) {
+                           float wv[VW];
+                           if constexpr (VW == 4) {
+                             const float4 f = __ldg(
+                                 reinterpret_cast<const float4*>(w) + i);
+                             wv[0] = f.x, wv[1] = f.y, wv[2] = f.z,
+                             wv[3] = f.w;
+                           } else {
+                             wv[0] = __ldg(w + i);
+                           }
+#pragma unroll
+                           for (int k = 0; k < VW; ++k)
+                             e[k] = __fmul_rn(__fmul_rn(e[k], r), wv[k]);
+                         });
+  }
+  if (CL) qgt::rows::cluster_wait();
 }
+
+struct Launch {
+  const float *x, *w;
+  float* out;
+  float eps;
+  int R, C;
+  qgt::rows::Plan p;
+  cudaStream_t s;
+  template <int VW, int HOLD, bool STREAM, bool CL>
+  int run() const {
+    return qgt::rows::launch(rms_norm_kernel<VW, HOLD, STREAM, CL>, p, R, s,
+                             x, w, out, eps, R, C, p);
+  }
+};
 
 }  // namespace
 
-// out f32 [R, C] = RMSNorm of x f32 [R, C] with weight w f32 [C].
+// out f32 [R, C] = RMSNorm of x f32 [R, C] with weight w f32 [C], under
+// the row plan (tpr, rows, cluster, span, per) and vector width vec of
+// ops/rows.py::plan (vec 4: x and w 16-byte aligned, C % 4 == 0).
 QGT_EXPORT int qgt_rms_norm(const void* x, const void* w, void* out, int R,
-                            int C, float eps, void* stream) {
-  if (R < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool warp_row = C <= qgt::WARP_ROW_MAX_C;
-  const dim3 grid = qgt::row_grid(R, warp_row);
-  const float* xp = static_cast<const float*>(x);
-  const float* wp = static_cast<const float*>(w);
-  float* op = static_cast<float*>(out);
-  if (warp_row)
-    rms_norm_kernel<true><<<grid, qgt::ROW_THREADS, 0, s>>>(xp, wp, op, eps,
-                                                            R, C);
-  else
-    rms_norm_kernel<false><<<grid, qgt::ROW_THREADS, 0, s>>>(xp, wp, op, eps,
-                                                             R, C);
-  return static_cast<int>(cudaGetLastError());
+                            int C, float eps, int vec, int tpr, int rows,
+                            int cluster, int span, int per, void* stream) {
+  const qgt::rows::Plan p{tpr, rows, cluster, span, per};
+  if ((vec != 1 && vec != 4) || C < 1 || (vec == 4 && C % 4) ||
+      !qgt::rows::valid(p, R, (C + vec - 1) / vec, vec))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Launch l{static_cast<const float*>(x), static_cast<const float*>(w),
+                 static_cast<float*>(out), eps, R, C, p,
+                 static_cast<cudaStream_t>(stream)};
+  return qgt::rows::dispatch(l, vec, p);
 }

@@ -2,54 +2,103 @@
 //
 // Replaces the Pallas kernel quant_gemm_tpu/ops/softmax.py::softmax_pallas
 // (body _softmax_kernel): m = max(x[r, :]), e = exp(x[r, :] - m), out[r,
-// :] = e / sum(e), the max and the sum in float32 (expf and the division
-// are the accurate ones: no fast-math).
+// :] = e / sum(e), the max and the sum in float32.  expf and the division
+// are the accurate ones (no fast-math, no online rescaling), so each e is
+// the plain version's and the two differ only in the order of the sum.
 //
 // Bound on an H100: bytes -- x read once and out written once (8 R C
-// bytes) at 3.35 TB/s.  Design (rows.cuh): one warp per row for C <=
-// 1024, else one block of 256 threads per row; coalesced scalar loads and
-// stores, so a ragged C runs in place.  Three
-// passes over the row (max, sum, write); the second and third read it
-// again from L1/L2 (128 KB at C = 32000, a decode step's logits), not
-// from device memory, and recompute exp rather than store it.
+// bytes) at 3.35 TB/s.  Design (rows.cuh): the row plan of ops/rows.py,
+// every row in registers (read once, all loads up front): the max, then e
+// in place of x and its sum, then e / s, one read and one write of device
+// memory; a decode step's 8 rows of 32000 logits run as 8 clusters of 8
+// CTAs.  Rows longer than a full cluster holds stream: three passes
+// (max, sum, write) that read the row again from L2.
 #include <math.h>
 
 #include "rows.cuh"
 
 namespace {
 
-template <bool WARP_ROW>
-__global__ void __launch_bounds__(qgt::ROW_THREADS)
+template <int VW, int HOLD, bool STREAM, bool CL>
+__global__ void __launch_bounds__(qgt::rows::BLOCK_MAX)
     softmax_kernel(const float* __restrict__ x, float* __restrict__ out,
-                   int R, int C) {
+                   int R, int C, qgt::rows::Plan p) {
   __shared__ float red[32];
-  const qgt::RowCtx c = qgt::row_ctx<WARP_ROW>();
-  if (c.row >= R) return;  // a whole spare warp (WARP_ROW only)
-  const float* xr = x + static_cast<size_t>(c.row) * C;
+  __shared__ float cred[2];
+  constexpr int STEP = HOLD / VW;  // vectors a chunk
+  const int nv = (C + VW - 1) / VW;
+  const qgt::rows::Ctx c = qgt::rows::ctx<CL>(p, R, nv);
+  const size_t off = static_cast<size_t>(c.live ? c.row : 0) * C;
+  const float* xr = x + off;
+  const int chunks = STREAM ? (p.per + STEP - 1) / STEP : 1;
+  const auto ident = [](float a) { return a; };
+  float v[HOLD];
   float m = -INFINITY;
-  qgt::for_row(xr, C, c, [&](int, float v) { m = fmaxf(m, v); });
-  m = qgt::row_max<WARP_ROW>(m, red);
+  for (int k = 0; k < chunks; ++k) {
+    qgt::rows::load<VW>(xr, c, p, k * STEP, -INFINITY, v);
+    m = fmaxf(m, qgt::rows::tree(v, ident, qgt::rows::Max()));
+  }
+  m = qgt::rows::reduce<CL>(m, qgt::rows::Max(), p, red, cred);
+  // e = exp(x - m) in place of this thread's elements, 0 in its padding
+  const auto ex = [&](int k) {
+#pragma unroll
+    for (int j = 0; j < STEP; ++j) {
+      const bool held = qgt::rows::vec_index(c, p, k * STEP + j) >= 0;
+#pragma unroll
+      for (int e = 0; e < VW; ++e)
+        v[VW * j + e] = held ? expf(__fsub_rn(v[VW * j + e], m)) : 0.0f;
+    }
+  };
   float s = 0.0f;
-  qgt::for_row(xr, C, c, [&](int, float v) { s += expf(v - m); });
-  s = qgt::row_sum<WARP_ROW>(s, red);
-  qgt::map_row(xr, out + static_cast<size_t>(c.row) * C, C, c,
-               [&](int, float v) { return expf(v - m) / s; });
+  for (int k = 0; k < chunks; ++k) {
+    if (STREAM) qgt::rows::load<VW>(xr, c, p, k * STEP, -INFINITY, v);
+    ex(k);
+    const float part = qgt::rows::tree(v, ident, qgt::rows::Add());
+    s = k == 0 ? part : __fadd_rn(s, part);
+  }
+  s = qgt::rows::reduce<CL>(s, qgt::rows::Add(), p, red, cred + 1);
+  if (CL) qgt::rows::cluster_arrive();  // done with the other CTAs' cred
+  for (int k = 0; k < chunks; ++k) {
+    if (STREAM) {
+      qgt::rows::load<VW>(xr, c, p, k * STEP, -INFINITY, v);
+      ex(k);
+    }
+    qgt::rows::store<VW>(out + off, c, p, k * STEP, v,
+                         [s](int, float(&e)[VW]) {
+#pragma unroll
+                           for (int q = 0; q < VW; ++q)
+                             e[q] = __fdiv_rn(e[q], s);
+                         });
+  }
+  if (CL) qgt::rows::cluster_wait();
 }
+
+struct Launch {
+  const float* x;
+  float* out;
+  int R, C;
+  qgt::rows::Plan p;
+  cudaStream_t s;
+  template <int VW, int HOLD, bool STREAM, bool CL>
+  int run() const {
+    return qgt::rows::launch(softmax_kernel<VW, HOLD, STREAM, CL>, p, R, s,
+                             x, out, R, C, p);
+  }
+};
 
 }  // namespace
 
-// out f32 [R, C] = softmax of each row of x f32 [R, C].
-QGT_EXPORT int qgt_softmax(const void* x, void* out, int R, int C,
+// out f32 [R, C] = softmax of each row of x f32 [R, C], under the row plan
+// (tpr, rows, cluster, span, per) and vector width vec of ops/rows.py::
+// plan (vec 4: x 16-byte aligned, C % 4 == 0).
+QGT_EXPORT int qgt_softmax(const void* x, void* out, int R, int C, int vec,
+                           int tpr, int rows, int cluster, int span, int per,
                            void* stream) {
-  if (R < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool warp_row = C <= qgt::WARP_ROW_MAX_C;
-  const dim3 grid = qgt::row_grid(R, warp_row);
-  const float* xp = static_cast<const float*>(x);
-  float* op = static_cast<float*>(out);
-  if (warp_row)
-    softmax_kernel<true><<<grid, qgt::ROW_THREADS, 0, st>>>(xp, op, R, C);
-  else
-    softmax_kernel<false><<<grid, qgt::ROW_THREADS, 0, st>>>(xp, op, R, C);
-  return static_cast<int>(cudaGetLastError());
+  const qgt::rows::Plan p{tpr, rows, cluster, span, per};
+  if ((vec != 1 && vec != 4) || C < 1 || (vec == 4 && C % 4) ||
+      !qgt::rows::valid(p, R, (C + vec - 1) / vec, vec))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Launch l{static_cast<const float*>(x), static_cast<float*>(out), R,
+                 C, p, static_cast<cudaStream_t>(stream)};
+  return qgt::rows::dispatch(l, vec, p);
 }

@@ -26,21 +26,22 @@ Bound on an H100: operations at the Server's prefill chunk of 128 rows
 (455 operations per q4_0 weight byte, above the ~295 where the bf16
 tensor cores become the limit; bytes only below M of about 80): 0.0304
 ms of bf16 tensor-core work at Mistral-7B's ``wgu`` (N 28672, K 4096),
-0.0060 ms at TinyLlama-1.1B's (N 11264, K 2048).
-Design (``csrc/gemm_dequant.cu``): bf16 operands (a bf16 ``a``, or
-``fused_quant`` with ``a_dtype=bf16``) run on the tensor cores
+0.0060 ms at TinyLlama-1.1B's (N 11264, K 2048); the float32 forms do
+three bf16 passes, 0.0456 ms at Mistral-7B's ``w_down`` (N 4096, K 14336).
+Design (``csrc/gemm_dequant.cu``): every form runs on the tensor cores
 (``mma.sync`` bf16, float32 accumulation) with exact per-block scaling:
 each 32-block's codes are small integers, exact in bf16, so every
 product is exact and the block's sum is folded in as ``d * T_b`` (``+ m
-* sum(A_b)`` for the min formats); the weight is never rounded, and the
-result differs from :func:`gemm_dequant_plain` only in float32
-summation order.  Where the 64 x 64 output tiles do not fill the card,
-K is split into pieces (:func:`k4_grid`) whose float32 partials a
+* sum(A_b)`` for the min formats); the weight is never rounded.  A bf16
+operand (a bf16 ``a``, or ``fused_quant`` with ``a_dtype=bf16``) is one
+bf16 piece; a float32 operand (the ladder's ``pallas_f32``,
+``fused_quant`` with ``a_dtype=float32``) is split into three,
+:func:`split3`, whose sum is the operand exactly: JAX's
+``Precision.HIGHEST`` (``gemm_pallas.py::_dot``), a multi-pass bf16
+product.  So the result differs from :func:`gemm_dequant_plain` only in
+float32 summation order.  Where the 64 x 64 output tiles do not fill the
+card, K is split into pieces (:func:`k4_grid`) whose float32 partials a
 second kernel adds in piece order, so every call gives the same bits.
-float32 operands (the ladder's ``pallas_f32``, ``fused_quant`` with
-``a_dtype=float32``) stay on the CUDA-core body, float32 FMA: the tensor
-cores would need a 3-piece bf16 split of A, and their bound would first
-be restated.
 
 :func:`gemm_dequant` launches the kernel for CUDA tensors and runs
 :func:`gemm_dequant_plain` for CPU tensors; ``gemm_dequant.launches``
@@ -79,12 +80,26 @@ def k4_grid(m: int, n: int, k: int) -> tuple:
     return (tn, tm, -(-nb // chunk)), chunk
 
 
-def tensor_cores(a: torch.Tensor, fused_quant: bool, a_dtype) -> bool:
-    """Whether the call takes the tensor-core body: bf16 operands (a bf16
-    activation, or ``fused_quant`` into bf16)."""
+def pieces(a: torch.Tensor, fused_quant: bool, a_dtype) -> int:
+    """The bf16 pieces the tensor-core body takes the operand in: 1 for a
+    bf16 operand (a bf16 activation, or ``fused_quant`` into bf16), 3 for
+    a float32 one (:func:`split3`)."""
     if fused_quant:
-        return a_dtype == torch.bfloat16
-    return a.dtype == torch.bfloat16
+        return 1 if a_dtype == torch.bfloat16 else 3
+    return 1 if a.dtype == torch.bfloat16 else 3
+
+
+def split3(a: torch.Tensor) -> tuple:
+    """The prologue's split of a float32 operand into bf16 pieces: ``hi =
+    bf16(a)``, ``mid = bf16(a - hi)``, ``lo = bf16(a - hi - mid)``, each
+    difference exact in float32, so ``hi + mid + lo == a`` exactly where
+    the pieces stay normal in bf16 (``|a| >= 2**-103`` or ``a == 0``)."""
+    a = a.to(torch.float32)
+    hi = a.to(torch.bfloat16)
+    r = a - hi.to(torch.float32)
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.to(torch.float32)).to(torch.bfloat16)
+    return hi, mid, lo
 
 
 def _check(w: PreparedWeight, a: torch.Tensor, a_dtype=None) -> None:
@@ -146,24 +161,21 @@ def gemm_dequant(w: PreparedWeight, a: torch.Tensor,
     _build.check_aligned("gemm_dequant", a, w.qs)
     out = torch.empty(m, w.n, dtype=torch.float32, device=dev)
     fq = 0 if not fused_quant else (2 if a_dtype == torch.bfloat16 else 1)
-    null = _build.P(None)
-    part = sa = a2 = null
-    chunk = w.k // QK
-    if tensor_cores(a, fused_quant, a_dtype):
-        (_, _, pieces), chunk = k4_grid(m, w.n, w.k)
-        keep = []  # scratch alive until the launch is enqueued
-        if pieces > 1:
-            keep.append(torch.empty(pieces, m, w.n, dtype=torch.float32,
-                                    device=dev))
-            part = _build.ptr(keep[-1])
-        if w.m is not None:
-            keep.append(torch.empty(m, w.k // QK, dtype=torch.float32,
-                                    device=dev))
-            sa = _build.ptr(keep[-1])
-        if fq == 2:
-            keep.append(torch.empty(m, w.k, dtype=torch.bfloat16,
-                                    device=dev))
-            a2 = _build.ptr(keep[-1])
+    part = sa = a2 = _build.P(None)
+    (_, _, npieces), chunk = k4_grid(m, w.n, w.k)
+    p = pieces(a, fused_quant, a_dtype)
+    keep = []  # scratch alive until the launch is enqueued
+    if npieces > 1:
+        keep.append(torch.empty(npieces, m, w.n, dtype=torch.float32,
+                                device=dev))
+        part = _build.ptr(keep[-1])
+    if w.m is not None:
+        keep.append(torch.empty(m, w.k // QK, dtype=torch.float32,
+                                device=dev))
+        sa = _build.ptr(keep[-1])
+    if fq == 2 or p == 3:  # the operand's bf16 planes
+        keep.append(torch.empty(p, m, w.k, dtype=torch.bfloat16, device=dev))
+        a2 = _build.ptr(keep[-1])
     symbol = f"qgt_gemm_dequant_{w.qtype}"
     fn = _build.function("gemm_dequant", symbol,
                          [_build.P, _build.I, _build.I]
@@ -181,4 +193,5 @@ def gemm_dequant(w: PreparedWeight, a: torch.Tensor,
 gemm_dequant.launches = 0
 
 __all__ = ["gemm_dequant", "gemm_dequant_plain", "fake_quant_q8",
-           "k4_grid", "tensor_cores", "ACT_DTYPES", "TILE_M", "TILE_N", "SMS"]
+           "k4_grid", "pieces", "split3", "ACT_DTYPES", "TILE_M", "TILE_N",
+           "SMS"]

@@ -8,11 +8,16 @@
   tpu/ops/rms_norm.py::rms_norm_pallas`` (body ``_rms_kernel``): ``x *
   rsqrt(sum(x^2) / C + eps) * weight`` over the rows of a float32 [R, C]
   ``x``.  Bound on an H100: bytes, x read once and the output written once;
-  the design (``csrc/rms_norm.cu``): one warp per row up to C = 1024, one
-  256-thread block per row above, coalesced scalar accesses, so a ragged C
-  needs no padding.  It launches the kernel for CUDA tensors and runs
-  :func:`rms_norm_pallas_plain` (the same steps in plain PyTorch) for CPU
-  tensors; ``rms_norm_pallas.launches`` counts launches.
+  the design (``csrc/rms_norm.cu``, ``csrc/rows.cuh``): the row plan of
+  :func:`.rows.plan`, each row held in registers (one read, every load
+  issued before the first reduction), 16-byte loads where the data is
+  aligned and ``C % 4 == 0``, a long row split over a thread-block cluster
+  where the rows alone leave the SMs idle, the sum of squares in one fixed
+  order and every other step IEEE-rounded as here, so the kernel differs
+  from :func:`rms_norm_pallas_plain` only in that order.  It launches the
+  kernel for CUDA tensors and runs :func:`rms_norm_pallas_plain` (the same
+  steps in plain PyTorch) for CPU tensors; ``rms_norm_pallas.launches``
+  counts launches.
 * :func:`rms_norm_ref` — the golden (numpy, the sum of squares in
   float64), a copy of the JAX package's.
 
@@ -33,6 +38,7 @@ import torch
 
 from ..formats.quant import div
 from ..kernels import _build
+from . import rows
 
 EPS_DEFAULT = 1e-5
 
@@ -88,12 +94,13 @@ def rms_norm_pallas(x: torch.Tensor, weight: torch.Tensor,
     x = x.contiguous()
     w = weight.to(torch.float32).contiguous()
     out = torch.empty_like(x)
+    p = rows.plan(r, c, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
     fn = _build.function("rms_norm", "qgt_rms_norm",
-                         [_build.P] * 3 + [_build.I] * 2
-                         + [_build.F, _build.P])
+                         [_build.P] * 3 + [_build.I] * 2 + [_build.F]
+                         + [_build.I] * 6 + [_build.P])
     with torch.cuda.device(dev):
         rc = fn(_build.ptr(x), _build.ptr(w), _build.ptr(out), r, c,
-                float(eps), _build.stream(dev))
+                float(eps), *p, _build.stream(dev))
     _build.check("rms_norm", "qgt_rms_norm", rc)
     rms_norm_pallas.launches += 1
     return out

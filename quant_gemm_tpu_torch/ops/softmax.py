@@ -8,12 +8,15 @@
 * :func:`softmax_pallas` — K10, replacing the Pallas kernel ``quant_gemm_
   tpu/ops/softmax.py::softmax_pallas`` (body ``_softmax_kernel``) on the
   rows of a float32 [R, C] ``x``.  Bound on an H100: bytes, x read once
-  and the output written once; the design (``csrc/softmax.cu``): one warp
-  per row up to C = 1024, one 256-thread block per row above, coalesced
-  scalar accesses, so a ragged C needs no padding.  It launches the
-  kernel for CUDA tensors and runs :func:`softmax_pallas_plain` (the same
-  steps in plain PyTorch) for CPU tensors; ``softmax_pallas.launches``
-  counts launches.
+  and the output written once; the design (``csrc/softmax.cu``,
+  ``csrc/rows.cuh``): the row plan of :func:`.rows.plan`, each row held in
+  registers (the max, then ``exp(x - m)`` in place and its sum, then ``e /
+  s``: one read, one write), 16-byte loads where aligned and ``C % 4 ==
+  0``, a long row split over a thread-block cluster where the rows alone
+  leave the SMs idle (a decode step's 8 x 32000 logits: 8 rows x 8 CTAs),
+  the sum in one fixed order.  It launches the kernel for CUDA tensors and
+  runs :func:`softmax_pallas_plain` (the same steps in plain PyTorch) for
+  CPU tensors; ``softmax_pallas.launches`` counts launches.
 * :func:`softmax_ref` and :func:`softmax_causal_ref` — the goldens
   (numpy), copies of the JAX package's.
 """
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from ..kernels import _build
+from . import rows
 
 
 def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -71,10 +75,12 @@ def softmax_pallas(x: torch.Tensor) -> torch.Tensor:
     r, c = x.shape
     x = x.contiguous()
     out = torch.empty_like(x)
+    p = rows.plan(r, c, x.data_ptr() % 16 == 0)
     fn = _build.function("softmax", "qgt_softmax",
-                         [_build.P] * 2 + [_build.I] * 2 + [_build.P])
+                         [_build.P] * 2 + [_build.I] * 8 + [_build.P])
     with torch.cuda.device(dev):
-        rc = fn(_build.ptr(x), _build.ptr(out), r, c, _build.stream(dev))
+        rc = fn(_build.ptr(x), _build.ptr(out), r, c, *p,
+                _build.stream(dev))
     _build.check("softmax", "qgt_softmax", rc)
     softmax_pallas.launches += 1
     return out

@@ -20,8 +20,14 @@ Exact: K6 equals ``quantize_q8_1`` + K1 bit for bit, and K2 equals
 +-1, eps 0), in every form (both run K1's body and order), also
 replayed from a CUDA graph.  K1 in the q4_1/q5_0/q5_1/q8_0 forms
 ``1e-4 * max|C|``, K4 in them (bf16 and float32 activations) NMSE <=
-1e-4, K9 ``rms_norm_pallas`` ``1e-5 * max|y|`` (its own sum order and
-``rsqrtf``), K10 ``softmax_pallas`` ``atol=1e-6``; the spec runner on the
+1e-4, K9 ``rms_norm_pallas`` ``1e-5 * max|y|`` (its own sum order), K10
+``softmax_pallas`` ``atol=1e-6``, both also bit for bit equal to their
+plain steps on the sum taken in the kernel's order (``ops/rows.py::
+ordered_sum``), on the row plan's clusters and its streamed rows too,
+and two calls bit-equal; K4's float32 operands (three bf16 pieces) in
+every form, f32 A and ``fused_quant`` into float32, NMSE <= ``FQ_NMSE``
+and two calls bit-equal, and a float32 A through a q8_0 identity weight
+bit for bit; the spec runner on the
 card passes every definition under its own threshold.  Slice 7: K2 in the
 q4_1/q4_k/q5_0/q5_1/q5_k forms ``2e-3 * max|C|``, K6 in q4_1 and q8_0 bit
 for bit, K1 on q5_k ``1e-5 * max|C|``, K4 on q5_k NMSE <= 1e-4, K4 with
@@ -79,8 +85,10 @@ from quant_gemm_tpu_torch.ops.attention import (decode_max_pieces,
                                                 flash_decode_plain,
                                                 flash_prefill,
                                                 flash_prefill_plain)
+from quant_gemm_tpu_torch.ops import rows
 from quant_gemm_tpu_torch.ops.rms_norm import (rms_norm, rms_norm_pallas,
                                                rms_norm_pallas_plain)
+from quant_gemm_tpu_torch.ops.rms_norm import rsqrt as rms_rsqrt
 from quant_gemm_tpu_torch.ops.softmax import (softmax_pallas,
                                               softmax_pallas_plain)
 from quant_gemm_tpu_torch.specs import spec_runner
@@ -1284,3 +1292,100 @@ def test_server_captured_equals_eager(dev, monkeypatch, qtype, ring):
         else:
             assert g.launches["gemm_dequant"] == \
                 g.launches["quantize_fold_q8_1"] == 4 * layers + 1
+
+
+# --- K4's float32 operands as three bf16 pieces; K9/K10 on the row plan ---
+
+
+@pytest.mark.parametrize("fq, xdt", [(False, torch.float32),
+                                     (True, torch.float32),
+                                     (True, torch.bfloat16)])
+@pytest.mark.parametrize("m", [13, 100])
+@pytest.mark.parametrize("qtype", ALL32)
+def test_gemm_dequant_f32_operand(dev, qtype, m, fq, xdt):
+    """A float32 operand (f32 A, or fused_quant into float32 from an f32
+    or a bf16 A) on the tensor cores as three bf16 pieces, at ragged M, N
+    = 2560 + 96 and K = 1056: NMSE <= FQ_NMSE (the pieces sum to the
+    operand exactly, so only the float32 summation order differs), two
+    calls bit-equal."""
+    n, k = 2560 + 96, 1056
+    w = _weight_any(qtype, k, dev, rows=n)
+    x = _t(np.random.default_rng(m).standard_normal((m, k)).astype(
+        np.float32), dev).to(xdt)
+    run = (lambda: gemm_dequant(w, x, fused_quant=True,
+                                a_dtype=torch.float32)) if fq else (
+        lambda: gemm_dequant(w, x))
+    before = gemm_dequant.launches
+    got = run()
+    assert gemm_dequant.launches == before + 1
+    ref = gemm_dequant_plain(w, x, fused_quant=fq, a_dtype=torch.float32)
+    assert torch.isfinite(got).all()
+    assert ((got - ref) ** 2).sum() <= FQ_NMSE * (ref ** 2).sum()
+    assert torch.equal(got, run())
+
+
+@pytest.mark.parametrize("k", [1056, 4096])
+def test_k4_split_through_identity(dev, k):
+    """Through a q8_0 identity weight every output is the operand's three
+    pieces times 1 plus zeros, so a float32 A comes back bit for bit:
+    the prologue's split is exact (values from 2^-100 to 2^100)."""
+    qs = torch.eye(k, dtype=torch.int8, device=dev)
+    eye = layout.PreparedWeight("q8_0", k, k, qs, torch.ones(
+        k, k // 32, dtype=torch.float16, device=dev))
+    g = torch.Generator(device=dev).manual_seed(12)
+    sign = torch.where(torch.rand(16, k, generator=g, device=dev) < 0.5,
+                       -1.0, 1.0)
+    x = sign * (1.0 + torch.rand(16, k, generator=g, device=dev)) * 2.0 ** (
+        torch.randint(-100, 100, (16, k), generator=g, device=dev).float())
+    x[0, :32] = 0.0
+    assert torch.equal(gemm_dequant(eye, x), x)
+
+
+ROW_CLUSTER_SHAPES = [(r, c) for r in (1, 3, 8)
+                      for c in (32000, 32001, 65536, 300000)]
+
+
+def _row_input(r, c, dev, seed, aligned):
+    x = _unaligned(r, c, dev, seed) if not aligned else torch.randn(
+        r, c, generator=torch.Generator(device=dev).manual_seed(seed),
+        device=dev)
+    return x
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("r, c", ROW_CLUSTER_SHAPES + ROWS)
+def test_rms_norm_pallas_row_plan(dev, r, c, aligned):
+    """K9 on the row plan (a cluster of 8 CTAs a row at these R x C; the
+    streamed path at C 300000, above a full cluster's registers): within
+    1e-5 * max|y| of the plain version, equal bit for bit to the plain
+    version's steps on the sum of squares in the kernel's order
+    (``rows.ordered_sum``), and two calls bit-equal."""
+    x = _row_input(r, c, dev, 21, aligned)
+    w = 0.5 + torch.rand(c, generator=torch.Generator(device=dev)
+                         .manual_seed(22), device=dev)
+    p = rows.plan(r, c, x.data_ptr() % 16 == 0)
+    before = rms_norm_pallas.launches
+    got = rms_norm_pallas(x, w, EPS)
+    assert rms_norm_pallas.launches == before + 1
+    ref = rms_norm_pallas_plain(x, w, EPS)
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+    ms = tq.div(rows.ordered_sum(x * x, p)[:, None], c)
+    assert torch.equal(got, x * rms_rsqrt(ms + EPS) * w)
+    assert torch.equal(got, rms_norm_pallas(x, w, EPS))
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("r, c", ROW_CLUSTER_SHAPES + ROWS)
+def test_softmax_pallas_row_plan(dev, r, c, aligned):
+    """K10 on the row plan: within 1e-6 of the plain version, equal bit
+    for bit to ``exp(x - max)`` over its sum in the kernel's order
+    (``rows.ordered_sum``), and two calls bit-equal."""
+    x = 4.0 * _row_input(r, c, dev, 23, aligned)
+    p = rows.plan(r, c, x.data_ptr() % 16 == 0)
+    before = softmax_pallas.launches
+    got = softmax_pallas(x)
+    assert softmax_pallas.launches == before + 1
+    assert (got - softmax_pallas_plain(x)).abs().max() <= 1e-6
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    assert torch.equal(got, e / rows.ordered_sum(e, p)[:, None])
+    assert torch.equal(got, softmax_pallas(x))

@@ -15,6 +15,17 @@ the JAX package.  Inputs are made with numpy from a seed.  Tolerances:
   ``mxu_dtype=float32`` in interpret mode (K4's plain-version tolerance);
 * the code-to-bf16 conversion (``0x4300 | q`` minus ``128 + off``): bit
   for bit;
+* K4's float32 operands as three bf16 pieces (:func:`split3`, the
+  prologue's arithmetic): ``hi + mid + lo == a`` bit for bit wherever the
+  pieces stay normal in bf16 (``|a| >= 2^-103``, draws at 2^-100 to
+  2^100 and fake-quantized blocks, zero and f16-saturating ones
+  included), every ``piece * code`` product exact for the codes of the
+  seven forms; the three-piece body replayed (per-block ``T_b`` in
+  float64, rounded to float32 as the accumulator holds it, then the
+  float32 ``fma`` with ``d`` and with ``m * sa``): NMSE <= 1e-12 against
+  ``gemm_dequant_plain`` (only the float32 summation order differs) and
+  ``1e-5 * max|C|`` against JAX ``gemm`` with ``mxu_dtype=float32``
+  (``Precision.HIGHEST``) in interpret mode;
 * K5's hi + lo operands, ``hi = bf16(x)``, ``lo = bf16(x - hi)``: within
   ``2^-16`` of ``|x|`` (the split leaves at most ``2^-17``), and a dot
   product of hi + lo with bf16 values within ``2^-16`` of the sum of
@@ -37,9 +48,11 @@ from quant_gemm_tpu_torch.formats import kquants as tk
 from quant_gemm_tpu_torch.formats import quant as tq
 from quant_gemm_tpu_torch.kernels import layout
 from quant_gemm_tpu_torch.kernels.gemm_dequant import (MIN_CHUNK, SMS,
+                                                       fake_quant_q8,
                                                        gemm_dequant,
                                                        gemm_dequant_plain,
-                                                       k4_grid, tensor_cores)
+                                                       k4_grid, pieces,
+                                                       split3)
 from quant_gemm_tpu_torch.ops.attention import (NEG_INF, PREFILL_ROWS,
                                                 PREFILL_TILE,
                                                 prefill_piece_bounds,
@@ -132,6 +145,117 @@ def test_k4_code_to_bf16_is_exact(off):
     assert torch.equal((v - bias).float(), (q - off).float())
     c = torch.arange(-128, 128, dtype=torch.int32)
     assert torch.equal(c.float().to(torch.bfloat16).float(), c.float())
+
+
+def _exact_sum(parts) -> torch.Tensor:
+    return sum(p.double() for p in parts)
+
+
+def _draws():
+    """float32 values at scales 2^-100 .. 2^100, signed, with zeros, and
+    fake-quantized rows (an all-zero block, f16-saturating blocks)."""
+    rng = np.random.default_rng(31)
+    x = np.concatenate([rng.standard_normal(4096) * 2.0 ** e
+                        for e in range(-100, 101, 10)]).astype(np.float32)
+    x[::97] = 0.0
+    a = rng.standard_normal((8, 256)).astype(np.float32) * 4.0
+    a[0, :32], a[1, 32:64], a[2, 64:96] = 0.0, 7e8, -7e8
+    a[3] *= 1e-30
+    fq = fake_quant_q8(torch.from_numpy(a)).reshape(-1)
+    return torch.cat([torch.from_numpy(x), fq])
+
+
+def test_k4_split3_is_exact():
+    """Exact wherever the pieces stay normal: ``a == 0`` or ``|a| >=
+    2^-103`` (2^-126, the least normal, over the 23 bits below hi)."""
+    a = _draws()
+    a = a[(a == 0) | (a.abs() >= 2.0 ** -103)]
+    hi, mid, lo = split3(a)
+    assert torch.equal(_exact_sum((hi, mid, lo)), a.double())
+    # the pieces stay normal in bf16 (or are zero)
+    tiny = torch.finfo(torch.float32).tiny
+    for p in (hi, mid, lo):
+        f = p.float().abs()
+        assert bool(((f == 0) | (f >= tiny)).all())
+    # the tensor cores' float32 sum of lo, mid, hi in that order is exact
+    assert torch.equal((lo.float() + mid.float()) + hi.float(), a)
+    # a bf16 operand is its own hi: mid and lo are zero
+    b = a.to(torch.bfloat16)
+    h, m, lo_ = split3(b.float())
+    assert torch.equal(h, b) and not m.float().any() and not lo_.float().any()
+
+
+CODES = {"q4_0": range(-8, 8), "q5_0": range(-16, 16), "q4_1": range(16),
+         "q4_k": range(16), "q5_1": range(32), "q5_k": range(32),
+         "q8_0": range(-128, 128)}
+
+
+@pytest.mark.parametrize("qtype", ALL32)
+def test_k4_piece_times_code_is_exact(qtype):
+    """Every product of a piece (8 significant bits) and a code of the
+    form (at most 8) is exact in float32, as the MMA forms it."""
+    code = torch.tensor(list(CODES[qtype]), dtype=torch.float32)
+    for p in split3(_draws()):
+        f = p.float()[::7]
+        prod = f[:, None] * code[None, :]
+        assert torch.equal(prod.double(), f.double()[:, None]
+                           * code.double()[None, :])
+
+
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
+    """float32 fma: the product and the sum rounded once (float64 holds
+    the float32 product exactly)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _block_sums(a: torch.Tensor) -> torch.Tensor:
+    """The prologue's sa: each lane's 8 values in order, then the lanes
+    xor 1 and xor 2 of a 32-block, in float32."""
+    lanes = a.reshape(a.shape[0], -1, 4, 8)
+    s = lanes[..., 0]
+    for i in range(1, 8):
+        s = s + lanes[..., i]
+    s = s + s[..., [1, 0, 3, 2]]
+    return s + s[..., [2, 3, 0, 1]]  # [M, nb, 4]; lane 0's in [..., 0]
+
+
+def _three_piece_body(w, a32: torch.Tensor) -> torch.Tensor:
+    """The float32-operand body on the CPU: per quant block T_b = sum of
+    the pieces' products with the codes (float64, then float32 as the MMA
+    accumulator holds it), acc = fma(d, T_b, acc), and for the min
+    formats acc = fma(m, sa, acc), block by block."""
+    nb = w.k // 32
+    q = (_raw_codes(w) - OFFSET.get(w.qtype, 0)).double()  # [N, nb, 32]
+    pcs = sum(p.double() for p in split3(a32)).reshape(a32.shape[0], nb, 32)
+    sa = _block_sums(a32)[..., 0]
+    d = w.d.to(torch.float32)
+    acc = torch.zeros(a32.shape[0], w.n, dtype=torch.float32)
+    for b in range(nb):
+        tb = (pcs[:, b] @ q[:, b].T).float()
+        acc = _fma32(d[:, b][None, :], tb, acc)
+        if w.m is not None:
+            acc = _fma32(w.m.to(torch.float32)[:, b][None, :],
+                         sa[:, b][:, None], acc)
+    return acc
+
+
+@pytest.mark.parametrize("fq", [False, True])
+@pytest.mark.parametrize("qtype", ALL32)
+def test_k4_three_pieces_match_plain_and_jax(qtype, fq):
+    """A float32 operand (f32 A, or fused_quant into float32) through the
+    three-piece body, against the plain version and JAX's HIGHEST."""
+    jw, pw = _weights(qtype)
+    x = np.random.default_rng(6).standard_normal((M, K)).astype(np.float32)
+    a = torch.from_numpy(x)
+    assert pieces(a, fq, torch.float32) == 3
+    op = fake_quant_q8(a) if fq else a
+    got = _three_piece_body(pw, op)
+    ref = gemm_dequant_plain(pw, a, fused_quant=fq, a_dtype=torch.float32)
+    assert _nmse(got, ref) <= 1e-12
+    want = np.asarray(j_gemm(j_prepare(jw), jnp.asarray(x),
+                             mxu_dtype=jnp.float32, fused_quant=fq))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
 
 
 def _split(x: torch.Tensor):
@@ -233,12 +357,17 @@ def test_k4_grid_ragged(m):
 
 
 def test_k4_body_by_operand_type():
+    """Every operand type takes the tensor-core body: a bf16 operand as
+    one bf16 piece, a float32 operand (f32 A, or fused_quant into float32
+    from an f32 or a bf16 A) as three."""
     a16 = torch.zeros(2, 32, dtype=torch.bfloat16)
     a32 = torch.zeros(2, 32)
-    assert tensor_cores(a16, False, torch.bfloat16)
-    assert not tensor_cores(a32, False, torch.bfloat16)
-    assert tensor_cores(a32, True, torch.bfloat16)
-    assert not tensor_cores(a16, True, torch.float32)
+    assert pieces(a16, False, torch.bfloat16) == 1
+    assert pieces(a32, False, torch.bfloat16) == 3
+    assert pieces(a32, True, torch.bfloat16) == 1
+    assert pieces(a16, True, torch.bfloat16) == 1
+    assert pieces(a32, True, torch.float32) == 3
+    assert pieces(a16, True, torch.float32) == 3
 
 
 def _interval_bound(rows, rep, window, slots):

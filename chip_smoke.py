@@ -119,7 +119,35 @@ Run from the repository root on a machine with one NVIDIA H100:
    order differs), beside ``torch.matmul`` on the weight dequantized and
    the activation fake-quantized in advance, and its prologue bit for bit
    through a q8_0 identity weight at both K;
-9. prints one JSON line of the kernels (the ten TPU kernels and the two
+9. GGUF user path (slice 14) at Qwen2.5-1.5B-Instruct width (28 layers,
+   hidden 1536, 12 / 2 heads of 128, rep 6, d_ff 8960, vocab 151936, QKV
+   biases, tied embeddings): a byte-level BPE vocabulary of 151936
+   entries drawn from a seed (``pre`` qwen2, Qwen's specials at
+   151643-151645, a ChatML template) goes into a GGUF file of llama.cpp's
+   Q4_0 mix (q4_0 linears, no ``output.weight``: ``token_embd`` q6_K is
+   the tied head, f32 norms and biases), one of its IQ4_XS mix and one
+   of its IQ4_NL mix (``FILE_MIXES``: iq4_xs or iq4_nl, attn_v and the
+   first eighth's ffn_down q5_K; iq4_nl is served as q8_0); each is
+   loaded with ``load_llama`` (structure and config
+   checked) and served by the port's HTTP front end
+   (``scripts/server.py``, 127.0.0.1, an Engine over ``Server(qp, cfg,
+   n_slots=8)`` at its defaults): 16 (IQ4: 8) concurrent chat turns
+   (a shared 200-token system prompt, user turns of 64-512 tokens, 32 new
+   tokens, greedy, one streamed) through ``/v1/chat/completions`` (or,
+   where jinja2 does not import, as ChatML text through ``/completion``,
+   said so); each HTTP transcript must equal a Server fed the same ids at
+   the same steps (``admissions`` records them), eager and captured (their
+   launches checked against ``route_launches``, the captured pair's graphs,
+   medians, prefill tok/s and profiler windows printed); on the Q4_0
+   file also a JSON-grammar request (4 tokens, its seconds a token), an
+   ``n_probs: 5`` request and ``/v1/embeddings`` of 4 inputs, each equal
+   to the Server or ``llama.embed`` driven directly; the layer-by-layer
+   check of a chunk and a decode step on every file; the IQ4_XS file
+   again with ``FUSED_DECODE`` (K6's iq4_xs form), its transcripts equal
+   to the default run's; the kernel phase holds K1, K4 and K6 in the
+   iq4_xs form, K1, K2, K4 in q4_0 and K7 (the tied head, N 151936) at
+   these shapes and K3 / K5 at KV 2, rep 6, hd 128;
+10. prints one JSON line of the kernels (the ten TPU kernels and the two
    activation quantize launches), the card, and last the result line;
    each phase's seconds on its own line.
 
@@ -165,6 +193,7 @@ the plain versions are full float32.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -323,6 +352,16 @@ FILE_MIXES = {
              "k2": True},
     "Q5_K_M": {"default": "q5_K", "output": "q6_K", "more_bits": "q6_K",
                "file_type": 17, "k2": False},
+    # the Qwen2.5-1.5B-width files (QWEN_MIXES): tied embeddings, so
+    # token_embd takes the output's type (q6_K); IQ4_NL / IQ4_XS give
+    # attn_v q5_K where n_head / n_head_kv >= 4 (6 here) and ffn_down q5_K
+    # in the first eighth of the layers (no importance matrix)
+    "Q4_0": {"default": "q4_0", "output": "q6_K", "file_type": 2,
+             "k2": True},
+    "IQ4_NL": {"default": "iq4_nl", "output": "q6_K", "attn_v": "q5_K",
+               "first_down": "q5_K", "file_type": 25, "k2": False},
+    "IQ4_XS": {"default": "iq4_xs", "output": "q6_K", "attn_v": "q5_K",
+               "first_down": "q5_K", "file_type": 30, "k2": False},
 }
 # the formats path's files, and those served again with FUSED_DECODE
 FORMAT_FILES = ("Q8_0", "Q5_0", "Q4_1", "Q5_1", "Q5_K_M")
@@ -869,6 +908,7 @@ def kernel_phase(dev, timer):
     mistral_kernel_rows(dev, timer, record, randn, g)
     slice6_kernel_rows(dev, timer, record, randn)
     slice7_kernel_rows(dev, timer, record, unfused, randn)
+    slice14_kernel_rows(dev, timer, record, unfused, randn)
     act_quant_rows(timer, record, randn)
     return rows
 
@@ -1677,10 +1717,10 @@ def decode_case(qp, cfg, rng, dev, qtype="bf16"):
 
     cache = llama.KVCache.init(cfg, 8, qtype, device=dev)
     llama.forward(qp, cfg, torch.as_tensor(
-        rng.integers(0, VOCAB, (8, 48)), device=dev), cache)
+        rng.integers(0, cfg.vocab, (8, 48)), device=dev), cache)
     cache.pos = torch.tensor([48, 40, 33, 47, 20, 48, 1, 16],
                              dtype=torch.int32, device=dev)
-    nt = torch.as_tensor(rng.integers(0, VOCAB, (8, 1)), device=dev)
+    nt = torch.as_tensor(rng.integers(0, cfg.vocab, (8, 1)), device=dev)
     return check(qp, cfg, nt, cache)
 
 
@@ -1928,7 +1968,8 @@ def main_path(dev, counters, prompts, reuse):
 
 
 def random_blocks32(qtype, n, k, std, g):
-    """A per-32 container (q4_1, q5_0, q5_1, q8_0) of random valid blocks
+    """A per-32 container (q4_0, q4_1, q5_0, q5_1, q8_0) of random valid
+    blocks
     drawn on ``g``'s device, values of mean about 0 and standard deviation
     about ``std``: uniform codes, f16 scales +-25% around the target, and
     (q4_1, q5_1) mins that centre the codes; the per-32 counterpart of
@@ -1937,14 +1978,16 @@ def random_blocks32(qtype, n, k, std, g):
 
     dev = g.device
     nb = k // 32
-    top, sd = {"q4_1": (16, 4.61), "q5_0": (32, 9.23), "q5_1": (32, 9.23),
-               "q8_0": (255, 73.6)}[qtype]
+    top, sd = {"q4_0": (16, 4.61), "q4_1": (16, 4.61), "q5_0": (32, 9.23),
+               "q5_1": (32, 9.23), "q8_0": (255, 73.6)}[qtype]
     u = torch.rand(n, nb, generator=g, device=dev)
     d = (std / sd * (0.75 + 0.5 * u)).to(torch.float16)
     codes = torch.randint(0, top, (n, k), generator=g, device=dev)
     if qtype == "q8_0":
         return blocks.Q8_0Tensor((codes - 127).to(torch.int8), d)
     packed = quant.pack_planar_4bit(codes & 0xF)
+    if qtype == "q4_0":  # x = (q - 8) d
+        return blocks.Q4_0Tensor(packed, d)
     mid = (top - 1) / 2  # the min that centres the codes
     m = (-mid * d.to(torch.float32)).to(torch.float16)
     if qtype == "q4_1":
@@ -2117,15 +2160,15 @@ def route_launches(qp, steps, n_chunks, fused, k2):
           for w, k in zip(decode, k16)]
     prefill_k16 = sum(isinstance(w, layout.PreparedK16) for w in gemms)
     return {
-        "norm_qkv": steps * LAYERS if k2 else 0,
-        "flash_decode": steps * LAYERS,
+        "norm_qkv": steps * len(layers) if k2 else 0,
+        "flash_decode": steps * len(layers),
         "gemm_exact_k16": steps * sum(k16),
         "gemm_exact_fused": steps * sum(k6),
         "gemm_exact": steps * (len(decode) - sum(k16) - sum(k6)),
         "attn_tail": 0,
         "gemm_dequant": len(n_chunks) * (len(gemms) - prefill_k16),
         "k16_dequant_gemm": len(n_chunks) * prefill_k16,
-        "flash_prefill": LAYERS * sum(t >= 64 for t in n_chunks),
+        "flash_prefill": len(layers) * sum(t >= 64 for t in n_chunks),
     }
 
 
@@ -2674,6 +2717,952 @@ def spec_phase(dev, counters):
     return launches
 
 
+# Qwen2.5-1.5B-Instruct (huggingface.co/Qwen/Qwen2.5-1.5B-Instruct
+# config.json): hidden 1536, intermediate 8960, 28 layers, 12 heads, 2 KV
+# heads (head_dim 128, rep 6), vocab 151936, rope_theta 1e6,
+# rms_norm_eps 1e-6, max_position_embeddings 32768, tie_word_embeddings,
+# biases on q/k/v
+Q_DIM, Q_D_FF, Q_LAYERS, Q_HEADS, Q_KV = 1536, 8960, 28, 12, 2
+Q_VOCAB, Q_CTX, Q_ROPE, Q_EPS = 151936, 32768, 1000000.0, 1e-6
+Q_HD = Q_DIM // Q_HEADS
+Q_REP = Q_HEADS // Q_KV
+# Qwen's specials (its tokenizer_config.json): <|endoftext|> (bos and
+# padding), <|im_start|>, <|im_end|> (eos of the instruct model)
+Q_SPECIALS = {"<|endoftext|>": 151643, "<|im_start|>": 151644,
+              "<|im_end|>": 151645}
+Q_BOS, Q_EOS = 151643, 151645
+# ChatML, the template of Qwen2.5's chat turns without tools
+CHATML = ("{% for message in messages %}{{'<|im_start|>' + message['role'] "
+          "+ '\\n' + message['content'] + '<|im_end|>' + '\\n'}}{% endfor %}"
+          "{% if add_generation_prompt %}{{ '<|im_start|>assistant\\n' }}"
+          "{% endif %}")
+# the Qwen files written and served, in order (FILE_MIXES)
+QWEN_MIXES = ("Q4_0", "IQ4_XS", "IQ4_NL")
+Q_NEW = 32  # new tokens of each chat request
+Q_FIRST_DOWN = Q_LAYERS // 8  # IQ4 mixes: ffn_down q5_K in layers below
+
+
+def chatml(messages) -> str:
+    """What ``CHATML`` renders (the path without jinja2)."""
+    return "".join(f"<|im_start|>{m['role']}\n{m['content']}<|im_end|>\n"
+                   for m in messages) + "<|im_start|>assistant\n"
+
+
+def qwen_cfg():
+    from quant_gemm_tpu_torch.models import llama
+
+    return llama.LlamaConfig(vocab=Q_VOCAB, dim=Q_DIM, n_layers=Q_LAYERS,
+                             n_heads=Q_HEADS, n_kv_heads=Q_KV, d_ff=Q_D_FF,
+                             max_seq=Q_CTX, rope_base=Q_ROPE, eps=Q_EPS)
+
+
+def qwen_vocab(seed=0) -> dict:
+    """A byte-level BPE vocabulary of ``Q_VOCAB`` entries drawn from a
+    seed, as ``tokenizer.ggml.*`` metadata with ``pre = "qwen2"``: the 256
+    byte symbols, then merges up to id 151642 (each joins two earlier
+    tokens of at most 6 symbols into a new one: a word piece, or with
+    GPT-2's space symbol in front a word start), Qwen's three specials at
+    151643-151645 and control pads to 151935, as Qwen's GGUF files pad
+    the vocabulary; the ChatML chat template."""
+    import random
+
+    from quant_gemm_tpu_torch.models import tokenizer
+
+    rnd = random.Random(seed)
+    b2u = tokenizer._B2U
+    tokens = [b2u[b] for b in range(256)]
+    seen = set(tokens)
+    merges = []
+    space = b2u[ord(" ")]
+    # the tokens of at most 6 symbols a merge may join
+    pieces = [b2u[b] for b in range(ord("a"), ord("z") + 1)]
+    starts = []
+
+    def add(a, b):
+        t = a + b
+        tokens.append(t)
+        seen.add(t)
+        merges.append(f"{a} {b}")
+        if len(t) <= 6:
+            (starts if t.startswith(space) else pieces).append(t)
+
+    for c in list(pieces):
+        add(space, c)
+    while len(tokens) < Q_BOS:
+        a = rnd.choice(starts) if rnd.random() < 0.5 else rnd.choice(pieces)
+        b = rnd.choice(pieces)
+        if a + b not in seen:
+            add(a, b)
+    types = [1] * len(tokens)
+    for name in Q_SPECIALS:
+        tokens.append(name)
+        types.append(3)
+    while len(tokens) < Q_VOCAB:
+        tokens.append(f"[PAD{len(tokens)}]")
+        types.append(3)
+    return {"tokenizer.ggml.model": "gpt2", "tokenizer.ggml.pre": "qwen2",
+            "tokenizer.ggml.tokens": tokens,
+            "tokenizer.ggml.token_type": types,
+            "tokenizer.ggml.merges": merges,
+            "tokenizer.ggml.bos_token_id": Q_BOS,
+            "tokenizer.ggml.eos_token_id": Q_EOS,
+            "tokenizer.ggml.padding_token_id": Q_BOS,
+            "tokenizer.ggml.add_bos_token": False,
+            "tokenizer.chat_template": CHATML}
+
+
+def write_qwen_gguf(path, mix, dev, vocab_md, seed=0):
+    """A Qwen2.5-1.5B-width GGUF file of llama.cpp's ``mix`` (Q4_0 or
+    IQ4_XS / IQ4_NL, ``FILE_MIXES``): random valid blocks from a
+    ``torch.Generator`` seed on the card, weights at about 1/sqrt(K), no
+    ``output.weight`` (tied: ``token_embd`` is the head, q6_K, values of
+    about 0.02), f32 norms of 1 and f32 QKV biases of about 0.1, qwen2
+    metadata and the tokenizer ``vocab_md``."""
+    from quant_gemm_tpu_torch.formats import kquants
+    from quant_gemm_tpu_torch.formats.gguf_file import RawTensor, write_gguf
+
+    types = FILE_MIXES[mix]
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def lin(qtype, n, k, std=None):
+        std = std or k ** -0.5
+        if qtype in ("iq4_nl", "iq4_xs"):
+            return RawTensor(qtype, (n, k),
+                             kquants.random_iq4(qtype, n, k, std, g))
+        if qtype in Q32_BLOCK_BYTES:
+            return random_blocks32(qtype, n, k, std, g)
+        return kquants.random_blocks(qtype, n, k, std, g)
+
+    def vec(n, std):
+        return torch.randn(n, generator=g, device=dev) * std
+
+    ones = torch.ones(Q_DIM, device=dev)
+    base = types["default"]
+    tensors = {"token_embd.weight": lin(types["output"], Q_VOCAB, Q_DIM,
+                                        0.02),
+               "output_norm.weight": ones}
+    for i in range(Q_LAYERS):
+        blk = f"blk.{i}."
+        down = types.get("first_down", base) if i < Q_FIRST_DOWN else base
+        tensors.update({
+            blk + "attn_norm.weight": ones,
+            blk + "attn_q.weight": lin(base, Q_HEADS * Q_HD, Q_DIM),
+            blk + "attn_q.bias": vec(Q_HEADS * Q_HD, 0.1),
+            blk + "attn_k.weight": lin(base, Q_KV * Q_HD, Q_DIM),
+            blk + "attn_k.bias": vec(Q_KV * Q_HD, 0.1),
+            blk + "attn_v.weight": lin(types.get("attn_v", base),
+                                       Q_KV * Q_HD, Q_DIM),
+            blk + "attn_v.bias": vec(Q_KV * Q_HD, 0.1),
+            blk + "attn_output.weight": lin(base, Q_DIM, Q_HEADS * Q_HD),
+            blk + "ffn_norm.weight": ones,
+            blk + "ffn_gate.weight": lin(base, Q_D_FF, Q_DIM),
+            blk + "ffn_up.weight": lin(base, Q_D_FF, Q_DIM),
+            blk + "ffn_down.weight": lin(down, Q_DIM, Q_D_FF),
+        })
+    metadata = {
+        "general.architecture": "qwen2",
+        "general.name": f"Qwen2.5-1.5B width, {mix} mix, random blocks",
+        "general.file_type": types["file_type"],
+        "qwen2.vocab_size": Q_VOCAB, "qwen2.embedding_length": Q_DIM,
+        "qwen2.block_count": Q_LAYERS, "qwen2.feed_forward_length": Q_D_FF,
+        "qwen2.attention.head_count": Q_HEADS,
+        "qwen2.attention.head_count_kv": Q_KV,
+        "qwen2.context_length": Q_CTX, "qwen2.rope.freq_base": Q_ROPE,
+        "qwen2.attention.layer_norm_rms_epsilon": Q_EPS,
+        **vocab_md,
+    }
+    write_gguf(path, tensors, metadata)
+
+
+def check_qwen_structure(mix, qp):
+    """The loaded Qwen parameters hold the mix: every layer's float32
+    ``bqkv`` [2048], one whole default-format wqkv (Q4_0) or a
+    SplitLinear of q, k in the default format and v q5_k (IQ4), ffn_down
+    q5_k in the first eighth (IQ4), the tied q6_K head."""
+    from quant_gemm_tpu_torch.kernels import layout
+    from quant_gemm_tpu_torch.models import llama
+
+    types = FILE_MIXES[mix]
+    base = {"iq4_nl": "q8_0"}.get(types["default"], types["default"])
+    for i, ly in enumerate(qp["layers"]):
+        b = ly.get("bqkv")
+        if b is None or b.dtype != torch.float32 or \
+                b.shape != ((Q_HEADS + 2 * Q_KV) * Q_HD,):
+            fail(f"{mix}: layer {i} has no float32 bqkv of "
+                 f"{(Q_HEADS + 2 * Q_KV) * Q_HD}")
+        w = ly["wqkv"]
+        if "attn_v" in types:
+            if not (isinstance(w, llama.SplitLinear)
+                    and [p.qtype for p in w.parts] == [base, base, "q5_k"]):
+                fail(f"{mix}: layer {i} wqkv is not q, k {base} + v q5_k")
+        elif not (isinstance(w, layout.PreparedWeight) and w.qtype == base):
+            fail(f"{mix}: layer {i} wqkv is not one {base} weight")
+        down = "q5_k" if "first_down" in types and i < Q_FIRST_DOWN \
+            else base
+        if ly["w_down"].qtype != down or ly["wo"].qtype != base \
+                or ly["wgu"].qtype != base:
+            fail(f"{mix}: layer {i} wo/wgu/w_down are "
+                 f"{ly['wo'].qtype}/{ly['wgu'].qtype}/{ly['w_down'].qtype}")
+    head = qp["lm_head"]
+    if not (isinstance(head, layout.PreparedK16) and head.qtype == "q6_k"
+            and head.n == Q_VOCAB):
+        fail(f"{mix}: the tied head is not q6_K [{Q_VOCAB}, {Q_DIM}]")
+
+
+def qwen_words(tok, rnd, n_tokens) -> str:
+    """Text of random lower-case words that tokenizes to ``n_tokens``
+    (each word, a space in front, is a piece of its own in the qwen2
+    split, so the counts add up)."""
+    words, total = [], 0
+    while total < n_tokens:
+        w = " " + "".join(rnd.choice("abcdefghijklmnopqrstuvwxyz")
+                          for _ in range(rnd.randint(2, 9)))
+        n = len(tok.encode(w, add_bos=False))
+        if total + n <= n_tokens:
+            words.append(w)
+            total += n
+    return "".join(words)
+
+
+def qwen_traffic(tok, n=16, seed=0):
+    """``n`` chat turns: one shared system prompt of 200 tokens and user
+    turns of 64-512 tokens."""
+    import random
+
+    rnd = random.Random(seed)
+    system = qwen_words(tok, rnd, 200).strip()
+    return [[{"role": "system", "content": system},
+             {"role": "user",
+              "content": qwen_words(tok, rnd, rnd.randint(64, 512)).strip()}]
+            for _ in range(n)]
+
+
+def http_post(base, path, obj, timeout=600):
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=json.dumps(obj).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def http_stream(base, path, obj, timeout=600) -> list:
+    """The data payloads of a Server-Sent Events answer."""
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=json.dumps(obj).encode(),
+                                 headers={"Content-Type": "application/json"})
+    events = []
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        if not r.headers["Content-Type"].startswith("text/event-stream"):
+            fail(f"{path}: a stream answered {r.headers['Content-Type']}")
+        for raw in r:
+            line = raw.decode().strip()
+            if line.startswith("data: "):
+                events.append(line[6:])
+    if events[-1] != "[DONE]":
+        fail(f"{path}: the stream did not end with [DONE]")
+    return [json.loads(e) for e in events[:-1]]
+
+
+@contextlib.contextmanager
+def http_server(engine):
+    """The port's HTTP front end over ``engine`` on 127.0.0.1 in a
+    thread; yields its base URL; shuts both down after the block."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from quant_gemm_tpu_torch.scripts import server as http
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), http.make_handler(engine))
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    try:
+        yield f"http://127.0.0.1:{httpd.server_address[1]}"
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(60)
+        engine.shutdown()
+        if th.is_alive() or engine.thread.is_alive():
+            fail("the HTTP server or its engine thread did not stop")
+
+
+def release() -> None:
+    """Free what no one holds any more (Servers in reference cycles
+    too) and hand the cached device memory back."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def admissions(srv) -> list:
+    """Wrap ``srv.submit`` and ``srv.step`` to record (steps run before
+    it, request id, prompt ids) of each submission, in a list returned:
+    a Server fed the same ids at the same steps replays the run."""
+    trace, steps = [], [0]
+    submit, step = srv.submit, srv.step
+
+    def submitted(prompt_ids, **kw):
+        rid = submit(prompt_ids, **kw)
+        trace.append((steps[0], rid, list(prompt_ids)))
+        return rid
+
+    def stepped():
+        out = step()
+        steps[0] += 1
+        return out
+
+    srv.submit, srv.step = submitted, stepped
+    return trace
+
+
+def http_chats(base, turns, use_chat, stream_one=0):
+    """All ``turns`` at once, each from its own thread: through
+    ``/v1/chat/completions`` (``use_chat``) or as ChatML text through
+    ``/completion``; request ``stream_one`` streamed.  Returns each
+    one's (text, completion tokens) and the wall seconds."""
+    import threading
+
+    out: dict = {}
+
+    def go(i):
+        body = ({"messages": turns[i]} if use_chat
+                else {"prompt": chatml(turns[i])})
+        body.update({"max_tokens": Q_NEW, "n_predict": Q_NEW})
+        path = "/v1/chat/completions" if use_chat else "/completion"
+        if i == stream_one:
+            body["stream"] = True
+            ev = http_stream(base, path, body)
+            if use_chat:
+                text = "".join(e["choices"][0]["delta"].get("content", "")
+                               for e in ev)
+            else:
+                text = "".join(e["content"] for e in ev)
+            out[i] = (text, None)
+            return
+        r = http_post(base, path, body)
+        if use_chat:
+            out[i] = (r["choices"][0]["message"]["content"],
+                      r["usage"]["completion_tokens"])
+        else:
+            out[i] = (r["content"], r["tokens_predicted"])
+
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=go, args=(i,)) for i in range(len(turns))]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(900)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in ts) or len(out) != len(turns):
+        fail(f"HTTP chats: {len(out)} of {len(turns)} answered")
+    return out, wall
+
+
+def replay(name, qp, cfg, dev, trace, counters, captured):
+    """A new ``Server(qp, cfg, n_slots=8, eos_id=Q_EOS)`` fed the ids of
+    an Engine's ``admissions`` at the same steps (so it admits and
+    decodes as that run did), eagerly or replaying CUDA graphs, every
+    counter set to 0 just before and read just after.  Returns (server,
+    {engine request id: tokens}, launches, wall seconds, the chunk
+    lengths)."""
+    from quant_gemm_tpu_torch.models import serve
+
+    with graphs(captured):
+        srv = serve.Server(qp, cfg, n_slots=8, eos_id=Q_EOS, device=dev)
+        seen = []
+        chunk = srv._chunk
+
+        def counted(tokens, t, cache):
+            seen.append(t)
+            return chunk(tokens, t, cache)
+
+        srv._chunk = counted
+        pending = sorted(trace, key=lambda e: (e[0], e[1]))
+        rids, step = {}, 0
+        zero(counters)
+        t0 = time.perf_counter()
+        while pending or srv.queue or any(srv.slots):
+            if not (srv.queue or any(srv.slots)) and pending[0][0] != step:
+                fail(f"{name}: the replay is idle before step "
+                     f"{pending[0][0]}")
+            while pending and pending[0][0] == step:
+                _, rid, prompt = pending.pop(0)
+                rids[srv.submit(prompt, max_new=Q_NEW)] = rid
+            srv.step()
+            step += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = served_launches(srv, counters)
+    del srv._chunk  # unwrapped: nothing but the caller holds the Server
+    results = {rids[r]: req.generated for r, req in srv.finished.items()}
+    return srv, results, launches, wall, seen
+
+
+def qwen_http_run(label, qp, cfg, dev, tok, md, turns, counters):
+    """Serve ``turns`` over HTTP (an Engine over the Server's defaults),
+    then the same admissions straight into the Server, eagerly and
+    captured: every HTTP transcript equals both; launches checked against
+    the route rules; the captured pair's graphs, medians and profiler
+    windows.  Then (Q4_0) a JSON-grammar request, an ``n_probs: 5``
+    request and ``/v1/embeddings`` of 4 inputs (checked afterwards by
+    ``check_qwen_extras``).  Returns (the eager replay's launches, the
+    Engine's admissions, what the extra requests answered, the
+    transcripts by engine request id)."""
+    from quant_gemm_tpu_torch.models import serve
+    from quant_gemm_tpu_torch.models.tokenizer import (encode_with_specials,
+                                                       render_chat)
+    from quant_gemm_tpu_torch.scripts import server as http
+
+    try:
+        import jinja2  # noqa: F401
+        use_chat = True
+    except ImportError:
+        use_chat = False
+        print(f"  {label}: jinja2 does not import on this machine: the chat "
+              "turns go to /completion as the ChatML text the template "
+              "renders", flush=True)
+    want_ids = []
+    for t in turns:
+        if use_chat:
+            text = render_chat(md, t)
+            if text != chatml(t):
+                fail(f"{label}: render_chat differs from ChatML")
+            want_ids.append(encode_with_specials(tok, text))
+        else:
+            want_ids.append(tok.encode(chatml(t)))
+    server = serve.Server(qp, cfg, n_slots=8, eos_id=tok.eos_id, device=dev)
+    trace = admissions(server)
+    engine = http.Engine(server, tok, md)
+    extra = {}
+    with http_server(engine) as base:
+        import urllib.request
+
+        with urllib.request.urlopen(base + "/health", timeout=60) as r:
+            if json.loads(r.read()) != {"status": "ok"}:
+                fail(f"{label}: /health is not ok")
+        answers, wall = http_chats(base, turns, use_chat)
+        trace = list(trace)
+        st = engine.server.stats()
+        if label.startswith("Q4_0"):
+            extra = qwen_extras(base, engine, qp, cfg, dev, tok)
+    # the Server's 8.4 GB of cache goes before the replays' (its wrapped
+    # methods unwrapped first, so that nothing holds it)
+    del server.submit, server.step
+    del engine, server
+    release()
+    print(f"  {label} over HTTP: {len(turns)} concurrent chat requests "
+          f"({'/v1/chat/completions' if use_chat else '/completion'}, "
+          f"request 0 streamed), prompts of "
+          f"{min(map(len, want_ids))}-{max(map(len, want_ids))} tokens, "
+          f"{st['prefill_tokens']} prefilled and "
+          f"{st['cached_prompt_tokens']} reused, {st['generated_tokens']} "
+          f"generated in {st['decode_steps']} decode steps, {wall:.2f} s "
+          f"wall; engine graphs {st['graphs']}, median decode step "
+          f"{st['decode_step_ms_median']:.3f} ms", flush=True)
+    by_prompt = {tuple(p): (s_, rid) for s_, rid, p in trace}
+    rid_of = []
+    for i, ids in enumerate(want_ids):
+        hit = by_prompt.get(tuple(ids))
+        if hit is None:
+            fail(f"{label}: request {i}'s ids differ from the server's")
+        rid_of.append(hit[1])
+    runs = {}
+    for captured in (False, True):
+        runs[captured] = replay(f"{label} replay", qp, cfg, dev, trace,
+                                counters, captured)
+    srv, results, launches, wall_e, seen = runs[False]
+    for i, (text, n) in answers.items():
+        ids = results[rid_of[i]]
+        if text != tok.decode(ids) or (n is not None and n != len(ids)):
+            fail(f"{label}: HTTP request {i} answered {n} tokens {text!r}, "
+                 f"the Server {len(ids)}: {tok.decode(ids)!r}")
+    print(f"  {label}: all {len(answers)} HTTP transcripts (the streamed "
+          "one's deltas joined) equal the Server driven with the same "
+          "admissions, eager and captured", flush=True)
+    steps = srv.stats()["decode_steps"]
+    want = route_launches(qp, steps, seen, False,
+                          FILE_MIXES[label.split()[0]]["k2"])
+    check_launches(f"{label} replay", launches, want)
+    per = {k: v // steps for k, v in want.items()
+           if k in ("norm_qkv", "gemm_exact", "gemm_exact_k16",
+                    "flash_decode")}
+    print(f"    launches {json.dumps(launches)}; per decode step "
+          f"{json.dumps(per)}; {len(seen)} prefill chunks "
+          f"({sum(t >= 64 for t in seen)} of 64 tokens or more)", flush=True)
+    captured_pair(f"{label} Server", runs[False][:4], runs[True][:4],
+                  chunk_window=True)
+    return launches, trace, extra, results
+
+
+def qwen_extras(base, engine, qp, cfg, dev, tok):
+    """The JSON-grammar request (4 new tokens, its seconds a step), the
+    ``n_probs: 5`` request (ids and top ids equal a fresh Server's), and
+    ``/v1/embeddings`` of 4 inputs (each equal to ``llama.embed`` on the
+    engine thread's inputs, run here after the server stops)."""
+    from quant_gemm_tpu_torch.models.grammar import JSON_GBNF
+
+    out = {}
+    prompt = " the reply is a json object with two keys"
+    t0 = time.perf_counter()
+    r = http_post(base, "/completion", {"prompt": prompt, "n_predict": 4,
+                                        "grammar": JSON_GBNF,
+                                        "cache_prompt": False})
+    dt = time.perf_counter() - t0
+    n = r["tokens_predicted"]
+    if not (1 <= n <= 4 and r["content"].startswith("{")):
+        fail(f"JSON grammar request: {n} tokens {r['content']!r}")
+    print(f"  JSON grammar request: {n} tokens {r['content']!r} in "
+          f"{dt:.2f} s over HTTP ({dt / n:.2f} s a token; the grammar "
+          f"filter walks all {Q_VOCAB} ids on the host)", flush=True)
+    out["grammar"] = (prompt, r["content"], n, dt)
+    prompt = " one two three four five"
+    r = http_post(base, "/completion", {"prompt": prompt, "n_predict": 4,
+                                        "n_probs": 5, "cache_prompt": False})
+    probs = r["completion_probabilities"]
+    if len(probs) != 4 or any(
+            len(p["probs"]) != 5 or p["id"] != p["probs"][0]["id"]
+            or [e["logprob"] for e in p["probs"]]
+            != sorted((e["logprob"] for e in p["probs"]), reverse=True)
+            or p["probs"][0]["logprob"] > 1e-6 for p in probs):
+        fail(f"n_probs request: malformed {probs}")
+    out["n_probs"] = (prompt, [p["id"] for p in probs],
+                      [[e["id"] for e in p["probs"]] for p in probs])
+    inputs = ["hello world", "the quick brown fox", "a json object",
+              "one two three"]
+    r = http_post(base, "/v1/embeddings", {"input": inputs})
+    vecs = [d["embedding"] for d in r["data"]]
+    if len(vecs) != 4 or any(len(v) != Q_DIM for v in vecs):
+        fail(f"/v1/embeddings: {len(vecs)} vectors")
+    out["embed"] = (inputs, vecs)
+    print(f"  n_probs request: ids {out['n_probs'][1]}, top-5 ids of the "
+          f"first token {out['n_probs'][2][0]}; /v1/embeddings: 4 vectors "
+          f"of {Q_DIM}, {r['usage']['prompt_tokens']} prompt tokens",
+          flush=True)
+    return out
+
+
+def check_qwen_extras(extra, qp, cfg, dev, tok):
+    """The n_probs request's tokens and top-5 ids against a fresh Server
+    (eager), the embeddings against ``llama.embed`` here, the grammar
+    request's tokens against a fresh Server's."""
+    from quant_gemm_tpu_torch.models import llama, serve
+    from quant_gemm_tpu_torch.models.grammar import JSON_GBNF, GrammarSampler
+
+    with graphs(False):
+        srv = serve.Server(qp, cfg, n_slots=8, eos_id=tok.eos_id, device=dev)
+        prompt, ids, tops = extra["n_probs"]
+        rid = srv.submit(tok.encode(prompt), max_new=4, n_probs=5)
+        prompt_g, text_g, n_g, _ = extra["grammar"]
+        gid = srv.submit(tok.encode(prompt_g), max_new=4,
+                         grammar=GrammarSampler(JSON_GBNF, tok))
+        srv.run_until_done()
+    r = srv.finished[rid]
+    if r.generated != ids or [[t for t, _ in p] for p in r.probs] != tops:
+        fail(f"n_probs: the Server gives {r.generated} / "
+             f"{[[t for t, _ in p] for p in r.probs]}, HTTP {ids} / {tops}")
+    g = srv.finished[gid]
+    if tok.decode(g.generated) != text_g or len(g.generated) != n_g:
+        fail(f"grammar: the Server gives {tok.decode(g.generated)!r}, HTTP "
+             f"{text_g!r}")
+    inputs, vecs = extra["embed"]
+    for text, v in zip(inputs, vecs):
+        ids = tok.encode(text)
+        width = max(-(-len(ids) // 16) * 16, 16)
+        want = llama.embed(qp, cfg, torch.tensor(
+            [ids + [0] * (width - len(ids))], device=dev),
+            lengths=torch.tensor([len(ids)], device=dev))[0]
+        got = torch.tensor(v, device=dev)
+        if not (torch.isfinite(got).all()
+                and abs(float(got.norm()) - 1.0) < 1e-3
+                and torch.equal(got, want)):
+            fail(f"embedding of {text!r} differs from llama.embed "
+                 f"(max|d| {float((got - want).abs().max()):.3e})")
+    print("  n_probs (tokens, top-5 ids), grammar (tokens) and the 4 "
+          "embeddings equal the Server / llama.embed driven directly",
+          flush=True)
+
+
+def qwen_path(dev, counters):
+    """Slice 14: the GGUF user path at Qwen2.5-1.5B width.  For each of
+    ``QWEN_MIXES``: write the file (tokenizer embedded), load it, check
+    its structure, serve chat traffic over HTTP against the Server driven
+    directly (eager and captured), the kernels against plain versions
+    layer by layer; Q4_0 also the grammar, n_probs and embeddings
+    requests, IQ4_XS again with FUSED_DECODE (K6's iq4_xs form; its
+    transcripts equal the default run's).  Returns each run's launches."""
+    from quant_gemm_tpu_torch.models import gguf_loader, llama
+    from quant_gemm_tpu_torch.models.tokenizer import tokenizer_from_gguf
+
+    t0 = time.perf_counter()
+    vocab_md = qwen_vocab()
+    tok = tokenizer_from_gguf(vocab_md)
+    turns = qwen_traffic(tok)
+    print(f"Qwen path: a byte-level BPE vocabulary of {Q_VOCAB} entries "
+          f"({len(vocab_md['tokenizer.ggml.merges'])} merges, pre qwen2) "
+          f"and 16 chat turns made in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    by_run, rng = {}, np.random.default_rng(14)
+    for seed, mix in enumerate(QWEN_MIXES):
+        held = torch.cuda.memory_allocated()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / f"qwen2.5-1.5b-{mix.lower()}-random.gguf"
+            t0 = time.perf_counter()
+            write_qwen_gguf(path, mix, dev, vocab_md, seed=20 + seed)
+            t_write = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            from quant_gemm_tpu_torch.formats.gguf_file import GGUFFile
+
+            with GGUFFile(path) as gf:
+                qp, cfg = gguf_loader.load_llama(gf, device=dev)
+                md = gf.metadata
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+            size = path.stat().st_size
+        on_card = device_bytes(qp)
+        print(f"{mix} Qwen file: {size} bytes of GGUF written in "
+              f"{t_write:.1f} s, loaded onto the card in {t_load:.1f} s, "
+              f"{on_card} bytes on the card ({on_card / size:.3f} x the "
+              f"file; {held} bytes allocated before it)", flush=True)
+        if cfg != qwen_cfg():
+            fail(f"{mix}: config from the file's metadata differs: {cfg}")
+        check_qwen_structure(mix, qp)
+        mtok = tokenizer_from_gguf(md)
+        if mtok.tokens != tok.tokens or mtok.eos_id != Q_EOS:
+            fail(f"{mix}: the file's tokenizer differs from the one written")
+        label = f"{mix} Qwen"
+        n = 16 if mix == "Q4_0" else 8
+        launches, trace, extra, default = qwen_http_run(
+            label, qp, cfg, dev, tok, md, turns[:n], counters)
+        by_run[label] = launches
+        if extra:
+            check_qwen_extras(extra, qp, cfg, dev, tok)
+        release()
+        # the layer checks on caches of 1024 rows (7.5 GB at the file's
+        # 32768 for 8 slots, and each check clones its cache)
+        short = cfg._replace(max_seq=1024)
+        toks = torch.as_tensor(rng.integers(0, Q_VOCAB, (1, 128)), device=dev)
+        cache = llama.KVCache.init(short, 1, device=dev)
+        report_cases([(f"{label} chunk 128 at pos0 0",
+                       check(qp, short, toks, cache)),
+                      (f"{label} decode step",
+                       decode_case(qp, short, rng, dev))])
+        del cache
+        release()
+        if mix == "IQ4_XS":
+            run = f"{label} FUSED_DECODE"
+            with switches(fused=True):
+                srv_f, res_f, fused, _, seen = replay(
+                    run, qp, cfg, dev, trace, counters, True)
+            if res_f != default:
+                fail(f"{run}: the transcripts differ from the default run's")
+            steps = srv_f.stats()["decode_steps"]
+            want = route_launches(qp, steps, seen, True, False)
+            check_launches(run, fused, want)
+            print(f"    {run}: per decode step K6 "
+                  f"{want['gemm_exact_fused'] // steps} (iq4_xs), K1 "
+                  f"{want['gemm_exact'] // steps} (q5_k), K7 "
+                  f"{want['gemm_exact_k16'] // steps}; all {len(res_f)} "
+                  "transcripts equal the default run's", flush=True)
+            by_run[run] = fused
+            del srv_f
+        del qp
+        release()
+    return by_run
+
+
+def slice14_kernel_rows(dev, timer, record, unfused, randn):
+    """Slice 14 at Qwen2.5-1.5B's shapes: the iq4_xs form of K1 (M = 8,
+    bit for bit ``k1_order``), K4 (M = 128, bf16 operand, two calls
+    bit-equal, beside ``torch.matmul``) and K6 (M = 8, bit for bit
+    quantize_q8_1 + K1, with degenerate blocks) at wq, wgu and w_down; q4_0
+    K1 at wo, wgu, w_down, K2 at wqkv (N 2048), K4 at the four GEMMs; K7
+    q6_K at the tied head (N 151936: bit for bit ``k1_order``, two calls
+    equal); K3 at B 8, KV 2, rep 6, hd 128 (context 512, and ragged
+    contexts up to 1000 with the Server's ``s_hi``); K5 at rep 6 (T 128
+    at pos0 0 and 384, a ragged T 80 at pos0 200).  iq4_xs weights count
+    the file's 136 bytes per 256 in bound_ms, the port's layout (q8_0's
+    with f32 scales) beside."""
+    from quant_gemm_tpu_torch.formats import kquants
+    from quant_gemm_tpu_torch.formats.quant import quantize_q4_0, quantize_q8_1
+    from quant_gemm_tpu_torch.kernels import layout
+    from quant_gemm_tpu_torch.kernels.gemm_dequant import (
+        gemm_dequant, gemm_dequant_plain)
+    from quant_gemm_tpu_torch.kernels.gemm_exact import (
+        gemm_exact, gemm_exact_fused, gemm_exact_fused_plain,
+        gemm_exact_plain, k1_order)
+    from quant_gemm_tpu_torch.kernels.gemm_exact_k16 import (
+        gemm_exact_k16, gemm_exact_k16_plain, k16_block_terms)
+    from quant_gemm_tpu_torch.kernels.gemm_megalayer import (
+        norm_qkv, norm_qkv_plain)
+    from quant_gemm_tpu_torch.kernels.registry import fold_q8_1
+    from quant_gemm_tpu_torch.ops.attention import (
+        decode_s_hi, flash_decode, flash_decode_plain, flash_prefill,
+        flash_prefill_plain)
+
+    g = torch.Generator(device=dev).manual_seed(1414)
+    shapes = {"wqkv": ((Q_HEADS + 2 * Q_KV) * Q_HD, Q_DIM),
+              "wq, wo": (Q_DIM, Q_DIM), "wgu": (2 * Q_D_FF, Q_DIM),
+              "w_down": (Q_DIM, Q_D_FF)}
+
+    def iq4_xs(n, k):
+        return layout.prepare(kquants.from_bytes_iq4_xs(
+            kquants.random_iq4("iq4_xs", n, k, k ** -0.5, g)))
+
+    def iq4_bytes(n, k):  # the file's, and the port layout's
+        return n * k // 256 * 136, n * k + n * (k // 32) * 4
+
+    m = 8
+    xs = {name: iq4_xs(*shapes[name]) for name in ("wq, wo", "wgu",
+                                                   "w_down")}
+    for name, w in xs.items():
+        a = quantize_q8_1(randn(m, w.k))
+        got, ref = gemm_exact(w, a), gemm_exact_plain(w, a)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        tol = 1e-5 * ref.abs().max().item()
+        if not err <= tol:
+            fail(f"K1 gemm_exact iq4_xs {name}: max|err| {err} > {tol}")
+        k1_bits(f"iq4_xs {name}", w, a, got)
+        act = m * w.k + 2 * m * (w.k // 32) * 2 + m * w.n * 4
+        ops = 2 * m * w.n * w.k
+        fb, lb = iq4_bytes(w.n, w.k)
+        record("gemm_exact", f"iq4_xs Qwen {name} M={m} N={w.n} K={w.k}",
+               err, f"max|err| <= {tol:.3e}, == k1_order bit for bit",
+               timer(lambda: gemm_exact(w, a)),
+               timer(lambda: gemm_exact_plain(w, a), reps=5),
+               bound(fb + act, ops, "int8"), None, main=False,
+               layout_bnd=bound(lb + act, ops, "int8"))
+    for name, w in xs.items():
+        x = randn(m, w.k)
+        odd = x.clone()
+        odd[0, :32], odd[-1, 32:64], odd[m // 2, 64:96] = 0.0, 7e8, -7e8
+        for xx in (odd, x):
+            got = gemm_exact_fused(w, xx)
+            want = gemm_exact(w, quantize_q8_1(xx))
+            ref = gemm_exact_fused_plain(w, xx)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"K6 gemm_exact_fused iq4_xs {name}: differs from "
+                     "quantize_q8_1 + K1")
+            err = (got - ref).abs().max().item()
+            tol = 1e-5 * ref.abs().max().item()
+            if not err <= tol:
+                fail(f"K6 gemm_exact_fused iq4_xs {name}: max|err| {err} > "
+                     f"{tol}")
+        act = m * w.k * 4 + m * w.n * 4
+        ops = 2 * m * w.n * w.k
+        fb, lb = iq4_bytes(w.n, w.k)
+        record("gemm_exact_fused", f"iq4_xs Qwen {name} M={m} N={w.n} "
+               f"K={w.k}", err, f"== quantize_q8_1 + K1, max|err| <= "
+               f"{tol:.3e}", timer(lambda: gemm_exact_fused(w, x)),
+               timer(lambda: gemm_exact_fused_plain(w, x), reps=5),
+               bound(fb + act, ops, "int8"), None, main=False,
+               layout_bnd=bound(lb + act, ops, "int8"))
+        a = quantize_q8_1(x)
+        unfused("quantize_q8_1 + K1",
+                timer(lambda: gemm_exact(w, quantize_q8_1(x))))
+        unfused("the same codes", timer(lambda: gemm_exact(w, a)), "k1_ms")
+    m = 128
+    for name, w in xs.items():
+        a = fold_q8_1(quantize_q8_1(randn(m, w.k)))
+        got, ref = gemm_dequant(w, a), gemm_dequant_plain(w, a)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        e = nmse(got, ref)
+        tol = 1e-5 * ref.abs().max().item()
+        if not (e <= 1e-4 and err <= tol):
+            fail(f"K4 gemm_dequant iq4_xs {name}: NMSE {e} > 1e-4 or "
+                 f"max|err| {err} > {tol}")
+        same_bits(f"K4 gemm_dequant iq4_xs {name}", got,
+                  lambda: gemm_dequant(w, a))
+        wb = layout.dequantize(w, torch.bfloat16)
+        act = m * w.k * 2 + m * w.n * 4
+        ops = 2 * m * w.n * w.k
+        fb, lb = iq4_bytes(w.n, w.k)
+        record("gemm_dequant", f"iq4_xs Qwen {name} M={m} N={w.n} K={w.k}",
+               err, f"NMSE {e:.3e} <= 1e-4, max|err| <= {tol:.3e}",
+               timer(lambda: gemm_dequant(w, a)),
+               timer(lambda: gemm_dequant_plain(w, a), reps=5),
+               bound(fb + act, ops, "bf16"),
+               timer(lambda: torch.matmul(a, wb.T)), main=False,
+               layout_bnd=bound(lb + act, ops, "bf16"))
+    del xs, wb
+
+    # the Q4_0 file's GEMMs
+    def q4(n, k):
+        return layout.prepare(quantize_q4_0(randn(n, k, scale=k ** -0.5)))
+
+    q4w = {name: q4(*shape) for name, shape in shapes.items()}
+    m = 8
+    for name in ("wq, wo", "wgu", "w_down"):
+        w = q4w[name]
+        a = quantize_q8_1(randn(m, w.k))
+        got, ref = gemm_exact(w, a), gemm_exact_plain(w, a)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        tol = 1e-4 * ref.abs().max().item()
+        if not err <= tol:
+            fail(f"K1 gemm_exact q4_0 Qwen {name}: max|err| {err} > {tol}")
+        k1_bits(f"q4_0 Qwen {name}", w, a, got)
+        nbytes = q4_bytes(w.n, w.k) + m * w.k + 2 * m * (w.k // 32) * 2 \
+            + m * w.n * 4
+        record("gemm_exact", f"q4_0 Qwen {name} M={m} N={w.n} K={w.k}", err,
+               f"max|err| <= {tol:.3e}, == k1_order bit for bit",
+               timer(lambda: gemm_exact(w, a)),
+               timer(lambda: gemm_exact_plain(w, a), reps=5),
+               bound(nbytes, 2 * m * w.n * w.k, "int8"), None, main=False)
+    w = q4w["wqkv"]
+    x = randn(m, w.k, scale=3.0)
+    nw = 1.0 + 0.1 * randn(w.k)
+    got, ref = norm_qkv(w, x, nw, Q_EPS), norm_qkv_plain(w, x, nw, Q_EPS)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    tol = 2e-3 * ref.abs().max().item()
+    if not err <= tol:
+        fail(f"K2 norm_qkv q4_0 Qwen wqkv: max|err| {err} > {tol}")
+    k2_bits("q4_0 Qwen wqkv", w, dev)
+    nbytes = q4_bytes(w.n, w.k) + m * w.k * 4 + w.k * 4 + m * w.n * 4
+    record("norm_qkv", f"q4_0 Qwen wqkv M={m} N={w.n} K={w.k}", err,
+           f"max|err| <= {tol:.3e}, == quantize_q8_1 + K1 on exact rows",
+           timer(lambda: norm_qkv(w, x, nw, Q_EPS)),
+           timer(lambda: norm_qkv_plain(w, x, nw, Q_EPS), reps=5),
+           bound(nbytes, 2 * m * w.n * w.k, "int8"), None, main=False)
+    m = 128
+    for name, w in q4w.items():
+        a = fold_q8_1(quantize_q8_1(randn(m, w.k)))
+        got, ref = gemm_dequant(w, a), gemm_dequant_plain(w, a)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        e = nmse(got, ref)
+        if not e <= 1e-4:
+            fail(f"K4 gemm_dequant q4_0 Qwen {name}: NMSE {e} > 1e-4")
+        same_bits(f"K4 gemm_dequant q4_0 Qwen {name}", got,
+                  lambda: gemm_dequant(w, a))
+        wb = layout.dequantize(w, torch.bfloat16)
+        nbytes = q4_bytes(w.n, w.k) + m * w.k * 2 + m * w.n * 4
+        record("gemm_dequant", f"q4_0 Qwen {name} M={m} N={w.n} K={w.k}",
+               err, f"NMSE {e:.3e} <= 1e-4",
+               timer(lambda: gemm_dequant(w, a)),
+               timer(lambda: gemm_dequant_plain(w, a), reps=5),
+               bound(nbytes, 2 * m * w.n * w.k, "bf16"),
+               timer(lambda: torch.matmul(a, wb.T)), main=False)
+    del q4w, wb
+
+    # K7: the tied q6_K head, N 151936 (a multiple of 128, not of 256)
+    m, n, k = 8, Q_VOCAB, Q_DIM
+    w = layout.prepare_k16(kquants.random_blocks("q6_K", n, k, 0.02, g))
+    a = quantize_q8_1(randn(m, k))
+    got, ref = gemm_exact_k16(w, a), gemm_exact_k16_plain(w, a)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    tol = 1e-5 * ref.abs().max().item()
+    if not err <= tol:
+        fail(f"K7 gemm_exact_k16 q6_K Qwen head: max|err| {err} > {tol}")
+    if not torch.equal(got, k1_order(k16_block_terms(w, a))):
+        fail("K7 gemm_exact_k16 q6_K Qwen head: differs from k1_order of "
+             "its block terms")
+    same_bits("K7 gemm_exact_k16 q6_K Qwen head", got,
+              lambda: gemm_exact_k16(w, a))
+    act = m * k + m * (k // 32) * 2 + m * n * 4
+    record("gemm_exact_k16", f"q6_K Qwen tied head M={m} N={n} K={k}", err,
+           f"max|err| <= {tol:.3e}, == k1_order bit for bit, two calls "
+           "bit-equal", timer(lambda: gemm_exact_k16(w, a)),
+           timer(lambda: gemm_exact_k16_plain(w, a), reps=5),
+           bound(kq_bytes("q6_K", n, k) + act, 2 * m * n * k, "int8"),
+           None, main=False,
+           layout_bnd=bound(k16_layout_bytes(w) + act, 2 * m * n * k,
+                            "int8"))
+    del w
+
+    # K3 / K5 at KV 2, rep 6, hd 128 (16 query rows a block: 10 padded)
+    b, s, nl, layer = 8, 2048, 4, 2
+    shape = (nl, b, Q_KV, s, Q_HD)
+    kc = randn(*shape).to(torch.bfloat16)
+    vc = randn(*shape).to(torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    span = torch.arange(s, device=dev)
+    q = randn(b, Q_KV, Q_REP, Q_HD)
+    kcur = randn(b, Q_KV, 1, Q_HD).to(torch.bfloat16)
+    vcur = randn(b, Q_KV, 1, Q_HD).to(torch.bfloat16)
+    for label, ctxs in (("ctx 512", [512] * b),
+                        ("ragged ctx", [900, 17, 512, 300, 64, 1000, 5,
+                                        777])):
+        pos = torch.tensor(ctxs, dtype=torch.int32, device=dev)
+        s_hi = decode_s_hi(max(ctxs))
+        kw = dict(k_current=kcur, v_current=vcur, layer=layer, s_hi=s_hi)
+        got = flash_decode(q, kc, vc, pos, **kw)
+        ns = flash_decode.last_pieces
+        ref = flash_decode_plain(q, kc, vc, pos, **kw)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        if not err <= 2e-3:
+            fail(f"K3 flash_decode Qwen {label}: max|err| {err} > 2e-3")
+        same_bits(f"K3 flash_decode Qwen {label}", got,
+                  lambda: flash_decode(q, kc, vc, pos, **kw))
+        seen = sum(ctxs)
+        nbytes = 2 * Q_KV * seen * Q_HD * 2 + 2 * b * Q_KV * Q_HD * 2 \
+            + 2 * b * Q_HEADS * Q_HD * 4 + b * 4
+        ops = 4 * Q_HEADS * Q_HD * (seen + b)
+        kl, vl = kc[layer].clone(), vc[layer].clone()
+        bidx = torch.arange(b, device=dev)
+        kl[bidx, :, pos.long()] = kcur[:, :, 0]
+        vl[bidx, :, pos.long()] = vcur[:, :, 0]
+        qh = q.reshape(b, Q_HEADS, 1, Q_HD).to(torch.bfloat16)
+        mask = (span[None, :] <= pos[:, None].long())[:, None, None, :]
+        lib = sdpa(qh, kl, vl, attn_mask=mask, enable_gqa=True)
+        lib_err = (lib.float().reshape(got.shape) - ref).abs().max().item()
+        if not lib_err <= 2e-2:
+            fail(f"K3 yardstick SDPA disagrees: {lib_err}")
+        record("flash_decode", f"bf16 Qwen {label} B={b} KV={Q_KV} "
+               f"rep={Q_REP} hd={Q_HD} S={s} s_hi={s_hi} ns={ns}", err,
+               "max|err| <= 2e-3, two calls bit-equal",
+               timer(lambda: flash_decode(q, kc, vc, pos, **kw)),
+               timer(lambda: flash_decode_plain(q, kc, vc, pos, **kw),
+                     reps=5),
+               bound(nbytes, ops, "bf16"),
+               timer(lambda: sdpa(qh, kl, vl, attn_mask=mask,
+                                  enable_gqa=True)), main=False)
+    slot = 3
+    view = slice(slot, slot + 1)
+    k1v, v1v = kc[:, view], vc[:, view]
+    for t5, p0 in ((128, 0), (128, 384), (80, 200)):
+        q5 = randn(1, Q_KV, t5 * Q_REP, Q_HD)
+        kw = dict(rep=Q_REP, layer=layer)
+        pos0 = torch.tensor([p0], dtype=torch.int32, device=dev)
+        got = flash_prefill(q5, k1v, v1v, pos0, **kw)
+        ref = flash_prefill_plain(q5, k1v, v1v, pos0, **kw)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        if not err <= 2e-3:
+            fail(f"K5 flash_prefill Qwen T={t5} pos0={p0}: max|err| {err} "
+                 "> 2e-3")
+        same_bits(f"K5 flash_prefill Qwen T={t5} pos0={p0}", got,
+                  lambda: flash_prefill(q5, k1v, v1v, pos0, **kw))
+        qpos = p0 + np.arange(t5)
+        nbytes = 2 * q5.numel() * 4 + 4 + 2 * Q_KV * (p0 + t5) * Q_HD * 2
+        ops = 4 * Q_HEADS * Q_HD * int((qpos + 1).sum())
+        qh = (q5.reshape(1, Q_KV, t5, Q_REP, Q_HD).transpose(2, 3)
+              .reshape(1, Q_HEADS, t5, Q_HD).to(torch.bfloat16))
+        kl, vl = k1v[layer], v1v[layer]
+        keep = span[None, :] <= torch.as_tensor(qpos, device=dev)[:, None]
+        lib = sdpa(qh, kl, vl, attn_mask=keep, enable_gqa=True)
+        lib = (lib.float().reshape(1, Q_KV, Q_REP, t5, Q_HD)
+               .transpose(2, 3).reshape(got.shape))
+        lib_err = (lib - ref).abs().max().item()
+        if not lib_err <= 2e-2:
+            fail(f"K5 yardstick SDPA disagrees: {lib_err}")
+        record("flash_prefill", f"bf16 Qwen B=1 KV={Q_KV} rep={Q_REP} "
+               f"hd={Q_HD} S={s} T={t5} pos0={p0}", err, "max|err| <= 2e-3, "
+               "two calls bit-equal",
+               timer(lambda: flash_prefill(q5, k1v, v1v, pos0, **kw)),
+               timer(lambda: flash_prefill_plain(q5, k1v, v1v, pos0, **kw),
+                     reps=5),
+               bound(nbytes, ops, "bf16"),
+               timer(lambda: sdpa(qh, kl, vl, attn_mask=keep,
+                                  enable_gqa=True)), main=False)
+
+
 KERNEL_INFO = {
     "gemm_exact": ("quant_gemm_tpu_torch/csrc/gemm_exact.cu",
                    "quant_gemm_tpu/kernels/gemm_exact.py:775"),
@@ -2776,6 +3765,9 @@ def main() -> int:
     print("spec phase:", flush=True)
     by_run[RUN_SPEC] = spec_phase(dev, counters)
     phase_done("spec phase")
+    torch.cuda.empty_cache()
+    by_run.update(qwen_path(dev, counters))
+    phase_done("GGUF user path (slice 14, Qwen2.5-1.5B width)")
 
     kernels = []
     for name, (src, rep) in KERNEL_INFO.items():

@@ -1,6 +1,7 @@
 // Shared device code of the port's per-32 kernels (k1.cuh and the
 // kernels on it, gemm_dequant.cu): the in-kernel Q8_1 quantizer, the
-// per-32 weight formats (q4_0, q4_1, q5_0, q5_1, q8_0, q4_k, q5_k: their
+// per-32 weight formats (q4_0, q4_1, q5_0, q5_1, q8_0, q4_k, q5_k,
+// iq4_xs: their
 // scale planes, the golden's epilogue on an exact dot with Q8_1 codes,
 // K4's dequantized values), and the warp count of K1's summation order
 // (k1_warps).  Plain C interface, no PyTorch headers.
@@ -301,8 +302,12 @@ using Q5_0W = Q5W<false>;
 using Q5_1W = Q5W<true>;
 using Q5_KW = Q5W<true, float>;
 
-struct Q8_0W {  // int8 codes [N, nb*32], d f16 [N, nb]: d_w * d_a * sumi
-  const __half* d;
+// q8_0: int8 codes [N, nb*32], d f16 [N, nb]; iq4_xs (an IQ4_XS tensor in
+// its effective form): the int8 codebook values [N, nb*32], d f32 [N, nb]
+// (the per-32 d * (sc - 32)).  Both d_w * d_a * sumi.
+template <typename S = __half>
+struct Q8W {
+  const S* d;
   __device__ __forceinline__ static void codes8(const uint8_t* wq,
                                                 size_t blk, int qtr,
                                                 int (&q)[8]) {
@@ -315,7 +320,7 @@ struct Q8_0W {  // int8 codes [N, nb*32], d f16 [N, nb]: d_w * d_a * sumi
     }
   }
   __device__ __forceinline__ float2 scales(size_t i) const {
-    return make_float2(__half2float(d[i]), 0.0f);
+    return make_float2(to_f32(d[i]), 0.0f);
   }
   __device__ __forceinline__ static float term(float2 w, float da, float sa,
                                                int sumi) {
@@ -324,6 +329,8 @@ struct Q8_0W {  // int8 codes [N, nb*32], d f16 [N, nb]: d_w * d_a * sumi
   static constexpr bool MIN = false;
   static constexpr float OFF = 0.0f;
 };
+using Q8_0W = Q8W<>;
+using IQ4_XSW = Q8W<float>;
 
 // K4: block b of weight row `row`, dequantized values 4 qtr .. +3 and
 // 16 + 4 qtr .. +3 of the block into v (see values8).

@@ -1,10 +1,11 @@
 // K4: dequant GEMM for prefill, bf16 or float32 activations x per-32
-// weights (q4_0, q4_1, q5_0, q5_1, q8_0, q4_k, q5_k), optionally with the
-// activation fake-quantized per 32-block (fused_quant).
+// weights (q4_0, q4_1, q5_0, q5_1, q8_0, q4_k, q5_k, iq4_xs), optionally
+// with the activation fake-quantized per 32-block (fused_quant).
 //
 // Replaces the Pallas kernel quant_gemm_tpu/kernels/gemm_pallas.py::gemm
 // (bodies _kernel_w4 and, for q8_0, _kernel_w8).  C[M, N] = A[M, K] @
-// W[N, K]^T with W = (q - 8) d (q4_0), (q - 16) d (q5_0), q d (q8_0) or
+// W[N, K]^T with W = (q - 8) d (q4_0), (q - 16) d (q5_0), q d (q8_0, and
+// iq4_xs with an IQ4_XS tensor's int8 codebook values and f32 d) or
 // q d + m (q4_1, q5_1, and q4_k / q5_k with a q4_K / q5_K tensor's
 // effective f32 scale and min: the has_min branch of _kernel_w4); the
 // 5-bit codes take their fifth bit from the block's qh word (_kernel_w4's
@@ -144,8 +145,8 @@ struct TcFmt {
   static constexpr int BYTES = 16;
   static constexpr bool QH = false;
 };
-template <>
-struct TcFmt<qgt::Q8_0W> {
+template <typename S>
+struct TcFmt<qgt::Q8W<S>> {
   static constexpr int BYTES = 32;
   static constexpr bool QH = false;
 };
@@ -653,6 +654,15 @@ QGT_EXPORT int qgt_gemm_dequant_q8_0(const void* a, int a_f32, int fq,
                                      const void* wq, const void* wd,
                                      QGT_K4_ARGS) {
   return launch(a, a_f32, fq, wq, qgt::Q8_0W{h(wd)}, QGT_K4_PASS);
+}
+
+// iq4_xs: W's codebook values int8 [N, K] (q8_0's layout), d f32 [N,
+// K/32] (the per-32 d * (sc - 32) of an IQ4_XS tensor).
+QGT_EXPORT int qgt_gemm_dequant_iq4_xs(const void* a, int a_f32, int fq,
+                                       const void* wq, const void* wd,
+                                       QGT_K4_ARGS) {
+  return launch(a, a_f32, fq, wq,
+                qgt::IQ4_XSW{static_cast<const float*>(wd)}, QGT_K4_PASS);
 }
 
 QGT_EXPORT int qgt_gemm_dequant_q4_k(const void* a, int a_f32, int fq,

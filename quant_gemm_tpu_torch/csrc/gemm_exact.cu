@@ -1,5 +1,5 @@
 // K1: exact WxA8 decode GEMM, per-32 weights (q4_0, q4_1, q5_0, q5_1,
-// q8_0, q4_k, q5_k) x Q8_1 activations, M <= 12.
+// q8_0, q4_k, q5_k, iq4_xs) x Q8_1 activations, M <= 12.
 //
 // Replaces the Pallas kernel quant_gemm_tpu/kernels/gemm_exact.py::
 // gemm_exact (bodies _kernel and, for q8_0, _kernel_w8).  C[m, n] =
@@ -8,7 +8,8 @@
 // signed bytes) and term_b the golden's per-format epilogue
 // (ref/gemm.py::gemm_wxa8): q4_0 d_w(d_a sumi - 8 s_a), q5_0 d_w(d_a sumi
 // - 16 s_a), q4_1 / q5_1 / q4_k / q5_k (a q4_K or q5_K tensor's effective
-// q4_1 or q5_1 form) d_w d_a sumi + m_w s_a, q8_0 d_w d_a sumi, each step
+// q4_1 or q5_1 form) d_w d_a sumi + m_w s_a, q8_0 and iq4_xs (an IQ4_XS
+// tensor's int8 codebook values with f32 per-32 scales) d_w d_a sumi, each step
 // rounded on its own (common.cuh's W::term); the terms are summed in
 // float32, as the TPU kernel sums them.
 //
@@ -23,7 +24,8 @@
 // Bound on an H100: bytes.  At M <= 12 the weight stream (per 32 weights:
 // 16 code bytes + 2 d bytes for q4_0, + 2 m for q4_1, + 4 qh for q5_0, +
 // 6 for q5_1, 32 + 2 for q8_0, 16 + 8 f32 d' and m' bytes for q4_k, 16 +
-// 4 + 8 for q5_k) is everything; the activations are a few KB.  Design:
+// 4 + 8 for q5_k, 32 + 4 for iq4_xs) is everything; the activations are
+// a few KB.  Design:
 // k1.cuh's body (one int8 mma.sync m16n8k32 per 32-block, the order
 // replayed in registers, a persistent grid streaming chunks of 32 blocks
 // through a cp.async ring), with the Q8_1 codes and scales STREAMED from
@@ -122,6 +124,16 @@ QGT_EXPORT int qgt_gemm_exact_q8_0(const void* wq, const void* wd,
                                    int K, void* stream) {
   return launch<qgt::Q8_0W>(wq, wd, nullptr, nullptr, qa, da, sa, out, M, N,
                             K, stream);
+}
+
+// out f32 [M, N] = iq4_xs W [N, K] (codebook values int8 [N, K], the
+//                  per-32 d * (sc - 32) f32 [N, K/32]) x Q8_1 A [M, K].
+QGT_EXPORT int qgt_gemm_exact_iq4_xs(const void* wq, const void* wd,
+                                     const void* qa, const void* da,
+                                     const void* sa, void* out, int M, int N,
+                                     int K, void* stream) {
+  return launch<qgt::IQ4_XSW>(wq, wd, nullptr, nullptr, qa, da, sa, out, M,
+                              N, K, stream);
 }
 
 // out f32 [M, N] = q4_k W [N, K] (qs uint8 [N, K/2], effective d', m' f32

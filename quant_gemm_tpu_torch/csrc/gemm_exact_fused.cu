@@ -1,7 +1,7 @@
 // K6: exact WxA8 decode GEMM with the Q8_1 quantization of the float
 // activation inside the kernel, M <= 12, for the per-32 weights without a
-// qh plane: q4_0, q4_1, q4_k and q8_0 (the JAX dispatch keeps the q5
-// forms on quantize + K1).
+// qh plane: q4_0, q4_1, q4_k, q8_0 and iq4_xs (the JAX dispatch keeps
+// the q5 forms on quantize + K1).
 //
 // Replaces the Pallas kernel quant_gemm_tpu/kernels/gemm_exact.py::
 // gemm_exact_fused (bodies _kernel_fused and, for q8_0, _kernel_w8_fused).
@@ -104,4 +104,11 @@ QGT_EXPORT int qgt_gemm_exact_fused_q8_0(const void* wq, const void* wd,
                                          const void* x, void* out, int M,
                                          int N, int K, void* stream) {
   return launch<qgt::Q8_0W>(wq, wd, nullptr, x, out, M, N, K, stream);
+}
+
+// The same for iq4_xs W (codebook values int8 [N, K], d f32 [N, K/32]).
+QGT_EXPORT int qgt_gemm_exact_fused_iq4_xs(const void* wq, const void* wd,
+                                           const void* x, void* out, int M,
+                                           int N, int K, void* stream) {
+  return launch<qgt::IQ4_XSW>(wq, wd, nullptr, x, out, M, N, K, stream);
 }

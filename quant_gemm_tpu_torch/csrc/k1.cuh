@@ -151,8 +151,8 @@ template <>
 struct Fmt<Q4_KW> : Fmt32<float, 16, true, false> {};
 template <bool MIN, typename T>
 struct Fmt<Q5W<MIN, T>> : Fmt32<T, 16, MIN, true> {};
-template <>
-struct Fmt<Q8_0W> : Fmt32<__half, 32, false, false> {};
+template <typename T>
+struct Fmt<Q8W<T>> : Fmt32<T, 32, false, false> {};
 template <bool MIN>
 struct Fmt<K16W<MIN>> {
   using S = __half;

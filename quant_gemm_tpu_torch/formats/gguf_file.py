@@ -14,8 +14,11 @@ containers:
 
 Types read and written: f32, f16, q4_0, q4_1, q5_0, q5_1, q8_0
 (:mod:`.blocks` containers) and q4_K, q5_K, q6_K, q2_K, q3_K
-(:mod:`.kquants`).  The other ggml types of the table (q8_1, iq4_nl,
-iq4_xs) raise ``NotImplementedError`` with the type's name.
+(:mod:`.kquants`); iq4_nl and iq4_xs tensors are read (into a
+``Q8_0Tensor`` and a ``kquants.EffectiveQ80``, as the JAX package reads
+them) and written from their bytes (:class:`RawTensor`).  q8_1, the
+other ggml type of the table, raises ``NotImplementedError`` with its
+name.
 """
 
 from __future__ import annotations
@@ -45,6 +48,8 @@ GGML_IDS = {v: k for k, v in GGML_TYPES.items()}
 #: bytes per block and elements per block of the types this module reads
 _BLOCK = {"f32": (4, 1), "f16": (2, 1), "q4_0": (18, QK), "q4_1": (20, QK),
           "q5_0": (22, QK), "q5_1": (24, QK), "q8_0": (34, QK),
+          "iq4_nl": (kquants.IQ4_NL_BLOCK_BYTES, QK),
+          "iq4_xs": (kquants.IQ4_XS_BLOCK_BYTES, kquants.QK_K),
           **{n: (c[0], kquants.QK_K) for n, c in kquants.CODECS.items()}}
 
 # GGUF metadata value types
@@ -194,6 +199,8 @@ def _q8_0_to_bytes(t: Q8_0Tensor) -> torch.Tensor:
 
 
 _DECODE = {"q8_0": _q8_0_from_bytes,
+           "iq4_nl": kquants.from_bytes_iq4_nl,
+           "iq4_xs": kquants.from_bytes_iq4_xs,
            **{qt: functools.partial(_per32_from_bytes, qt) for qt in _PER32},
            **{n: c[1] for n, c in kquants.CODECS.items()}}
 _ENCODE = {"q8_0": _q8_0_to_bytes,
@@ -264,7 +271,8 @@ class GGUFFile:
     def load(self, name: str, device="cuda"):
         """One tensor on ``device``: a float tensor (f32/f16) or a block
         container (q4_0, q4_1, q5_0, q5_1, q8_0, q4_K, q5_K, q6_K, q2_K,
-        q3_K), decoded there."""
+        q3_K; iq4_nl as a Q8_0Tensor, iq4_xs as a ``kquants.
+        EffectiveQ80``), decoded there."""
         info = self.tensors[name]
         shape, qt = info["shape"], info["qtype"]
         _readable(qt)
@@ -279,8 +287,28 @@ class GGUFFile:
         return _DECODE[qt](buf.reshape(shape[0], shape[1] // per, nbytes))
 
 
+class RawTensor:
+    """A tensor's serialized ggml blocks for :func:`write_gguf`, written
+    verbatim: ``data`` the payload (bytes, or a uint8 tensor on any
+    device) of ``qtype`` blocks for a tensor of ``shape`` (the JAX
+    package's ``RawTensor``; how the port writes iq4_nl / iq4_xs)."""
+
+    def __init__(self, qtype: str, shape: tuple, data):
+        if qtype not in GGML_IDS:
+            raise ValueError(f"unknown ggml type {qtype!r}")
+        self.qtype, self.shape = qtype, tuple(shape)
+        self.data = (data if isinstance(data, torch.Tensor)
+                     else torch.frombuffer(bytearray(data), dtype=torch.uint8))
+        want = tensor_nbytes(qtype, int(np.prod(self.shape)))
+        if self.data.numel() != want:
+            raise ValueError(f"{qtype} {self.shape} takes {want} bytes, got "
+                             f"{self.data.numel()}")
+
+
 def _info(t):
     """(GGUF type, shape) of one tensor to write."""
+    if isinstance(t, RawTensor):
+        return t.qtype, t.shape
     if isinstance(t, torch.Tensor):
         qt = {torch.float32: "f32", torch.float16: "f16"}.get(t.dtype)
         if qt is None:
@@ -297,8 +325,12 @@ def _info(t):
 
 def _encode(t, qt: str) -> np.ndarray:
     """The serialized bytes of one tensor (encoded on its device)."""
-    data = (t.contiguous().view(torch.uint8) if isinstance(t, torch.Tensor)
-            else _ENCODE[qt](t))
+    if isinstance(t, RawTensor):
+        data = t.data
+    elif isinstance(t, torch.Tensor):
+        data = t.contiguous().view(torch.uint8)
+    else:
+        data = _ENCODE[qt](t)
     return data.cpu().contiguous().numpy()
 
 
@@ -308,8 +340,8 @@ def write_gguf(path, tensors: dict, metadata: dict | None = None) -> None:
     ``tensors``: {name: float32/float16 tensor | a per-32 container
     (Q4_0Tensor, Q4_1Tensor, Q5_0Tensor, Q5_1Tensor, Q8_0Tensor) | a
     K-quant container (Q4_KTensor, Q5_KTensor, Q6_KTensor, Q2_KTensor,
-    Q3_KTensor)} of torch tensors on any device; each is encoded on its
-    device and written in turn."""
+    Q3_KTensor) | a :class:`RawTensor`} of torch tensors on any device;
+    each is encoded on its device and written in turn."""
     metadata = dict(metadata or {})
     metadata.setdefault("general.alignment", DEFAULT_ALIGNMENT)
     align = int(metadata["general.alignment"])
@@ -343,4 +375,5 @@ def write_gguf(path, tensors: dict, metadata: dict | None = None) -> None:
             f.write(b"\0" * (padded(data.nbytes) - data.nbytes))
 
 
-__all__ = ["GGUFFile", "write_gguf", "GGML_TYPES", "tensor_nbytes"]
+__all__ = ["GGUFFile", "write_gguf", "RawTensor", "GGML_TYPES",
+           "tensor_nbytes"]

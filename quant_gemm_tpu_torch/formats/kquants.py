@@ -1,5 +1,6 @@
 """llama.cpp K-quant super-blocks (256 elements): q4_K, q5_K, q6_K, q2_K,
-q3_K.
+q3_K; and the non-linear IQ4_NL / IQ4_XS blocks (read, encoded, served
+on the q8_0 path; see the IQ4 section below).
 
 Torch twins of the JAX package's ``formats/kquants.py`` containers and
 byte codecs, written as tensor operations so that a model file decodes on
@@ -771,6 +772,152 @@ def random_blocks(qtype: str, n: int, k: int, std: float,
     raise NotImplementedError(f"random_blocks: {qtype} is not ported")
 
 
+# IQ4_NL (block_iq4_nl, 18 bytes per 32 elements) and IQ4_XS
+# (block_iq4_xs, 136 bytes per 256): llama.cpp's non-linear 4-bit
+# formats, x = d * KVALUES_IQ4NL[q] (IQ4_NL) and x = d * (sc - 32) *
+# KVALUES_IQ4NL[q] per 32-element sub-block (IQ4_XS, 6-bit sub-scales).
+# The codebook holds int8 values, so both serve on the q8_0 path as the
+# JAX package serves them: an IQ4_NL tensor decodes to a Q8_0Tensor (its
+# f16 d verbatim), an IQ4_XS tensor to an :class:`EffectiveQ80` (int8
+# codebook values and the float32 per-32 scales d * (sc - 32), which f16
+# cannot hold), K1/K4/K6's ``iq4_xs`` form.
+
+IQ4_NL_BLOCK_BYTES = 18
+IQ4_XS_BLOCK_BYTES = 136  # 2 d + 2 scales_h + 4 scales_l + 128 qs
+KVALUES_IQ4NL = (-127, -104, -83, -65, -49, -35, -22, -10, 1, 13, 25, 38,
+                 53, 69, 89, 113)
+
+
+class EffectiveQ80(NamedTuple):
+    """q8_0-shaped view of an IQ4_XS tensor with float32 per-32 scales:
+    ``x = qs * d``."""
+
+    qs: torch.Tensor  # int8 [N, K] codebook values
+    d: torch.Tensor  # f32 [N, K/32] effective scales d * (sc - 32)
+
+    qtype = "iq4_xs"
+
+    @property
+    def k(self) -> int:
+        return self.qs.shape[-1]
+
+
+def _kvalues(q: torch.Tensor) -> torch.Tensor:
+    """Codebook values of the 4-bit indices ``q`` (uint8) as int8."""
+    lut = torch.tensor(KVALUES_IQ4NL, dtype=torch.int8, device=q.device)
+    return lut[q.to(torch.int64)]
+
+
+def _iq4_codes(qs: torch.Tensor) -> torch.Tensor:
+    """u8 [..., 16] block bytes -> int8 [..., 32] values: byte j holds
+    element j (low nibble) and j + 16 (high)."""
+    return torch.cat([_kvalues(qs & 0xF), _kvalues(qs >> 4)], dim=-1)
+
+
+def from_bytes_iq4_nl(raw: torch.Tensor):
+    """AoS uint8 [N, K/32, 18] -> Q8_0Tensor of codebook values (``q * d``
+    is llama.cpp's ``dequantize_row_iq4_nl``)."""
+    from .blocks import Q8_0Tensor
+
+    n, nb, bb = raw.shape
+    if bb != IQ4_NL_BLOCK_BYTES:
+        raise ValueError(f"iq4_nl blocks are {IQ4_NL_BLOCK_BYTES} bytes, "
+                         f"got {bb}")
+    codes = _iq4_codes(raw[:, :, 2:18]).reshape(n, nb * QK)
+    return Q8_0Tensor(codes, _f16(raw, 0))
+
+
+def quantize_iq4_nl(x) -> torch.Tensor:
+    """IQ4_NL encoder -> AoS bytes u8 [N, K/32, 18], bit-equal to the JAX
+    package's ``quantize_iq4_nl``: ``d = f16(amax / 127)`` and each value
+    the nearest codebook entry of ``x / d`` (the first of two equally
+    near ones).  As there, the scale is not searched the way llama.cpp's
+    ``quantize_row_iq4_nl`` searches it; the bytes decode the same way."""
+    from .quant import _blocks, _safe_inv, div, f16_sat
+
+    x = torch.as_tensor(x, dtype=torch.float32)
+    n = x.shape[0]
+    xb = _blocks(x)  # [N, nb, 32]
+    d = f16_sat(div(xb.abs().amax(dim=-1), 127.0))
+    scaled = xb * _safe_inv(d)[..., None]
+    lut = torch.tensor(KVALUES_IQ4NL, dtype=torch.float32, device=x.device)
+    q = (scaled[..., None] - lut).abs().argmin(dim=-1).to(torch.uint8)
+    return torch.cat([_f16_bytes(d), q[..., :16] | (q[..., 16:] << 4)],
+                     dim=-1).reshape(n, -1, IQ4_NL_BLOCK_BYTES)
+
+
+def _iq4_xs_scales(raw: torch.Tensor) -> torch.Tensor:
+    """[N, nsb, 136] bytes -> int32 [N, nsb, 8]: the 6-bit sub-scales
+    minus 32 (low four bits from ``scales_l``, high two from
+    ``scales_h``)."""
+    sh = raw[..., 2].to(torch.int32) | (raw[..., 3].to(torch.int32) << 8)
+    sl = raw[..., 4:8].to(torch.int32)
+    j = torch.arange(8, device=raw.device)
+    lo = (sl[..., j // 2] >> (4 * (j % 2))) & 0xF
+    hi = (sh[..., None] >> (2 * j)) & 3
+    return (lo | (hi << 4)) - 32
+
+
+def from_bytes_iq4_xs(raw: torch.Tensor) -> EffectiveQ80:
+    """AoS uint8 [N, K/256, 136] -> :class:`EffectiveQ80` (``qs * d`` is
+    llama.cpp's ``dequantize_row_iq4_xs``; the f16 ``d`` times an integer
+    below 64 is exact in float32)."""
+    n, nsb, bb = raw.shape
+    if bb != IQ4_XS_BLOCK_BYTES:
+        raise ValueError(f"iq4_xs blocks are {IQ4_XS_BLOCK_BYTES} bytes, "
+                         f"got {bb}")
+    d = _f16(raw, 0).to(torch.float32)
+    eff = (d[..., None] * _iq4_xs_scales(raw).to(torch.float32))
+    codes = _iq4_codes(raw[:, :, 8:136].reshape(n, nsb, 8, 16))
+    return EffectiveQ80(codes.reshape(n, nsb * QK_K).contiguous(),
+                        eff.reshape(n, nsb * NSB))
+
+
+def dequantize_iq4(t) -> torch.Tensor:
+    """float32 [N, K] of a decoded IQ4_NL (Q8_0Tensor) or IQ4_XS
+    (:class:`EffectiveQ80`) tensor: ``qs * d`` per 32-block."""
+    d = t.d.to(torch.float32).repeat_interleave(QK, dim=-1)
+    return t.qs.to(torch.float32) * d
+
+
+def random_iq4(qtype: str, n: int, k: int, std: float,
+               generator: torch.Generator) -> torch.Tensor:
+    """Random valid ``iq4_nl`` (u8 [N, K/32, 18]) or ``iq4_xs`` (u8 [N,
+    K/256, 136]) block bytes on ``generator``'s device, values of mean
+    about 0 and standard deviation about ``std``: uniform codebook
+    indices (values of mean -5.9 and standard deviation about 69), f16
+    scales +-25% around the target, and a random sign on each scale
+    (iq4_nl's ``d``, iq4_xs's sub-scales ``sc - 32`` of 4 to 16), without
+    which every weight would carry the codebook's mean."""
+    dev = generator.device
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=generator, device=dev)
+
+    def f16(mean, *shape):
+        u = torch.rand(*shape, generator=generator, device=dev)
+        return _f16_bytes((mean * (0.75 + 0.5 * u)).to(torch.float16))
+
+    if qtype == "iq4_nl":
+        nb = k // QK
+        sign = ints(0, 2, n, nb) * 2 - 1
+        return torch.cat([f16(sign * (std / 69.0), n, nb),
+                          ints(0, 256, n, nb, 16).to(torch.uint8)], dim=-1)
+    if qtype != "iq4_xs":
+        raise NotImplementedError(f"random_iq4: {qtype}")
+    nsb = k // QK_K
+    sc = (ints(4, 17, n, nsb, 8) * (ints(0, 2, n, nsb, 8) * 2 - 1) + 32)
+    j = torch.arange(8, device=dev)
+    sh = ((sc >> 4) << (2 * j)).sum(-1)
+    lo = sc & 0xF
+    sl = lo[..., 0::2] | (lo[..., 1::2] << 4)
+    return torch.cat([f16(std / (69.0 * 10.0), n, nsb),
+                      (sh & 0xFF)[..., None].to(torch.uint8),
+                      (sh >> 8)[..., None].to(torch.uint8),
+                      sl.to(torch.uint8),
+                      ints(0, 256, n, nsb, 128).to(torch.uint8)], dim=-1)
+
+
 def k16_qtype(t) -> Optional[str]:
     """``"q2_k"``/``"q3_k"``/``"q6_k"`` for a per-16 container, else None."""
     return GGUF_TYPE[type(t)].lower() if isinstance(t, K16_TENSORS) else None
@@ -789,4 +936,7 @@ __all__ = ["QK_K", "NSB", "BLOCK_BYTES", "QK6_BLOCK_BYTES",
            "to_bytes_q6_k", "dequantize_q6_k", "from_bytes_q2_k",
            "to_bytes_q2_k", "from_bytes_q3_k", "to_bytes_q3_k",
            "dequantize_q2_k", "dequantize_q3_k", "K16_TENSORS", "DEQUANT",
-           "CODECS", "GGUF_TYPE", "random_blocks", "k16_qtype"]
+           "CODECS", "GGUF_TYPE", "random_blocks", "k16_qtype",
+           "IQ4_NL_BLOCK_BYTES", "IQ4_XS_BLOCK_BYTES", "KVALUES_IQ4NL",
+           "EffectiveQ80", "from_bytes_iq4_nl", "quantize_iq4_nl",
+           "from_bytes_iq4_xs", "dequantize_iq4", "random_iq4"]

@@ -1,11 +1,12 @@
 """K4: dequant GEMM for prefill (bf16 or float32 activations x per-32
-weights: q4_0, q4_1, q5_0, q5_1, q8_0, q4_k, q5_k), and its
+weights: q4_0, q4_1, q5_0, q5_1, q8_0, q4_k, q5_k, iq4_xs), and its
 ``fused_quant`` form.
 
 Replaces the Pallas kernel ``quant_gemm_tpu/kernels/gemm_pallas.py::gemm``
 (bodies ``_kernel_w4`` and, for q8_0, ``_kernel_w8``): ``C[M, N] = A[M, K]
 @ W[N, K]^T`` with float32 accumulation, ``W = (q - 8) d`` (q4_0), ``(q -
-16) d`` (q5_0, the 5th bit from ``qh``), ``q d`` (q8_0) and ``q d + m``
+16) d`` (q5_0, the 5th bit from ``qh``), ``q d`` (q8_0, and iq4_xs with
+an IQ4_XS tensor's codebook values and float32 ``d``) and ``q d + m``
 (q4_1, q5_1, and q4_k / q5_k with the effective f32 scale and min of a
 q4_K / q5_K tensor: ``has_min``).  A is bf16, the serving prefill's (a
 Q8_1 activation is folded to bf16 before the call, as ``gemm_pallas.py:

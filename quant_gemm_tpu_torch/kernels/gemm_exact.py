@@ -12,14 +12,16 @@ not the TPU kernel's fused-compensation order): q4_0 ``d_w * (d_a * sumi -
 q5_1, q4_k and q5_k (a q4_K / q5_K tensor in its effective q4_1 / q5_1
 form) ``d_w * d_a * sumi + m_w * s_a`` with ``s_a`` the stored f16 ``s =
 d_a * sum(q)`` of
-Q8_1, not the float sum of the activations; q8_0 ``d_w * d_a * sumi``.
+Q8_1, not the float sum of the activations; q8_0 ``d_w * d_a * sumi``,
+and iq4_xs (an IQ4_XS tensor's int8 codebook values with float32 per-32
+scales, q8_0's layout) the same.
 The block terms are summed in float32 as the TPU kernel sums them.
 The plain version sums in another order, so the two agree to float32
 rounding; :func:`k1_order` sums the same terms in the kernel's order.
 
 Bound on an H100: bytes — the weight stream (per 32 weights: 18 bytes for
 q4_0, 20 q4_1, 22 q5_0, 24 q5_1, 34 q8_0, 24 for q4_k with its f32 d' and
-m' planes, 28 for q5_k) at 3.35 TB/s.  The design (``csrc/gemm_exact.cu``)
+m' planes, 28 for q5_k, 36 for iq4_xs) at 3.35 TB/s.  The design (``csrc/gemm_exact.cu``)
 computes each 32-block's sumi with one int8 ``mma.sync`` m16n8k32 over
 16 weight rows x 8 activation rows, from chunks of 32 blocks staged with
 16-byte ``cp.async``, and keeps the old kernel's summation order bit for
@@ -45,8 +47,9 @@ of ``x`` under its first weight chunks' loads and storing the codes in
 the shared memory of all eight, or, where those codes do not fit beside
 the weight ring (M 9-12 at large K), each block quantizes each chunk as
 it is staged (``csrc/gemm_exact_fused.cu``).  K6 takes the per-32
-weights without a qh plane, :data:`FUSED_QTYPES` (q4_0, q4_1, q4_k and
-q8_0, the JAX body ``_kernel_w8_fused`` for the last); the q5 forms keep
+weights without a qh plane, :data:`FUSED_QTYPES` (q4_0, q4_1, q4_k, q8_0
+and iq4_xs, the JAX body ``_kernel_w8_fused`` for the last two); the q5
+forms keep
 quantize + K1, as in JAX.  ``gemm_exact_fused.launches`` counts launches.
 """
 
@@ -62,7 +65,7 @@ from .layout import OFFSET, QTYPES, PreparedWeight, planes
 MMAX = 12  # most activation rows the kernel takes
 #: the weight forms K6 has: every per-32 weight without a qh plane (the
 #: JAX dispatch's rule, ``registry.py:200-204``)
-FUSED_QTYPES = ("q4_0", "q4_1", "q4_k", "q8_0")
+FUSED_QTYPES = ("q4_0", "q4_1", "q4_k", "q8_0", "iq4_xs")
 
 
 def _check(w: PreparedWeight, a: Q8_1Tensor, mmax: int = MMAX) -> None:

@@ -36,6 +36,13 @@ themselves).
   to_effective_q5_k``): the q5_1 layout with ``d, m: float32[N, K/32]``,
   as q4_k is the q4_1 layout with f32 planes: 4 code bits + 1 fifth bit +
   64/32 scale bits = 7 bits per weight against 5.5 in the file.
+* iq4_xs (an IQ4_XS tensor in its effective form, ``kquants.
+  EffectiveQ80``): the q8_0 layout with ``d: float32[N, K/32]``, the
+  per-32 ``d * (sc - 32)`` (an f16 times a 6-bit integer, not an f16
+  value), ``x = q * d`` over the int8 codebook values: 9 bits per weight
+  against 4.25 in the file, the price of serving it on the q8_0 path as
+  JAX does.  An IQ4_NL tensor needs no form of its own: it decodes to
+  q8_0 with its f16 ``d`` verbatim.
 
 :class:`PreparedK16` (per-16 formats q6_K, q3_K, q2_K, K % 256 == 0):
 
@@ -68,21 +75,24 @@ from ..formats.quant import unpack_planar_4bit
 
 #: the per-32 formats :func:`prepare` lays out, and the value subtracted
 #: from a code before its scale (the min forms add ``m`` instead)
-QTYPES = ("q4_0", "q4_1", "q5_0", "q5_1", "q8_0", "q4_k", "q5_k")
+QTYPES = ("q4_0", "q4_1", "q5_0", "q5_1", "q8_0", "q4_k", "q5_k", "iq4_xs")
 OFFSET = {"q4_0": 8, "q5_0": 16}
 HAS_MIN = ("q4_1", "q5_1", "q4_k", "q5_k")
 #: the formats whose codes take a fifth bit from ``qh``
 HAS_QH = ("q5_0", "q5_1", "q5_k")
-#: the K-quant effective forms, whose ``d``/``m`` planes are float32
-F32_PLANES = ("q4_k", "q5_k")
+#: the forms whose codes are int8 bytes, one a weight
+INT8_CODES = ("q8_0", "iq4_xs")
+#: the effective forms (K-quants, IQ4_XS), whose ``d``/``m`` planes are
+#: float32
+F32_PLANES = ("q4_k", "q5_k", "iq4_xs")
 
 
 class PreparedWeight(NamedTuple):
     qtype: str  # format name, one of QTYPES
     n: int  # out-features
     k: int  # reduction dim
-    qs: torch.Tensor  # uint8 [N, K/2] or (q8_0) int8 [N, K], GGUF order
-    d: torch.Tensor  # float16 [N, K/32]; q4_k, q5_k: float32
+    qs: torch.Tensor  # uint8 [N, K/2] or (q8_0, iq4_xs) int8 [N, K]
+    d: torch.Tensor  # float16 [N, K/32]; q4_k, q5_k, iq4_xs: float32
     m: Optional[torch.Tensor] = None  # q4_1/q5_1 float16, q4_k/q5_k float32
     qh: Optional[torch.Tensor] = None  # q5_0/q5_1/q5_k: int32 [N, K/32]
 
@@ -120,13 +130,15 @@ class PreparedK16(NamedTuple):
 
 _CONTAINERS = {Q4_0Tensor: "q4_0", Q4_1Tensor: "q4_1", Q5_0Tensor: "q5_0",
                Q5_1Tensor: "q5_1", Q8_0Tensor: "q8_0",
-               kquants.EffectiveQ41: "q4_k", kquants.EffectiveQ51: "q5_k"}
+               kquants.EffectiveQ41: "q4_k", kquants.EffectiveQ51: "q5_k",
+               kquants.EffectiveQ80: "iq4_xs"}
 
 
 def prepare(w_q) -> PreparedWeight:
     """Re-lay a planar row-major container (q4_0, q4_1, q5_0, q5_1, q8_0,
-    or a q4_K / q5_K tensor's ``kquants.EffectiveQ41`` / ``EffectiveQ51``;
-    torch tensors) into the kernel layout, on the container's device."""
+    a q4_K / q5_K tensor's ``kquants.EffectiveQ41`` / ``EffectiveQ51``,
+    or an IQ4_XS tensor's ``kquants.EffectiveQ80``; torch tensors) into
+    the kernel layout, on the container's device."""
     qtype = _CONTAINERS.get(type(w_q))
     if qtype is None:
         raise NotImplementedError(
@@ -137,12 +149,13 @@ def prepare(w_q) -> PreparedWeight:
     def plane(x, dtype=torch.float16):
         return torch.as_tensor(x).to(device=dev, dtype=dtype).contiguous()
 
-    if qtype == "q8_0":
+    sdt = torch.float32 if qtype in F32_PLANES else torch.float16
+    if qtype in INT8_CODES:
         n, k = w_q.qs.shape
         if k % QK:
             raise ValueError(f"K={k} must be a multiple of {QK}")
         return PreparedWeight(qtype, n, k, plane(w_q.qs, torch.int8),
-                              plane(w_q.d))
+                              plane(w_q.d, sdt))
     packed = torch.as_tensor(w_q.packed)
     n, khalf = packed.shape
     k = 2 * khalf
@@ -150,7 +163,6 @@ def prepare(w_q) -> PreparedWeight:
         raise ValueError(f"K={k} must be a multiple of {QK}")
     c = unpack_planar_4bit(packed).reshape(n, k // QK, 2, QK // 2)
     qs = (c[:, :, 0] | (c[:, :, 1] << 4)).reshape(n, khalf).contiguous()
-    sdt = torch.float32 if qtype in F32_PLANES else torch.float16
     m = plane(w_q.m, sdt) if qtype in HAS_MIN else None
     # planar bits in natural order: block b's 32 bits are bytes 4b..4b+3
     qh = (plane(w_q.qh, torch.uint8).view(torch.int32)
@@ -185,8 +197,8 @@ def k16_planes(w: PreparedK16) -> tuple:
 
 def codes(w: PreparedWeight) -> torch.Tensor:
     """Raw codes ``[N, K]`` in natural K order: uint8 0..15 (q4), 0..31
-    (q5, the 5th bit from ``qh``), or the int8 codes (q8_0)."""
-    if w.qtype == "q8_0":
+    (q5, the 5th bit from ``qh``), or the int8 codes (q8_0, iq4_xs)."""
+    if w.qtype in INT8_CODES:
         return w.qs
     b = w.qs.reshape(w.n, w.k // QK, QK // 2)
     q = torch.cat([b & 0x0F, b >> 4], dim=-1)
@@ -218,7 +230,8 @@ def dequantize_k16(w: PreparedK16) -> torch.Tensor:
     return x
 
 
-__all__ = ["QTYPES", "OFFSET", "HAS_MIN", "HAS_QH", "F32_PLANES",
+__all__ = ["QTYPES", "OFFSET", "HAS_MIN", "HAS_QH", "INT8_CODES",
+           "F32_PLANES",
            "PreparedWeight", "PreparedK16",
            "planes", "k16_planes", "prepare", "prepare_k16",
            "codes", "dequantize", "dequantize_k16"]

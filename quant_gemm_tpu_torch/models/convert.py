@@ -5,8 +5,9 @@ the port's :class:`~quant_gemm_tpu_torch.models.llama.KVCache`, so that a
 test can start both forwards from the same cache.
 
 :func:`qparams_from_jax` takes the parameters of the JAX package's
-``llama.quantize_params`` (q4_0, q4_k, q6_k, ...) or ``gguf_loader.
-load_llama`` with every array as numpy (for example
+``llama.quantize_params`` (q4_0, q4_k, q6_k, ...; with a qwen2-family
+``bqkv``) or ``gguf_loader.load_llama`` (an IQ4_XS file's ``iq4_xs``
+weights too) with every array as numpy (for example
 ``jax.tree_util.tree_map(np.asarray, qparams)``, which keeps each
 ``PreparedWeight``, ``PreparedK16`` and ``SplitLinear`` with numpy
 planes) and returns the port's parameters.  It reads only attributes and
@@ -24,8 +25,8 @@ q8_0, q4_k, q5_k) is undone step by step:
 * q5's ``qh_t`` uint8 ``[K/8 (padded per half), N (padded)]`` planar
   bits -> transpose, drop the per-half padding (the nibble-packed
   ``qh2_t`` copy is not read);
-* q8_0's ``qs_t`` int8 ``[K (padded), N (padded)]`` and its ``d_t`` are
-  padded at the end of K only;
+* q8_0's (and iq4_xs's) ``qs_t`` int8 ``[K (padded), N (padded)]`` and
+  its ``d_t`` are padded at the end of K only;
 * then the port's own ``layout.prepare``.
 
 A ``PreparedK16``'s ``qs_t`` / ``scp_t`` / ``mp_t`` ``[K (padded) or K/16,
@@ -45,7 +46,7 @@ import torch
 
 from ..formats.blocks import (QK, Q4_0Tensor, Q4_1Tensor, Q5_0Tensor,
                               Q5_1Tensor, Q8_0Tensor)
-from ..formats.kquants import EffectiveQ41, EffectiveQ51
+from ..formats.kquants import EffectiveQ41, EffectiveQ51, EffectiveQ80
 from ..kernels import layout
 from ..utils import resolve_device
 from .llama import KVCache, SplitLinear
@@ -78,9 +79,10 @@ def planar_from_jax(pw):
         assert out.shape == (n, cols)
         return out
 
-    if pw.qtype == "q8_0":
+    if pw.qtype in layout.INT8_CODES:
         qs = np.ascontiguousarray(np.asarray(pw.qs_t).T[:n, :k])
-        return Q8_0Tensor(qs.astype(np.int8), scales(pw.d_t, halves=False))
+        cls = Q8_0Tensor if pw.qtype == "q8_0" else EffectiveQ80
+        return cls(qs.astype(np.int8), scales(pw.d_t, halves=False))
     packed_t = np.asarray(pw.packed_t)
     packed = (packed_t.view(np.uint8).T[:n, :k // 2] ^ 0x80).astype(np.uint8)
     packed = np.ascontiguousarray(packed)
@@ -169,9 +171,9 @@ def qparams_from_jax(np_qparams: dict, device="cuda") -> dict:
     out = {"embed": f32(embed.astype(np.float32)).to(torch.bfloat16),
            "final_norm": f32(np_qparams["final_norm"]), "layers": []}
     for lyr in np_qparams["layers"]:
-        if "bqkv" in lyr:
-            raise NotImplementedError("QKV biases (qwen2) are not ported")
         q = {k: f32(v) for k, v in lyr.items() if k.endswith("norm")}
+        if "bqkv" in lyr:  # the qwen2 family's QKV bias, float32 [N]
+            q["bqkv"] = f32(lyr["bqkv"])
         for name in ("wqkv", "wo", "wgu", "w_down"):
             q[name] = _prepared(lyr[name], dev)
         out["layers"].append(q)

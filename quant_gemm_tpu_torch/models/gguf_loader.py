@@ -7,13 +7,15 @@ and ``<arch>.*`` metadata loads into the parameters
 :func:`~.llama.forward` and :class:`~.serve.Server` take.  Every tensor's
 bytes are moved to the target device and decoded there:
 
-* per-32 weights (q4_0, q4_1, q5_0, q5_1, q8_0), and q4_K and q5_K
+* per-32 weights (q4_0, q4_1, q5_0, q5_1, q8_0), q4_K and q5_K
   weights in their effective q4_1 / q5_1 form (``kquants.to_effective``,
-  ``to_effective_q5_k``), become ``layout.PreparedWeight`` (K1/K4, and
-  K2/K6 where their rules take them); q6_K, q3_K and q2_K weights become
-  ``layout.PreparedK16`` (K7); a float tensor in a weight slot is
-  quantized to q4_0, as in JAX.  So llama.cpp's Q8_0, Q5_0, Q4_1, Q5_1,
-  Q4_K_M and Q5_K_M files load;
+  ``to_effective_q5_k``), iq4_nl weights as q8_0 and iq4_xs weights in
+  their effective form (``kquants.EffectiveQ80``, K1/K4/K6's ``iq4_xs``)
+  become ``layout.PreparedWeight`` (K1/K4, and K2/K6 where their rules
+  take them); q6_K, q3_K and q2_K weights become ``layout.PreparedK16``
+  (K7); a float tensor in a weight slot is quantized to q4_0, as in JAX.
+  So llama.cpp's Q4_0, Q8_0, Q5_0, Q4_1, Q5_1, Q4_K_M, Q5_K_M, IQ4_NL and
+  IQ4_XS files load;
 * q/k/v and gate/up are fused into ``wqkv`` / ``wgu`` when their parts
   share a format (block quantization is row-local, so the concatenation
   is bit-identical), and kept as a :class:`~.llama.SplitLinear` when they
@@ -22,11 +24,14 @@ bytes are moved to the target device and decoded there:
   without ``output.weight``
   (tied embeddings) serves ``lm_head`` from ``token_embd``;
 * ``rope_freqs.weight`` becomes ``params["rope_inv_freq"]`` (llama.cpp's
-  per-dimension divisors of the base spectrum).
+  per-dimension divisors of the base spectrum);
+* the qwen2 family's ``blk.{i}.attn_{q,k,v}.bias`` become the layer's
+  float32 ``bqkv`` (their concatenation), as in JAX.
 
-Not ported: ``export_gguf``, the tokenizer, iq4_nl / iq4_xs tensors and
-QKV biases (qwen2), which raise ``NotImplementedError``.  A q8_0 model
-decodes without K2, whose JAX kernel takes no q8_0 either.
+:func:`export_gguf` writes float parameters as a quantized GGUF with the
+same names, byte-identical to the JAX ``export_gguf``'s file.  A q8_0
+(or iq4_nl, or iq4_xs) model decodes without K2, whose JAX kernel takes
+none of them either.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ import torch
 from ..formats import kquants
 from ..formats import quant as tq
 from ..formats.blocks import WEIGHT_TENSOR_TYPES
-from ..formats.gguf_file import GGUFFile
+from ..formats.gguf_file import GGUFFile, write_gguf
 from ..kernels import layout
 from ..utils import resolve_device
 from . import llama
@@ -121,7 +126,7 @@ def _concat(parts):
     return type(t0)(*(torch.cat(f, dim=0) for f in zip(*parts)))
 
 
-_PER32 = tuple(WEIGHT_TENSOR_TYPES.values())
+_PER32 = tuple(WEIGHT_TENSOR_TYPES.values()) + (kquants.EffectiveQ80,)
 
 
 def _prep(t):
@@ -137,13 +142,15 @@ def _prep(t):
     if not isinstance(t, _PER32):
         raise NotImplementedError(
             f"{type(t).__name__} weights are not served (q4_0, q4_1, q5_0, "
-            "q5_1, q8_0, q4_K, q5_K, q6_K, q3_K, q2_K are)")
+            "q5_1, q8_0, q4_K, q5_K, q6_K, q3_K, q2_K, iq4_nl, iq4_xs are)")
     return layout.prepare(t)
 
 
 def _dequantize(t) -> torch.Tensor:
     if isinstance(t, torch.Tensor):
         return t.to(torch.float32)
+    if isinstance(t, kquants.EffectiveQ80):
+        return kquants.dequantize_iq4(t)
     if isinstance(t, _PER32):
         return tq.dequantize(t)
     return kquants.DEQUANT[type(t)](t)
@@ -172,10 +179,11 @@ def _load(gf: GGUFFile, dev: torch.device):
            "final_norm": f32(_OUT_NORM), "layers": []}
     for i in range(cfg.n_layers):
         names = {k: v.format(i=i) for k, v in _BLK.items()}
-        if f"blk.{i}.attn_q.bias" in gf.tensors:
-            raise NotImplementedError("QKV biases (qwen2) are not ported")
         lyr = {"attn_norm": f32(names["attn_norm"]),
                "mlp_norm": f32(names["mlp_norm"])}
+        bias = [f"blk.{i}.attn_{t}.bias" for t in "qkv"]
+        if all(n in gf.tensors for n in bias):  # the qwen2 family
+            lyr["bqkv"] = torch.cat([f32(n).reshape(-1) for n in bias])
         for slot, keys in (("wqkv", ("wq", "wk", "wv")),
                            ("wgu", ("w_gate", "w_up"))):
             parts = [load(names[k]) for k in keys]
@@ -199,4 +207,66 @@ def _load(gf: GGUFFile, dev: torch.device):
     return out, cfg
 
 
-__all__ = ["load_llama", "config_from_metadata", "SUPPORTED_ARCHS"]
+def export_gguf(path, params: dict, cfg: llama.LlamaConfig,
+                qtype: str = "q4_0",
+                tokenizer_metadata: dict | None = None) -> None:
+    """Write float parameters (the :func:`~.llama.init_params` layout,
+    numpy or CPU tensors) as a quantized GGUF: the JAX ``export_gguf``,
+    byte for byte.  The linears quantize to ``qtype`` (a per-32 format,
+    through the port's quantizers, bit-equal to the JAX package's),
+    the embedding and norms stay float32, qwen2-family ``bq``/``bk``/
+    ``bv`` go in as float32 ``attn_{q,k,v}.bias``; llama.cpp names and
+    ``llama.*`` metadata, plus ``tokenizer_metadata`` (``tokenizer.ggml.
+    *`` keys), so that the file loads here, in JAX and in llama.cpp."""
+    quantize = tq.QUANTIZE[qtype]
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32))
+
+    tensors: dict = {_EMBED: f32(params["embed"]),
+                     _OUT_NORM: f32(params["final_norm"]),
+                     _OUTPUT: quantize(f32(params["lm_head"]))}
+    for i, lyr in enumerate(params["layers"]):
+        names = {k: v.format(i=i) for k, v in _BLK.items()}
+        for norm in ("attn_norm", "mlp_norm"):
+            tensors[names[norm]] = f32(lyr[norm])
+        for lin in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+            tensors[names[lin]] = quantize(f32(lyr[lin]))
+        for bn in ("bq", "bk", "bv"):
+            if bn in lyr:
+                tensors[f"blk.{i}.attn_{bn[1]}.bias"] = f32(lyr[bn])
+    metadata = {
+        "general.architecture": "llama",
+        "general.name": "quant_gemm_tpu export",
+        "llama.embedding_length": cfg.dim,
+        "llama.block_count": cfg.n_layers,
+        "llama.attention.head_count": cfg.n_heads,
+        "llama.attention.head_count_kv": cfg.n_kv_heads,
+        "llama.feed_forward_length": cfg.d_ff,
+        "llama.context_length": cfg.max_seq,
+        "llama.vocab_size": cfg.vocab,
+        "llama.rope.freq_base": cfg.rope_base,
+        "llama.attention.layer_norm_rms_epsilon": cfg.eps,
+    }
+    if cfg.window:
+        metadata["llama.attention.sliding_window"] = cfg.window
+    if cfg.head_dim_override:
+        metadata["llama.attention.key_length"] = cfg.head_dim_override
+        metadata["llama.attention.value_length"] = cfg.head_dim_override
+    if cfg.rope_scale != 1.0:
+        metadata["llama.rope.scaling.type"] = "linear"
+        metadata["llama.rope.scaling.factor"] = 1.0 / cfg.rope_scale
+    if "rope_inv_freq" in params:
+        # llama.cpp's divisor table: theta = theta_base / factor
+        inv = np.asarray(params["rope_inv_freq"], np.float32)
+        base_inv = 1.0 / (cfg.rope_base ** (
+            np.arange(0, cfg.head_dim, 2, dtype=np.float64) / cfg.head_dim))
+        tensors["rope_freqs.weight"] = torch.from_numpy(
+            (base_inv.astype(np.float32) / inv).astype(np.float32))
+    if tokenizer_metadata:
+        metadata.update(tokenizer_metadata)
+    write_gguf(path, tensors, metadata)
+
+
+__all__ = ["load_llama", "export_gguf", "config_from_metadata",
+           "SUPPORTED_ARCHS"]

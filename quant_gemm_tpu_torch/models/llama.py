@@ -11,7 +11,9 @@ q6_k, q3_k, q2_k), q4_0 or q8_0 drawn on the device
 (:func:`init_qparams`), or the mix of a llama.cpp GGUF file
 (``models/gguf_loader.py``: Q8_0, Q5_0, Q4_1, Q5_1, Q4_K_M, Q5_K_M, ...),
 with a :class:`SplitLinear` where the parts of ``wqkv`` or ``wgu`` differ
-in format:
+in format, and the qwen2 family's QKV bias (a layer's float32 ``bqkv``,
+added to the ``wqkv`` product before RoPE on every route, as JAX adds it,
+``llama.py:648-653``):
 
 * decode (T = 1): RMSNorm + Q8_1 + ``wqkv`` through K2 (``norm_qkv``) when
   the batch is <= 8, ``dim % 512 == 0`` and every layer's ``wqkv`` is one
@@ -37,7 +39,8 @@ in format:
   the plain float32 matmul for per-16 weights there.
 
 Not ported yet (each raises ``NotImplementedError``): ``w_down_a16`` and
-activation modes other than ``q8_1``.
+activation modes other than ``q8_1``.  :func:`embed` pools the final-norm
+hidden states into sequence embeddings (JAX ``embed``).
 
 :func:`forward` is :func:`begin`, :func:`layer` for each layer, :func:`end`
 and :func:`head`; a check can call the pieces to run the kernels and the
@@ -192,7 +195,8 @@ def quantize_params(params: dict, qtype: str = "q4_0",
     ``quantize_params``'s) on ``device``, fusing ``wqkv`` and ``wgu`` as
     the JAX package does (block quantization is row-local, so the
     concatenation quantizes bit-identically to its parts).  The embedding
-    stays bf16, the norms float32."""
+    stays bf16, the norms float32; a layer with the qwen2 family's
+    ``bq``/``bk``/``bv`` gets their float32 concatenation ``bqkv``."""
     dev = resolve_device(device)
     prep = _preparer(qtype, dev)
 
@@ -207,6 +211,9 @@ def quantize_params(params: dict, qtype: str = "q4_0",
            "final_norm": f32(params["final_norm"]), "layers": []}
     for lyr in params["layers"]:
         q = {k: f32(v) for k, v in lyr.items() if k.endswith("norm")}
+        if "bq" in lyr:  # the qwen2 family's QKV bias (stays float)
+            q["bqkv"] = torch.cat([f32(lyr[b]).reshape(-1)
+                                   for b in ("bq", "bk", "bv")])
         q["wqkv"] = lin(lyr["wq"], lyr["wk"], lyr["wv"])
         q["wo"] = lin(lyr["wo"])
         q["wgu"] = lin(lyr["w_gate"], lyr["w_up"])
@@ -533,6 +540,8 @@ def layer(lyr: dict, li: int, cfg: LlamaConfig, x: torch.Tensor,
     else:
         h = rms_norm(x, lyr["attn_norm"], cfg.eps)
         qkv = _linear(lyr["wqkv"], h.reshape(b * t, cfg.dim), ops)
+    if "bqkv" in lyr:  # the qwen2 family's QKV bias, on every route
+        qkv = qkv + lyr["bqkv"]
     q = qkv[:, :nq].reshape(b, t, heads, hd)
     k = qkv[:, nq:nq + nkv].reshape(b, t, kv_heads, hd)
     v = qkv[:, nq + nkv:].reshape(b, t, kv_heads, hd)
@@ -645,7 +654,51 @@ def forward(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor,
     return head(qparams, cfg, x, ops), cache
 
 
+def embed(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor, *,
+          lengths=None, pooling: str = "mean",
+          act_mode: str = "q8_1") -> torch.Tensor:
+    """Sequence embeddings from the final-norm hidden states (JAX
+    ``embed``, the llama.cpp ``--embedding`` surface).
+
+    ``tokens`` [B, T] are prefilled on a fresh cache of T rows per slot
+    (the rows a causal prefill of T tokens attends, so the result is the
+    JAX one's, which allocates ``max_seq`` of them; a ring cache keeps its
+    capacity).  ``lengths`` [B]:
+    real token counts when rows are right-padded; pooling masks the pad
+    positions: "mean" over the real tokens, "last" the last real token,
+    "none" the per-token states [B, T, dim].  Returns float32, "mean" and
+    "last" L2-normalised (0 stays 0)."""
+    dev = qparams["embed"].device
+    tokens = torch.as_tensor(tokens, device=dev)
+    b, t = tokens.shape
+    lengths = (torch.full((b,), t, dtype=torch.int64, device=dev)
+               if lengths is None
+               else torch.as_tensor(lengths, device=dev).to(torch.int64))
+    # a linear cache of T rows (a ring keeps its own capacity); the RoPE
+    # tables of the model's max_seq
+    cache = KVCache.init(cfg if cfg.ring else cfg._replace(max_seq=t), b,
+                         device=dev)
+    x, step = begin(qparams, cfg, tokens, cache, act_mode=act_mode,
+                    rope_cache=rope_for(cfg, qparams, dev))
+    for li, lyr in enumerate(qparams["layers"]):
+        x, _ = layer(lyr, li, cfg, x, cache, step)
+    hidden = rms_norm(x, qparams["final_norm"], cfg.eps)
+    if pooling == "none":
+        return hidden
+    if pooling == "last":
+        vec = hidden[torch.arange(b, device=dev), lengths - 1]
+    elif pooling == "mean":
+        mask = (torch.arange(t, device=dev)[None, :]
+                < lengths[:, None]).to(torch.float32)
+        vec = (hidden * mask[:, :, None]).sum(dim=1) / torch.clamp(
+            lengths[:, None].to(torch.float32), min=1.0)
+    else:
+        raise ValueError(f"unknown pooling {pooling!r}")
+    norm = torch.linalg.vector_norm(vec, dim=-1, keepdim=True)
+    return vec / torch.where(norm > 0, norm, torch.ones_like(norm))
+
+
 __all__ = ["LlamaConfig", "init_params", "quantize_params", "init_qparams",
            "rope_for", "SplitLinear", "KVCache", "shift_context", "Step",
-           "routes", "begin", "layer", "end", "head", "forward",
+           "routes", "begin", "layer", "end", "head", "forward", "embed",
            "FLASH_PREFILL_T_MIN"]

@@ -44,8 +44,16 @@ insert), so the chunk graphs never bake a slot's address in.
 counterpart of ``jax.disable_jit()``); on the CPU the Server always runs
 eagerly.  A capture that fails raises: nothing falls back to eager.
 
-Options outside the slice raise ``NotImplementedError``: grammar
-sampling, ``n_probs``, ``prefill_a16`` and ``w_down_a16``.
+Grammar-constrained requests (a :class:`~.grammar.GrammarSampler`) and
+``n_probs`` (the top-N log-probabilities of each generated token) run on
+the host as in JAX (``quant_gemm_tpu/models/serve.py:118-180``): their
+slots' logits rows are read back after the step (eager or replayed) and
+the grammar's token replaces the sampled one; a request the grammar
+cannot continue finishes with what it has.  The other slots keep the
+device sampler.
+
+Options outside the slice raise ``NotImplementedError``: ``prefill_a16``
+and ``w_down_a16``.
 """
 
 from __future__ import annotations
@@ -109,9 +117,84 @@ class Request:
     repeat_penalty: float = 1.0
     logit_bias: Optional[dict] = None
     seed: Optional[int] = None
+    grammar: Optional[object] = None  # models.grammar.GrammarSampler
+    n_probs: int = 0  # top-N logprobs per generated token (llama.cpp)
     cache_prompt: bool = True  # per-request prefix-reuse opt-out
     generated: list = dataclasses.field(default_factory=list)
+    probs: list = dataclasses.field(default_factory=list)  # per-token top-N
     done: bool = False
+
+    def np_rng(self):
+        """The request's numpy generator for host-side (grammar)
+        sampling, seeded by ``seed`` or else its id, as in JAX."""
+        if not hasattr(self, "_np_rng"):
+            self._np_rng = np.random.default_rng(
+                self.seed if self.seed is not None else self.rid)
+        return self._np_rng
+
+
+def _adjusted_logits(logits_np: np.ndarray, r: Request,
+                     recent: Optional[np.ndarray]) -> np.ndarray:
+    """The device sampler's chain before sampling, on the host (JAX
+    ``_adjusted_logits``): logit bias, then the repeat penalty over the
+    recent window (positive logits divide, negative multiply)."""
+    x = logits_np.astype(np.float64, copy=True)
+    for tid, bv in (r.logit_bias or {}).items():
+        x[int(tid)] += float(bv)
+    if r.repeat_penalty != 1.0 and recent is not None:
+        seen = np.unique(recent[recent >= 0]).astype(np.int64)
+        x[seen] = np.where(x[seen] > 0, x[seen] / r.repeat_penalty,
+                           x[seen] * r.repeat_penalty)
+    return x
+
+
+def _top_logprobs(logits_np: np.ndarray, n: int) -> list:
+    """[(token id, log-probability)] of the top ``n`` of one position's
+    logits (JAX ``_top_logprobs``)."""
+    x = logits_np.astype(np.float64)
+    x = x - x.max()
+    lse = np.log(np.exp(x).sum())
+    top = np.argsort(-x)[:n]
+    return [(int(t), float(x[t] - lse)) for t in top]
+
+
+def _grammar_sample(logits_np: np.ndarray, r: Request,
+                    recent: Optional[np.ndarray] = None) -> int:
+    """Constrained sampling on the host (JAX ``_grammar_sample``): bias
+    and repeat penalty, the grammar's mask, then min-p, temperature,
+    top-k and top-p over the tokens left; greedy at temperature 0, else
+    from the request's numpy generator.  Raises ``ValueError`` when the
+    grammar allows no token."""
+    adj = _adjusted_logits(logits_np, r, recent)
+    masked = r.grammar.filter_logits(adj)
+    if not np.isfinite(masked).any():
+        raise ValueError(
+            f"grammar rejected every token (request {r.rid}) — the "
+            "grammar cannot be continued with this vocabulary")
+    if r.temperature <= 0:
+        return int(np.argmax(masked))
+    if 0.0 < r.min_p <= 1.0:
+        # llama.cpp min-p: threshold on the raw (pre-temperature) dist
+        masked = np.where(masked >= masked.max() + np.log(r.min_p),
+                          masked, -np.inf)
+    x = masked / r.temperature
+    if r.top_k:
+        k = min(int(r.top_k), int(np.isfinite(x).sum()))
+        if k > 0:
+            kth = np.sort(x)[-k]
+            x = np.where(x >= kth, x, -np.inf)
+    x = x - x[np.isfinite(x)].max()
+    p = np.exp(np.where(np.isfinite(x), x, -np.inf))
+    p /= p.sum()
+    if 0.0 < r.top_p < 1.0:
+        order = np.argsort(-p)
+        csum = np.cumsum(p[order])
+        cut = np.searchsorted(csum, r.top_p) + 1
+        keep = order[:cut]
+        mask = np.zeros_like(p)
+        mask[keep] = p[keep]
+        p = mask / mask.sum()
+    return int(r.np_rng().choice(len(p), p=p))
 
 
 class Server:
@@ -213,12 +296,11 @@ class Server:
                logit_bias: Optional[dict] = None, seed: Optional[int] = None,
                grammar=None, n_probs: int = 0,
                cache_prompt: bool = True) -> int:
-        """Queue a request; returns its id.  ``cache_prompt=False`` opts
-        this request out of prefix reuse."""
-        if grammar is not None:
-            raise NotImplementedError("grammar sampling is not ported")
-        if n_probs:
-            raise NotImplementedError("n_probs (top logprobs) is not ported")
+        """Queue a request; returns its id.  ``grammar``: a
+        :class:`~.grammar.GrammarSampler` that constrains its tokens;
+        ``n_probs``: report the top-N log-probabilities of each generated
+        token (``Request.probs``, of the distribution it is sampled from);
+        ``cache_prompt=False`` opts this request out of prefix reuse."""
         if not prompt:
             raise ValueError("empty prompt")
         if max_new < 1:
@@ -228,8 +310,8 @@ class Server:
         r = Request(self._next_rid, list(prompt), max_new,
                     temperature=temperature, top_k=top_k, top_p=top_p,
                     min_p=min_p, repeat_penalty=repeat_penalty,
-                    logit_bias=logit_bias, seed=seed,
-                    cache_prompt=bool(cache_prompt))
+                    logit_bias=logit_bias, seed=seed, grammar=grammar,
+                    n_probs=int(n_probs), cache_prompt=bool(cache_prompt))
         self._next_rid += 1
         self.queue.append(r)
         return r.rid
@@ -405,11 +487,30 @@ class Server:
             self._recent[s] = -1
             tail = r.prompt[-PENALTY_WINDOW:]
             self._recent[s, PENALTY_WINDOW - len(tail):] = tail
-            sl = slice(s, s + 1)
-            tok = int(sampling.sample(
-                last_logits[None], [gen], self._temps[sl], self._topk[sl],
-                self._topp[sl], self._minp[sl], self._recent[sl],
-                self._rpen[sl], self._bias_ids[sl], self._bias_vals[sl])[0])
+            if r.n_probs or r.grammar is not None:
+                host = last_logits.cpu().numpy()
+            if r.n_probs:
+                # the distribution the token is sampled from (after bias
+                # and penalty), as JAX reports it
+                r.probs.append(_top_logprobs(
+                    _adjusted_logits(host, r, self._recent[s]), r.n_probs))
+            if r.grammar is not None:
+                try:
+                    tok = _grammar_sample(host, r, self._recent[s])
+                    r.grammar.accept(tok)
+                except ValueError:
+                    # no token continues the grammar: finish empty
+                    self._prefill_s += time.perf_counter() - t0
+                    r.done = True
+                    self.finished[r.rid] = r
+                    continue
+            else:
+                sl = slice(s, s + 1)
+                tok = int(sampling.sample(
+                    last_logits[None], [gen], self._temps[sl],
+                    self._topk[sl], self._topp[sl], self._minp[sl],
+                    self._recent[sl], self._rpen[sl], self._bias_ids[sl],
+                    self._bias_vals[sl])[0])
             self._prefill_s += time.perf_counter() - t0
             r.generated.append(tok)
             self._n_prefill_tokens += len(r.prompt) - reuse
@@ -452,6 +553,7 @@ class Server:
             logits[:, -1], self._gens, self._temps, self._topk, self._topp,
             self._minp, self._recent, self._rpen, self._bias_ids,
             self._bias_vals).cpu().numpy()
+        dead = self._host_sampled(active, logits, nxt)
         self._step_s.append(time.perf_counter() - t0)
         self._hpos += 1  # every slot's cache.pos advanced by one
         self._n_steps += 1
@@ -459,6 +561,8 @@ class Server:
         self._n_decode_tokens += len(active)
         out = {}
         for s in active:
+            if s in dead:
+                continue  # the grammar finished it this step
             r = self.slots[s]
             tok = int(nxt[s])
             r.generated.append(tok)
@@ -476,6 +580,40 @@ class Server:
                 self.finished[r.rid] = r
                 self.slots[s] = None
         return out
+
+    def _host_sampled(self, active: list, logits: torch.Tensor,
+                      nxt: np.ndarray) -> set:
+        """The host side of a decode step (JAX ``serve.py:545-585``):
+        record the ``n_probs`` slots' top log-probabilities and replace
+        the grammar slots' tokens in ``nxt`` by the grammar's (the
+        device's pick never reached the cache).  Reads only those slots'
+        logits rows.  Returns the slots whose request the grammar
+        finished (released)."""
+        gslots = [s for s in active if self.slots[s].grammar is not None]
+        pslots = [s for s in active if self.slots[s].n_probs]
+        if not (gslots or pslots):
+            return set()
+        rows = sorted(set(gslots) | set(pslots))
+        host = dict(zip(rows, logits[rows, -1].cpu().numpy()))
+        for s in pslots:
+            r = self.slots[s]
+            r.probs.append(_top_logprobs(
+                _adjusted_logits(host[s], r, self._recent[s]), r.n_probs))
+        dead = set()
+        for s in gslots:
+            r = self.slots[s]
+            try:
+                tok = _grammar_sample(host[s], r, self._recent[s])
+                r.grammar.accept(tok)
+                nxt[s] = tok
+            except ValueError:
+                # the vocabulary cannot continue the grammar: finish the
+                # request with what it has, not the serving loop
+                r.done = True
+                self.finished[r.rid] = r
+                self.slots[s] = None
+                dead.add(s)
+        return dead
 
     def cancel(self, rid: int) -> bool:
         """Stop a request early (a stop string matched, or the client went

@@ -1389,3 +1389,191 @@ def test_softmax_pallas_row_plan(dev, r, c, aligned):
     e = torch.exp(x - x.amax(dim=-1, keepdim=True))
     assert torch.equal(got, e / rows.ordered_sum(e, p)[:, None])
     assert torch.equal(got, softmax_pallas(x))
+
+
+# --- slice 14: the iq4_xs forms of K1, K4 and K6; Qwen2.5-1.5B shapes ---
+
+QWEN = dict(dim=1536, d_ff=8960, n_heads=12, n_kv_heads=2, vocab=151936)
+
+
+def _iq4_xs(n, k, dev, seed):
+    """A random IQ4_XS weight [n, k] in the port's iq4_xs form."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return layout.prepare(kquants.from_bytes_iq4_xs(
+        kquants.random_iq4("iq4_xs", n, k, k ** -0.5, g)))
+
+
+def _cpu(w):
+    return type(w)(*(t.cpu() if isinstance(t, torch.Tensor) else t
+                     for t in w))
+
+
+@pytest.mark.parametrize("k", [1536, 8960])
+@pytest.mark.parametrize("m", [1, 8, 12])
+def test_gemm_exact_iq4_xs_k1_order_bit_exact(dev, m, k):
+    """K1's iq4_xs form (q8_0's body with float32 scales) equals
+    ``k1_order`` of the plain version's terms bit for bit; N = 774 leaves
+    a ragged row tile."""
+    w = _iq4_xs(774, k, dev, seed=k + m)
+    a = tq.quantize_q8_1(_act_k(m, k, m, dev))
+    before = gemm_exact.launches
+    got = gemm_exact(w, a)
+    assert gemm_exact.launches == before + 1
+    want = k1_order(block_terms(_cpu(w), Q8_1Tensor(*(t.cpu() for t in a))))
+    assert torch.equal(got.cpu(), want)
+
+
+def _act_k(m, k, seed, dev, scale=1.0):
+    x = np.random.default_rng(seed).standard_normal((m, k)) * scale
+    return _t(x.astype(np.float32), dev)
+
+
+@pytest.mark.parametrize("k", [1536, 8960])
+@pytest.mark.parametrize("m", [1, 8, 12])
+def test_gemm_exact_fused_iq4_xs(dev, m, k):
+    """K6's iq4_xs form equals quantize_q8_1 + K1 bit for bit, with an
+    all-zero and an f16-saturating block."""
+    w = _iq4_xs(640, k, dev, seed=3 * k + m)
+    x = _degenerate(_act_k(m, k, m + 1, dev))
+    got = gemm_exact_fused(w, x)
+    assert torch.equal(got, gemm_exact(w, tq.quantize_q8_1(x)))
+    ref = gemm_exact_fused_plain(w, x)
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("adt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m, k", [(13, 1536), (128, 1536), (100, 8960)])
+def test_gemm_dequant_iq4_xs(dev, adt, m, k):
+    """K4's iq4_xs form against its plain version: bf16 and float32
+    operands, NMSE <= FQ_NMSE (exact products, only the float32 order of
+    sums differs); two calls bit-equal."""
+    w = _iq4_xs(17920 if k == 1536 else 1536, k, dev, seed=m + k)
+    a = _act_k(m, k, m, dev).to(adt)
+    got, ref = gemm_dequant(w, a), gemm_dequant_plain(w, a)
+    e = ((got.double() - ref.double()) ** 2).sum() / (ref.double() ** 2).sum()
+    assert e <= FQ_NMSE
+    assert torch.equal(got, gemm_dequant(w, a))
+
+
+@pytest.mark.parametrize("pieces", ["chosen", "one", "most"])
+@pytest.mark.parametrize("ctxs", [[512] * 8, [900, 17, 512, 300, 64, 1000,
+                                              5, 777]])
+def test_flash_decode_qwen_rep6(dev, ctxs, pieces):
+    """K3 at Qwen's KV 2, rep 6 (16 query rows a block: 10 padded), hd
+    128, 8 slots, with the Server's ``s_hi``, split as chosen, into one
+    piece and into the most; within 2e-3 of plain, two calls equal."""
+    from quant_gemm_tpu_torch.ops.attention import decode_s_hi
+
+    g = torch.Generator(device=dev).manual_seed(61)
+    shape = (3, 8, 2, 2048, 128)
+    kc = torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+    vc = torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+    q = torch.randn(8, 2, 6, 128, generator=g, device=dev)
+    kw = dict(k_current=torch.randn(8, 2, 1, 128, generator=g, device=dev)
+              .to(torch.bfloat16),
+              v_current=torch.randn(8, 2, 1, 128, generator=g, device=dev)
+              .to(torch.bfloat16), layer=1, s_hi=decode_s_hi(max(ctxs)))
+    pos = torch.tensor(ctxs, dtype=torch.int32, device=dev)
+    ns = {"chosen": None, "one": 1,
+          "most": decode_max_pieces(0, 2048, kw["s_hi"])}[pieces]
+    got = flash_decode(q, kc, vc, pos, pieces=ns, **kw)
+    ref = flash_decode_plain(q, kc, vc, pos, **kw)
+    assert (got - ref).abs().max() <= 2e-3
+    assert torch.equal(got, flash_decode(q, kc, vc, pos, pieces=ns, **kw))
+
+
+@pytest.mark.parametrize("t, p0", [(128, 0), (128, 384), (80, 200),
+                                   (64, 1000)])
+def test_flash_prefill_qwen_rep6(dev, t, p0):
+    """K5 at KV 2, rep 6, hd 128: 64-row tiles that cut across tokens
+    (64 / 6 is not whole), a ragged last chunk; within 2e-3, two calls
+    equal."""
+    g = torch.Generator(device=dev).manual_seed(62)
+    shape = (2, 3, 2, 2048, 128)
+    kc = torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+    vc = torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+    kc, vc = kc[:, 1:2], vc[:, 1:2]  # a one-slot view, strided
+    q = torch.randn(1, 2, t * 6, 128, generator=g, device=dev)
+    pos0 = torch.tensor([p0], dtype=torch.int32, device=dev)
+    kw = dict(rep=6, layer=1)
+    got = flash_prefill(q, kc, vc, pos0, **kw)
+    ref = flash_prefill_plain(q, kc, vc, pos0, **kw)
+    assert (got - ref).abs().max() <= 2e-3
+    assert torch.equal(got, flash_prefill(q, kc, vc, pos0, **kw))
+
+
+@pytest.mark.parametrize("m", [1, 8])
+def test_gemm_exact_k16_qwen_tied_head(dev, m):
+    """K7 on the tied q6_K head at N 151936 (a multiple of 128, not of
+    256): bit for bit ``k1_order`` of its block terms."""
+    g = torch.Generator(device=dev).manual_seed(63)
+    w = layout.prepare_k16(kquants.random_blocks("q6_K", 151936, 1536, 0.02,
+                                                 g))
+    a = tq.quantize_q8_1(_act_k(m, 1536, 7, dev))
+    got = gemm_exact_k16(w, a)
+    assert torch.equal(got, k1_order(k16_block_terms(w, a)))
+    ref = gemm_exact_k16_plain(w, a)
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def _qwen_model(dev, layers=2):
+    """Qwen2.5-1.5B width, ``layers`` deep: random q4_0 linears, float32
+    QKV biases, the tied q6_K head."""
+    cfg = llama.LlamaConfig(**QWEN, n_layers=layers, max_seq=1024,
+                            rope_base=1e6, eps=1e-6)
+    qp = llama.init_qparams(cfg, seed=5, device=dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    for ly in qp["layers"]:
+        ly["bqkv"] = 0.1 * torch.randn(2048, generator=g, device=dev)
+    qp["lm_head"] = layout.prepare_k16(kquants.random_blocks(
+        "q6_K", cfg.vocab, cfg.dim, 0.02, g))
+    return qp, cfg
+
+
+def test_qwen_decode_with_bias_layer_by_layer(dev):
+    """A Qwen-width 8-slot decode step (K2 + bias, K1, K3 at rep 6, K7
+    head) against the plain versions from the same hidden state at every
+    layer: each layer's update and the logits NMSE <= 1e-4."""
+    qp, cfg = _qwen_model(dev)
+    cache = llama.KVCache.init(cfg, 8, device=dev)
+    rng = np.random.default_rng(9)
+    llama.forward(qp, cfg, torch.as_tensor(rng.integers(0, cfg.vocab,
+                                                        (8, 40)),
+                                           device=dev), cache)
+    cache.pos = torch.tensor([40, 33, 7, 40, 1, 25, 39, 12],
+                             dtype=torch.int32, device=dev)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, (8, 1)), device=dev)
+    cp = cache.clone()
+    x, step = llama.begin(qp, cfg, tok, cache)
+    assert step.use_mega
+    for li, ly in enumerate(qp["layers"]):
+        xk, _ = llama.layer(ly, li, cfg, x, cache, step)
+        xp, _ = llama.layer(ly, li, cfg, x, cp, step, registry.PLAIN)
+        d, r = (xk - x).double(), (xp - x).double()
+        assert ((d - r) ** 2).sum() <= 1e-4 * (r ** 2).sum()
+        x = xk
+    lk = llama.head(qp, cfg, x)
+    lp = llama.head(qp, cfg, x, registry.PLAIN)
+    assert ((lk.double() - lp.double()) ** 2).sum() <= \
+        1e-4 * (lp.double() ** 2).sum()
+
+
+def test_qwen_server_captured_equals_eager_with_bias(dev, monkeypatch):
+    """The bias inside the captured decode and chunk graphs: a Qwen-width
+    Server replaying CUDA graphs gives the eager Server's transcripts and
+    launches; the decode graph runs K2 and K7 once a step."""
+    qp, cfg = _qwen_model(dev)
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in (150, 70)]
+    runs = {}
+    for graphs in (False, True):
+        monkeypatch.setattr(serve, "CUDA_GRAPHS", graphs)
+        srv = serve.Server(qp, cfg, n_slots=2, device=dev)
+        for p in prompts:
+            srv.submit(p, max_new=6)
+        runs[graphs] = srv.run_until_done(), srv
+    assert runs[True][0] == runs[False][0]
+    decode = [g for k, g in runs[True][1].graphs.items() if k[0] == "decode"]
+    assert decode and all(g.launches["norm_qkv"] == 2
+                          and g.launches["gemm_exact_k16"] == 1
+                          for g in decode)

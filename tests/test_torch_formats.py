@@ -87,8 +87,10 @@ def test_layout_is_gguf_block_order():
 
 def test_prepare_rejects_unported_formats():
     """A q5_K tensor lays out through its effective q5_1 form (f32
-    planes); iq4_nl, not ported, raises, as does a K-quant container
-    passed without its effective form."""
+    planes); IQ4_NL blocks lay out as q8_0 once decoded and IQ4_XS
+    blocks in their effective ``iq4_xs`` form (slice 14), while their
+    raw bytes raise, as does a K-quant container passed without its
+    effective form."""
     from quant_gemm_tpu.formats import kquants as jk
     from quant_gemm_tpu_torch.formats import kquants as tk
 
@@ -102,3 +104,14 @@ def test_prepare_rejects_unported_formats():
     iq4 = jk.quantize_iq4_nl(_inputs("normal"))  # block_iq4_nl bytes
     with pytest.raises(NotImplementedError, match="not ported"):
         layout.prepare(iq4)
+    nl = layout.prepare(tk.from_bytes_iq4_nl(torch.from_numpy(iq4)))
+    assert nl.qtype == "q8_0"
+    np.testing.assert_array_equal(layout.dequantize(nl).numpy(),
+                                  jk.dequantize_iq4_nl_bytes(iq4))
+    raw = np.random.default_rng(5).integers(0, 256, (6, 1, 136),
+                                            dtype=np.uint8)
+    raw[:, :, 1] &= 0x3B
+    xs = layout.prepare(tk.from_bytes_iq4_xs(torch.from_numpy(raw)))
+    assert xs.qtype == "iq4_xs" and xs.d.dtype == torch.float32
+    np.testing.assert_array_equal(layout.dequantize(xs).numpy(),
+                                  jk.dequantize_iq4_xs_bytes(raw))

@@ -111,16 +111,24 @@ def test_write_and_read_every_type_both_ways(tmp_path):
 
 
 def test_unported_type_raises_with_its_name(tmp_path):
-    """An iq4_nl tensor (not ported) written by the JAX writer raises
-    with its type's name."""
+    """An iq4_nl tensor written by the JAX writer loads (slice 14) as the
+    JAX reader loads it, a Q8_0Tensor of codebook values; a q8_1 tensor,
+    the one ggml type of the table the port does not read, raises with
+    its type's name."""
     x = np.random.default_rng(2).normal(0, 1, (4, 256)).astype(np.float32)
     path = tmp_path / "iq4nl.gguf"
     raw = jk.quantize_iq4_nl(x).tobytes()
-    jgf.write_gguf(str(path), {"w": jgf.RawTensor("iq4_nl", (4, 256), raw)})
+    q81 = np.zeros(4 * 256 // 32 * 36, np.uint8).tobytes()
+    jgf.write_gguf(str(path), {"w": jgf.RawTensor("iq4_nl", (4, 256), raw),
+                               "a": jgf.RawTensor("q8_1", (4, 256), q81)})
     gf = tgf.GGUFFile(path)
     assert gf.tensors["w"]["qtype"] == "iq4_nl"
-    with pytest.raises(NotImplementedError, match="iq4_nl"):
-        gf.load("w", "cpu")
+    got, want = gf.load("w", "cpu"), jgf.GGUFFile(str(path)).load("w")
+    assert isinstance(got, Q8_0Tensor)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(_np(a), np.asarray(b))
+    with pytest.raises(NotImplementedError, match="q8_1"):
+        gf.load("a", "cpu")
 
 
 def test_config_from_metadata_matches_jax():
@@ -238,7 +246,8 @@ def test_rope_tables_follow_the_file(both):
 
 def test_tied_embeddings_and_unported_pieces(tmp_path):
     """A file without output.weight serves lm_head from token_embd, as
-    JAX does; QKV biases (qwen2) and q8_0 weights raise."""
+    JAX does; QKV biases (qwen2, slice 14) load into ``bqkv`` as JAX loads
+    them; q8_0 weights are served."""
     gf = jgf.GGUFFile(str(FIXTURE))
     tensors = {n: gf.load(n) for n in gf.tensors if n != "output.weight"}
     path = tmp_path / "tied.gguf"
@@ -252,9 +261,15 @@ def test_tied_embeddings_and_unported_pieces(tmp_path):
     for t in "qkv":
         n = 256 if t == "q" else 128
         bias[f"blk.0.attn_{t}.bias"] = np.zeros(n, np.float32)
+    bias["blk.1.attn_k.bias"] = np.ones(128, np.float32)  # layer 1: k only
     jgf.write_gguf(str(path), bias, dict(gf.metadata))
-    with pytest.raises(NotImplementedError, match="bias"):
-        tgl.load_llama(path, device="cpu")
+    jb, _ = jgl.load_llama(str(path))
+    tb, _ = tgl.load_llama(path, device="cpu")
+    np.testing.assert_array_equal(tb["layers"][0]["bqkv"].numpy(),
+                                  np.asarray(jb["layers"][0]["bqkv"]))
+    assert tb["layers"][0]["bqkv"].shape == (512,)
+    # a layer without all three biases has none, in both loaders
+    assert "bqkv" not in tb["layers"][1] and "bqkv" not in jb["layers"][1]
     # a q8_0 weight is served (slice 7): K1/K4's q8_0 form
     x8 = torch.from_numpy(np.random.default_rng(8).normal(
         0, 0.1, (4, 64)).astype(np.float32))

@@ -274,11 +274,15 @@ def test_server_rejects_options_outside_the_slice(models):
     with pytest.raises(ValueError):
         ts.Server(qt, TCFG._replace(window=16, ring=True), device="cpu",
                   context_shift=True)
+    with pytest.raises(NotImplementedError):
+        ts.Server(qt, TCFG, device="cpu", act_mode="bf16")
+    # grammar and n_probs are served (slice 14, tests/test_torch_grammar.
+    # py); a request still needs a prompt and a token to make
     srv = ts.Server(qt, TCFG, n_slots=1, device="cpu")
-    with pytest.raises(NotImplementedError):
-        srv.submit([1, 2], grammar=object())
-    with pytest.raises(NotImplementedError):
-        srv.submit([1, 2], n_probs=3)
+    with pytest.raises(ValueError):
+        srv.submit([], n_probs=3)
+    with pytest.raises(ValueError):
+        srv.submit([1, 2], max_new=0, n_probs=3)
 
 
 def test_seeded_sampling_is_per_request(models):

@@ -147,7 +147,35 @@ Run from the repository root on a machine with one NVIDIA H100:
    to the default run's; the kernel phase holds K1, K4 and K6 in the
    iq4_xs form, K1, K2, K4 in q4_0 and K7 (the tied head, N 151936) at
    these shapes and K3 / K5 at KV 2, rep 6, hd 128;
-10. prints one JSON line of the kernels (the ten TPU kernels and the two
+10. slice 15, the rest of the serving surface (its own seconds printed
+   as it goes, a budget of 120 s): K4 on bf16 activations at M 1 and 8
+   at TinyLlama's five GEMMs in the kernel phase (beside ``torch.matmul``
+   in bf16 on the weight dequantized in advance); at TinyLlama width
+   ``Server(prefill_a16=True)``, ``Server(act_mode="bf16")`` and
+   ``w_down_a16`` (again with ENABLE_TAIL, where K8 serves w_down), each
+   eager and captured on 8 requests with its launches checked and the
+   kernels against plain versions layer by layer in its mode; the
+   perplexity of a seeded 4096-token stream (ctx 512, stride 256)
+   through ``scripts/perplexity.py``'s ``report``, q8_1 and bf16,
+   kernels against plain versions to a relative 1e-3; an all-q4_0
+   TinyLlama-width GGUF with a 32000-entry vocabulary and an
+   ``export_lora`` adapter (rank 16, alpha 32, f16, attn_q/k/v/output and
+   ffn_gate/up/down of every layer) through ``build_engine(lora_path=)``,
+   eager and captured, and ``generate --lora``, K2 and K8 off, the first
+   step against the deltas merged into the dequantized weights through
+   ``forward_float``; speculative decoding with a Mistral-7B-v0.1-width
+   target (k 4, B 4, 64 new, greedy) and a TinyLlama-width draft, then
+   the target as its own draft (each transcript the target's greedy
+   decode under the near-tie rule; the self draft at least 0.9 of
+   ``speculative.best_rate``), and ``sample_decode`` beside a Server on
+   one seed; a Llama-3.2-1B-width bf16 safetensors checkpoint (4 of 16
+   layers, 2 shards) through ``load_hf_llama`` (weights bit-equal to
+   ``quantize_params``, the llama3 RoPE table) served at max_seq 4096;
+   ``api.gemm_q4_0_q8_1`` at 4 x 4096 x 4096 on the card (bit-equal to
+   ``k1_order`` of the golden's block terms, within 1e-5 x max|C| of
+   the float64 golden), ``compat.gemm_from_ggml`` on a GGUF view and the
+   ``ggml_op_*`` drop-ins against the port's ops;
+11. prints one JSON line of the kernels (the ten TPU kernels and the two
    activation quantize launches), the card, and last the result line;
    each phase's seconds on its own line.
 
@@ -362,6 +390,10 @@ FILE_MIXES = {
                "first_down": "q5_K", "file_type": 25, "k2": False},
     "IQ4_XS": {"default": "iq4_xs", "output": "q6_K", "attn_v": "q5_K",
                "first_down": "q5_K", "file_type": 30, "k2": False},
+    # the slice-15 LoRA base: a TinyLlama-width file all in q4_0 (the
+    # init_qparams model's format), so that K2 and K8 take it without LoRA
+    "all Q4_0": {"default": "q4_0", "output": "q4_0", "file_type": 2,
+                 "k2": True},
 }
 # the formats path's files, and those served again with FUSED_DECODE
 FORMAT_FILES = ("Q8_0", "Q5_0", "Q4_1", "Q5_1", "Q5_K_M")
@@ -909,6 +941,7 @@ def kernel_phase(dev, timer):
     slice6_kernel_rows(dev, timer, record, randn)
     slice7_kernel_rows(dev, timer, record, unfused, randn)
     slice14_kernel_rows(dev, timer, record, unfused, randn)
+    slice15_kernel_rows(dev, timer, record, randn)
     act_quant_rows(timer, record, randn)
     return rows
 
@@ -1563,7 +1596,7 @@ def captured_pair(name, eager, captured, chunk_window=False):
 
 
 def serve_traffic(name, qp, cfg, dev, prompts, reuse, counters,
-                  chunk_window=False, **kw):
+                  chunk_window=False, vocab=VOCAB, **kw):
     """A warm-up request, then the requests (16, or the first 8) through
     ``Server(qp, cfg, n_slots=8, **kw)`` eagerly, then again through a
     new Server replaying CUDA graphs (``captured_pair``).  Checks what
@@ -1583,7 +1616,7 @@ def serve_traffic(name, qp, cfg, dev, prompts, reuse, counters,
         fail(f"{name}: not every request finished: {sorted(results)}")
     if any(len(t) != 32 for t in results.values()):
         fail(f"{name}: a request stopped short of max_new=32")
-    if not all(0 <= t < VOCAB for ts in results.values() for t in ts):
+    if not all(0 <= t < vocab for ts in results.values() for t in ts):
         fail(f"{name}: a generated token is outside the vocabulary")
     if st["cached_prompt_tokens"] != sum(reuse):
         fail(f"{name}: reused {st['cached_prompt_tokens']} cached "
@@ -1662,7 +1695,7 @@ def check_launches(name, launches, want):
         fail(f"{name}: launches {launches} differ from the path's {want}")
 
 
-def layerwise(qp, cfg, tokens, cache):
+def layerwise(qp, cfg, tokens, cache, act_mode="q8_1"):
     """Kernels and plain versions from the same hidden state at every
     layer (the kernels'): the largest NMSE of a layer's update (output -
     input) and the NMSE of the logits of the last state.  A last-bit
@@ -1672,28 +1705,29 @@ def layerwise(qp, cfg, tokens, cache):
     from quant_gemm_tpu_torch.models import llama
 
     cache_p = cache.clone()
-    x, step = llama.begin(qp, cfg, tokens, cache)
+    x, step = llama.begin(qp, cfg, tokens, cache, act_mode=act_mode)
     worst = 0.0
     for li, lyr in enumerate(qp["layers"]):
         xk, _ = llama.layer(lyr, li, cfg, x, cache, step)
         xp, _ = llama.layer(lyr, li, cfg, x, cache_p, step, registry.PLAIN)
         worst = max(worst, nmse(xk - x, xp - x))
         x = xk
-    lk = llama.head(qp, cfg, x)
+    lk = llama.head(qp, cfg, x, act_mode=act_mode)
     if not bool(torch.isfinite(lk).all()):
         fail("non-finite logits through the kernels")
-    return worst, nmse(lk, llama.head(qp, cfg, x, registry.PLAIN))
+    return worst, nmse(lk, llama.head(qp, cfg, x, registry.PLAIN, act_mode))
 
 
-def check(qp, cfg, tokens, cache):
+def check(qp, cfg, tokens, cache, act_mode="q8_1"):
     """layerwise() and the free run of both op sets end to end."""
     from quant_gemm_tpu_torch.kernels import registry
     from quant_gemm_tpu_torch.models import llama
 
-    free = nmse(llama.forward(qp, cfg, tokens, cache.clone())[0],
+    free = nmse(llama.forward(qp, cfg, tokens, cache.clone(),
+                              act_mode=act_mode)[0],
                 llama.forward(qp, cfg, tokens, cache.clone(),
-                              ops=registry.PLAIN)[0])
-    return (*layerwise(qp, cfg, tokens, cache.clone()), free)
+                              act_mode=act_mode, ops=registry.PLAIN)[0])
+    return (*layerwise(qp, cfg, tokens, cache.clone(), act_mode), free)
 
 
 def report_cases(cases):
@@ -1710,18 +1744,19 @@ def report_cases(cases):
             fail(f"{name}: the free run through the kernels diverges")
 
 
-def decode_case(qp, cfg, rng, dev, qtype="bf16"):
+def decode_case(qp, cfg, rng, dev, qtype="bf16", act_mode="q8_1"):
     """One 8-slot decode step at ragged positions after a 48-token
     prefill."""
     from quant_gemm_tpu_torch.models import llama
 
     cache = llama.KVCache.init(cfg, 8, qtype, device=dev)
     llama.forward(qp, cfg, torch.as_tensor(
-        rng.integers(0, cfg.vocab, (8, 48)), device=dev), cache)
+        rng.integers(0, cfg.vocab, (8, 48)), device=dev), cache,
+        act_mode=act_mode)
     cache.pos = torch.tensor([48, 40, 33, 47, 20, 48, 1, 16],
                              dtype=torch.int32, device=dev)
     nt = torch.as_tensor(rng.integers(0, cfg.vocab, (8, 1)), device=dev)
-    return check(qp, cfg, nt, cache)
+    return check(qp, cfg, nt, cache, act_mode)
 
 
 KERNEL_GROUPS = [("Q8_1 quantize (act_quant)", "act_quant_kernel"),
@@ -1745,7 +1780,7 @@ def _group(name: str) -> str:
             return label
     low = name.lower()
     if "gemm" in low or "xmma" in low or "cutlass" in low:
-        return "library matmul (plain K16 prefill route)"
+        return "library matmul (the plain K16 prefill route, LoRA deltas)"
     if low.startswith(("memcpy", "memset")):
         return "memcpy/memset"
     return OTHER
@@ -1998,11 +2033,12 @@ def random_blocks32(qtype, n, k, std, g):
     return blocks.Q5_1Tensor(packed, qh, d, m)
 
 
-def write_gguf_mix(path, mix, dev, seed=0):
+def write_gguf_mix(path, mix, dev, seed=0, extra_md=None):
     """A GGUF file of llama.cpp's ``mix`` (``FILE_MIXES``) at
     TinyLlama-1.1B width: random valid blocks drawn on the card from a
     ``torch.Generator`` seed, each weight at about the scale 1/sqrt(K)
-    (the embedding 0.02), f32 norms of 1, TinyLlama's metadata."""
+    (the embedding 0.02), f32 norms of 1, TinyLlama's metadata and
+    ``extra_md`` (a tokenizer)."""
     from quant_gemm_tpu_torch.formats import kquants
     from quant_gemm_tpu_torch.formats.gguf_file import write_gguf
 
@@ -2043,6 +2079,7 @@ def write_gguf_mix(path, mix, dev, seed=0):
         "llama.attention.head_count_kv": KV_HEADS,
         "llama.context_length": 2048, "llama.rope.freq_base": 10000.0,
         "llama.attention.layer_norm_rms_epsilon": 1e-5,
+        **(extra_md or {}),
     }
     write_gguf(path, tensors, metadata)
 
@@ -2756,7 +2793,7 @@ def qwen_cfg():
                              max_seq=Q_CTX, rope_base=Q_ROPE, eps=Q_EPS)
 
 
-def qwen_vocab(seed=0) -> dict:
+def qwen_vocab(seed=0, size=Q_VOCAB, specials=None) -> dict:
     """A byte-level BPE vocabulary of ``Q_VOCAB`` entries drawn from a
     seed, as ``tokenizer.ggml.*`` metadata with ``pre = "qwen2"``: the 256
     byte symbols, then merges up to id 151642 (each joins two earlier
@@ -2768,6 +2805,8 @@ def qwen_vocab(seed=0) -> dict:
 
     from quant_gemm_tpu_torch.models import tokenizer
 
+    specials = specials or Q_SPECIALS
+    first = min(specials.values())
     rnd = random.Random(seed)
     b2u = tokenizer._B2U
     tokens = [b2u[b] for b in range(256)]
@@ -2788,25 +2827,25 @@ def qwen_vocab(seed=0) -> dict:
 
     for c in list(pieces):
         add(space, c)
-    while len(tokens) < Q_BOS:
+    while len(tokens) < first:
         a = rnd.choice(starts) if rnd.random() < 0.5 else rnd.choice(pieces)
         b = rnd.choice(pieces)
         if a + b not in seen:
             add(a, b)
     types = [1] * len(tokens)
-    for name in Q_SPECIALS:
+    for name in sorted(specials, key=specials.get):
         tokens.append(name)
         types.append(3)
-    while len(tokens) < Q_VOCAB:
+    while len(tokens) < size:
         tokens.append(f"[PAD{len(tokens)}]")
         types.append(3)
     return {"tokenizer.ggml.model": "gpt2", "tokenizer.ggml.pre": "qwen2",
             "tokenizer.ggml.tokens": tokens,
             "tokenizer.ggml.token_type": types,
             "tokenizer.ggml.merges": merges,
-            "tokenizer.ggml.bos_token_id": Q_BOS,
-            "tokenizer.ggml.eos_token_id": Q_EOS,
-            "tokenizer.ggml.padding_token_id": Q_BOS,
+            "tokenizer.ggml.bos_token_id": first,
+            "tokenizer.ggml.eos_token_id": max(specials.values()),
+            "tokenizer.ggml.padding_token_id": first,
             "tokenizer.ggml.add_bos_token": False,
             "tokenizer.chat_template": CHATML}
 
@@ -3663,6 +3702,713 @@ def slice14_kernel_rows(dev, timer, record, unfused, randn):
                                   enable_gqa=True)), main=False)
 
 
+# -- slice 15: the rest of the serving surface ------------------------------
+
+RUN_A16P = "W4A16 prefill_a16"
+RUN_A16 = "W4A16 act_mode=bf16"
+RUN_WD = "w_down_a16"
+RUN_WDT = "w_down_a16+ENABLE_TAIL"
+RUN_LORA = "LoRA TinyLlama"
+RUN_SPEC_D = "speculative, TinyLlama draft"
+RUN_SPEC_S = "speculative, self draft"
+RUN_PPL = "perplexity {}"
+RUN_HF = "HF Llama-3.2-1B (4 layers)"
+SPEC_K, SPEC_B, SPEC_NEW = 4, 4, 64
+LORA_RANK, LORA_ALPHA = 16, 32.0
+# Llama-3.2-1B (huggingface.co/meta-llama/Llama-3.2-1B config.json):
+# hidden 2048, intermediate 8192, 16 layers (4 written here), 32 / 8 heads
+# of 64, vocab 128256, rope_theta 500000, rms_norm_eps 1e-5, tied
+# embeddings, llama3 rope_scaling (factor 32, low 1, high 4, original
+# 8192), max_position_embeddings 131072 (served at 4096)
+HF_CONFIG = {"architectures": ["LlamaForCausalLM"], "vocab_size": 128256,
+             "hidden_size": 2048, "intermediate_size": 8192,
+             "num_hidden_layers": 4, "num_attention_heads": 32,
+             "num_key_value_heads": 8, "head_dim": 64,
+             "max_position_embeddings": 131072, "rope_theta": 500000.0,
+             "rms_norm_eps": 1e-5, "tie_word_embeddings": True,
+             "rope_scaling": {"rope_type": "llama3", "factor": 32.0,
+                              "low_freq_factor": 1.0,
+                              "high_freq_factor": 4.0,
+                              "original_max_position_embeddings": 8192}}
+HF_MAX_SEQ = 4096
+
+
+def launches_now(counters, graphs=None):
+    """Every counter as it stands, plus a ``serve.Graphs``' replays."""
+    extra = graphs.replay_launches() if graphs is not None else {}
+    return {k: getattr(fn, attr) + extra.get(k, 0)
+            for k, (fn, attr) in counters.items()}
+
+
+def slice15_kernel_rows(dev, timer, record, randn):
+    """K4 on bf16 activations at decode shapes (the W4A16 route: M 1 and
+    8) at TinyLlama's five GEMMs, against its plain version (NMSE <=
+    1e-4, two calls bit-equal), beside ``torch.matmul`` in bf16 on the
+    weight dequantized in advance; bound: the weight's bytes (and the
+    activation's and output's) over the HBM rate."""
+    from quant_gemm_tpu_torch.formats.quant import quantize_q4_0
+    from quant_gemm_tpu_torch.kernels import layout
+    from quant_gemm_tpu_torch.kernels.gemm_dequant import (
+        gemm_dequant, gemm_dequant_plain)
+
+    shapes = {"wqkv": (HEADS * HD + 2 * KV_HEADS * HD, DIM),
+              "wo": (DIM, DIM), "wgu": (2 * D_FF, DIM),
+              "w_down": (DIM, D_FF), "lm_head": (VOCAB, DIM)}
+    for name, (n, k) in shapes.items():
+        w = layout.prepare(quantize_q4_0(randn(n, k, scale=k ** -0.5)))
+        wb = layout.dequantize(w, torch.bfloat16)
+        for m in (1, 8):
+            a = randn(m, k).to(torch.bfloat16)
+            got, ref = gemm_dequant(w, a), gemm_dequant_plain(w, a)
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            e = nmse(got, ref)
+            if not e <= 1e-4:
+                fail(f"K4 bf16 {name} M={m}: NMSE {e} > 1e-4")
+            same_bits(f"K4 bf16 {name} M={m}", got,
+                      lambda: gemm_dequant(w, a))
+            nbytes = q4_bytes(n, k) + m * k * 2 + m * n * 4
+            record("gemm_dequant", f"W4A16 decode {name} M={m} N={n} K={k}",
+                   err, f"NMSE {e:.3e} <= 1e-4",
+                   timer(lambda: gemm_dequant(w, a)),
+                   timer(lambda: gemm_dequant_plain(w, a), reps=5),
+                   bound(nbytes, 2 * m * n * k, "bf16"),
+                   timer(lambda: torch.matmul(a, wb.T)), main=False)
+        del wb
+
+
+def a16_path(dev, counters, prompts, reuse, qp, cfg):
+    """W4A16 at TinyLlama width: ``Server(prefill_a16=True)``,
+    ``Server(act_mode="bf16")`` and ``w_down_a16`` (again with
+    ENABLE_TAIL: K8 serves w_down), each eager and captured on the first 8
+    requests; launches against the routes; kernels against plain
+    versions layer by layer in each mode."""
+    from quant_gemm_tpu_torch.models import llama
+
+    prompts, reuse = prompts[:8], reuse[:8]
+    n_chunks = chunks(prompts, reuse)
+    L = LAYERS
+    k5 = L * sum(t >= 64 for t in n_chunks)
+    zeros = {"gemm_exact_fused": 0, "attn_tail": 0, "gemm_exact_k16": 0,
+             "k16_dequant_gemm": 0}
+    cfg_wd = cfg._replace(w_down_a16=True)
+    runs = [
+        # decode as the default server; chunks on bf16 activations: K4
+        # with no quantize-fold
+        (RUN_A16P, cfg, dict(prefill_a16=True), False, lambda s: {
+            "gemm_exact": s * (3 * L + 1), "norm_qkv": s * L,
+            "flash_decode": s * L, "quantize_q8_1": s * (3 * L + 1),
+            "gemm_dequant": len(n_chunks) * (4 * L + 1),
+            "quantize_fold_q8_1": 0}),
+        # every GEMM of a decode step on K4 too; K2 off
+        (RUN_A16, cfg, dict(act_mode="bf16"), False, lambda s: {
+            "gemm_exact": 0, "norm_qkv": 0, "flash_decode": s * L,
+            "quantize_q8_1": 0, "quantize_fold_q8_1": 0,
+            "gemm_dequant": len(n_chunks) * (4 * L + 1) + s * (4 * L + 1)}),
+        # w_down on K4 (bf16) at decode and in the chunks
+        (RUN_WD, cfg_wd, {}, False, lambda s: {
+            "gemm_exact": s * (2 * L + 1), "norm_qkv": s * L,
+            "flash_decode": s * L, "quantize_q8_1": s * (2 * L + 1),
+            "gemm_dequant": len(n_chunks) * (4 * L + 1) + s * L,
+            "quantize_fold_q8_1": len(n_chunks) * (3 * L + 1)}),
+        # K8 takes wo to the second residual at decode: w_down_a16 only
+        # reaches the chunks
+        (RUN_WDT, cfg_wd, {}, True, lambda s: {
+            "attn_tail": s * L, "gemm_exact": s, "norm_qkv": s * L,
+            "flash_decode": s * L, "quantize_q8_1": s,
+            "gemm_dequant": len(n_chunks) * (4 * L + 1),
+            "quantize_fold_q8_1": len(n_chunks) * (3 * L + 1)}),
+    ]
+    by_run = {}
+    for name, c, kw, tail, want in runs:
+        with switches(fused=False, tail=tail):
+            launches, st, _ = serve_traffic(
+                f"{name}: Server(qp, cfg, n_slots=8"
+                f"{''.join(f', {k}={v!r}' for k, v in kw.items())})", qp, c,
+                dev, prompts, reuse, counters, **kw)
+            rule = {**zeros, "flash_prefill": k5,
+                    **want(st["decode_steps"])}
+            check_launches(name, launches, rule)
+            by_run[name] = launches
+    print(f"    W4A16 per decode step: prefill_a16 as the default (K2 {L}, "
+          f"K1 {3 * L + 1}); act_mode=bf16 K4 {4 * L + 1}, K2 0, K1 0, no "
+          f"quantize; w_down_a16 K4 {L} + K1 {2 * L + 1}; with ENABLE_TAIL "
+          f"K8 {L} and K4 0 at decode (K8 takes precedence)", flush=True)
+    # the precedence bit for bit: one decode step from one cache, with and
+    # without w_down_a16, under ENABLE_TAIL
+    rng = np.random.default_rng(15)
+    cache = llama.KVCache.init(cfg, 8, device=dev)
+    llama.forward(qp, cfg, torch.as_tensor(rng.integers(0, VOCAB, (8, 40)),
+                                           device=dev), cache)
+    nt = torch.as_tensor(rng.integers(0, VOCAB, (8, 1)), device=dev)
+    with switches(fused=False, tail=True):
+        a, b = (llama.forward(qp, c, nt, cache.clone())[0]
+                for c in (cfg, cfg_wd))
+    if not torch.equal(a, b):
+        fail("ENABLE_TAIL: w_down_a16 changed a decode step K8 serves")
+    cases = []
+    toks = torch.as_tensor(rng.integers(0, VOCAB, (1, 128)), device=dev)
+    for label, c, mode in (("bf16 mode", cfg, "bf16"),
+                           ("w_down_a16", cfg_wd, "q8_1")):
+        cases.append((f"{label} chunk 128 at pos0 0", check(
+            qp, c, toks, llama.KVCache.init(c, 1, device=dev), mode)))
+        cases.append((f"{label} decode step",
+                      decode_case(qp, c, rng, dev, act_mode=mode)))
+    report_cases(cases)
+    return by_run
+
+
+def lora_path(dev, counters, prompts, cfg):
+    """A TinyLlama-width q4_0 GGUF (tokenizer embedded) and an adapter
+    GGUF from ``export_lora`` (rank 16, alpha 32, f16, attn_q/k/v,
+    attn_output, ffn_gate/up/down of every layer), served through
+    ``build_engine(lora_path=)``'s Server eagerly and again captured, and
+    once through ``generate.py --lora``; K2 and K8 off; kernels against
+    plain versions layer by layer; the first step's logits against the
+    deltas merged into the dequantized weights through
+    ``forward_float``."""
+    import contextlib as ctx
+    import io
+
+    from quant_gemm_tpu_torch.kernels import layout
+    from quant_gemm_tpu_torch.models import llama, lora, serve
+    from quant_gemm_tpu_torch.scripts import generate
+    from quant_gemm_tpu_torch.scripts.server import build_engine
+
+    L = LAYERS
+    g = torch.Generator(device=dev).manual_seed(15)
+    parts = {"attn_q": (HEADS * HD, DIM), "attn_k": (KV_HEADS * HD, DIM),
+             "attn_v": (KV_HEADS * HD, DIM), "attn_output": (DIM, DIM),
+             "ffn_gate": (D_FF, DIM), "ffn_up": (D_FF, DIM),
+             "ffn_down": (DIM, D_FF)}
+    tensors = {f"blk.{i}.{p}.weight": (
+        (torch.randn(LORA_RANK, k, generator=g, device=dev) * k ** -0.5
+         ).half(),
+        (torch.randn(n, LORA_RANK, generator=g, device=dev) * 0.02).half())
+        for i in range(L) for p, (n, k) in parts.items()}
+    specials = {"<|endoftext|>": VOCAB - 3, "<|im_start|>": VOCAB - 2,
+                "<|im_end|>": VOCAB - 1}
+    with tempfile.TemporaryDirectory() as tmp:
+        model, adapter = Path(tmp) / "tinyllama-q4_0.gguf", Path(tmp) / "a.gguf"
+        t0 = time.perf_counter()
+        write_gguf_mix(model, "all Q4_0", dev, seed=15, extra_md=qwen_vocab(
+            15, VOCAB, specials))
+        lora.export_lora(adapter, LORA_ALPHA, tensors)
+        print(f"LoRA path: a TinyLlama-width all-q4_0 GGUF "
+              f"({model.stat().st_size} bytes) and a rank-{LORA_RANK} f16 "
+              f"adapter ({adapter.stat().st_size} bytes, "
+              f"{len(tensors)} pairs) written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        with graphs(False):
+            engine = build_engine(model, n_slots=8, lora_path=adapter,
+                                  device=dev)
+            engine.shutdown()
+            srv = engine.server
+            ql = srv.qparams
+            if not all(isinstance(ly[s], lora.LoraLinear)
+                       for ly in ql["layers"]
+                       for s in ("wqkv", "wo", "wgu", "w_down")):
+                fail("LoRA: build_engine did not attach every layer's slots")
+            # the same model without its deltas
+            base = {**ql, "layers": [
+                {k: (v.inner if isinstance(v, lora.LoraLinear) else v)
+                 for k, v in ly.items()} for ly in ql["layers"]]}
+            with switches(fused=False, tail=True):
+                base_route = llama.routes(base, cfg, 8, 1)
+                lora_route = llama.routes(ql, cfg, 8, 1)
+            if base_route != (True, True) or lora_route != (False, False):
+                fail(f"LoRA routes: base {base_route}, LoRA'd {lora_route}"
+                     " (expected K2 and K8 on the base, off with LoRA)")
+            results, launches, wall = drive(srv, prompts[:8], 32, counters)
+        st = srv.stats()
+        n_chunks = chunks(prompts[:8], [0] * 8)
+        steps = st["decode_steps"]
+        check_launches(RUN_LORA, launches, {
+            "gemm_exact": steps * (4 * L + 1), "norm_qkv": 0,
+            "attn_tail": 0, "flash_decode": steps * L,
+            "gemm_dequant": len(n_chunks) * (4 * L + 1),
+            "flash_prefill": L * sum(t >= 64 for t in n_chunks),
+            "gemm_exact_fused": 0, "gemm_exact_k16": 0})
+        print(f"  {RUN_LORA}: build_engine(lora_path=) Server, 8 requests, "
+              f"{steps} decode steps in {wall:.2f} s (eager); per decode "
+              f"step K1 {4 * L + 1} (wqkv too), K2 0, K8 0 (K2 and K8 on the"
+              f" base with ENABLE_TAIL: {base_route}, LoRA'd: {lora_route})",
+              flush=True)
+        print(f"    launches: {json.dumps(launches)}", flush=True)
+        with graphs(True):
+            cap = serve.Server(ql, cfg, n_slots=8, eos_id=srv.eos_id,
+                               device=dev)
+            captured_pair(RUN_LORA, (srv, results, launches, wall),
+                          (cap, *drive(cap, prompts[:8], 32, counters)))
+            del cap
+            # generate.py --lora on the same files: a one-slot Server's
+            # tokens (CUDA graphs on, as the CLI runs)
+            ids = prompts[0][:64]
+            one = serve.Server(ql, cfg, n_slots=1, eos_id=srv.eos_id,
+                               device=dev)
+            rid = one.submit(ids, max_new=8)
+            want = one.run_until_done()[rid]
+            del one
+            out = io.StringIO()
+            with ctx.redirect_stdout(out), ctx.redirect_stderr(io.StringIO()):
+                generate.main(["-m", str(model), "--ids",
+                               ",".join(map(str, ids)), "-n", "8",
+                               "--lora", str(adapter), "--device",
+                               str(dev)])
+            got = [int(t) for t in out.getvalue().strip().split(",")]
+            if got != want:
+                fail(f"generate.py --lora printed {got}, the Server {want}")
+            print(f"  generate.py --lora: {got} (= a one-slot Server's)",
+                  flush=True)
+        del srv, engine
+    rng = np.random.default_rng(16)
+    toks = torch.as_tensor(rng.integers(0, VOCAB, (1, 128)), device=dev)
+    report_cases([
+        ("LoRA chunk 128 at pos0 0", check(
+            ql, cfg, toks, llama.KVCache.init(cfg, 1, device=dev))),
+        ("LoRA decode step", decode_case(ql, cfg, rng, dev))])
+    # the merged float reference: the base dequantized, + scale B A merged
+    scale = LORA_ALPHA / LORA_RANK
+
+    def merged(w, with_lora):
+        if not isinstance(w, lora.LoraLinear):
+            return llama._FloatLinear(layout.dequantize(w))
+        f = layout.dequantize(w.inner)
+        for off, sc, d in (w.deltas if with_lora else ()):
+            f[off:off + d.b.shape[0]] += sc * (d.b @ d.a)
+        return llama._FloatLinear(f)
+
+    def float_model(with_lora):
+        return {"embed": ql["embed"].float(), "final_norm": ql["final_norm"],
+                "lm_head": merged(ql["lm_head"], with_lora),
+                "layers": [{k: (merged(v, with_lora) if k in (
+                    "wqkv", "wo", "wgu", "w_down") else v)
+                    for k, v in ly.items()} for ly in ql["layers"]]}
+
+    def logits(qp, float_=False):
+        cache = llama.KVCache.init(cfg, 1, device=dev)
+        if float_:
+            return llama.forward_float(qp, cfg, toks, cache)[0]
+        return llama.forward(qp, cfg, toks, cache)[0]
+
+    m = nmse(logits(ql), logits(float_model(True), True))
+    m0 = nmse(logits(base), logits(float_model(False), True))
+    moved = float((logits(ql) - logits(base)).abs().max())
+    print(f"  LoRA against the merged float reference (forward_float, the "
+          f"deltas merged into the dequantized weights, scale {scale}): "
+          f"logits NMSE {m:.3e}; the base against its own float reference "
+          f"{m0:.3e} (limit 1.3 x base + 1e-4); the adapter moves the "
+          f"logits by up to {moved:.3f}", flush=True)
+    if not m <= 1.3 * m0 + 1e-4 or not moved > 1e-3:
+        fail("LoRA: the LoRA'd forward strays from its merged reference")
+    del ql, base
+    return {RUN_LORA: launches}
+
+
+def spec_path(dev, counters):
+    """Speculative decoding: target Mistral-7B-v0.1 width (linear cache),
+    draft TinyLlama-1.1B width, both q4_0 built on the card; k = 4, B =
+    4 prompts of one length drawn from 128-512, 64 new tokens, greedy:
+    with the TinyLlama draft and with the target as its own draft.  Each
+    transcript is the target's greedy decode under the near-tie rule;
+    tokens per target call printed, the self draft's at least 0.9 (k +
+    1); then one ``sample_decode`` against a Server's tokens, one seed."""
+    from quant_gemm_tpu_torch.models import llama, serve, speculative
+
+    k, b = SPEC_K, SPEC_B
+    rng = np.random.default_rng(17)
+    t0_len = int(rng.integers(128, 513))
+    max_seq = -(-(t0_len + SPEC_NEW + k + 1) // 128) * 128
+    cfg_t = mistral_cfg(ring=False, max_seq=max_seq)
+    cfg_d = tinyllama_cfg()._replace(max_seq=max_seq)
+    t0 = time.perf_counter()
+    qp_t = llama.init_qparams(cfg_t, seed=0, device=dev)
+    qp_d = llama.init_qparams(cfg_d, seed=1, device=dev)
+    torch.cuda.synchronize()
+    prompt = torch.as_tensor(rng.integers(0, VOCAB, (b, t0_len)), device=dev)
+    ref, _ = llama.greedy_decode(qp_t, cfg_t, prompt, SPEC_NEW)
+    ref = ref.tolist()
+    print(f"speculative: target Mistral-7B-v0.1 width, draft TinyLlama-1.1B "
+          f"width (q4_0, built on the card), B {b} prompts of {t0_len} "
+          f"tokens, k {k}, {SPEC_NEW} new, max_seq {max_seq}; target greedy "
+          f"reference in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def near_tie(toks):
+        """Teacher-force ``toks`` through the target's T = 1 steps: each
+        token is the argmax or within 4e-2 x max|logits| of it."""
+        cache = llama.KVCache.init(cfg_t, b, device=dev)
+        logits, _ = llama.forward(qp_t, cfg_t, prompt, cache)
+        worst, ties = 0.0, 0
+        for s in range(SPEC_NEW):
+            last = logits[:, -1]
+            pick = torch.as_tensor([r[s] for r in toks], device=dev)
+            slack = last.amax(-1) - last.gather(-1, pick[:, None])[:, 0]
+            rel = slack / last.abs().amax(-1)
+            worst = max(worst, float(rel.max()))
+            ties += int((slack > 0).sum())
+            if s + 1 < SPEC_NEW:
+                logits, _ = llama.forward(qp_t, cfg_t, pick[:, None], cache)
+        return worst, ties
+
+    by_run = {}
+    rates = {}
+    for name, qd, cd in ((RUN_SPEC_D, qp_d, cfg_d), (RUN_SPEC_S, qp_t,
+                                                     cfg_t)):
+        gr = serve.Graphs(dev)
+        zero(counters)
+        t1 = time.perf_counter()
+        toks, rate = speculative.speculative_greedy_decode(
+            qp_t, cfg_t, qd, cd, prompt, SPEC_NEW, k=k, graphs=gr)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = launches_now(counters, gr)
+        toks = toks.tolist()
+        rounds = next(g.replays + 1 for key, g in gr.graphs.items()
+                      if key[0] == "verify")
+        ld, lt = cd.n_layers, cfg_t.n_layers
+        steps = (k + 1) * rounds
+        check_launches(name, launches, {
+            "gemm_exact": steps * (3 * ld + 1), "norm_qkv": steps * ld,
+            "flash_decode": steps * ld,
+            "gemm_dequant": (rounds + 1) * (4 * lt + 1) + 4 * ld + 1,
+            "flash_prefill": lt + ld, "gemm_exact_fused": 0,
+            "attn_tail": 0, "gemm_exact_k16": 0, "k16_dequant_gemm": 0})
+        same = sum(a == r for a, r in zip(toks, ref))
+        worst, ties = (0.0, 0) if same == b else near_tie(toks)
+        if worst > 4e-2:
+            fail(f"{name}: a token is {worst:.3e} x max|logits| below the "
+                 "target's argmax along its transcript")
+        rates[name] = rate
+        print(f"  {name}: {rate:.3f} tokens per target call ({rounds} "
+              f"rounds, {steps} draft steps, {len(gr.graphs)} graphs), "
+              f"{wall:.2f} s; {same} of {b} transcripts equal the target's "
+              f"greedy decode, the rest within the near-tie rule (worst "
+              f"{worst:.3e} x max|logits|, {ties} steps off the argmax)",
+              flush=True)
+        print(f"    launches: {json.dumps(launches)}", flush=True)
+        by_run[name] = launches
+    # every round the verify block's argmax leaves the draft's at a
+    # near-tie ends early (K4 on the bf16 fold at M = B (k + 1) = 20, K1
+    # in the draft's steps), so the self draft is held to 0.9 of the rate
+    # a run of this length allows when every proposal is accepted
+    best = speculative.best_rate(SPEC_NEW, k)
+    print(f"  self draft: {rates[RUN_SPEC_S]:.3f} tokens per target call, "
+          f"{rates[RUN_SPEC_S] / best:.3f} of the {best:.3f} that accepting "
+          f"every proposal gives ({rates[RUN_SPEC_S] / (k + 1):.3f} of k + "
+          "1)", flush=True)
+    if rates[RUN_SPEC_S] < 0.9 * best:
+        fail(f"self draft: {rates[RUN_SPEC_S]:.3f} tokens per target call "
+             f"< 0.9 x {best:.3f}")
+    del qp_t
+    torch.cuda.empty_cache()
+    # sample_decode against a one-slot Server, one seed (the Server's
+    # chunk is the 128-token prompt itself)
+    ids = rng.integers(0, VOCAB, 128).tolist()
+    srv = serve.Server(qp_d, cfg_d, n_slots=1, device=dev)
+    rid = srv.submit(ids, max_new=32, temperature=0.8, top_k=40, seed=7)
+    want = srv.run_until_done()[rid]
+    got, _ = llama.sample_decode(qp_d, cfg_d, [ids], 32, seed=[7],
+                                 temperature=0.8, top_k=40)
+    got = got[0].tolist()
+    first = next((i for i, (x, y) in enumerate(zip(got, want)) if x != y),
+                 None)
+    print(f"  sample_decode against a one-slot Server, seed 7, temperature "
+          f"0.8, top-k 40: {'equal' if first is None else f'first differ at step {first}'}"
+          f" ({got[:8]} ...)", flush=True)
+    return by_run
+
+
+def ppl_path(dev, counters, qp, cfg):
+    """Perplexity at TinyLlama width through ``scripts/perplexity.py``'s
+    ``report``: a seeded 4096-token stream, ctx 512, stride 256, q8_1 and
+    bf16, the kernels against the plain versions to a relative 1e-3."""
+    from quant_gemm_tpu_torch.kernels import registry
+    from quant_gemm_tpu_torch.scripts.perplexity import report
+
+    stream = np.random.default_rng(18).integers(0, VOCAB, 4096)
+    windows = 15  # starts 0, 256, ..., 3584
+    by_run = {}
+    for mode in ("q8_1", "bf16"):
+        name = RUN_PPL.format(mode)
+        zero(counters)
+        t0 = time.perf_counter()
+        got = report(qp, cfg, stream, ctx=512, stride=256, act_mode=mode)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launches_now(counters)
+        plain = report(qp, cfg, stream, ctx=512, stride=256, act_mode=mode,
+                       ops=registry.PLAIN)
+        rel = abs(got["ppl"] - plain["ppl"]) / plain["ppl"]
+        check_launches(name, launches, {
+            "gemm_dequant": windows * (4 * LAYERS + 1),
+            "flash_prefill": windows * LAYERS, "gemm_exact": 0,
+            "norm_qkv": 0, "flash_decode": 0, "gemm_exact_k16": 0,
+            "quantize_q8_1": 0, "quantize_fold_q8_1": (
+                windows * (4 * LAYERS + 1) if mode == "q8_1" else 0)})
+        print(f"  {name}: ppl {got['ppl']:.6f} over {got['tokens']} tokens "
+              f"(plain versions {plain['ppl']:.6f}, relative {rel:.3e}, "
+              f"limit 1e-3), {windows} windows of 512 in {wall:.2f} s",
+              flush=True)
+        if not rel <= 1e-3:
+            fail(f"{name}: kernels and plain versions disagree")
+        by_run[name] = launches
+    return by_run
+
+
+def hf_path(dev, counters, prompts):
+    """A Llama-3.2-1B-width checkpoint (4 of its 16 layers, bf16, two
+    shards) written with ``write_safetensors`` from a seed, loaded with
+    ``load_hf_llama(dir, "q4_0")``: weights bit-equal to
+    ``quantize_params`` on the same floats, the llama3 RoPE table, load
+    seconds and device bytes; then 8 requests at max_seq 4096, eager and
+    captured, and the layer-by-layer check."""
+    from quant_gemm_tpu_torch.models import hf_loader, llama
+    from quant_gemm_tpu_torch.ops.rope import llama3_inv_freq, rope_cache
+
+    c = HF_CONFIG
+    dim, dff, nl = c["hidden_size"], c["intermediate_size"], \
+        c["num_hidden_layers"]
+    hd = c["head_dim"]
+    nq, nkv = c["num_attention_heads"] * hd, c["num_key_value_heads"] * hd
+    g = torch.Generator(device=dev).manual_seed(19)
+
+    def w(n, k, std=None):
+        return (torch.randn(n, k, generator=g, device=dev)
+                * (std or k ** -0.5)).to(torch.bfloat16)
+
+    ones = torch.ones(dim, device=dev, dtype=torch.bfloat16)
+    shard = [{"model.embed_tokens.weight": w(c["vocab_size"], dim, 0.02),
+              "model.norm.weight": ones}, {}]
+    for i in range(nl):
+        p = f"model.layers.{i}."
+        shard[1].update({
+            p + "input_layernorm.weight": ones,
+            p + "post_attention_layernorm.weight": ones,
+            p + "self_attn.q_proj.weight": w(nq, dim),
+            p + "self_attn.k_proj.weight": w(nkv, dim),
+            p + "self_attn.v_proj.weight": w(nkv, dim),
+            p + "self_attn.o_proj.weight": w(dim, nq),
+            p + "mlp.gate_proj.weight": w(dff, dim),
+            p + "mlp.up_proj.weight": w(dff, dim),
+            p + "mlp.down_proj.weight": w(dim, dff)})
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        t0 = time.perf_counter()
+        for i, tensors in enumerate(shard):
+            hf_loader.write_safetensors(
+                d / f"model-{i + 1:05d}-of-00002.safetensors", tensors,
+                {"format": "pt"})
+        (d / "config.json").write_text(json.dumps(c))
+        size = sum(f.stat().st_size for f in d.glob("*.safetensors"))
+        write_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qp, cfg = hf_loader.load_hf_llama(d, "q4_0", device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    print(f"HF path: Llama-3.2-1B width ({nl} of 16 layers), bf16, 2 shards,"
+          f" {size} bytes written in {write_s:.1f} s; load_hf_llama(dir, "
+          f"'q4_0') in {load_s:.2f} s, {device_bytes(qp)} bytes on the card;"
+          f" {cfg}", flush=True)
+    want = dict(vocab=c["vocab_size"], dim=dim, n_layers=nl,
+                n_heads=c["num_attention_heads"],
+                n_kv_heads=c["num_key_value_heads"], d_ff=dff,
+                max_seq=c["max_position_embeddings"],
+                rope_base=c["rope_theta"], eps=c["rms_norm_eps"],
+                head_dim_override=hd, rope_scale=1.0)
+    if any(getattr(cfg, k) != v for k, v in want.items()):
+        fail(f"HF config {cfg} != {want}")
+    # the same floats through quantize_params: bit for bit
+    f32 = {n: t.float().cpu().numpy() for sh in shard for n, t in sh.items()}
+    params = {"embed": f32["model.embed_tokens.weight"],
+              "lm_head": f32["model.embed_tokens.weight"],
+              "final_norm": f32["model.norm.weight"], "layers": [
+                  {k: f32[f"model.layers.{i}.{v}"] for k, v in (
+                      ("attn_norm", "input_layernorm.weight"),
+                      ("mlp_norm", "post_attention_layernorm.weight"),
+                      ("wq", "self_attn.q_proj.weight"),
+                      ("wk", "self_attn.k_proj.weight"),
+                      ("wv", "self_attn.v_proj.weight"),
+                      ("wo", "self_attn.o_proj.weight"),
+                      ("w_gate", "mlp.gate_proj.weight"),
+                      ("w_up", "mlp.up_proj.weight"),
+                      ("w_down", "mlp.down_proj.weight"))}
+                  for i in range(nl)]}
+    del shard, f32
+    native = llama.quantize_params(params, "q4_0", device=dev)
+    del params
+
+    def same(a, b):
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a, b)
+        return all((x is None and y is None) or torch.equal(x, y)
+                   for x, y in zip(a[3:], b[3:]))
+
+    pairs = [(qp[k], native[k]) for k in ("embed", "final_norm", "lm_head")]
+    pairs += [(a[k], b[k]) for a, b in zip(qp["layers"], native["layers"])
+              for k in b]
+    if not all(same(a, b) for a, b in pairs):
+        fail("load_hf_llama's weights differ from quantize_params'")
+    if not same(qp["lm_head"], native["lm_head"]):
+        fail("the tied head is not the embedding's q4_0")
+    del native
+    rs = c["rope_scaling"]
+    inv = torch.as_tensor(llama3_inv_freq(
+        hd, c["rope_theta"], rs["factor"], rs["low_freq_factor"],
+        rs["high_freq_factor"], rs["original_max_position_embeddings"]),
+        device=dev)
+    cfg = cfg._replace(max_seq=HF_MAX_SEQ)
+    table = llama.rope_for(cfg, qp, dev)
+    ref = rope_cache(HF_MAX_SEQ, hd, c["rope_theta"], device=dev,
+                     inv_freq=inv)
+    if not (torch.equal(qp["rope_inv_freq"], inv)
+            and all(torch.equal(x, y) for x, y in zip(table, ref))):
+        fail("the llama3 RoPE table differs from llama3_inv_freq's")
+    print(f"  {len(pairs)} weights bit-equal to quantize_params on the same "
+          f"floats (the tied head the embedding's q4_0); rope_inv_freq and "
+          f"the RoPE table equal llama3_inv_freq's", flush=True)
+    prompts = prompts[:8]
+    n_chunks = chunks(prompts, [0] * 8)
+    launches, st, _ = serve_traffic(
+        f"{RUN_HF}: Server(qp, cfg, n_slots=8), max_seq {HF_MAX_SEQ}", qp,
+        cfg, dev, prompts, [0] * 8, counters, vocab=cfg.vocab)
+    steps = st["decode_steps"]
+    check_launches(RUN_HF, launches, {
+        "gemm_exact": steps * (3 * nl + 1), "norm_qkv": steps * nl,
+        "flash_decode": steps * nl,
+        "gemm_dequant": len(n_chunks) * (4 * nl + 1),
+        "flash_prefill": nl * sum(t >= 64 for t in n_chunks),
+        "gemm_exact_fused": 0, "attn_tail": 0, "gemm_exact_k16": 0})
+    rng = np.random.default_rng(20)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, 128)), device=dev)
+    report_cases([
+        ("HF chunk 128 at pos0 0", check(
+            qp, cfg, toks, llama.KVCache.init(cfg, 1, device=dev))),
+        ("HF decode step", decode_case(qp, cfg, rng, dev))])
+    return {RUN_HF: launches}
+
+
+def api_compat_path(dev):
+    """``api.gemm_q4_0_q8_1`` on CUDA tensors at the survey's llama shape
+    (4 tokens, 4096 out-features, K 4096): K1, bit-equal to K1's order of
+    the golden's block terms and within 1e-5 x max|C| of the float64
+    golden (``ref/gemm.py``); ``compat.gemm_from_ggml`` on a view of a
+    GGUF written here, bit-equal to the api's; each ``ggml_op_*`` on the
+    card against the port's ops."""
+    from quant_gemm_tpu_torch import api, compat
+    from quant_gemm_tpu_torch.formats.gguf_file import (GGUFFile,
+                                                        from_block_bytes,
+                                                        write_gguf)
+    from quant_gemm_tpu_torch.kernels import layout
+    from quant_gemm_tpu_torch.kernels.gemm_exact import (block_terms,
+                                                         gemm_exact,
+                                                         k1_order)
+    from quant_gemm_tpu_torch.ops import activations, rope
+    from quant_gemm_tpu_torch.ops.rms_norm import rms_norm_pallas
+    from quant_gemm_tpu_torch.ops.softmax import softmax_pallas
+    from quant_gemm_tpu_torch.ref.gemm import gemm_wxa8
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    m, n, k = 4096, 4, 4096  # weight rows (out-features), tokens, K
+    w = torch.randn(m, k, generator=g, device=dev) * k ** -0.5
+    a = torch.randn(n, k, generator=g, device=dev)
+    wq, aq = api.quantize_q4_0(w), api.quantize_q8_1(a)
+    if not (torch.equal(wq.cpu(), api.quantize_q4_0(w.cpu()))
+            and torch.equal(aq.cpu(), api.quantize_q8_1(a.cpu()))):
+        fail("api: the card's block bytes differ from the CPU's")
+    before = gemm_exact.launches
+    out = api.gemm_q4_0_q8_1(wq, aq, m, n, k)
+    torch.cuda.synchronize()
+    if out.shape != (m, n) or out.device != dev or \
+            gemm_exact.launches != before + 1:
+        fail("api.gemm_q4_0_q8_1: not one K1 launch of a [M, N] result")
+    wt = from_block_bytes(wq.reshape(m, k // 32, 18), "q4_0")
+    at = from_block_bytes(aq.reshape(n, k // 32, 36), "q8_1")
+    order = k1_order(block_terms(layout.prepare(wt), at)).T
+    gold = torch.from_numpy(gemm_wxa8(
+        type(wt)(*(x.cpu().numpy() for x in wt)),
+        type(at)(*(x.cpu().numpy() for x in at))).T).to(dev)
+    err = float((out - gold).abs().max())
+    if not torch.equal(out, order) or err > 1e-5 * float(gold.abs().max()):
+        fail(f"api.gemm_q4_0_q8_1: K1 order equal {torch.equal(out, order)},"
+             f" max|C - golden| {err}")
+    print(f"api/compat: gemm_q4_0_q8_1 M {m} N {n} K {k} on the card: one K1"
+          f" launch, bit-equal to k1_order of the block terms, max|C - "
+          f"float64 golden| {err:.3e} ({err / float(gold.abs().max()):.3e}"
+          f" x max|C|)", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "w.gguf"
+        write_gguf(path, {"blk.0.attn_q.weight": wt}, {
+            "general.architecture": "llama"})
+        with GGUFFile(path) as gf:
+            view = compat.tensor_view_from_gguf(gf, "blk.0.attn_q.weight")
+            if (view.k, view.rows) != (k, m):
+                fail(f"compat view ne {view.ne}")
+            got = compat.gemm_from_ggml(view, at)
+    if not torch.equal(got, out.T):
+        fail("compat.gemm_from_ggml differs from api.gemm_q4_0_q8_1")
+    x = torch.randn(8, 4096, generator=g, device=dev)
+    pos = torch.arange(8, device=dev)[:, None].expand(8, 2)
+    xr = torch.randn(8, 2, 32, 128, generator=g, device=dev)
+    checks = {
+        "silu": (compat.ggml_op_silu(x), activations.silu(x), 0.0),
+        "gelu": (compat.ggml_op_gelu(x), activations.gelu_quick(x), 0.0),
+        "rms_norm (K9)": (compat.ggml_op_rms_norm(x, 1e-5), rms_norm_pallas(
+            x, torch.ones(4096, device=dev), 1e-5), 1e-5),
+        "soft_max (K10)": (compat.ggml_op_soft_max(x, 0.5),
+                           softmax_pallas(x * 0.5), 1e-5),
+        "rope neox": (compat.ggml_op_rope(xr, pos, {"mode": 2}),
+                      rope.rope(xr, pos), 0.0),
+        "rope interleaved": (compat.ggml_op_rope(xr, pos, {"mode": 0}),
+                             rope.rope(xr, pos, interleaved=True), 0.0),
+        "add": (compat.ggml_op_add(x, x), x + x, 0.0),
+        "mul": (compat.ggml_op_mul(x, x), x * x, 0.0)}
+    worst = {}
+    for name, (got, ref, tol) in checks.items():
+        e = float((got - ref).abs().max())
+        worst[name] = e
+        if got.device != dev or e > tol * float(ref.abs().max()):
+            fail(f"compat ggml_op {name}: max|err| {e}")
+    print(f"  gemm_from_ggml on a GGUF view: equal to the api's bit for "
+          f"bit; ggml ops against the port's ops on the card, max|err|: "
+          f"{json.dumps(worst)}", flush=True)
+
+
+def slice15_path(dev, counters, prompts, reuse):
+    """Slice 15: W4A16, LoRA, speculative decoding, perplexity, the
+    safetensors loader and the api/compat drop-ins.  Returns each run's
+    launches."""
+    from quant_gemm_tpu_torch.models import llama
+
+    t_start = time.perf_counter()
+    cfg = tinyllama_cfg()
+    qp = llama.init_qparams(cfg, seed=0, device=dev)
+    by_run = a16_path(dev, counters, prompts, reuse, qp, cfg)
+    print(f"[slice 15] W4A16: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    by_run.update(ppl_path(dev, counters, qp, cfg))
+    print(f"[slice 15] + perplexity: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    del qp
+    torch.cuda.empty_cache()
+    by_run.update(lora_path(dev, counters, prompts, cfg))
+    print(f"[slice 15] + LoRA: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+    by_run.update(spec_path(dev, counters))
+    print(f"[slice 15] + speculative: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+    by_run.update(hf_path(dev, counters, prompts))
+    print(f"[slice 15] + HF loader: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+    api_compat_path(dev)
+    print(f"[slice 15] + api/compat: {time.perf_counter() - t_start:.1f} s "
+          "(budget 120 s)", flush=True)
+    return by_run
+
+
 KERNEL_INFO = {
     "gemm_exact": ("quant_gemm_tpu_torch/csrc/gemm_exact.cu",
                    "quant_gemm_tpu/kernels/gemm_exact.py:775"),
@@ -3768,6 +4514,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_run.update(qwen_path(dev, counters))
     phase_done("GGUF user path (slice 14, Qwen2.5-1.5B width)")
+    torch.cuda.empty_cache()
+    by_run.update(slice15_path(dev, counters, prompts, reuse))
+    phase_done("slice 15 (W4A16, LoRA, speculative, perplexity, HF loader,"
+               " api/compat)")
 
     kernels = []
     for name, (src, rep) in KERNEL_INFO.items():

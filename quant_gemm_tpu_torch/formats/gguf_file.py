@@ -33,7 +33,7 @@ import torch
 from ..utils import resolve_device
 from . import kquants
 from .blocks import (QK, Q4_0Tensor, Q4_1Tensor, Q5_0Tensor, Q5_1Tensor,
-                     Q8_0Tensor)
+                     Q8_0Tensor, Q8_1Tensor)
 from .quant import pack_planar_4bit, unpack_planar_4bit
 
 MAGIC = b"GGUF"
@@ -198,6 +198,20 @@ def _q8_0_to_bytes(t: Q8_0Tensor) -> torch.Tensor:
                      dim=-1)
 
 
+def _q8_1_from_bytes(raw: torch.Tensor) -> Q8_1Tensor:
+    n, nb, _ = raw.shape
+    qs = raw[:, :, 4:36].contiguous().view(torch.int8).reshape(n, nb * QK)
+    return Q8_1Tensor(qs, kquants._f16(raw, 0), kquants._f16(raw, 2))
+
+
+def _q8_1_to_bytes(t: Q8_1Tensor) -> torch.Tensor:
+    n = t.qs.shape[0]
+    q = t.qs.to(torch.int8).contiguous().view(torch.uint8).reshape(n, -1, QK)
+    nb = q.shape[1]
+    return torch.cat([kquants._f16_bytes(t.d.reshape(n, nb)),
+                      kquants._f16_bytes(t.s.reshape(n, nb)), q], dim=-1)
+
+
 _DECODE = {"q8_0": _q8_0_from_bytes,
            "iq4_nl": kquants.from_bytes_iq4_nl,
            "iq4_xs": kquants.from_bytes_iq4_xs,
@@ -210,6 +224,26 @@ _ENCODE = {"q8_0": _q8_0_to_bytes,
 _GGUF_TYPE = {Q8_0Tensor: "q8_0",
               **{c[0]: qt for qt, c in _PER32.items()},
               **kquants.GGUF_TYPE}
+
+
+def to_block_bytes(t) -> torch.Tensor:
+    """A per-32 container (q4_0, q4_1, q5_0, q5_1, q8_0, q8_1) of ``[...,
+    K]`` -> its ggml block bytes ``uint8 [..., K/32, B]`` (B the format's
+    ``block_bytes``), on its device."""
+    qt = t.spec.name
+    codes = t.qs if hasattr(t, "qs") else t.packed
+    flat = type(t)(*(x.reshape(-1, x.shape[-1]) for x in t))
+    raw = (_q8_1_to_bytes if qt == "q8_1" else _ENCODE[qt])(flat)
+    return raw.reshape(*codes.shape[:-1], *raw.shape[1:])
+
+
+def from_block_bytes(raw: torch.Tensor, qtype: str):
+    """ggml block bytes ``uint8 [..., nb, B]`` -> the per-32 container of
+    ``qtype`` (q4_0, q4_1, q5_0, q5_1, q8_0, q8_1) of ``[..., nb * 32]``."""
+    lead = raw.shape[:-2]
+    flat = raw.reshape(-1, *raw.shape[-2:])
+    t = (_q8_1_from_bytes if qtype == "q8_1" else _DECODE[qtype])(flat)
+    return type(t)(*(x.reshape(*lead, x.shape[-1]) for x in t))
 
 
 class GGUFFile:
@@ -376,4 +410,4 @@ def write_gguf(path, tensors: dict, metadata: dict | None = None) -> None:
 
 
 __all__ = ["GGUFFile", "write_gguf", "RawTensor", "GGML_TYPES",
-           "tensor_nbytes"]
+           "tensor_nbytes", "to_block_bytes", "from_block_bytes"]

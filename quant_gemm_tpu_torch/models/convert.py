@@ -9,8 +9,9 @@ test can start both forwards from the same cache.
 ``bqkv``) or ``gguf_loader.load_llama`` (an IQ4_XS file's ``iq4_xs``
 weights too) with every array as numpy (for example
 ``jax.tree_util.tree_map(np.asarray, qparams)``, which keeps each
-``PreparedWeight``, ``PreparedK16`` and ``SplitLinear`` with numpy
-planes) and returns the port's parameters.  It reads only attributes and
+``PreparedWeight``, ``PreparedK16``, ``SplitLinear`` and, from JAX's
+``lora.attach_lora``, ``LoraLinear`` with numpy planes) and returns the
+port's parameters.  It reads only attributes and
 arrays, so it needs neither JAX nor the JAX package.
 
 The TPU layout of a per-32 ``PreparedWeight`` (q4_0, q4_1, q5_0, q5_1,
@@ -50,6 +51,7 @@ from ..formats.kquants import EffectiveQ41, EffectiveQ51, EffectiveQ80
 from ..kernels import layout
 from ..utils import resolve_device
 from .llama import KVCache, SplitLinear
+from .lora import LoraDelta, LoraLinear
 
 
 def planar_from_jax(pw):
@@ -150,7 +152,15 @@ def _k16_from_jax(pw, dev) -> layout.PreparedK16:
 
 def _prepared(pw, dev):
     """The port's weight for one JAX weight slot: a ``PreparedWeight``,
-    ``PreparedK16`` or ``SplitLinear`` of them."""
+    ``PreparedK16``, ``SplitLinear`` of them, or a ``LoraLinear`` (JAX's
+    ``inner`` and its ``(offset, scale)`` ``meta`` beside the ``(a, b)``
+    ``parts``) of one."""
+    if hasattr(pw, "meta") and hasattr(pw, "inner"):  # the JAX LoraLinear
+        return LoraLinear(_prepared(pw.inner, dev), tuple(
+            (int(off), float(scale),
+             LoraDelta(*(torch.tensor(np.asarray(x, np.float32), device=dev)
+                         for x in (d.a, d.b))))
+            for (off, scale), d in zip(pw.meta, pw.parts)))
     if hasattr(pw, "parts"):  # the JAX SplitLinear
         return SplitLinear(tuple(_prepared(p, dev) for p in pw.parts))
     if hasattr(pw, "scp_t"):  # the JAX PreparedK16

@@ -38,8 +38,18 @@ added to the ``wqkv`` product before RoPE on every route, as JAX adds it,
   leaves it to XLA); K4 for GEMMs of more than ``DECODE_M_MAX`` rows, and
   the plain float32 matmul for per-16 weights there.
 
-Not ported yet (each raises ``NotImplementedError``): ``w_down_a16`` and
-activation modes other than ``q8_1``.  :func:`embed` pools the final-norm
+Activation modes (``act_mode``, JAX ``_linear``): ``"q8_1"`` (W4A8, the
+routes above), ``"bf16"`` (W4A16: every GEMM takes its activation in
+bf16 through ``registry.dispatch``, K4 at every M for per-32 weights and
+the plain float32 matmul ``k16_dequant_gemm`` for per-16 ones; K2 and K8
+off) and ``"float"`` (:func:`forward_float`'s float32 weights, each
+product a :class:`_FloatLinear` ``torch.matmul`` with TF32 off, as JAX's
+``Precision.HIGHEST`` ``dot`` outside any kernel).  ``cfg.w_down_a16``
+runs the down projection as ``"bf16"`` in the ``"q8_1"`` mode, unless K8
+serves it.  A :class:`~.lora.LoraLinear` adds its low-rank deltas to its
+base weight's product (float32 ``torch.matmul``, JAX ``lora.py:66-73``).
+:func:`greedy_decode` and :func:`sample_decode` prefill a prompt and
+decode through the same forward.  :func:`embed` pools the final-norm
 hidden states into sequence embeddings (JAX ``embed``).
 
 :func:`forward` is :func:`begin`, :func:`layer` for each layer, :func:`end`
@@ -67,16 +77,17 @@ from ..kernels import gemm_megalayer, layout, registry
 from ..ops.activations import silu_mul
 from ..ops.rms_norm import rms_norm
 from ..ops.rope import apply_rope, rope_cache as make_rope_cache
-from ..utils import resolve_device
+from ..utils import matmul_f32, resolve_device
+from .lora import LoraLinear, apply_lora
 
 FLASH_PREFILL_T_MIN = 64  # prefill chunks from this length take K5
 
 
 class LlamaConfig(NamedTuple):
-    """The JAX ``LlamaConfig``'s fields; ``w_down_a16`` is not ported and
-    must keep its default.  ``ring`` (needs ``window > 0``) makes the KV
-    cache a ring of :attr:`ring_capacity` slots, and bounds every forward
-    call at ``ring_chunk`` tokens."""
+    """The JAX ``LlamaConfig``'s fields.  ``ring`` (needs ``window > 0``)
+    makes the KV cache a ring of :attr:`ring_capacity` slots, and bounds
+    every forward call at ``ring_chunk`` tokens; ``w_down_a16`` runs the
+    down projection on bf16 activations in the ``"q8_1"`` mode."""
 
     vocab: int = 256
     dim: int = 512
@@ -117,9 +128,6 @@ def check_config(cfg: LlamaConfig) -> None:
     if cfg.ring and cfg.window <= 0:
         raise ValueError("the ring cache needs a sliding window (window > "
                          "0)")
-    if cfg.w_down_a16:
-        raise NotImplementedError("w_down_a16 (W4A16 down projection) is "
-                                  "not ported")
 
 
 def init_params(cfg: LlamaConfig, seed: int = 0) -> dict:
@@ -408,13 +416,34 @@ def shift_context(cache: KVCache, cfg: LlamaConfig, keep: int,
     return cache
 
 
-def _linear(w, x: torch.Tensor, ops) -> torch.Tensor:
-    """y[M, N] = x[M, K] @ W^T, W4A8: x quantized to Q8_1 in dispatch; a
-    :class:`SplitLinear` runs one GEMM per part, concatenated on N."""
+ACT_MODES = ("q8_1", "bf16", "float")
+
+
+class _FloatLinear(NamedTuple):
+    """A float32 weight [N, K] of :func:`forward_float` (JAX
+    ``_FloatLinear``)."""
+
+    w: torch.Tensor
+
+
+def _linear(w, x: torch.Tensor, ops, act_mode: str = "q8_1") -> torch.Tensor:
+    """y[M, N] = x[M, K] @ W^T in ``act_mode`` (JAX ``_linear``):
+    ``"q8_1"`` quantizes x to Q8_1 in dispatch (W4A8), ``"bf16"`` hands
+    dispatch x in bf16 (W4A16), a :class:`_FloatLinear` is a float32
+    matmul; a :class:`SplitLinear` runs one GEMM per part, concatenated on
+    N; a :class:`~.lora.LoraLinear` adds its deltas to its base's
+    product."""
+    if isinstance(w, _FloatLinear):
+        return matmul_f32(x, w.w)
+    if isinstance(w, LoraLinear):
+        return apply_lora(w, _linear(w.inner, x, ops, act_mode), x)
     if isinstance(w, SplitLinear):
-        return torch.cat([_linear(p, x, ops) for p in w.parts], dim=-1)
-    return registry.dispatch(w, x.to(torch.float32), quantize_act=True,
-                             ops=ops)
+        return torch.cat([_linear(p, x, ops, act_mode) for p in w.parts],
+                         dim=-1)
+    if act_mode == "q8_1":
+        return registry.dispatch(w, x.to(torch.float32), quantize_act=True,
+                                 ops=ops)
+    return registry.dispatch(w, x.to(torch.bfloat16), ops=ops)
 
 
 def _attention(cfg: LlamaConfig, q, k_all, v_all, positions, ks=None,
@@ -461,9 +490,10 @@ class Step(NamedTuple):
     """What every layer of one forward call shares: each slot's token
     positions [B, T], the cache rows its tokens are written to [B, T], the
     rope tables, whether decode takes K2 (``norm_qkv``) and K8
-    (``attn_tail``), the ring's slot count R (0: a linear cache), and the
+    (``attn_tail``), the ring's slot count R (0: a linear cache), the
     caller's static bound ``s_hi`` on every active slot's position (None:
-    no bound; it only shapes K3's grid, ``attention.decode_s_hi``)."""
+    no bound; it only shapes K3's grid, ``attention.decode_s_hi``), and
+    the activation mode."""
 
     positions: torch.Tensor
     widx: torch.Tensor
@@ -472,19 +502,23 @@ class Step(NamedTuple):
     use_mega_tail: bool
     ring: int
     s_hi: Optional[int] = None
+    act_mode: str = "q8_1"
 
 
-def routes(qparams: dict, cfg: LlamaConfig, b: int, t: int):
+def routes(qparams: dict, cfg: LlamaConfig, b: int, t: int,
+           act_mode: str = "q8_1"):
     """``(use_mega, use_mega_tail)`` of a call of ``t`` tokens for ``b``
     slots: K2 (``norm_qkv``) on every layer or on none, as in JAX (a
-    q8_0, per-16 or SplitLinear wqkv anywhere turns it off for the whole
-    model), and K8 (``attn_tail``) when every layer is
-    ``tail_supported`` (which reads ``gemm_megalayer.ENABLE_TAIL``);
-    both only at decode (t = 1)."""
-    use_mega = t == 1 and all(
+    q8_0, per-16, SplitLinear or LoRA'd wqkv anywhere turns it off for
+    the whole model), and K8 (``attn_tail``) when every layer is
+    ``tail_supported`` (which reads ``gemm_megalayer.ENABLE_TAIL``; a
+    LoRA'd ``wo``, ``wgu`` or ``w_down`` is not); both only at decode (t
+    = 1) in the ``"q8_1"`` mode (JAX ``can_mega``)."""
+    can_mega = act_mode == "q8_1" and t == 1
+    use_mega = can_mega and all(
         gemm_megalayer.supported(ly["wqkv"], cfg.dim, b)
         for ly in qparams["layers"])
-    use_mega_tail = t == 1 and all(
+    use_mega_tail = can_mega and all(
         gemm_megalayer.tail_supported(ly, cfg, b) for ly in qparams["layers"])
     return use_mega, use_mega_tail
 
@@ -497,9 +531,9 @@ def begin(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor,
     ``route``: :func:`routes` of the call, when the caller decided it
     once (the Server, per graph); None walks the layers here."""
     check_config(cfg)
-    if act_mode != "q8_1":
-        raise NotImplementedError(f"act_mode {act_mode!r} is not ported "
-                                  "(W4A8 q8_1 only)")
+    if act_mode not in ACT_MODES:
+        raise ValueError(f"act_mode must be one of {ACT_MODES}, not "
+                         f"{act_mode!r}")
     b, t = tokens.shape
     if cfg.ring and t > cfg.ring_chunk:
         raise ValueError(f"a ring cache takes at most ring_chunk = "
@@ -518,10 +552,10 @@ def begin(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor,
         # (the start clamp of JAX's dynamic_update_slice, which overflowing
         # and inactive slots rely on)
         widx = pos0.clamp(0, cache.k.shape[3] - t)[:, None] + rows
-    use_mega, use_mega_tail = route or routes(qparams, cfg, b, t)
+    use_mega, use_mega_tail = route or routes(qparams, cfg, b, t, act_mode)
     x = qparams["embed"][tokens.to(dev)].to(torch.float32)
     return x, Step(positions, widx, rope_cache, use_mega, use_mega_tail,
-                   ring, s_hi)
+                   ring, s_hi, act_mode)
 
 
 def layer(lyr: dict, li: int, cfg: LlamaConfig, x: torch.Tensor,
@@ -534,12 +568,13 @@ def layer(lyr: dict, li: int, cfg: LlamaConfig, x: torch.Tensor,
     b, t, _ = x.shape
     heads, kv_heads, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     nq, nkv, rep = heads * hd, kv_heads * hd, heads // kv_heads
+    mode = step.act_mode
     if step.use_mega:
         qkv = ops.norm_qkv(lyr["wqkv"], x.reshape(b * t, cfg.dim),
                            lyr["attn_norm"], cfg.eps)
     else:
         h = rms_norm(x, lyr["attn_norm"], cfg.eps)
-        qkv = _linear(lyr["wqkv"], h.reshape(b * t, cfg.dim), ops)
+        qkv = _linear(lyr["wqkv"], h.reshape(b * t, cfg.dim), ops, mode)
     if "bqkv" in lyr:  # the qwen2 family's QKV bias, on every route
         qkv = qkv + lyr["bqkv"]
     q = qkv[:, :nq].reshape(b, t, heads, hd)
@@ -597,12 +632,14 @@ def layer(lyr: dict, li: int, cfg: LlamaConfig, x: torch.Tensor,
                           lyr["mlp_norm"], lyr["wo"], lyr["wgu"],
                           lyr["w_down"], cfg.eps, cfg.d_ff)
         return x.reshape(b, t, cfg.dim), current
-    o = _linear(lyr["wo"], attn.reshape(b * t, nq), ops)
+    o = _linear(lyr["wo"], attn.reshape(b * t, nq), ops, mode)
     x = x + o.reshape(b, t, cfg.dim)
     h = rms_norm(x, lyr["mlp_norm"], cfg.eps)
-    gu = _linear(lyr["wgu"], h.reshape(b * t, cfg.dim), ops)
+    gu = _linear(lyr["wgu"], h.reshape(b * t, cfg.dim), ops, mode)
     ff = silu_mul(gu[:, :cfg.d_ff], gu[:, cfg.d_ff:])
-    dn = _linear(lyr["w_down"], ff, ops)
+    # the opt-in W4A16 down projection (JAX llama.py:713-714)
+    dn_mode = "bf16" if cfg.w_down_a16 and mode == "q8_1" else mode
+    dn = _linear(lyr["w_down"], ff, ops, dn_mode)
     return x + dn.reshape(b, t, cfg.dim), current
 
 
@@ -623,11 +660,13 @@ def end(cache: KVCache, step: Step, current: list) -> None:
 
 
 def head(qparams: dict, cfg: LlamaConfig, x: torch.Tensor,
-         ops: registry.Ops = registry.KERNELS) -> torch.Tensor:
+         ops: registry.Ops = registry.KERNELS,
+         act_mode: str = "q8_1") -> torch.Tensor:
     """Final norm and ``lm_head``: logits [B, T, vocab] float32."""
     b, t, _ = x.shape
     x = rms_norm(x, qparams["final_norm"], cfg.eps)
-    logits = _linear(qparams["lm_head"], x.reshape(b * t, cfg.dim), ops)
+    logits = _linear(qparams["lm_head"], x.reshape(b * t, cfg.dim), ops,
+                     act_mode)
     return logits.reshape(b, t, -1)
 
 
@@ -651,7 +690,111 @@ def forward(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor,
         if kv is not None:
             current.append(kv)
     end(cache, step, current)
-    return head(qparams, cfg, x, ops), cache
+    return head(qparams, cfg, x, ops, act_mode), cache
+
+
+def float_params(params: dict, device="cuda") -> dict:
+    """:func:`init_params`-style float32 parameters (numpy or tensors) on
+    ``device`` in the quantized layout, each linear a
+    :class:`_FloatLinear` (``wqkv`` and ``wgu`` fused, the qwen2 family's
+    ``bqkv`` concatenated), the embedding float32: what JAX's
+    ``forward_float`` builds."""
+    dev = resolve_device(device)
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32) if not isinstance(
+            x, torch.Tensor) else x, dtype=torch.float32, device=dev)
+
+    def lin(*parts):
+        return _FloatLinear(torch.cat([f32(p) for p in parts], dim=0))
+
+    layers = []
+    for lyr in params["layers"]:
+        q = {k: f32(v) for k, v in lyr.items() if k.endswith("norm")}
+        if "bq" in lyr:
+            q["bqkv"] = torch.cat([f32(lyr[b]).reshape(-1)
+                                   for b in ("bq", "bk", "bv")])
+        q["wqkv"] = lin(lyr["wq"], lyr["wk"], lyr["wv"])
+        q["wo"] = lin(lyr["wo"])
+        q["wgu"] = lin(lyr["w_gate"], lyr["w_up"])
+        q["w_down"] = lin(lyr["w_down"])
+        layers.append(q)
+    out = {"embed": f32(params["embed"]),
+           "final_norm": f32(params["final_norm"]), "layers": layers,
+           "lm_head": lin(params["lm_head"])}
+    if params.get("rope_inv_freq") is not None:
+        out["rope_inv_freq"] = f32(params["rope_inv_freq"])
+    return out
+
+
+def forward_float(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
+                  cache: KVCache):
+    """The float32 reference forward (JAX ``forward_float``): the same
+    model on unquantized weights, every linear a float32 matmul
+    (:func:`float_params`; pass its output to skip the conversion), the
+    attention as in :func:`forward`.  Returns (logits, cache)."""
+    if not isinstance(params["lm_head"], _FloatLinear):
+        params = float_params(params, cache.k.device)
+    return forward(params, cfg, tokens, cache, act_mode="float")
+
+
+def greedy_decode(qparams: dict, cfg: LlamaConfig, prompt, steps: int, *,
+                  act_mode: str = "q8_1"):
+    """Prefill ``prompt`` [B, T0] then decode ``steps`` tokens greedily
+    (JAX ``greedy_decode``), on the device of the parameters, through the
+    kernels the Server runs.  Returns (tokens int64 [B, steps], cache)."""
+    return _decode(qparams, cfg, prompt, steps, act_mode, None)
+
+
+def sample_decode(qparams: dict, cfg: LlamaConfig, prompt, steps: int, *,
+                  seed=0, temperature: float = 1.0, top_k: int = 0,
+                  top_p: float = 1.0, act_mode: str = "q8_1"):
+    """Prefill then decode ``steps`` sampled tokens (JAX
+    ``sample_decode``); the batch shares one temperature / top-k / top-p.
+    Row i draws from its own ``torch.Generator`` seeded with ``seed[i]``
+    (an int ``seed``: ``seed + i``), as the Server seeds a request with
+    its ``seed``, and draws as the Server does, one token a step: a
+    request served alone with that seed and the same prompt gets the same
+    tokens.  ``temperature <= 0`` is :func:`greedy_decode`.  Returns
+    (tokens int64 [B, steps], cache)."""
+    b = len(prompt)
+    seeds = ([seed + i for i in range(b)] if isinstance(seed, int)
+             else [int(x) for x in seed])
+    if len(seeds) != b:
+        raise ValueError(f"{len(seeds)} seeds for {b} rows")
+    sampler = (temperature, top_k, top_p, seeds)
+    return _decode(qparams, cfg, prompt, steps, act_mode, sampler)
+
+
+def _decode(qparams, cfg, prompt, steps, act_mode, sampler):
+    from . import sampling
+
+    if steps < 1:
+        raise ValueError(f"steps must be >= 1, got {steps}")
+    dev = qparams["embed"].device
+    prompt = torch.as_tensor(prompt, device=dev).to(torch.int64)
+    b = prompt.shape[0]
+    cache = KVCache.init(cfg, b, device=dev)
+    rc = rope_for(cfg, qparams, dev)
+    if sampler is None or sampler[0] <= 0:
+        def pick(logits):
+            return torch.argmax(logits, dim=-1)
+    else:
+        temp, top_k, top_p, seeds = sampler
+        gens = [torch.Generator(device=dev).manual_seed(s) for s in seeds]
+        opts = (np.full(b, temp, np.float32), np.full(b, top_k, np.int64),
+                np.full(b, top_p, np.float32))
+
+        def pick(logits):
+            return sampling.sample(logits, gens, *opts)
+    logits, cache = forward(qparams, cfg, prompt, cache, act_mode=act_mode,
+                            rope_cache=rc)
+    out = [pick(logits[:, -1])]
+    for _ in range(steps - 1):
+        logits, cache = forward(qparams, cfg, out[-1][:, None], cache,
+                                act_mode=act_mode, rope_cache=rc)
+        out.append(pick(logits[:, -1]))
+    return torch.stack(out, dim=1), cache
 
 
 def embed(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor, *,
@@ -701,4 +844,5 @@ def embed(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor, *,
 __all__ = ["LlamaConfig", "init_params", "quantize_params", "init_qparams",
            "rope_for", "SplitLinear", "KVCache", "shift_context", "Step",
            "routes", "begin", "layer", "end", "head", "forward", "embed",
-           "FLASH_PREFILL_T_MIN"]
+           "float_params", "forward_float", "greedy_decode", "sample_decode",
+           "ACT_MODES", "FLASH_PREFILL_T_MIN"]

@@ -52,8 +52,12 @@ the grammar's token replaces the sampled one; a request the grammar
 cannot continue finishes with what it has.  The other slots keep the
 device sampler.
 
-Options outside the slice raise ``NotImplementedError``: ``prefill_a16``
-and ``w_down_a16``.
+``act_mode`` is the decode steps' activation mode (``llama.ACT_MODES``:
+``"q8_1"`` W4A8, ``"bf16"`` W4A16); ``prefill_a16`` runs the prefill
+chunks in ``"bf16"`` while decode stays ``"q8_1"`` (JAX ``serve.py:
+281-282``).  A graph's key names its mode, so a chunk graph of one mode
+never replays for the other.  :class:`Graphs` (the captures, their pool
+and their replays) also serves ``models/speculative.py``.
 """
 
 from __future__ import annotations
@@ -80,15 +84,17 @@ BIAS_SLOTS = 8  # sparse logit-bias entries per request
 CUDA_GRAPHS = True
 
 
-def graph_key(kind: str, size) -> tuple:
+def graph_key(kind: str, size, act_mode: str = "q8_1") -> tuple:
     """The key of a captured step: ``kind`` "decode" with its ``s_hi``
-    or "chunk" with its length, and every module setting whose route a
-    graph bakes in, read now: ``registry.FUSED_DECODE`` and
-    ``gemm_megalayer.ENABLE_TAIL`` (K6, K8), ``registry.DECODE_M_MAX``
-    (K1/K7 against K4) and ``llama.FLASH_PREFILL_T_MIN`` (K5 against the
-    dense prefill attention)."""
-    return (kind, size, registry.FUSED_DECODE, gemm_megalayer.ENABLE_TAIL,
-            registry.DECODE_M_MAX, llama.FLASH_PREFILL_T_MIN)
+    or "chunk" with its length, its activation mode, and every module
+    setting whose route a graph bakes in, read now:
+    ``registry.FUSED_DECODE`` and ``gemm_megalayer.ENABLE_TAIL`` (K6,
+    K8), ``registry.DECODE_M_MAX`` (K1/K7 against K4) and
+    ``llama.FLASH_PREFILL_T_MIN`` (K5 against the dense prefill
+    attention)."""
+    return (kind, size, act_mode, registry.FUSED_DECODE,
+            gemm_megalayer.ENABLE_TAIL, registry.DECODE_M_MAX,
+            llama.FLASH_PREFILL_T_MIN)
 
 
 @dataclasses.dataclass
@@ -103,6 +109,68 @@ class Graph:
     launches: dict
     capture_s: float
     replays: int = 0
+
+
+class Graphs:
+    """The captured steps of one caller on ``device``, by key, in one
+    memory pool: :meth:`run` calls a step eagerly (on the CPU, or with
+    :data:`CUDA_GRAPHS` off), or on the card captures it at its key's
+    first call and replays it after."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.graphs: dict[tuple, Graph] = {}
+        self._pool = None
+
+    def captured(self) -> bool:
+        return CUDA_GRAPHS and self.device.type == "cuda"
+
+    def run(self, key: tuple, fn) -> torch.Tensor:
+        """``fn()`` eagerly, or replayed from the graph of ``key`` (its
+        static output, valid until the next replay of that graph)."""
+        if not self.captured():
+            return fn()
+        g = self.graphs.get(key)
+        if g is None:
+            return self._capture(key, fn)
+        g.graph.replay()
+        g.replays += 1
+        return g.out
+
+    def _capture(self, key: tuple, fn) -> torch.Tensor:
+        """Run ``fn`` eagerly on a side stream (this step's result: the
+        kernels' builds and occupancy queries happen here, outside the
+        capture), then capture it into the pool as ``self.graphs[key]``.
+        Raises if the capture fails."""
+        t0 = time.perf_counter()
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = fn()
+        cur.wait_stream(side)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        before = registry.counters()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool):
+            static = fn()
+        moved = {k: v - before[k] for k, v in registry.counters().items()
+                 if v != before[k]}
+        self.graphs[key] = Graph(graph, static, moved,
+                                 time.perf_counter() - t0)
+        return out
+
+    def replay_launches(self) -> dict:
+        """By counter, what to add to the counters' moves to get the
+        launches the card ran: a capture counts one step's launches
+        without running them (the eager first call of its key ran that
+        step, counted), and each replay runs them unseen."""
+        out: collections.Counter = collections.Counter()
+        for g in self.graphs.values():
+            for name, n in g.launches.items():
+                out[name] += n * (g.replays - 1)
+        return dict(out)
 
 
 @dataclasses.dataclass
@@ -216,10 +284,9 @@ class Server:
         device="cuda",
     ):
         self.device = resolve_device(device)
-        if prefill_a16:
-            raise NotImplementedError("prefill_a16 is not ported")
-        if act_mode != "q8_1":
-            raise NotImplementedError(f"act_mode {act_mode!r} is not ported")
+        if act_mode not in llama.ACT_MODES:
+            raise ValueError(f"act_mode must be one of {llama.ACT_MODES}, "
+                             f"not {act_mode!r}")
         llama.check_config(cfg)
         if cfg.ring and context_shift:
             raise ValueError("a ring cache does not shift (llama."
@@ -235,6 +302,8 @@ class Server:
         self.cfg = cfg
         self.n_slots = n_slots
         self.act_mode = act_mode
+        self.prefill_mode = ("bf16" if prefill_a16 and act_mode == "q8_1"
+                             else act_mode)
         self.bucket = prefill_bucket
         self.eos_id = eos_id
         self.max_chunk = max_prefill_chunk or prefill_bucket * 8
@@ -256,9 +325,9 @@ class Server:
                                    device=self.device)
         self._chunk_tokens: dict[int, torch.Tensor] = {}
         self._routes: dict[tuple, tuple] = {}  # graph key -> llama.routes
+        self._graphs = Graphs(self.device)
         #: the captured steps by :func:`graph_key`
-        self.graphs: dict[tuple, Graph] = {}
-        self._pool = None  # the graphs' shared memory pool
+        self.graphs = self._graphs.graphs
         self.slots: list[Optional[Request]] = [None] * n_slots
         self.queue: list[Request] = []
         self.finished: dict[int, Request] = {}
@@ -318,68 +387,26 @@ class Server:
 
     # -- the steps, eager or replayed ----------------------------------------
 
-    def _captured(self) -> bool:
-        return CUDA_GRAPHS and self.device.type == "cuda"
-
     def _forward(self, key: tuple, tokens: torch.Tensor,
                  cache: llama.KVCache, s_hi=None):
         """The step of ``key`` as a call: the forward of the static
-        ``tokens`` on ``cache`` with its routes decided once per key;
-        returns the logits."""
+        ``tokens`` on ``cache`` in the key's activation mode, with its
+        routes decided once per key; returns the logits."""
+        mode = key[2]
         route = self._routes.get(key)
         if route is None:
             route = self._routes[key] = llama.routes(
-                self.qparams, self.cfg, *tokens.shape)
+                self.qparams, self.cfg, *tokens.shape, act_mode=mode)
         return lambda: llama.forward(
-            self.qparams, self.cfg, tokens, cache, act_mode=self.act_mode,
+            self.qparams, self.cfg, tokens, cache, act_mode=mode,
             rope_cache=self._rope, s_hi=s_hi, route=route)[0]
 
     def _run(self, key: tuple, fn) -> torch.Tensor:
-        """``fn()`` eagerly, or replayed from the graph of ``key`` (its
-        static output, valid until the next replay of that graph)."""
-        if not self._captured():
-            return fn()
-        g = self.graphs.get(key)
-        if g is None:
-            return self._capture(key, fn)
-        g.graph.replay()
-        g.replays += 1
-        return g.out
-
-    def _capture(self, key: tuple, fn) -> torch.Tensor:
-        """Run ``fn`` eagerly on a side stream (this step's result: the
-        kernels' builds and occupancy queries happen here, outside the
-        capture), then capture it into the pool as ``self.graphs[key]``.
-        Raises if the capture fails."""
-        t0 = time.perf_counter()
-        cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            out = fn()
-        cur.wait_stream(side)
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        before = registry.counters()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool):
-            static = fn()
-        moved = {k: v - before[k] for k, v in registry.counters().items()
-                 if v != before[k]}
-        self.graphs[key] = Graph(graph, static, moved,
-                                 time.perf_counter() - t0)
-        return out
+        return self._graphs.run(key, fn)
 
     def replay_launches(self) -> dict:
-        """By counter, what to add to the counters' moves to get the
-        launches the card ran: a capture counts one step's launches
-        without running them (the eager first call of its key ran that
-        step, counted), and each replay runs them unseen."""
-        out: collections.Counter = collections.Counter()
-        for g in self.graphs.values():
-            for name, n in g.launches.items():
-                out[name] += n * (g.replays - 1)
-        return dict(out)
+        """:meth:`Graphs.replay_launches` of this Server's graphs."""
+        return self._graphs.replay_launches()
 
     def _chunk(self, tokens: list, t: int, cache: llama.KVCache):
         """One bucket-padded prefill chunk of ``tokens`` (length <= t) on
@@ -392,7 +419,7 @@ class Server:
         padded = np.zeros((1, t), np.int64)
         padded[0, : len(tokens)] = tokens
         buf.copy_(torch.from_numpy(padded))
-        key = graph_key("chunk", t)
+        key = graph_key("chunk", t, self.prefill_mode)
         logits = self._run(key, self._forward(key, buf, cache))
         return logits[0, len(tokens) - 1].clone()
 
@@ -546,7 +573,7 @@ class Server:
         if self.cfg.window:
             max_ctx = min(max_ctx, self.cfg.window)
         s_hi = attention.decode_s_hi(max_ctx)
-        key = graph_key("decode", s_hi)
+        key = graph_key("decode", s_hi, self.act_mode)
         logits = self._run(key, self._forward(key, self._tokens,
                                               self.cache, s_hi))
         nxt = sampling.sample(
@@ -669,4 +696,5 @@ class Server:
         return {rid: r.generated for rid, r in self.finished.items()}
 
 
-__all__ = ["Server", "Request", "Graph", "graph_key", "CUDA_GRAPHS"]
+__all__ = ["Server", "Request", "Graph", "Graphs", "graph_key",
+           "CUDA_GRAPHS"]

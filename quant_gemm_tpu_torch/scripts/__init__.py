@@ -1,3 +1,4 @@
 """Entry points: ``python -m quant_gemm_tpu_torch.scripts.generate`` (text
-from one GGUF file) and ``python -m quant_gemm_tpu_torch.scripts.server``
-(the llama-server-style HTTP front end)."""
+from one GGUF file), ``python -m quant_gemm_tpu_torch.scripts.server``
+(the llama-server-style HTTP front end) and ``python -m
+quant_gemm_tpu_torch.scripts.perplexity`` (perplexity of a text file)."""

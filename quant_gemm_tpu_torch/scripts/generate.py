@@ -14,9 +14,14 @@ Usage:
         --ids 1,123,456 -n 16                      # raw ids, no tokenizer
     python -m quant_gemm_tpu_torch.scripts.generate -m model.gguf \\
         -p "hi" --chat --json --device cpu
+    python -m quant_gemm_tpu_torch.scripts.generate -m model.gguf \\
+        -p "hi" --lora adapter.gguf                 # a LoRA adapter
+    python -m quant_gemm_tpu_torch.scripts.generate -m model.gguf \\
+        -p "hi" --draft small.gguf --draft-k 4      # speculative decoding
 
-``--lora`` and ``--draft`` are not ported (ROADMAP Queue 1, item 7) and
-raise ``NotImplementedError``.
+``--draft`` (llama.cpp ``llama-speculative``) decodes through
+``models/speculative.py``: greedy at ``--temp 0``, distribution-exact
+sampling otherwise; it takes no grammar.
 """
 
 from __future__ import annotations
@@ -44,15 +49,15 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--kv", default="bf16", choices=["bf16", "q8"])
     ap.add_argument("--lora", default=None, metavar="ADAPTER_GGUF",
-                    help="a llama.cpp LoRA adapter (not ported)")
+                    help="apply a llama.cpp LoRA adapter at run time")
     ap.add_argument("--grammar-file", default=None, metavar="GBNF",
                     help="constrain sampling to a GBNF grammar (llama.cpp "
                          "--grammar-file)")
     ap.add_argument("--json", action="store_true",
                     help="constrain output to JSON (llama.cpp json.gbnf)")
     ap.add_argument("--draft", default=None, metavar="DRAFT_GGUF",
-                    help="speculative decoding with a draft model (not "
-                         "ported)")
+                    help="speculative decoding with this draft model "
+                         "(llama.cpp llama-speculative)")
     ap.add_argument("--draft-k", type=int, default=4,
                     help="proposal length per target call")
     ap.add_argument("--device", default="cuda",
@@ -64,12 +69,8 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     ap = parser()
     args = ap.parse_args(argv)
-    if args.lora:
-        raise NotImplementedError("--lora: LoRA adapters are not ported "
-                                  "(ROADMAP Queue 1, item 7)")
-    if args.draft:
-        raise NotImplementedError("--draft: speculative decoding is not "
-                                  "ported (ROADMAP Queue 1, item 7)")
+    if args.draft and (args.json or args.grammar_file):
+        ap.error("--draft and grammar constraints are exclusive")
 
     from ..formats.gguf_file import GGUFFile
     from ..models import serve
@@ -80,6 +81,12 @@ def main(argv=None) -> None:
     with GGUFFile(args.model) as gf:  # weights and tokenizer metadata
         qparams, cfg = load_llama(gf, device=args.device)
         md = gf.metadata
+    if args.lora:
+        from ..models import lora
+
+        qparams = lora.attach_lora(
+            qparams, lora.load_lora(args.lora, device=args.device), cfg)
+        print(f"applied LoRA adapter {args.lora}", file=sys.stderr)
     print(f"loaded {args.model} in {time.time() - t0:.1f}s: {cfg}",
           file=sys.stderr, flush=True)
 
@@ -102,6 +109,9 @@ def main(argv=None) -> None:
         print(f"prompt -> {len(prompt_ids)} tokens: {prompt_ids}",
               file=sys.stderr, flush=True)
 
+    if args.draft:
+        _speculative(args, qparams, cfg, prompt_ids, tok)
+        return
     srv = serve.Server(qparams, cfg, n_slots=1, cache_qtype=args.kv,
                        eos_id=tok.eos_id if tok else None,
                        device=args.device)
@@ -134,6 +144,34 @@ def main(argv=None) -> None:
         print(tok.decode(list(prompt_ids) + list(out_ids)))
     else:
         print(",".join(str(i) for i in out_ids))
+
+
+def _speculative(args, qparams, cfg, prompt_ids, tok) -> None:
+    """The ``--draft`` path: the draft proposes ``--draft-k`` tokens per
+    target call (greedy output equal to plain decode, sampled output
+    distribution-exact), both models' caches sized for the request."""
+    from ..models import speculative
+    from ..models.gguf_loader import load_llama
+
+    qp_d, cfg_d = load_llama(args.draft, device=args.device)
+    need = len(prompt_ids) + args.n_predict + args.draft_k + 1
+    if need > min(cfg.max_seq, cfg_d.max_seq):
+        raise SystemExit(f"prompt + -n + --draft-k + 1 = {need} positions "
+                         f"exceed the models' context")
+    t0 = time.time()
+    out, tpc = speculative.speculative_sample_decode(
+        qparams, cfg._replace(max_seq=need), qp_d,
+        cfg_d._replace(max_seq=need), [list(prompt_ids)], args.n_predict,
+        k=args.draft_k, temperature=args.temp, top_k=args.top_k,
+        top_p=args.top_p, seed=args.seed or 0)
+    dt = time.time() - t0
+    out_ids = [int(t) for t in out[0]]
+    print(f"{len(out_ids)} tokens in {dt:.1f}s ({tpc:.2f} tokens/target-"
+          "call)", file=sys.stderr, flush=True)
+    if tok is not None:
+        print(tok.decode(list(prompt_ids) + out_ids))
+    else:
+        print(",".join(str(t) for t in out_ids))
 
 
 if __name__ == "__main__":

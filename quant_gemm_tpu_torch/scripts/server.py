@@ -510,11 +510,10 @@ def make_handler(engine: Engine):
 def build_engine(model_path, *, n_slots=8, cache_qtype="bf16",
                  prefill_a16=False, prefill_bucket=16, lora_path=None,
                  device="cuda") -> Engine:
-    """Load a GGUF file (weights and tokenizer) onto ``device`` and start
-    an :class:`Engine` over a Server of ``n_slots`` slots."""
-    if lora_path:
-        raise NotImplementedError("LoRA adapters are not ported (ROADMAP "
-                                  "Queue 1, item 7)")
+    """Load a GGUF file (weights and tokenizer) onto ``device``, apply the
+    LoRA adapter at ``lora_path`` if one is given, and start an
+    :class:`Engine` over a Server of ``n_slots`` slots (``prefill_a16``:
+    W4A16 prompt processing)."""
     from ..formats.gguf_file import GGUFFile
     from ..models import gguf_loader, serve
     from ..models.tokenizer import tokenizer_from_gguf
@@ -522,6 +521,11 @@ def build_engine(model_path, *, n_slots=8, cache_qtype="bf16",
     with GGUFFile(model_path) as gf:
         qparams, cfg = gguf_loader.load_llama(gf, device=device)
         metadata = gf.metadata
+    if lora_path:
+        from ..models import lora
+
+        qparams = lora.attach_lora(
+            qparams, lora.load_lora(lora_path, device=device), cfg)
     tok = tokenizer_from_gguf(metadata)
     srv = serve.Server(qparams, cfg, n_slots=n_slots,
                        cache_qtype=cache_qtype,
@@ -539,9 +543,10 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--kv", default="bf16", choices=["bf16", "q8"])
     ap.add_argument("--lora", default=None, metavar="ADAPTER_GGUF",
-                    help="a llama.cpp LoRA adapter (not ported)")
+                    help="apply a llama.cpp LoRA adapter at run time")
     ap.add_argument("--prefill-a16", action="store_true",
-                    help="W4A16 prompt processing (not ported)")
+                    help="W4A16 prompt processing (bf16 activations; "
+                         "decode stays W4A8)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda; cpu runs "
                          "the kernels' plain versions)")

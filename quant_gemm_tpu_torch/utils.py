@@ -45,4 +45,16 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-__all__ = ["cdiv", "round_up", "F16_MAX", "resolve_device"]
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w^T`` in float32 with TF32 off on a card (the setting is
+    restored after): the float32 products the JAX package leaves to XLA
+    outside any kernel (``Precision.HIGHEST`` or the CPU's float32)."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return x.to(torch.float32) @ w.to(torch.float32).T
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+__all__ = ["cdiv", "round_up", "F16_MAX", "resolve_device", "matmul_f32"]

@@ -1577,3 +1577,113 @@ def test_qwen_server_captured_equals_eager_with_bias(dev, monkeypatch):
     assert decode and all(g.launches["norm_qkv"] == 2
                           and g.launches["gemm_exact_k16"] == 1
                           for g in decode)
+
+
+# -- slice 15: W4A16 decode, LoRA routes, the speculative rewind -------------
+
+#: TinyLlama-1.1B's five GEMMs (N, K): wqkv, wo, wgu, w_down, lm_head
+TINY_GEMMS = [(2560, 2048), (2048, 2048), (11264, 2048), (2048, 5632),
+              (32000, 2048)]
+
+
+@pytest.fixture(scope="module")
+def tiny_weights():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU and nvcc (the kernels run only there)")
+    g = torch.Generator(device="cuda").manual_seed(15)
+    return {s: layout.prepare(tq.quantize_q4_0(torch.randn(
+        *s, generator=g, device="cuda") * s[1] ** -0.5)) for s in TINY_GEMMS}
+
+
+@pytest.mark.parametrize("m", range(1, 9))
+@pytest.mark.parametrize("shape", TINY_GEMMS, ids=["wqkv", "wo", "wgu",
+                                                  "w_down", "lm_head"])
+def test_gemm_dequant_bf16_decode_rows(dev, tiny_weights, shape, m):
+    """K4 on a bf16 activation at M 1..8 (the W4A16 decode route, 7/8 and
+    more of each 64-row tile padding): NMSE <= FQ_NMSE against its plain
+    version (every product exact, only the float32 order differs), two
+    calls bit-equal."""
+    w = tiny_weights[shape]
+    a = torch.randn(m, w.k, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(m)
+                    ).to(torch.bfloat16)
+    got, ref = gemm_dequant(w, a), gemm_dequant_plain(w, a)
+    assert got.shape == (m, w.n)
+    assert ((got - ref).double() ** 2).sum() <= FQ_NMSE * (
+        ref.double() ** 2).sum()
+    assert torch.equal(got, gemm_dequant(w, a))
+
+
+@pytest.mark.parametrize("slot", ["wqkv", "w_down"])
+def test_lora_turns_k2_and_k8_off_on_the_card(dev, monkeypatch, slot):
+    """A decode step of a dim-512 q4_0 model with ENABLE_TAIL: K2 and K8
+    launch once per layer; with a LoRA delta on one layer's ``wqkv`` K2
+    launches no more (K8 still), on one layer's ``w_down`` K8 no more (K2
+    still); the LoRA'd step equals its plain version layer by layer."""
+    from quant_gemm_tpu_torch.models import lora
+
+    monkeypatch.setattr(gemm_megalayer, "ENABLE_TAIL", True)
+    cfg = llama.LlamaConfig(vocab=256, dim=512, n_layers=2, n_heads=8,
+                            n_kv_heads=2, d_ff=1024, max_seq=64)
+    qp = llama.init_qparams(cfg, seed=3, device=dev)
+    part = {"wqkv": "attn_v", "w_down": "ffn_down"}[slot]
+    w = qp["layers"][1][slot]
+    g = torch.Generator(device=dev).manual_seed(4)
+    n = cfg.n_kv_heads * cfg.head_dim if slot == "wqkv" else w.n
+    ql = lora.attach_lora(qp, lora.LoraAdapter(32.0, {
+        f"blk.1.{part}.weight": lora.LoraDelta(
+            torch.randn(16, w.k, generator=g, device=dev) * 0.05,
+            torch.randn(n, 16, generator=g, device=dev) * 0.05)}), cfg)
+    tok = torch.tensor([[5], [9]], device=dev)
+    for params, k2, k8 in ((qp, 2, 2), (ql, 0 if slot == "wqkv" else 2,
+                                         2 if slot == "wqkv" else 0)):
+        before = norm_qkv.launches, attn_tail.launches
+        llama.forward(params, cfg, tok, llama.KVCache.init(cfg, 2,
+                                                           device=dev))
+        torch.cuda.synchronize()
+        assert (norm_qkv.launches - before[0],
+                attn_tail.launches - before[1]) == (k2, k8)
+    cache = llama.KVCache.init(cfg, 2, device=dev)
+    cp = cache.clone()
+    x, step = llama.begin(ql, cfg, tok, cache)
+    for li, ly in enumerate(ql["layers"]):
+        xk, _ = llama.layer(ly, li, cfg, x, cache, step)
+        xp, _ = llama.layer(ly, li, cfg, x, cp, step, registry.PLAIN)
+        d, r = (xk - x).double(), (xp - x).double()
+        assert ((d - r) ** 2).sum() <= 1e-4 * (r ** 2).sum()
+        x = xk
+
+
+def test_speculative_rewind_at_batch_4(dev):
+    """Speculative greedy decoding at B 4, k 4 (the verify block M = 20:
+    K4, the draft's steps K1) from CUDA graphs: each row is the target's
+    greedy transcript, or within the near-tie rule (4e-2 x max|logits|)
+    along it; the verify graph replays every round after the first; the
+    self draft reaches at least 0.9 of ``speculative.best_rate`` (64
+    tokens: 13 rounds at best, 66 / 14 = 4.71 tokens per target call)."""
+    from quant_gemm_tpu_torch.models import speculative
+
+    cfg = llama.LlamaConfig(vocab=512, dim=512, n_layers=2, n_heads=8,
+                            n_kv_heads=2, d_ff=1024, max_seq=128)
+    cfg_d = cfg._replace(n_layers=1)
+    qp = llama.init_qparams(cfg, seed=5, device=dev)
+    qd = llama.init_qparams(cfg_d, seed=6, device=dev)
+    prompt = torch.randint(0, 512, (4, 40), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(7))
+    want, _ = llama.greedy_decode(qp, cfg, prompt, 64)
+    for draft, c in ((qd, cfg_d), (qp, cfg)):
+        graphs = serve.Graphs(dev)
+        got, rate = speculative.speculative_greedy_decode(
+            qp, cfg, draft, c, prompt, 64, k=4, graphs=graphs)
+        verify = [g for key, g in graphs.graphs.items() if key[0] == "verify"]
+        assert len(verify) == 1 and verify[0].replays >= 1
+        cache = llama.KVCache.init(cfg, 4, device=dev)
+        logits, _ = llama.forward(qp, cfg, prompt, cache)
+        for s in range(64):
+            last = logits[:, -1]
+            slack = last.amax(-1) - last.gather(-1, got[:, s:s + 1])[:, 0]
+            assert (slack <= 4e-2 * last.abs().amax(-1)).all()
+            logits, _ = llama.forward(qp, cfg, got[:, s:s + 1], cache)
+        if draft is qp:
+            assert rate >= 0.9 * speculative.best_rate(64, 4), rate
+    assert want.shape == got.shape

@@ -110,10 +110,16 @@ def test_grammar_file_and_sampling_flags(jax_cli):
 
 @pytest.mark.parametrize("flag", ["--lora", "--draft"])
 def test_unported_options_name_the_roadmap(flag):
+    """``--lora`` and ``--draft`` are served (slice 15: tests/test_torch_
+    lora.py and test_torch_speculative.py run them): a missing file
+    fails and is named, and ``--draft`` refuses a grammar, as JAX's
+    CLI does."""
     r = _run("-p", PROMPT, flag, "x.gguf", "--device", "cpu")
     assert r.returncode != 0
-    assert "NotImplementedError" in r.stderr
-    assert "ROADMAP Queue 1, item 7" in r.stderr
+    assert "x.gguf" in r.stderr and "NotImplementedError" not in r.stderr
+    if flag == "--draft":
+        r = _run("-p", PROMPT, flag, "x.gguf", "--json", "--device", "cpu")
+        assert r.returncode != 0 and "exclusive" in r.stderr
 
 
 def test_runs_on_the_card_unless_asked(tok):

@@ -498,8 +498,15 @@ def test_engine_keeps_no_history(engine):
     assert not hasattr(engine, "trace")
 
 
-def test_build_engine_refuses_unported_options():
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        srv.build_engine(FIXTURE, lora_path="adapter.gguf", device="cpu")
-    with pytest.raises(NotImplementedError, match="prefill_a16"):
-        srv.build_engine(FIXTURE, prefill_a16=True, device="cpu")
+def test_build_engine_refuses_unported_options(tmp_path):
+    """LoRA and W4A16 prefill are served (slice 15): a missing adapter
+    file is refused, not skipped; ``prefill_a16`` reaches the Server."""
+    with pytest.raises(FileNotFoundError):
+        srv.build_engine(FIXTURE, lora_path=tmp_path / "adapter.gguf",
+                         device="cpu")
+    engine = srv.build_engine(FIXTURE, prefill_a16=True, device="cpu")
+    try:
+        assert engine.server.prefill_mode == "bf16"
+        assert engine.server.act_mode == "q8_1"
+    finally:
+        engine.shutdown()

@@ -26,12 +26,14 @@ def test_importing_every_module_pulls_in_no_jax():
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'quant_gemm_tpu' or "
         "m.startswith('quant_gemm_tpu.'))\n"
-        "assert len(mods) >= 29, mods\n"
+        "assert len(mods) >= 36, mods\n"
         "new = {'formats.kquants', 'formats.gguf_file', "
         "'kernels.gemm_exact_k16', 'models.gguf_loader', "
         "'harness.datagen', 'harness.metrics', 'ref.gemm', "
         "'kernels.gemm_xla', 'ops.softmax', 'ops.elementwise', "
-        "'specs.spec_runner'}\n"
+        "'specs.spec_runner', 'models.lora', 'models.speculative', "
+        "'models.evaluate', 'models.hf_loader', 'api', 'compat', "
+        "'scripts.perplexity'}\n"
         "assert {p.__name__ + '.' + n for n in new} <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
@@ -82,6 +84,13 @@ def test_default_device_raises_without_gpu(no_gpu):
         gguf_loader.load_llama(fixture)
     with pytest.raises(RuntimeError, match="cuda"):
         GGUFFile(fixture).load("output.weight")
+    # the slice-15 entry points default to the card too
+    from quant_gemm_tpu_torch.models import hf_loader, lora
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        lora.load_lora(fixture)
+    with pytest.raises(RuntimeError, match="cuda"):
+        hf_loader.load_hf_llama(ROOT / "tests")
 
 
 def test_kernel_build_raises_without_toolchain(no_gpu, monkeypatch):

@@ -266,16 +266,20 @@ def test_server_matches_jax_server(models):
 
 def test_server_rejects_options_outside_the_slice(models):
     _, _, qt = models
-    with pytest.raises(NotImplementedError):
-        ts.Server(qt, TCFG, device="cpu", prefill_a16=True)
+    # W4A16 prefill and decode are served (slice 15, tests/test_torch_a16.
+    # py); an activation mode the JAX package has not is refused
+    assert ts.Server(qt, TCFG, device="cpu",
+                     prefill_a16=True).prefill_mode == "bf16"
+    with pytest.raises(ValueError, match="act_mode"):
+        ts.Server(qt, TCFG, device="cpu", act_mode="q4_0")
     # a ring needs a window, and does not shift its context
     with pytest.raises(ValueError):
         ts.Server(qt, TCFG._replace(ring=True), device="cpu")
     with pytest.raises(ValueError):
         ts.Server(qt, TCFG._replace(window=16, ring=True), device="cpu",
                   context_shift=True)
-    with pytest.raises(NotImplementedError):
-        ts.Server(qt, TCFG, device="cpu", act_mode="bf16")
+    assert ts.Server(qt, TCFG, device="cpu", act_mode="bf16").act_mode \
+        == "bf16"
     # grammar and n_probs are served (slice 14, tests/test_torch_grammar.
     # py); a request still needs a prompt and a token to make
     srv = ts.Server(qt, TCFG, n_slots=1, device="cpu")

@@ -298,8 +298,8 @@ def test_cpu_server_is_eager_and_decides_routes_once(models, monkeypatch):
     _, qt = models
     calls = []
     routes = tl.routes
-    monkeypatch.setattr(tl, "routes", lambda *a: calls.append(a[2:])
-                        or routes(*a))
+    monkeypatch.setattr(tl, "routes", lambda *a, **kw: calls.append(a[2:])
+                        or routes(*a, **kw))
     assert ts.CUDA_GRAPHS
     srv = ts.Server(qt, TLIN, n_slots=2, device="cpu")
     srv.submit(list(range(1, 40)), max_new=6)

@@ -175,7 +175,39 @@ Run from the repository root on a machine with one NVIDIA H100:
    ``k1_order`` of the golden's block terms, within 1e-5 x max|C| of
    the float64 golden), ``compat.gemm_from_ggml`` on a GGUF view and the
    ``ggml_op_*`` drop-ins against the port's ops;
-11. prints one JSON line of the kernels (the ten TPU kernels and the two
+11. slice 16, QAT and tensor parallelism: (q1) AdamW QAT (optax's
+   defaults, q4_0 fake quantization, straight-through gradient) at
+   TinyLlama-1.1B width from ``init_params`` floats, 4 x 256 seeded
+   tokens, 5 steps with remat and 3 without (the loss must fall; ms a
+   step, tokens/s and ``max_memory_allocated`` printed), then
+   ``accum_steps=2`` on the same batch (the first loss to 1e-5
+   relative); (q2) the loss and every gradient of one step at full
+   width, 2 layers, on the card against the port on the CPU (loss 1e-5
+   relative, each gradient within 1e-4 of its largest element); (q3)
+   ``quantize_params`` of the trained floats dequantizes to
+   ``fake_quant_ste`` of them bit for bit on all 89 linears, and a
+   captured and an eager Server serve 4 greedy requests from them
+   (launches checked, kernels vs plain versions layer by layer); (t1)
+   two spawned ranks share the card over gloo (NCCL refuses two ranks
+   on one device): ``shard_params_tp`` of TinyLlama-width q4_0 weights
+   (all 22 layers), a prefill of 2 x 128 tokens and 8 decode steps with
+   each cache through ``forward_tp``, each rank's launches checked (K1
+   to K5 run, K8 does not), the ranks' logits the same bits; against
+   the single-device forward, each TP layer fed the single-device state
+   (update NMSE <= 1e-4) and the free runs' logits NMSE within 4 x that
+   of the single device's own run under 1e-7 relative noise on every
+   GEMM output (the Q8_1 and bf16 roundings turn the row-parallel sums'
+   order into this much, and no less: atol/rtol 1e-3 does not hold
+   here); a float witness, 2 layers of float32 weights and activations
+   through ``forward_tp`` on the ranks' Megatron chunks, within
+   atol/rtol 1e-3 of the single device on every call; gloo all-reduce
+   times, the sharded GEMMs against the unsharded kernels; (t2) the
+   heartbeat (``health.check``) on both ranks, one sharded AdamW step on
+   a dp 1 x tp 2 mesh at full width, 2 layers, against the
+   single-process step (loss 1e-5 relative, the step's gradients within
+   1e-5 of each leaf's largest, params 1e-5 where |grad| >= 1e-6), and
+   ``scripts/multihost.py --nproc 2``;
+12. prints one JSON line of the kernels (the ten TPU kernels and the two
    activation quantize launches), the card, and last the result line;
    each phase's seconds on its own line.
 
@@ -223,6 +255,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -4409,6 +4442,737 @@ def slice15_path(dev, counters, prompts, reuse):
     return by_run
 
 
+# ---------------------------------------------------------------------------
+# slice 16: quantization-aware training and tensor parallelism
+# ---------------------------------------------------------------------------
+
+RUN_QAT = "QAT q4_0 Server"
+RUN_TP = "TP rank {} {}"
+QAT_BATCH = (4, 256)  # (q1): 4 sequences of 256 tokens, 255 predicted each
+QAT_STEPS = {True: 5, False: 3}  # steps of the remat and no-remat runs
+PARITY_BATCH = (4, 64)  # (q2)
+TP_PROMPT = (2, 128)  # (t1): 2 slots x 128 tokens, then TP_STEPS decode
+TP_STEPS = 8
+TP_TIMEOUT_S = 420
+
+
+def launch_counters() -> dict:
+    """Every launch counter of the serving path by name: (object,
+    attribute)."""
+    from quant_gemm_tpu_torch.kernels import act_quant, registry
+    from quant_gemm_tpu_torch.ops.rms_norm import rms_norm_pallas
+    from quant_gemm_tpu_torch.ops.softmax import softmax_pallas
+
+    counters = {name: (fn, "launches")
+                for name, fn in registry.KERNELS._asdict().items()}
+    counters["k16_dequant_gemm"] = (registry.k16_dequant_gemm, "calls")
+    counters["rms_norm_pallas"] = (rms_norm_pallas, "launches")
+    counters["quantize_q8_1"] = (act_quant.quantize_q8_1, "launches")
+    counters["quantize_fold_q8_1"] = (act_quant.quantize_fold_q8_1,
+                                      "launches")
+    counters["softmax_pallas"] = (softmax_pallas, "launches")
+    return counters
+
+
+def read(counters) -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+
+
+def first_layers(params, n):
+    return {**params, "layers": params["layers"][:n]}
+
+
+def on(params, dev):
+    from quant_gemm_tpu_torch.models import train
+
+    return train.unflatten(params, [torch.tensor(np.asarray(p), device=dev)
+                                    for p in train.leaves(params)])
+
+
+def qat_runs(dev, params, cfg, card):
+    """(q1): AdamW QAT steps with and without remat at full width, and
+    accum_steps=2 against the whole batch.  Returns the remat run's
+    trained parameters (numpy)."""
+    from quant_gemm_tpu_torch.models import train
+
+    toks = np.random.default_rng(160).integers(0, VOCAB, QAT_BATCH)
+    n_tok = QAT_BATCH[0] * (QAT_BATCH[1] - 1)
+    first = trained = None
+    for remat in (True, False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        p, opt, step = train.make_state_step(params, cfg, optimizer="adamw",
+                                             remat=remat, device=dev)
+        losses, secs = [], []
+        for _ in range(QAT_STEPS[remat]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, opt, loss = step(p, opt, toks)
+            losses.append(float(loss))
+            secs.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        ms = statistics.median(secs[1:]) * 1e3
+        print(f"  (q1) QAT AdamW (optax defaults) q4_0 remat={remat}: "
+              f"{QAT_STEPS[remat]} steps of {QAT_BATCH[0]} x {QAT_BATCH[1]} "
+              f"tokens, losses {[round(x, 5) for x in losses]}; "
+              f"{ms:.1f} ms a step (median after the first, "
+              f"{secs[0] * 1e3:.1f} ms), {n_tok / ms * 1e3:.0f} tokens/s, "
+              f"max_memory_allocated {peak:.2f} GiB [{card}]", flush=True)
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            fail(f"QAT remat={remat}: the loss did not fall: {losses}")
+        if remat:
+            first = losses[0]
+            trained = train.unflatten(params, [x.detach().cpu().numpy()
+                                               for x in train.leaves(p)])
+        del p, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    p, opt, step = train.make_state_step(params, cfg, optimizer="adamw",
+                                         remat=True, accum_steps=2,
+                                         device=dev)
+    _, _, loss = step(p, opt, toks)
+    rel = abs(float(loss) - first) / abs(first)
+    print(f"  (q1) accum_steps=2 on the same batch: loss {float(loss):.7f} "
+          f"vs {first:.7f} (relative {rel:.2e}, limit 1e-5)", flush=True)
+    if not rel <= 1e-5:
+        fail("QAT accum_steps=2 differs from the whole batch")
+    del p, opt, step
+    return trained
+
+
+def qat_parity(dev, params, cfg):
+    """(q2): one step's loss and gradients at full width, 2 layers, on the
+    card (TF32 off) against the port on the CPU."""
+    from quant_gemm_tpu_torch.models import train
+
+    cfg2 = cfg._replace(n_layers=2)
+    p2 = first_layers(params, 2)
+    toks = np.random.default_rng(161).integers(0, VOCAB, PARITY_BATCH)
+    out, secs = [], []
+    for where in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        out.append(train.value_and_grad(
+            on(p2, where), cfg2, torch.tensor(toks, device=where), "q4_0"))
+        secs.append(time.perf_counter() - t0)
+    (lg, gg), (lc, gc_) = out
+    rel = abs(float(lg) - float(lc)) / abs(float(lc))
+    worst = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                for a, b in zip(train.leaves(gg), train.leaves(gc_)))
+    print(f"  (q2) QAT parity at full width, 2 layers, {PARITY_BATCH[0]} x "
+          f"{PARITY_BATCH[1]} tokens, allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}: loss {float(lg):.7f} "
+          f"card vs {float(lc):.7f} CPU (relative {rel:.2e}, limit 1e-5); "
+          f"worst gradient max|delta| / max|CPU| {worst:.2e} over "
+          f"{len(train.leaves(gg))} tensors (limit 1e-4); card "
+          f"{secs[0]:.1f} s, CPU {secs[1]:.1f} s", flush=True)
+    if not (rel <= 1e-5 and worst <= 1e-4):
+        fail("QAT on the card disagrees with the CPU")
+
+
+def qat_serving(dev, trained, cfg, counters, prompts, reuse):
+    """(q3): the trained floats quantized with quantize_params dequantize
+    to the training forward's weights bit for bit; then 4 greedy requests
+    through the Server and the layer-by-layer check."""
+    from quant_gemm_tpu_torch.kernels import layout
+    from quant_gemm_tpu_torch.models import llama, train
+
+    qp = llama.quantize_params(trained, "q4_0", device=dev)
+
+    def fq(*names, lyr):
+        return torch.cat([train.fake_quant_ste(torch.tensor(
+            lyr[n], device=dev)) for n in names])
+
+    pairs = [(qp["lm_head"], fq("lm_head", lyr=trained))]
+    for ql, tl in zip(qp["layers"], trained["layers"]):
+        pairs += [(ql["wqkv"], fq("wq", "wk", "wv", lyr=tl)),
+                  (ql["wo"], fq("wo", lyr=tl)),
+                  (ql["wgu"], fq("w_gate", "w_up", lyr=tl)),
+                  (ql["w_down"], fq("w_down", lyr=tl))]
+    bad = sum(not torch.equal(layout.dequantize(w), f) for w, f in pairs)
+    print(f"  (q3) dequantize(quantize_params(trained)) == fake_quant_ste("
+          f"trained) bit for bit on {len(pairs) - bad} of {len(pairs)} "
+          "linears", flush=True)
+    if bad:
+        fail("the served grid differs from the trained one")
+    launches, st, _ = serve_traffic(f"{RUN_QAT}(qp, cfg, n_slots=8)", qp,
+                                    cfg, dev, prompts, reuse, counters)
+    n_chunks = chunks(prompts, reuse)
+    steps = st["decode_steps"]
+    check_launches(RUN_QAT, launches, {
+        "gemm_exact": steps * (3 * LAYERS + 1),
+        "norm_qkv": steps * LAYERS, "flash_decode": steps * LAYERS,
+        "gemm_exact_fused": 0, "attn_tail": 0,
+        "gemm_dequant": len(n_chunks) * (4 * LAYERS + 1),
+        "flash_prefill": LAYERS * sum(t >= 64 for t in n_chunks),
+        "gemm_exact_k16": 0})
+    rng = np.random.default_rng(162)
+    toks = torch.as_tensor(rng.integers(0, VOCAB, (1, 128)), device=dev)
+    report_cases([
+        ("QAT q4_0 chunk 128", check(qp, cfg, toks, llama.KVCache.init(
+            cfg, 1, device=dev))),
+        ("QAT q4_0 decode step", decode_case(qp, cfg, rng, dev))])
+    return launches
+
+
+def tp_worker(rank, store, dev, q):
+    """One rank of (t1)/(t2): gloo on ``dev`` (both ranks share the
+    card), the file rendezvous ``store``; puts (rank, ok, result or
+    traceback) on ``q``."""
+    import traceback
+
+    try:
+        q.put((rank, True, tp_rank(rank, store, dev)))
+    except BaseException:  # noqa: BLE001 - fail() exits; sent to the parent
+        q.put((rank, False, traceback.format_exc()))
+    q.close()
+    q.join_thread()
+    os._exit(0)  # no wait on the peer's teardown
+
+
+def close(a, b, tol=1e-3):
+    """assert_allclose(a, b, atol=tol, rtol=tol)'s verdict and the largest
+    |a - b|."""
+    d = (a - b).abs()
+    return bool((d <= tol + tol * b.abs()).all()), float(d.max())
+
+
+def tp_params(cfg, dev, seed=16):
+    """``init_params``-structured floats drawn on ``dev`` from a
+    ``torch.Generator`` (``init_params``' scales; numpy takes 20 s at this
+    width), returned on the CPU."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def lin(n, k):
+        return (torch.randn(n, k, generator=g, device=dev) * k ** -0.5).cpu()
+
+    hd = cfg.head_dim
+    ones = torch.ones(cfg.dim)
+    return {"embed": (torch.randn(cfg.vocab, cfg.dim, generator=g,
+                                  device=dev) * 0.02).cpu(),
+            "layers": [{"attn_norm": ones, "mlp_norm": ones,
+                        "wq": lin(cfg.n_heads * hd, cfg.dim),
+                        "wk": lin(cfg.n_kv_heads * hd, cfg.dim),
+                        "wv": lin(cfg.n_kv_heads * hd, cfg.dim),
+                        "wo": lin(cfg.dim, cfg.n_heads * hd),
+                        "w_gate": lin(cfg.d_ff, cfg.dim),
+                        "w_up": lin(cfg.d_ff, cfg.dim),
+                        "w_down": lin(cfg.dim, cfg.d_ff)}
+                       for _ in range(cfg.n_layers)],
+            "final_norm": ones, "lm_head": lin(cfg.vocab, cfg.dim)}
+
+
+def tp_rank(rank, store, dev):
+    from quant_gemm_tpu_torch.kernels import registry
+    from quant_gemm_tpu_torch.models import llama, llama_tp, train
+    from quant_gemm_tpu_torch.parallel import health, multihost, sharding
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    multihost.initialize(f"file://{store}", 2, rank, backend="gloo",
+                         timeout_s=300)
+    mesh = sharding.make_mesh({"tp": 2}, device=dev)
+    out = {"health": health.check(60.0, mesh)}
+    if not out["health"].ok:
+        raise RuntimeError(out["health"].row())
+    cfg = tinyllama_cfg()
+    params = tp_params(cfg, dev)
+    qtp = llama_tp.shard_params_tp(params, cfg, mesh, "q4_0")
+    q1 = llama.quantize_params(params, "q4_0", device=dev) if rank == 0 \
+        else None
+    rng = np.random.default_rng(163)
+    prompt = torch.as_tensor(rng.integers(0, VOCAB, TP_PROMPT), device=dev)
+    steps = torch.as_tensor(rng.integers(0, VOCAB, (TP_STEPS,
+                                                    TP_PROMPT[0], 1)),
+                            device=dev)
+    counters = launch_counters()
+
+    def run(fwd, cache):
+        """The prefill and TP_STEPS teacher-forced decode steps: logits of
+        each call, prefill ms and decode step ms."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = [fwd(prompt, cache)[0]]
+        torch.cuda.synchronize()
+        times = [time.perf_counter() - t0]
+        for tok in steps:
+            t0 = time.perf_counter()
+            logits.append(fwd(tok, cache)[0])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return logits, times[0] * 1e3, statistics.median(times[1:]) * 1e3
+
+    def tp_fwd(qp, c, mode="q8_1"):
+        return lambda tok, cache: llama_tp.forward_tp(qp, c, tok, cache, mesh,
+                                                      act_mode=mode)
+
+    def one_fwd(qp, c, mode="q8_1", ops=registry.KERNELS):
+        return lambda tok, cache: llama.forward(qp, c, tok, cache,
+                                                act_mode=mode, ops=ops)
+
+    b = TP_PROMPT[0]
+    run(tp_fwd(qtp, cfg), llama_tp.init_cache_tp(cfg, b, mesh))  # warm-up
+    want = {"gemm_exact": TP_STEPS * (3 * LAYERS + 1),
+            "norm_qkv": TP_STEPS * LAYERS, "flash_decode": TP_STEPS * LAYERS,
+            "gemm_dequant": 4 * LAYERS + 1, "flash_prefill": LAYERS,
+            "gemm_exact_fused": 0, "attn_tail": 0, "gemm_exact_k16": 0}
+    # the float witness: 2 layers of float32 weights, the rank's Megatron
+    # chunks against the whole (no activation rounding but the cache's)
+    cfg2 = cfg._replace(n_layers=2)
+    p2 = first_layers(params, 2)
+    ftp = llama.float_params({**p2, "layers": [
+        {k: sharding.megatron_chunk(v, r[k], mesh) for k, v in ly.items()}
+        for ly, r in zip(p2["layers"],
+                         train.param_shardings(p2)["layers"])]}, dev)
+    f1 = llama.float_params(p2, dev) if rank == 0 else None
+    for cq in ("bf16", "q8"):
+        zero(counters)
+        lt, pre_ms, dec_ms = run(tp_fwd(qtp, cfg), llama_tp.init_cache_tp(
+            cfg, b, mesh, qtype=cq))
+        launches = read(counters)
+        check_launches(RUN_TP.format(rank, cq), launches, want)
+        row = {"launches": launches, "prefill_ms": pre_ms,
+               "decode_ms": dec_ms}
+        # the ranks' logits are the same bits
+        last = sharding.all_gather(lt[-1][None], mesh, "tp", dim=0)
+        row["ranks_equal"] = bool(torch.equal(last[0], last[1]))
+        lt2 = run(tp_fwd(ftp, cfg2, "float"), llama_tp.init_cache_tp(
+            cfg2, b, mesh, qtype=cq))[0]
+        if rank == 0:
+            run(one_fwd(q1, cfg), llama.KVCache.init(cfg, b, cq, device=dev))
+            l1, row["one_prefill_ms"], row["one_decode_ms"] = run(
+                one_fwd(q1, cfg), llama.KVCache.init(cfg, b, cq, device=dev))
+            row["free"] = (max(close(a, c)[1] for a, c in zip(lt, l1)),
+                           max(nmse(a, c) for a, c in zip(lt, l1)))
+            ln = run(one_fwd(q1, cfg, ops=noisy_ops(dev)),
+                     llama.KVCache.init(cfg, b, cq, device=dev))[0]
+            row["noise"] = (max(close(a, c)[1] for a, c in zip(ln, l1)),
+                            max(nmse(a, c) for a, c in zip(ln, l1)))
+            l12 = run(one_fwd(f1, cfg2, "float"), llama.KVCache.init(
+                cfg2, b, cq, device=dev))[0]
+            row["float"] = (max(close(a, c)[1] for a, c in zip(lt2, l12)),
+                            max(nmse(a, c) for a, c in zip(lt2, l12)),
+                            all(close(a, c)[0] for a, c in zip(lt2, l12)))
+        row["layerwise"] = tp_layerwise(rank, cfg, qtp, q1, cq, prompt, steps,
+                                        mesh, dev)
+        out[cq] = row
+    for shape in ((TP_PROMPT[0] * TP_PROMPT[1], DIM), (TP_PROMPT[0], DIM)):
+        x = torch.randn(shape, device=dev)
+        for _ in range(3):
+            sharding.all_reduce(x, mesh, "tp")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            sharding.all_reduce(x, mesh, "tp")
+        torch.cuda.synchronize()
+        out[f"all_reduce_{shape[0]}x{shape[1]}_ms"] = (
+            time.perf_counter() - t0) / 20 * 1e3
+    out["gemms"] = tp_gemms(dev, mesh)
+    del qtp, q1
+    torch.cuda.empty_cache()
+
+    # (t2) one sharded AdamW QAT step on a dp 1 x tp 2 mesh, 2 layers
+    cfg2 = cfg._replace(n_layers=2)
+    p2 = first_layers(params, 2)
+    toks = np.random.default_rng(164).integers(0, VOCAB, PARITY_BATCH)
+    mesh2 = sharding.make_mesh({"dp": 1, "tp": 2}, device=dev)
+    p, opt, step = train.make_state_step(p2, cfg2, mesh=mesh2,
+                                         optimizer="adamw")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p, opt, loss = step(p, opt, toks)
+    out["train_step_ms"] = (time.perf_counter() - t0) * 1e3
+    full = train.leaves(train.gather_params(p, mesh2))
+    # AdamW's first moment after one step is (1 - b1) g: the step's own
+    # gradients, gathered
+    moments = train.leaves(train.gather_params(train.unflatten(p, [
+        opt.state[q]["exp_avg"] for q in train.leaves(p)]), mesh2))
+    del p, opt
+    if rank == 0:
+        p1, o1, step1 = train.make_state_step(p2, cfg2, optimizer="adamw",
+                                              device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p1, o1, loss1 = step1(p1, o1, toks)
+        out["one_train_step_ms"] = (time.perf_counter() - t0) * 1e3
+        _, g1 = train.value_and_grad(on(p2, dev), cfg2,
+                                     torch.tensor(toks, device=dev))
+        firm_d = loose_d = grad_d = 0.0
+        loose = 0
+        for a, b, g, m in zip(full, train.leaves(p1), train.leaves(g1),
+                              moments):
+            d = (a - b.detach()).abs()
+            firm = g.abs() >= 1e-6
+            firm_d = max(firm_d, float(d[firm].max()) if firm.any() else 0)
+            loose_d = max(loose_d, float(d.max()))
+            loose += int((~firm).sum())
+            m1 = o1.state[b]["exp_avg"]
+            grad_d = max(grad_d, float((m - m1).abs().max()
+                                       / m1.abs().max()))
+        out["train"] = (float(loss), float(loss1), firm_d, loose_d, loose,
+                        sum(x.numel() for x in full), grad_d)
+    out["host_copies"] = dict(sharding.HOST_COPIES)
+    return out
+
+
+def noisy_ops(dev, eps=1e-7, seed=166):
+    """The kernels with every GEMM output (K1, K2, K4) times (1 + eps *
+    N(0, 1)): float-order noise of the size a row-parallel sum or K4's
+    N-dependent split leaves (at most 3.6e-7 of the output's max, op by
+    op, on the card), for the single-device witness of what the Q8_1 and
+    bf16 roundings downstream make of it."""
+    from quant_gemm_tpu_torch.kernels import registry
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def noisy(f):
+        def h(*a, **kw):
+            y = f(*a, **kw)
+            return y * (1 + eps * torch.randn(y.shape, device=dev,
+                                                generator=g))
+        return h
+
+    k = registry.KERNELS
+    return k._replace(gemm_dequant=noisy(k.gemm_dequant),
+                      gemm_exact=noisy(k.gemm_exact),
+                      norm_qkv=noisy(k.norm_qkv))
+
+
+def tp_op_witness(dev, card):
+    """Layer 0 of the TinyLlama-width q4_0 model, op by op: the single
+    device's prefill (2 x 128) and one decode step with each cache, every
+    kernel call recorded, then repeated with both ranks' shards
+    (``shard_params_tp``) on that call's own inputs (the rank's heads or
+    K columns) and held to the single-device output (its columns, or the
+    two K partials summed) within 1e-6 of its max: each op alone leaves
+    at most float-order differences.  Prints which ops are bit-equal."""
+    from quant_gemm_tpu_torch.formats.blocks import QK, Q8_1Tensor
+    from quant_gemm_tpu_torch.kernels import registry
+    from quant_gemm_tpu_torch.models import llama, llama_tp
+    from quant_gemm_tpu_torch.parallel import sharding
+
+    cfg = tinyllama_cfg()._replace(n_layers=1)
+    params = tp_params(cfg, dev, seed=167)
+    q1 = llama.quantize_params(params, "q4_0", device=dev)
+    qr = [llama_tp.shard_params_tp(params, cfg, sharding.Mesh(
+        {"tp": 2}, {"tp": r}, {"tp": None}, dev))["layers"][0]
+        for r in (0, 1)]
+    nq, nkv = HEADS * cfg.head_dim, KV_HEADS * cfg.head_dim
+
+    def rows(r, *spans):  # rank r's half of each [start, start + n)
+        return torch.cat([torch.arange(a + r * n // 2, a + (r + 1) * n // 2)
+                          for a, n in spans]).to(dev)
+
+    cols = {"wqkv": [rows(r, (0, nq), (nq, nkv), (nq + nkv, nkv))
+                     for r in (0, 1)],
+            "wgu": [rows(r, (0, D_FF), (D_FF, D_FF)) for r in (0, 1)]}
+
+    def half(t, dim, r):
+        n = t.shape[dim] // 2
+        return t.narrow(dim, r * n, n).contiguous()
+
+    def k_half(act, r):
+        if isinstance(act, Q8_1Tensor):
+            return Q8_1Tensor(half(act.qs, 1, r), half(act.d, 1, r),
+                              half(act.s, 1, r))
+        return half(act, 1, r)
+
+    def keep(v):
+        if isinstance(v, Q8_1Tensor):
+            return Q8_1Tensor(*(f.clone() for f in v))
+        return v.clone() if isinstance(v, torch.Tensor) else v
+
+    log = []
+
+    def recorded(name, f):
+        def g(*a, **kw):
+            call = (name, [keep(x) for x in a],
+                    {k: keep(v) for k, v in kw.items()})
+            out = f(*a, **kw)
+            log.append(call + (out.clone(),))
+            return out
+        return g
+
+    rops = registry.Ops(**{k: recorded(k, f)
+                           for k, f in registry.KERNELS._asdict().items()})
+    k = registry.KERNELS
+    rng = np.random.default_rng(167)
+    prompt = torch.as_tensor(rng.integers(0, VOCAB, TP_PROMPT), device=dev)
+    step = torch.as_tensor(rng.integers(0, VOCAB, (TP_PROMPT[0], 1)),
+                           device=dev)
+    worst, equal = 0.0, {}
+    for cq in ("bf16", "q8"):
+        cache = llama.KVCache.init(cfg, TP_PROMPT[0], cq, device=dev)
+        for tok in (prompt, step):
+            log.clear()
+            x, st = llama.begin(q1, cfg, tok, cache)
+            _, kv = llama.layer(q1["layers"][0], 0, cfg, x, cache, st, rops)
+            llama.end(cache, st, [kv] if kv is not None else [])
+            gemms = iter(("wqkv", "wo", "wgu", "w_down"))
+            for name, a, kw, ref in log:
+                fn = getattr(k, name)
+                if name in ("flash_prefill", "flash_decode"):
+                    label = name
+                    got = []
+                    for r in (0, 1):  # q [B, KV, ...], cache [L, B, KV, ...]
+                        kr = {key: (half(v, 1 if key.endswith("current")
+                                         else 2, r)
+                                    if isinstance(v, torch.Tensor) else v)
+                              for key, v in kw.items()}
+                        got.append(fn(half(a[0], 1, r), half(a[1], 2, r),
+                                      half(a[2], 2, r), *a[3:], **kr))
+                    got, want = torch.cat(got, dim=1), ref
+                else:
+                    w = next(gemms)
+                    label = f"{name}({w})"
+                    if w in cols:
+                        got = torch.cat([fn(qr[r][w], *a[1:], **kw)
+                                         for r in (0, 1)], dim=1)
+                        want = ref[:, torch.cat(cols[w])]
+                    else:
+                        got = sum(fn(qr[r][w], k_half(a[1], r), **kw)
+                                  for r in (0, 1))
+                        want = ref
+                rel = float((got.float() - want.float()).abs().max()
+                            / want.float().abs().max())
+                worst = max(worst, rel)
+                key = f"{cq} {'prefill' if tok is prompt else 'decode'} " \
+                    f"{label}"
+                equal[key] = (bool(torch.equal(got, want)), rel)
+    print(f"  (t1) TP op by op at layer 0 on the single device's inputs "
+          f"(bit-equal, max|delta| / max|single|): {json.dumps(equal)}; "
+          f"worst {worst:.2e} (limit 1e-6) [{card}]", flush=True)
+    if worst > 1e-6:
+        fail("a TP op differs from the single-device op beyond float order")
+
+
+def tp_layerwise(rank, cfg, qtp, q1, cq, prompt, steps, mesh, dev):
+    """The prefill and decode steps of ``run``, every TP layer fed the
+    single-device hidden state (rank 0's, broadcast): on rank 0 the
+    largest NMSE of a layer's update against the single-device layer's
+    (the repo's layer-by-layer method: a Q8_1 code or a bf16 cache value
+    that a row-parallel sum's order moves across a rounding tie shows in
+    its own layer only)."""
+    import torch.distributed as dist
+
+    from quant_gemm_tpu_torch.models import llama, llama_tp
+
+    local, ctx = llama_tp.tp_context(cfg, mesh)
+    ct = llama_tp.init_cache_tp(cfg, TP_PROMPT[0], mesh, qtype=cq)
+    c1 = llama.KVCache.init(cfg, TP_PROMPT[0], cq, device=dev) \
+        if rank == 0 else None
+    worst = 0.0
+    for tok in [prompt, *steps]:
+        x, st = llama.begin(qtp, local, tok, ct, tp_ctx=ctx)
+        if rank == 0:
+            x, s1 = llama.begin(q1, cfg, tok, c1)
+        dist.broadcast(x, 0)
+        cur_t, cur_1 = [], []
+        for li in range(cfg.n_layers):
+            yt, kv = llama.layer(qtp["layers"][li], li, local, x, ct, st)
+            cur_t += [kv] if kv is not None else []
+            if rank == 0:
+                y1, kv1 = llama.layer(q1["layers"][li], li, cfg, x, c1, s1)
+                cur_1 += [kv1] if kv1 is not None else []
+                worst = max(worst, nmse(yt - x, y1 - x))
+                x = y1
+            dist.broadcast(x, 0)
+        llama.end(ct, st, cur_t)
+        if rank == 0:
+            llama.end(c1, s1, cur_1)
+    return worst
+
+
+def tp_gemms(dev, mesh):
+    """The sharded GEMMs at TinyLlama's wo (M 8, q4_0) against the
+    unsharded kernels: K1 on the rank's rows (the TP decode route's
+    column-parallel GEMM) bit for bit; ``gemm_col_parallel`` (K4, whose
+    split over K follows N: ``gemm_dequant.k4_grid``), the reduce-scatter
+    and both rings (K1 on Q8_1 chunks) to float order.  Returns {name:
+    (max|delta| / max|reference|, bit-equal)}."""
+    from quant_gemm_tpu_torch.formats.quant import quantize_q4_0
+    from quant_gemm_tpu_torch.kernels import layout, registry
+    from quant_gemm_tpu_torch.parallel import sharding as sh
+
+    g = torch.Generator(device=dev).manual_seed(165)
+    a = torch.randn(8, DIM, device=dev, generator=g)
+    w_q = quantize_q4_0(torch.randn(DIM, DIM, device=dev, generator=g)
+                        * DIM ** -0.5)
+    whole = layout.prepare(w_q)
+    ref8 = registry.KERNELS.gemm_exact(whole, registry.quantize(a))
+    ref4 = registry.KERNELS.gemm_dequant(whole, a)
+    cols = slice(mesh.index("tp") * DIM // 2, (mesh.index("tp") + 1)
+                 * DIM // 2)
+    f32 = dict(a_dtype=torch.float32)
+    col = sh.shard_weight(w_q, mesh)
+    got = {
+        "col_k1": (registry.KERNELS.gemm_exact(col.local,
+                                               registry.quantize(a)),
+                   ref8[:, cols]),
+        "col": (sh.gemm_col_parallel(col, a, mesh, **f32), ref4[:, cols]),
+        "row_reduce_scatter": (sh.gemm_row_parallel(
+            sh.shard_weight(w_q, mesh, mode="row"), a, mesh,
+            scatter_output=True, **f32), ref4[:, cols]),
+        "col_ring": (sh.gemm_col_parallel_ring(
+            sh.shard_weight_ring(w_q, mesh), a, mesh), ref8[:, cols]),
+        "row_ring": (sh.gemm_row_parallel_ring(
+            sh.shard_weight_ring(w_q, mesh, mode="row"), a, mesh),
+            ref8[:, cols])}
+    return {k: (float((x - y).abs().max() / y.abs().max()),
+                bool(torch.equal(x, y))) for k, (x, y) in got.items()}
+
+
+def tp_path(dev, card):
+    """(t1) and (t2): the ops of a TP layer one by one, two ranks on the
+    one card (gloo), then scripts/multihost.py --nproc 2.  Returns each
+    rank's launches."""
+    tp_op_witness(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = torch.multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=tp_worker,
+                             args=(r, f"{tmp}/store", dev, q))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        res, deadline = {}, time.monotonic() + TP_TIMEOUT_S
+        try:
+            while len(res) < 2 and time.monotonic() < deadline:
+                try:
+                    rank, ok, val = q.get(timeout=5)
+                except Exception:  # queue.Empty
+                    if any(p.exitcode is not None and r not in res
+                           for r, p in enumerate(procs)):
+                        fail("a TP rank died without a result")
+                    continue
+                if not ok:
+                    fail(f"TP rank {rank}:\n{val}")
+                res[rank] = val
+        finally:
+            for p in procs:
+                p.join(10)
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+    if len(res) < 2:
+        fail(f"the TP ranks did not finish in {TP_TIMEOUT_S} s")
+    by_run = {}
+    for rank in (0, 1):
+        r = res[rank]
+        print(f"  (t2) rank {rank}: {r['health'].row()}", flush=True)
+        for cq in ("bf16", "q8"):
+            row = r[cq]
+            by_run[RUN_TP.format(rank, cq)] = row["launches"]
+            print(f"  (t1) TP rank {rank}, {cq} cache, {LAYERS} layers: "
+                  f"prefill {TP_PROMPT[0]} x {TP_PROMPT[1]} {row['prefill_ms']:.2f}"
+                  f" ms, decode step (2 slots) {row['decode_ms']:.3f} ms "
+                  f"(median of {TP_STEPS}); ranks' logits equal: "
+                  f"{row['ranks_equal']}; launches {json.dumps(row['launches'])}"
+                  f" [{card}]", flush=True)
+            if not row["ranks_equal"]:
+                fail("the TP ranks' logits differ")
+            if rank == 0:
+                worst = row["layerwise"]
+                fl = row["float"]
+                print(f"  (t1) single device {cq}: prefill "
+                      f"{row['one_prefill_ms']:.2f} ms, decode step "
+                      f"{row['one_decode_ms']:.3f} ms [{card}]; TP vs single "
+                      f"device, q8_1, {LAYERS} layers: each layer fed the "
+                      f"single-device state, worst layer update NMSE "
+                      f"{worst:.3e} (limit 1e-4); free runs max|delta| "
+                      f"{row['free'][0]:.4f}, worst logits NMSE "
+                      f"{row['free'][1]:.3e} (limit 4 x the single device's "
+                      f"own under 1e-7 relative noise on every GEMM output: "
+                      f"max|delta| {row['noise'][0]:.4f}, NMSE "
+                      f"{row['noise'][1]:.3e}); float witness (2 layers, "
+                      f"float32 weights and activations): max|delta| "
+                      f"{fl[0]:.2e}, NMSE {fl[1]:.2e}, within atol/rtol "
+                      f"1e-3: {fl[2]}", flush=True)
+                if not (worst <= 1e-4 and fl[2]
+                        and row["free"][1] <= 4 * row["noise"][1]):
+                    fail(f"TP logits differ from single device ({cq})")
+        for k, v in r.items():
+            if k.startswith("all_reduce_"):
+                print(f"  (t1) rank {rank} gloo {k} (CUDA tensor): "
+                      f"{v:.3f} ms [{card}]", flush=True)
+        gm = r["gemms"]
+        print(f"  (t1) rank {rank} sharded GEMMs at {DIM} x {DIM}, M 8, q4_0,"
+              f" max|delta| / max|unsharded|: "
+              f"{json.dumps({k: v[0] for k, v in gm.items()})} (limit 1e-5;"
+              f" K1 on the rank's rows bit-equal: {gm['col_k1'][1]})",
+              flush=True)
+        if not (gm["col_k1"][1] and all(v[0] <= 1e-5
+                                        for v in gm.values())):
+            fail("a sharded GEMM differs from the unsharded kernel")
+        print(f"  (t2) rank {rank} sharded AdamW QAT step (dp 1 x tp 2, "
+              f"2 layers, {PARITY_BATCH[0]} x {PARITY_BATCH[1]}): "
+              f"{r['train_step_ms']:.1f} ms; host-copied collectives "
+              f"{json.dumps(r['host_copies'])}", flush=True)
+    loss, loss1, firm_d, loose_d, loose, n, grad_d = res[0]["train"]
+    rel = abs(loss - loss1) / abs(loss1)
+    print(f"  (t2) sharded step vs single process ("
+          f"{res[0]['one_train_step_ms']:.1f} ms): loss {loss:.7f} vs "
+          f"{loss1:.7f} (relative {rel:.2e}, limit 1e-5); gradients (AdamW's "
+          f"first moment) max|delta| / the leaf's max|gradient| "
+          f"{grad_d:.2e} (limit 1e-5); params max|delta| {firm_d:.2e} where "
+          f"|grad| >= 1e-6 (limit 1e-5), {loose_d:.2e} over all ({loose} of "
+          f"{n} elements have |grad| < 1e-6, where AdamW's first step lr g "
+          f"/ (|g| + 1e-8) follows float-order noise: not held)",
+          flush=True)
+    if not (rel <= 1e-5 and grad_d <= 1e-5 and firm_d <= 1e-5):
+        fail("the sharded QAT step differs from the single-process step")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "quant_gemm_tpu_torch.scripts.multihost",
+         "--nproc", "2"], cwd=ROOT, capture_output=True, text=True,
+        timeout=300)
+    for line in out.stdout.strip().splitlines()[-3:]:
+        print(f"  (t2) multihost: {line}", flush=True)
+    if out.returncode != 0 or "multihost OK" not in out.stdout:
+        fail(f"scripts/multihost.py --nproc 2 failed:\n{out.stdout}\n"
+             f"{out.stderr[-2000:]}")
+    print(f"  (t2) scripts/multihost.py --nproc 2: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return by_run
+
+
+def slice16_path(dev, counters, prompts, reuse):
+    """Slice 16: QAT at TinyLlama width (q1-q3) and tensor parallelism
+    over two ranks on the card (t1, t2).  Returns each run's launches."""
+    from quant_gemm_tpu_torch.models import llama
+
+    card = card_line()
+    torch.empty(1, device=dev)  # the allocator's statistics exist
+    t_start = time.perf_counter()
+    cfg = tinyllama_cfg()
+    params = llama.init_params(cfg, seed=0)
+    print(f"[slice 16] init_params at TinyLlama width: "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    trained = qat_runs(dev, params, cfg, card)
+    print(f"[slice 16] + (q1): {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    qat_parity(dev, params, cfg)
+    print(f"[slice 16] + (q2): {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_run = {RUN_QAT: qat_serving(dev, trained, cfg, counters,
+                                   prompts[:4], reuse[:4])}
+    print(f"[slice 16] + (q3): {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    del trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_run.update(tp_path(dev, card))
+    print(f"[slice 16] + (t1, t2): {time.perf_counter() - t_start:.1f} s "
+          "(budget 120 s)", flush=True)
+    return by_run
+
+
 KERNEL_INFO = {
     "gemm_exact": ("quant_gemm_tpu_torch/csrc/gemm_exact.cu",
                    "quant_gemm_tpu/kernels/gemm_exact.py:775"),
@@ -4478,22 +5242,7 @@ def main() -> int:
     print("kernel phase:", flush=True)
     rows = kernel_phase(dev, timer)
     phase_done("kernel phase")
-    from quant_gemm_tpu_torch.kernels import registry
-
-    # every kernel's launch count, and the K16 prefill route's calls
-    counters = {name: (fn, "launches")
-                for name, fn in registry.KERNELS._asdict().items()}
-    counters["k16_dequant_gemm"] = (registry.k16_dequant_gemm, "calls")
-    from quant_gemm_tpu_torch.ops.rms_norm import rms_norm_pallas
-    from quant_gemm_tpu_torch.ops.softmax import softmax_pallas
-
-    counters["rms_norm_pallas"] = (rms_norm_pallas, "launches")
-    from quant_gemm_tpu_torch.kernels import act_quant
-
-    counters["quantize_q8_1"] = (act_quant.quantize_q8_1, "launches")
-    counters["quantize_fold_q8_1"] = (act_quant.quantize_fold_q8_1,
-                                      "launches")
-    counters["softmax_pallas"] = (softmax_pallas, "launches")
+    counters = launch_counters()
     prompts, reuse = traffic(np.random.default_rng(0))
     by_run = main_path(dev, counters, prompts, reuse)
     phase_done("main path (TinyLlama q4_0)")
@@ -4518,6 +5267,9 @@ def main() -> int:
     by_run.update(slice15_path(dev, counters, prompts, reuse))
     phase_done("slice 15 (W4A16, LoRA, speculative, perplexity, HF loader,"
                " api/compat)")
+    torch.cuda.empty_cache()
+    by_run.update(slice16_path(dev, counters, prompts, reuse))
+    phase_done("slice 16 (QAT, tensor parallelism)")
 
     kernels = []
     for name, (src, rep) in KERNEL_INFO.items():

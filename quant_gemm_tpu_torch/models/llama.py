@@ -54,7 +54,12 @@ hidden states into sequence embeddings (JAX ``embed``).
 
 :func:`forward` is :func:`begin`, :func:`layer` for each layer, :func:`end`
 and :func:`head`; a check can call the pieces to run the kernels and the
-plain versions from the same hidden state at every layer.
+plain versions from the same hidden state at every layer.  With
+``tp_ctx`` (a reduce over the ranks, ``llama_tp.tp_context``) and the
+rank's local config the same loop runs one rank of Megatron tensor
+parallelism: the rank's heads, KV heads and FFN features on its weight
+shards, the row-parallel outputs summed over the ranks, K8 off (JAX
+``llama.py:508-533``, ``:637``).
 
 Layouts follow the JAX package: weights ``[N, K]``, cache ``[L, B, KV, S,
 hd]`` (q8 scales ``[L, B, KV, S]``), grouped decode queries ``[B, KV, rep,
@@ -66,7 +71,7 @@ step); :func:`forward` returns the same :class:`KVCache` object.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -492,8 +497,9 @@ class Step(NamedTuple):
     rope tables, whether decode takes K2 (``norm_qkv``) and K8
     (``attn_tail``), the ring's slot count R (0: a linear cache), the
     caller's static bound ``s_hi`` on every active slot's position (None:
-    no bound; it only shapes K3's grid, ``attention.decode_s_hi``), and
-    the activation mode."""
+    no bound; it only shapes K3's grid, ``attention.decode_s_hi``), the
+    activation mode, and under tensor parallelism the reduce of the
+    row-parallel outputs over the ranks (None on one device)."""
 
     positions: torch.Tensor
     widx: torch.Tensor
@@ -503,33 +509,40 @@ class Step(NamedTuple):
     ring: int
     s_hi: Optional[int] = None
     act_mode: str = "q8_1"
+    tp: Optional[Callable] = None
 
 
 def routes(qparams: dict, cfg: LlamaConfig, b: int, t: int,
-           act_mode: str = "q8_1"):
+           act_mode: str = "q8_1", tp_ctx=None):
     """``(use_mega, use_mega_tail)`` of a call of ``t`` tokens for ``b``
     slots: K2 (``norm_qkv``) on every layer or on none, as in JAX (a
     q8_0, per-16, SplitLinear or LoRA'd wqkv anywhere turns it off for
     the whole model), and K8 (``attn_tail``) when every layer is
     ``tail_supported`` (which reads ``gemm_megalayer.ENABLE_TAIL``; a
     LoRA'd ``wo``, ``wgu`` or ``w_down`` is not); both only at decode (t
-    = 1) in the ``"q8_1"`` mode (JAX ``can_mega``)."""
+    = 1) in the ``"q8_1"`` mode (JAX ``can_mega``).  Under tensor
+    parallelism (``tp_ctx``) K2 serves the rank's column-parallel
+    ``wqkv`` shard and K8 is off: its chain crosses the row-parallel sums
+    (JAX ``llama.py:637``)."""
     can_mega = act_mode == "q8_1" and t == 1
     use_mega = can_mega and all(
         gemm_megalayer.supported(ly["wqkv"], cfg.dim, b)
         for ly in qparams["layers"])
-    use_mega_tail = can_mega and all(
+    use_mega_tail = can_mega and tp_ctx is None and all(
         gemm_megalayer.tail_supported(ly, cfg, b) for ly in qparams["layers"])
     return use_mega, use_mega_tail
 
 
 def begin(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor,
           cache: KVCache, *, act_mode: str = "q8_1", rope_cache=None,
-          s_hi: Optional[int] = None, route=None):
+          s_hi: Optional[int] = None, route=None, tp_ctx=None):
     """Check a call of T tokens per slot and embed them: returns the
     float32 hidden state [B, T, D] and the call's :class:`Step`.
     ``route``: :func:`routes` of the call, when the caller decided it
-    once (the Server, per graph); None walks the layers here."""
+    once (the Server, per graph); None walks the layers here.
+    ``tp_ctx``: under tensor parallelism, the reduce of the row-parallel
+    outputs over the ranks (``cfg`` is then the rank's, with its local
+    head, KV head and FFN widths: ``llama_tp.tp_context``)."""
     check_config(cfg)
     if act_mode not in ACT_MODES:
         raise ValueError(f"act_mode must be one of {ACT_MODES}, not "
@@ -552,10 +565,11 @@ def begin(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor,
         # (the start clamp of JAX's dynamic_update_slice, which overflowing
         # and inactive slots rely on)
         widx = pos0.clamp(0, cache.k.shape[3] - t)[:, None] + rows
-    use_mega, use_mega_tail = route or routes(qparams, cfg, b, t, act_mode)
+    use_mega, use_mega_tail = route or routes(qparams, cfg, b, t, act_mode,
+                                              tp_ctx)
     x = qparams["embed"][tokens.to(dev)].to(torch.float32)
     return x, Step(positions, widx, rope_cache, use_mega, use_mega_tail,
-                   ring, s_hi, act_mode)
+                   ring, s_hi, act_mode, tp_ctx)
 
 
 def layer(lyr: dict, li: int, cfg: LlamaConfig, x: torch.Tensor,
@@ -564,7 +578,10 @@ def layer(lyr: dict, li: int, cfg: LlamaConfig, x: torch.Tensor,
     new hidden state and, at decode, what :func:`end` inserts for the
     current token: its (k, v) [B, KV, hd] bf16, or with the q8 cache its
     (k codes, v codes, k scales, v scales); prefill writes the cache
-    here."""
+    here.  Under tensor parallelism (``step.tp``) ``cfg`` is the rank's:
+    the layer runs its heads, KV heads and FFN features on its weight
+    shards, and sums the row-parallel ``wo`` and ``w_down`` outputs over
+    the ranks (JAX ``llama.py:525-533``)."""
     b, t, _ = x.shape
     heads, kv_heads, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     nq, nkv, rep = heads * hd, kv_heads * hd, heads // kv_heads
@@ -633,6 +650,8 @@ def layer(lyr: dict, li: int, cfg: LlamaConfig, x: torch.Tensor,
                           lyr["w_down"], cfg.eps, cfg.d_ff)
         return x.reshape(b, t, cfg.dim), current
     o = _linear(lyr["wo"], attn.reshape(b * t, nq), ops, mode)
+    if step.tp is not None:
+        o = step.tp(o)
     x = x + o.reshape(b, t, cfg.dim)
     h = rms_norm(x, lyr["mlp_norm"], cfg.eps)
     gu = _linear(lyr["wgu"], h.reshape(b * t, cfg.dim), ops, mode)
@@ -640,6 +659,8 @@ def layer(lyr: dict, li: int, cfg: LlamaConfig, x: torch.Tensor,
     # the opt-in W4A16 down projection (JAX llama.py:713-714)
     dn_mode = "bf16" if cfg.w_down_a16 and mode == "q8_1" else mode
     dn = _linear(lyr["w_down"], ff, ops, dn_mode)
+    if step.tp is not None:
+        dn = step.tp(dn)
     return x + dn.reshape(b, t, cfg.dim), current
 
 
@@ -673,7 +694,7 @@ def head(qparams: dict, cfg: LlamaConfig, x: torch.Tensor,
 def forward(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor,
             cache: KVCache, *, act_mode: str = "q8_1", rope_cache=None,
             ops: registry.Ops = registry.KERNELS,
-            s_hi: Optional[int] = None, route=None):
+            s_hi: Optional[int] = None, route=None, tp_ctx=None):
     """Run T tokens per slot (prefill when T > 1, decode when T = 1).
 
     Slots advance independently by their own ``cache.pos``.  Returns
@@ -681,9 +702,13 @@ def forward(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor,
     ``ops`` selects the kernels (default) or, on purpose, their plain
     versions (``registry.PLAIN``).  ``s_hi``: every active slot's
     position is below it (JAX's ``attn_s_hi``; decode only).  ``route``:
-    :func:`routes`, decided once by the caller (default: here)."""
+    :func:`routes`, decided once by the caller (default: here).
+    ``tp_ctx``: the reduce over the ranks with which, given the rank's
+    config, the same loop runs one rank of Megatron tensor parallelism on
+    its shards and its share of the cache (``llama_tp.forward_tp``)."""
     x, step = begin(qparams, cfg, tokens, cache, act_mode=act_mode,
-                    rope_cache=rope_cache, s_hi=s_hi, route=route)
+                    rope_cache=rope_cache, s_hi=s_hi, route=route,
+                    tp_ctx=tp_ctx)
     current = []
     for li, lyr in enumerate(qparams["layers"]):
         x, kv = layer(lyr, li, cfg, x, cache, step, ops)

@@ -174,3 +174,46 @@ def test_cpu_flash_prefill_route_runs_when_asked(no_gpu, qtype):
     assert cache.pos.tolist() == [65, 65]
     assert cache.quantized == (qtype == "q8")
     assert [f.launches for f in registry.KERNELS] == before
+
+
+SLICE16 = ("formats.checkpoint", "models.train", "models.llama_tp",
+           "parallel.sharding", "parallel.multihost", "parallel.health",
+           "scripts.multihost")
+
+
+def test_slice16_modules_pull_in_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {SLICE16!r}:\n"
+        "    importlib.import_module('quant_gemm_tpu_torch.' + m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'quant_gemm_tpu'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_slice16_entry_points_default_to_cuda(no_gpu, tmp_path):
+    from quant_gemm_tpu_torch.formats import checkpoint
+    from quant_gemm_tpu_torch.models import llama, train
+    from quant_gemm_tpu_torch.parallel import health, multihost, sharding
+
+    cfg = llama.LlamaConfig(vocab=64, dim=64, n_layers=1, n_heads=2,
+                            n_kv_heads=2, d_ff=128, max_seq=32)
+    params = llama.init_params(cfg, seed=0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.make_state_step(params, cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        sharding.make_mesh({"tp": 1})
+    with pytest.raises(RuntimeError, match="cuda"):
+        multihost.global_mesh({"dp": 1})
+    with pytest.raises(RuntimeError, match="cuda"):
+        health.check(1.0)
+    checkpoint.save_npz(tmp_path / "w.npz", {"w": np.ones(4, np.float32)})
+    with pytest.raises(RuntimeError, match="cuda"):
+        checkpoint.load_npz(tmp_path / "w.npz")
+    mesh = sharding.make_mesh({"tp": 1}, device="cpu")
+    assert mesh.device.type == "cpu" and mesh.groups == {"tp": None}
+    assert health.check(5.0, mesh).ok

@@ -22,7 +22,8 @@ Run from the repository root on a machine with one NVIDIA H100:
    widths on inputs that make the glue exact), against
    its plain PyTorch version at the stated tolerance, timed with CUDA
    events (L2
-   flushed before every timed launch) beside its bound (K-quant weights
+   flushed before every timed launch: ``harness.benchmark.DeviceTimer``)
+   beside its bound (``harness.profiling.bound``) (K-quant weights
    at their GGUF block bytes, the bound over the port's larger layout
    beside it) and, where one PyTorch call computes the same function,
    that call's time (K2, K6 and K8 also beside the unfused kernel chain
@@ -207,7 +208,27 @@ Run from the repository root on a machine with one NVIDIA H100:
    single-process step (loss 1e-5 relative, the step's gradients within
    1e-5 of each leaf's largest, params 1e-5 where |grad| >= 1e-6), and
    ``scripts/multihost.py --nproc 2``;
-12. prints one JSON line of the kernels (the ten TPU kernels and the two
+12. slice 17, the measuring and spec tools: (h1) the deviceless compile
+   gate (``harness/aot.py::aot_compile``: every source again for sm_90a
+   with no GPU visible), its ``resource_report`` table printed and equal
+   to the start-up build's registers, stack and spills; (h2)
+   ``harness/benchmark.py::interleaved_medians`` over K1 (TinyLlama's five
+   decode GEMMs, M 8), K2, K3 (bf16, ctx 512), K4 (the five GEMMs, M 128,
+   bf16 A) and K5 (T 128) with SDPA and ``torch.matmul`` in the same
+   rounds, each beside ``profiling.roofline`` and the kernel phase's time
+   (K1 and K4 within 1.3x of it); (h3) a q4_0 Server with its graphs
+   serves 8 requests (launches checked) and ``profiling.trace`` of one
+   replay of its most-replayed decode graph must hold each of the
+   replay's K1, K2 and K3 launches; (h4)
+   the ring GEMMs (``col_ring`` at ``wqkv``, ``row_ring`` at ``w_down``,
+   M 8) on two gloo ranks sharing the card: ``overlap_report`` of a call
+   1 overlapped and 0 blocking, of the blocking schedule (the same call
+   with ``overlap=False``) 0 and 1, the outputs bit-equal, ms a call of
+   both; (h5) every K-quant tensor of the Q4_K_M file decoded from CPU
+   bytes by the host codec (``native.py``) and by the torch decode, and
+   from CUDA bytes by the torch decode, bit-equal, each timed; (h6) every
+   solution's entry point callable;
+13. prints one JSON line of the kernels (the ten TPU kernels and the two
    activation quantize launches), the card, and last the result line;
    each phase's seconds on its own line.
 
@@ -263,19 +284,12 @@ import tempfile
 import time
 from pathlib import Path
 
+T_START = time.perf_counter()  # the process's age, for the traces
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
-
-# H100 SXM published peaks (NVIDIA data sheet, dense); "bf16x3": a
-# float32-accurate product as three bf16 passes (K4's float32 forms, as
-# JAX's Precision.HIGHEST on the TPU), the least work that gives one on
-# this card
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "bf16x3": 989e12 / 3,
-            "f32": 67e12}
 
 # TinyLlama-1.1B (huggingface.co/TinyLlama/TinyLlama-1.1B-Chat-v1.0
 # config.json): hidden 2048, intermediate 5632, 22 layers, 32 heads,
@@ -314,48 +328,6 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-class Timer:
-    """Median device time of single launches, L2 flushed before each.
-
-    The card first spins (``_sleep``) for twice the host's time to
-    enqueue every rep (flush, event, launch, event), at least 25 ms,
-    while the host enqueues them behind it, so each pair of events
-    brackets device work only, never a wait for the host to enqueue the
-    next launch, also for a chain of many eager ops."""
-
-    def __init__(self, dev):
-        self.flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-
-    def __call__(self, fn, reps: int = 25, warmup: int = 3) -> float:
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()  # one enqueue on the host clock: a chain of eager ops is long
-        host_s = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        # spin for twice the enqueue of every rep, and at least 25 ms, at
-        # the H100's clock of about 2e9 cycles a second
-        torch.cuda._sleep(int(max(50e6, 2 * reps * (host_s + 20e-6) * 2e9)))
-        marks = []
-        for _ in range(reps):
-            self.flush.zero_()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            marks.append((a, b))
-        torch.cuda.synchronize()
-        return statistics.median(a.elapsed_time(b) for a, b in marks)
-
-
-def bound(nbytes: float, ops: float, kind: str):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[kind] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def q4_bytes(n: int, k: int) -> int:
@@ -490,6 +462,7 @@ def kernel_phase(dev, timer):
     from quant_gemm_tpu_torch.formats.quant import (quantize_q4_0,
                                                     quantize_q8_0,
                                                     quantize_q8_1)
+    from quant_gemm_tpu_torch.harness.profiling import bound
     from quant_gemm_tpu_torch.kernels import layout
     from quant_gemm_tpu_torch.kernels.gemm_dequant import (
         gemm_dequant, gemm_dequant_plain)
@@ -987,6 +960,7 @@ def act_quant_rows(timer, record, randn):
     and both at Mistral's K 4096 and 14336.  Each input has an all-zero
     block per row.  Bound: bytes (x read, codes and f16 scales, or the
     fold, written); yardstick the twin's eager chain, no library call."""
+    from quant_gemm_tpu_torch.harness.profiling import bound
     from quant_gemm_tpu_torch.kernels import act_quant
 
     for k, main in ((DIM, True), (D_FF, True), (M_DIM, False),
@@ -1034,6 +1008,7 @@ def slice6_kernel_rows(dev, timer, record, randn):
     the q4_0, q4_1, q5_0, q5_1 and q8_0 forms at Mistral's wqkv and
     w_down, K4 beside ``torch.matmul`` on the weight dequantized in
     advance (no PyTorch call applies K1's per-block integer scales)."""
+    from quant_gemm_tpu_torch.harness.profiling import bound
     from quant_gemm_tpu_torch.formats import quant as tq
     from quant_gemm_tpu_torch.specs import spec_runner
     from quant_gemm_tpu_torch.kernels import layout
@@ -1162,6 +1137,7 @@ def slice7_kernel_rows(dev, timer, record, unfused, randn):
     and w_down, beside ``torch.matmul`` on the weight dequantized and the
     activation fake-quantized in advance.  K-quant weights count their
     GGUF block bytes in bound_ms, the port's f32-plane layout beside."""
+    from quant_gemm_tpu_torch.harness.profiling import bound
     from quant_gemm_tpu_torch.formats import kquants
     from quant_gemm_tpu_torch.formats import quant as tq
     from quant_gemm_tpu_torch.kernels import layout
@@ -1381,6 +1357,7 @@ def mistral_kernel_rows(dev, timer, record, randn, g):
     R) and K5 on it (a 128-token chunk at pos0 R - 64, across the ring's
     edge), bf16 and int8, each against its plain version, SDPA with the
     ring's boolean mask beside the bf16 rows."""
+    from quant_gemm_tpu_torch.harness.profiling import bound
     from quant_gemm_tpu_torch.ops.attention import (
         decode_max_pieces, decode_s_hi, flash_decode, flash_decode_plain,
         flash_prefill, flash_prefill_plain)
@@ -1592,6 +1569,8 @@ def captured_pair(name, eager, captured, chunk_window=False):
     and capture), both runs' median decode step and prefill tok/s, and
     the profiler's view of one replay of the most-replayed decode graph
     (and with ``chunk_window`` of the chunk graph of 128 tokens)."""
+    from quant_gemm_tpu_torch.harness.profiling import device_breakdown
+
     (se, re_, le, we), (sc, rc, lc, wc) = eager, captured
     if rc != re_:
         diff = [r for r in re_ if rc.get(r) != re_[r]]
@@ -1792,105 +1771,10 @@ def decode_case(qp, cfg, rng, dev, qtype="bf16", act_mode="q8_1"):
     return check(qp, cfg, nt, cache, act_mode)
 
 
-KERNEL_GROUPS = [("Q8_1 quantize (act_quant)", "act_quant_kernel"),
-                 ("K6 gemm_exact_fused", "gemm_exact_fused_kernel"),
-                 ("K8 attn_tail", "attn_tail_kernel"),
-                 ("K7 gemm_exact_k16", "gemm_exact_k16_kernel"),
-                 ("K1 gemm_exact", "gemm_exact_kernel"),
-                 ("K2 norm_qkv", "norm_qkv"),
-                 ("K3 flash_decode", "flash_decode"),
-                 ("K4 gemm_dequant", "gemm_dequant_kernel"),
-                 ("K5 flash_prefill", "flash_prefill"),
-                 ("K3/K5 split-S merge", "attn_merge_kernel")]
-
-
-OTHER = "other (eager element ops, reductions, copies)"
-
-
-def _group(name: str) -> str:
-    for label, key in KERNEL_GROUPS:
-        if key in name:
-            return label
-    low = name.lower()
-    if "gemm" in low or "xmma" in low or "cutlass" in low:
-        return "library matmul (the plain K16 prefill route, LoRA deltas)"
-    if low.startswith(("memcpy", "memset")):
-        return "memcpy/memset"
-    return OTHER
-
-
-def device_breakdown(label, fn, graph=False):
-    """One call of ``fn`` under ``torch.profiler`` (after one untraced
-    call): the device's busy time by kernel group, and its idle share
-    between the first kernel's start and the last one's end; the "other"
-    group by kernel name, its 12 largest.  Fails when the profiler traced
-    no device activity, or none of a hand kernel.  ``graph``: ``fn``
-    replays a CUDA graph; should the profiler see none of its kernels,
-    the replay is timed with CUDA events instead, and said so."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kern and graph:
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        ms = a.elapsed_time(b)
-        print(f"  {label}: CUPTI showed none of the graph's kernels; the "
-              f"replay timed with CUDA events: {ms:.3f} ms (no busy/idle "
-              "split)", flush=True)
-        return {"host_ms": host_ms, "device_span_ms": ms, "busy_ms": None,
-                "idle_share": None, "groups": {}}
-    if not kern:
-        fail(f"{label}: torch.profiler traced no device activity")
-    span = (max(e.time_range.end for e in kern)
-            - min(e.time_range.start for e in kern)) / 1e3
-    groups: dict = {}
-    other: dict = {}
-    for e in kern:
-        ms = e.time_range.elapsed_us() / 1e3
-        name = _group(e.name)
-        g = groups.setdefault(name, [0.0, 0])
-        g[0] += ms
-        g[1] += 1
-        if name == OTHER:
-            o = other.setdefault(e.name, [0.0, 0])
-            o[0] += ms
-            o[1] += 1
-    if not any(k.startswith("K") for k in groups):
-        fail(f"{label}: torch.profiler traced none of the hand kernels")
-    busy = sum(g[0] for g in groups.values())
-    out = {"host_ms": host_ms, "device_span_ms": span, "busy_ms": busy,
-           "idle_share": 1.0 - busy / span if span > 0 else 0.0,
-           "groups": {k: {"ms": v[0], "n": v[1]} for k, v in
-                      sorted(groups.items(), key=lambda kv: -kv[1][0])}}
-    print(f"  {label} (torch.profiler): host {host_ms:.3f} ms with the "
-          f"profiler on, device span {span:.3f} ms, busy {busy:.3f} ms, "
-          f"idle share {out['idle_share']:.3f}, {len(kern)} device "
-          "activities", flush=True)
-    for k, v in out["groups"].items():
-        print(f"    {k}: {v['ms']:.3f} ms in {v['n']} launches "
-              f"({v['ms'] / busy:.1%} of busy)", flush=True)
-    for name, (ms, n) in sorted(other.items(), key=lambda kv: -kv[1][0])[:12]:
-        print(f"      other by name: {ms:.3f} ms in {n}: {name[:110]}",
-              flush=True)
-    return out
-
-
 def decode_breakdown(name, qp, cfg, dev, rng):
     """Device breakdown of one 8-slot decode step after a 48-token
     prefill."""
+    from quant_gemm_tpu_torch.harness.profiling import device_breakdown
     from quant_gemm_tpu_torch.models import llama
     from quant_gemm_tpu_torch.ops.attention import decode_s_hi
 
@@ -1907,6 +1791,7 @@ def decode_breakdown(name, qp, cfg, dev, rng):
 def breakdowns(name, qp, cfg, dev, rng, decode=True):
     """Device breakdown of one 8-slot decode step and one 128-token
     prefill chunk of one slot (eager)."""
+    from quant_gemm_tpu_torch.harness.profiling import device_breakdown
     from quant_gemm_tpu_torch.models import llama
 
     if decode:
@@ -2415,6 +2300,7 @@ def mistral_path(dev, counters):
     the linear windowed cache, (m3) context_shift on the linear cache,
     and the profiler's view of a decode step and a chunk.  Returns m1's
     launches."""
+    from quant_gemm_tpu_torch.harness.profiling import device_breakdown
     from quant_gemm_tpu_torch.models import llama, serve
 
     cfg = mistral_cfg()
@@ -2557,6 +2443,7 @@ def staging_copies(cfg, cache, dev):
     where a prefix is reused, so never on the ring; back into the slot
     at every admission), each against its bound: the slab read and
     written once at 3.35 TB/s."""
+    from quant_gemm_tpu_torch.harness.profiling import bound
     from quant_gemm_tpu_torch.models import llama
 
     c1 = llama.KVCache.init(cfg, 1, "q8" if cache.quantized else "bf16",
@@ -2575,7 +2462,7 @@ def staging_copies(cfg, cache, dev):
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
-    bnd = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+    bnd = bound(2 * nbytes, 0, "bf16")[0]
     print(f"  staging copies of one slot ({nbytes} bytes): extract "
           f"(prefix reuse only) {times[0]:.3f} ms, insert (every "
           f"admission) {times[1]:.3f} ms (bound {bnd:.3f} ms each: read "
@@ -3455,6 +3342,7 @@ def slice14_kernel_rows(dev, timer, record, unfused, randn):
     at pos0 0 and 384, a ragged T 80 at pos0 200).  iq4_xs weights count
     the file's 136 bytes per 256 in bound_ms, the port's layout (q8_0's
     with f32 scales) beside."""
+    from quant_gemm_tpu_torch.harness.profiling import bound
     from quant_gemm_tpu_torch.formats import kquants
     from quant_gemm_tpu_torch.formats.quant import quantize_q4_0, quantize_q8_1
     from quant_gemm_tpu_torch.kernels import layout
@@ -3779,6 +3667,7 @@ def slice15_kernel_rows(dev, timer, record, randn):
     1e-4, two calls bit-equal), beside ``torch.matmul`` in bf16 on the
     weight dequantized in advance; bound: the weight's bytes (and the
     activation's and output's) over the HBM rate."""
+    from quant_gemm_tpu_torch.harness.profiling import bound
     from quant_gemm_tpu_torch.formats.quant import quantize_q4_0
     from quant_gemm_tpu_torch.kernels import layout
     from quant_gemm_tpu_torch.kernels.gemm_dequant import (
@@ -5173,6 +5062,479 @@ def slice16_path(dev, counters, prompts, reuse):
     return by_run
 
 
+RUN_S17 = "slice 17 q4_0 Server"
+RING_TIMEOUT_S = 240
+# (h4): the ring GEMMs at TinyLlama's wqkv (column ring, the all-gather
+# of the Q8_1 activation) and w_down (row ring, the reduce-scatter of the
+# partial sums), M 8, two ranks
+RING_CASES = (("col_ring wqkv", "col", HEADS * HD + 2 * KV_HEADS * HD, DIM),
+              ("row_ring w_down", "row", DIM, D_FF))
+RING_REPS = 10
+
+
+def gate(card):
+    """(h1) The deviceless compile gate: every source compiled again for
+    sm_90a in processes that see no GPU, its ptxas table printed; every
+    entry function's registers, stack and spills must equal the start-up
+    build's (same flags).  Returns the rows."""
+    from quant_gemm_tpu_torch.harness import aot
+    from quant_gemm_tpu_torch.kernels import _build
+
+    try:
+        res = aot.aot_compile()
+    except RuntimeError as e:
+        fail(f"(h1) the deviceless compile gate failed:\n{e}")
+    rows = aot.resource_report(res["logs"])
+    print(f"  (h1) deviceless gate: {len(res['logs'])} sources compiled for "
+          f"sm_90a with CUDA_VISIBLE_DEVICES='' in {res['seconds']:.1f} s, "
+          f"{len(rows)} entry functions [{card}]:", flush=True)
+    for line in aot.format_report(rows).splitlines():
+        print(f"    {line}", flush=True)
+    built = {(r.source, r.mangled): r
+             for r in aot.resource_report(dict(_build.BUILD_LOG))}
+
+    def key(r):
+        return r.registers, r.stack, r.spill_stores, r.spill_loads, r.smem
+
+    compared = [r for r in rows if r.source in _build.BUILD_LOG]
+    differ = [r.name for r in compared
+              if key(built.get((r.source, r.mangled), r)) != key(r)
+              or (r.source, r.mangled) not in built]
+    print(f"  (h1) {len(compared)} entries of {len(_build.BUILD_LOG)} "
+          "sources built at start-up compared with the start-up build's "
+          f"ptxas report: {len(compared) - len(differ)} equal", flush=True)
+    if not rows or differ:
+        fail(f"(h1) the gate's resources differ from the start-up build's: "
+             f"{differ[:5]}")
+    return rows
+
+
+def harness_rows(dev, card, kernel_rows):
+    """(h2) ``harness.benchmark.interleaved_medians`` over the main path's
+    kernels at TinyLlama width: K1 on the five decode GEMMs (M 8), K2,
+    K3 (bf16, B 8, ctx 512), K4 on the five GEMMs (M 128, bf16 A) and K5
+    (T 128, pos0 0), with the library calls the kernel phase times beside
+    K3, K4 and K5 in the same rounds; each row beside its roofline and the
+    kernel phase's time for the same call (K1 and K4 within 1.3x of it)."""
+    from quant_gemm_tpu_torch.formats.quant import quantize_q4_0, quantize_q8_1
+    from quant_gemm_tpu_torch.harness import benchmark as bm
+    from quant_gemm_tpu_torch.harness import profiling as pf
+    from quant_gemm_tpu_torch.kernels import layout
+    from quant_gemm_tpu_torch.kernels.gemm_dequant import gemm_dequant
+    from quant_gemm_tpu_torch.kernels.gemm_exact import gemm_exact
+    from quant_gemm_tpu_torch.kernels.gemm_megalayer import norm_qkv
+    from quant_gemm_tpu_torch.kernels.registry import fold_q8_1
+    from quant_gemm_tpu_torch.ops.attention import flash_decode, flash_prefill
+
+    g = torch.Generator(device=dev).manual_seed(1717)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    shapes = {"wqkv": (HEADS * HD + 2 * KV_HEADS * HD, DIM), "wo": (DIM, DIM),
+              "wgu": (2 * D_FF, DIM), "w_down": (DIM, D_FF),
+              "lm_head": (VOCAB, DIM)}
+    weights = {name: layout.prepare(quantize_q4_0(
+        randn(n, k, scale=k ** -0.5))) for name, (n, k) in shapes.items()}
+    cases, floors = [], {}
+
+    def case(kernel, shape, fn, args, floor):
+        """A kernel's case, named "<kernel> <shape>" (K1 and K2 share the
+        wqkv shape)."""
+        cases.append((f"{kernel} {shape}", fn, args, floor[2]))
+        floors[f"{kernel} {shape}"] = (kernel, shape, floor)
+
+    def gemm_floor(m, w, act, peak):
+        rf = pf.roofline("q4_0", m, w.n, w.k, act, peak)
+        return (rf.time_us / 1e3,
+                "bytes" if rf.bound == "memory" else "operations", rf.bytes)
+
+    def floor_of(nbytes, ops, kind):
+        return (*pf.bound(nbytes, ops, kind), nbytes)
+
+    for name, w in weights.items():
+        a = quantize_q8_1(randn(8, w.k))
+        case("gemm_exact", f"{name} M=8 N={w.n} K={w.k}", gemm_exact, (w, a),
+             gemm_floor(8, w, 1.125, "int8"))
+    w = weights["wqkv"]
+    x, nw = randn(8, DIM, scale=3.0), 1.0 + 0.1 * randn(DIM)
+    case("norm_qkv", f"wqkv M=8 N={w.n} K={w.k}", norm_qkv,
+         (w, x, nw, 1e-5), floor_of(bm.weight_bytes("q4_0", w.n, w.k)
+                                    + 8 * DIM * 4 + DIM * 4 + 8 * w.n * 4,
+                                    2 * 8 * w.n * w.k, "int8"))
+    # K3 and K5 on the kernel phase's main inputs: the bf16 cache at
+    # layer 5 of [22, 8, 4, 2048, 64], decode at ctx 512 and a 128-token
+    # chunk of slot 3 at pos0 0, SDPA beside each
+    b, s, ctx, layer, t5, slot = 8, 2048, 512, 5, 128, 3
+    kc = randn(LAYERS, b, KV_HEADS, s, HD).to(torch.bfloat16)
+    vc = randn(LAYERS, b, KV_HEADS, s, HD).to(torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    span = torch.arange(s, device=dev)
+    q = randn(b, KV_HEADS, REP, HD)
+    kcur = randn(b, KV_HEADS, 1, HD).to(torch.bfloat16)
+    vcur = randn(b, KV_HEADS, 1, HD).to(torch.bfloat16)
+    pos = torch.full((b,), ctx, dtype=torch.int32, device=dev)
+    kw3 = dict(k_current=kcur, v_current=vcur, layer=layer)
+    flash_decode(q, kc, vc, pos, **kw3)
+    ns = flash_decode.last_pieces
+    nbytes = 2 * b * KV_HEADS * ctx * HD * 2 + 2 * b * KV_HEADS * HD * 2 \
+        + 2 * b * HEADS * HD * 4 + b * 4
+    name3 = (f"bf16 B={b} KV={KV_HEADS} rep={REP} hd={HD} S={s} ctx={ctx} "
+             f"ns={ns}")
+    case("flash_decode", name3,
+         lambda: flash_decode(q, kc, vc, pos, **kw3), (),
+         floor_of(nbytes, 4 * b * HEADS * (ctx + 1) * HD, "bf16"))
+    kl, vl = kc[layer].clone(), vc[layer].clone()
+    kl[:, :, ctx], vl[:, :, ctx] = kcur[:, :, 0], vcur[:, :, 0]
+    qh = q.reshape(b, HEADS, 1, HD).to(torch.bfloat16)
+    mask = (span <= ctx).expand(b, 1, 1, s)
+    cases.append((f"SDPA flash_decode {name3}", lambda: sdpa(
+        qh, kl, vl, attn_mask=mask, enable_gqa=True), (), 0))
+    q5 = randn(1, KV_HEADS, t5 * REP, HD)
+    k5, v5 = kc[:, slot:slot + 1], vc[:, slot:slot + 1]
+    pos0 = torch.zeros(1, dtype=torch.int32, device=dev)
+    kw5 = dict(rep=REP, layer=layer)
+    nbytes = 2 * q5.numel() * 4 + 4 + 2 * KV_HEADS * t5 * HD * 2
+    name5 = f"bf16 B=1 KV={KV_HEADS} rep={REP} hd={HD} S={s} T={t5} pos0=0"
+    case("flash_prefill", name5,
+         lambda: flash_prefill(q5, k5, v5, pos0, **kw5), (),
+         floor_of(nbytes, 4 * HEADS * HD * (t5 * (t5 + 1) // 2), "bf16"))
+    qh5 = (q5.reshape(1, KV_HEADS, t5, REP, HD).transpose(2, 3)
+           .reshape(1, HEADS, t5, HD).to(torch.bfloat16))
+    keep5 = span[None, :] <= torch.arange(t5, device=dev)[:, None]
+    kl5, vl5 = k5[layer], v5[layer]
+    cases.append((f"SDPA flash_prefill {name5}", lambda: sdpa(
+        qh5, kl5, vl5, attn_mask=keep5, enable_gqa=True), (), 0))
+    for name, w in weights.items():
+        a = fold_q8_1(quantize_q8_1(randn(128, w.k)))
+        wb = layout.dequantize(w, torch.bfloat16)
+        shape = f"{name} M=128 N={w.n} K={w.k}"
+        case("gemm_dequant", shape, gemm_dequant, (w, a),
+             gemm_floor(128, w, 2.0, "bf16"))
+        cases.append((f"torch.matmul gemm_dequant {shape}", torch.matmul,
+                      (a, wb.T), 0))
+    t0 = time.perf_counter()
+    med = bm.interleaved_medians(cases, reps=5, verbose=False)
+    print(f"  (h2) harness.benchmark.interleaved_medians: {len(cases)} cases "
+          f"x 5 rounds in {time.perf_counter() - t0:.1f} s (each rep the "
+          f"median of 25 launches, L2 flushed) [{card}]", flush=True)
+    phase_ms = {(r["kernel"], r["shape"]): r for r in kernel_rows
+                if r["main"]}
+    out = []
+    for name, *_ in cases:
+        if name not in floors:
+            continue
+        kernel, shape, (fl_ms, fl_by, _) = floors[name]
+        ms = med[name] * 1e3
+        lib = med.get(f"SDPA {name}", med.get(f"torch.matmul {name}"))
+        row = phase_ms.get((kernel, shape))
+        ratio = None if row is None else ms / row["ms"]
+        out.append({"kernel": kernel, "shape": shape, "ms": ms,
+                    "bound_ms": fl_ms, "bound_by": fl_by,
+                    "library_ms": None if lib is None else lib * 1e3,
+                    "phase_ms": None if row is None else row["ms"]})
+        print(f"    {kernel:13s} {shape:48s} {ms:.5f} ms, roofline "
+              f"{fl_ms:.5f} ms ({fl_by}, {fl_ms / ms:.1%})"
+              + ("" if lib is None else f", library {lib * 1e3:.5f} ms")
+              + ("" if row is None else f", kernel phase {row['ms']:.5f} ms"
+                 f" (x{ratio:.3f})"), flush=True)
+        if kernel in ("gemm_exact", "gemm_dequant") and ratio is not None \
+                and not 1 / 1.3 <= ratio <= 1.3:
+            fail(f"(h2) {kernel} {shape}: the harness's {ms:.5f} ms is not "
+                 f"within 1.3x of the kernel phase's {row['ms']:.5f} ms")
+    return out
+
+
+def traced_replay(dev, card, counters, prompts, reuse):
+    """(h3) The q4_0 Server at TinyLlama width with its CUDA graphs serves
+    8 requests (launches counted from 0 and checked), then one replay of
+    its most-replayed decode graph runs under ``profiling.trace``; the
+    Chrome trace it wrote must hold each of the replay's K1, K2 and K3
+    launches (3 x 22 + 1, 22, 22).  Returns the run's launches."""
+    import tempfile
+
+    from quant_gemm_tpu_torch.harness import profiling
+    from quant_gemm_tpu_torch.models import llama, serve
+
+    cfg = tinyllama_cfg()
+    qp = llama.init_qparams(cfg, seed=17, device=dev)
+    with graphs(True):
+        srv = serve.Server(qp, cfg, n_slots=8, device=dev)
+        results, launches, wall = drive(srv, prompts[:8], 16, counters)
+    steps = srv.stats()["decode_steps"]
+    n_chunks = chunks(prompts[:8], reuse[:8])
+    check_launches(RUN_S17, launches, {
+        "gemm_exact": steps * (3 * LAYERS + 1), "norm_qkv": steps * LAYERS,
+        "flash_decode": steps * LAYERS,
+        "gemm_dequant": len(n_chunks) * (4 * LAYERS + 1),
+        "flash_prefill": LAYERS * sum(t >= 64 for t in n_chunks),
+        "gemm_exact_fused": 0, "attn_tail": 0, "gemm_exact_k16": 0})
+    dec = max((g for k, g in srv.graphs.items() if k[0] == "decode"),
+              key=lambda g: g.replays)
+    info = {}
+    for attempt in range(profiling.LEAD_TRIES):
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                with profiling.trace(tmp, info=info) as path:
+                    dec.graph.replay()
+                size = os.path.getsize(path)
+                with open(path) as f:
+                    events = json.load(f)["traceEvents"]
+            break
+        except profiling.ProfileError as e:  # the window kept no lead
+            print(f"  (h3) window {attempt + 1}: {e}; traced again",
+                  flush=True)
+    else:
+        fail(f"(h3) {profiling.LEAD_TRIES} windows kept none of the lead")
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    keys = (("K1", "gemm_exact", "gemm_exact_kernel"),
+            ("K2", "norm_qkv", "norm_qkv"),
+            ("K3", "flash_decode", "flash_decode"))
+    seen = {k: sum(key in n for n in kernels) for k, _, key in keys}
+    # one replay's launches, as its capture counted them
+    want = {k: dec.launches.get(c, 0) for k, c, _ in keys}
+    print(f"  (h3) {RUN_S17}: 8 requests, {steps} decode steps in "
+          f"{wall:.2f} s; profiling.trace of one replay of its most-replayed "
+          f"decode graph ({dec.replays} replays): a Chrome trace of {size} "
+          f"bytes, {len(events)} events, {len(kernels)} kernels, by kernel "
+          f"{json.dumps(seen)} of the replay's {json.dumps(want)}; the "
+          f"profiler dropped {info['lead_dropped']} kernels of the lead graph "
+          f"at {time.perf_counter() - T_START:.0f} s of the process (deleted)"
+          f" [{card}]", flush=True)
+    if want != {"K1": 3 * LAYERS + 1, "K2": LAYERS, "K3": LAYERS}:
+        fail(f"(h3) the decode graph does not launch a step's K1, K2, K3: "
+             f"{want}")
+    if seen != want:
+        fail(f"(h3) the trace lost kernels of the replay: {seen} of {want}")
+    return launches
+
+
+def ring_worker(rank, store, dev, q):
+    """One rank of (h4) (gloo, both ranks on the card); puts (rank, ok,
+    result or traceback) on ``q``."""
+    import traceback
+
+    try:
+        q.put((rank, True, ring_rank(rank, store, dev)))
+    except BaseException:  # noqa: BLE001 - fail() exits; sent to the parent
+        q.put((rank, False, traceback.format_exc()))
+    q.close()
+    q.join_thread()
+    os._exit(0)
+
+
+def ring_rank(rank, store, dev):
+    from torch.profiler import ProfilerActivity, profile
+
+    from quant_gemm_tpu_torch.formats.quant import quantize_q4_0
+    from quant_gemm_tpu_torch.harness.aot import overlap_report
+    from quant_gemm_tpu_torch.parallel import multihost
+    from quant_gemm_tpu_torch.parallel import sharding as sh
+
+    torch.cuda.set_device(dev)
+    multihost.initialize(f"file://{store}", 2, rank, backend="gloo",
+                         timeout_s=120)
+    mesh = sh.make_mesh({"tp": 2}, device=dev)
+    g = torch.Generator(device=dev).manual_seed(174)
+    out = {}
+    for name, mode, n, k in RING_CASES:
+        w_q = quantize_q4_0(torch.randn(n, k, generator=g, device=dev)
+                            * k ** -0.5)
+        a = torch.randn(8, k, generator=g, device=dev)
+        sw = sh.shard_weight_ring(w_q, mesh, mode=mode)
+        ring = (sh.gemm_col_parallel_ring if mode == "col"
+                else sh.gemm_row_parallel_ring)
+        ring(sw, a, mesh)
+        ring(sw, a, mesh, overlap=False)  # warm both
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            y = ring(sw, a, mesh)
+            torch.cuda.synchronize()
+        rep = overlap_report(prof)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            yb = ring(sw, a, mesh, overlap=False)
+            torch.cuda.synchronize()
+        rep_b = overlap_report(prof)
+        times = {"ring": [], "blocking": []}
+        for i in range(2 * RING_REPS):  # turns: ring, blocking, ...
+            which = ("ring", "blocking")[i % 2]
+            torch.distributed.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ring(sw, a, mesh, overlap=which == "ring")
+            torch.cuda.synchronize()
+            times[which].append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"report": {k: v for k, v in rep.items()
+                                if k != "hidden_by"},
+                     "hidden_by": sorted(set(rep["hidden_by"])),
+                     "blocking_report": {k: v for k, v in rep_b.items()
+                                         if k != "hidden_by"},
+                     "equal": bool(torch.equal(y, yb)),
+                     "ms": statistics.median(times["ring"]),
+                     "blocking_ms": statistics.median(times["blocking"])}
+    out["host_copies"] = dict(sh.HOST_COPIES)
+    return out
+
+
+def ring_path(dev, card):
+    """(h4) The ring GEMMs on two gloo ranks sharing the card: each call's
+    ``overlap_report`` must show tp - 1 = 1 overlapped ppermute and none
+    blocking, its output equal the blocking schedule's bit for bit; ms a
+    call of both schedules (host clock, synchronized, median of
+    ``RING_REPS`` in turns)."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=ring_worker,
+                             args=(r, f"{tmp}/store", dev, q))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + RING_TIMEOUT_S
+        try:
+            while len(res) < 2 and time.monotonic() < deadline:
+                try:
+                    rank, ok, val = q.get(timeout=5)
+                except Exception:  # queue.Empty
+                    if any(p.exitcode is not None and r not in res
+                           for r, p in enumerate(procs)):
+                        fail("(h4) a ring rank died without a result")
+                    continue
+                if not ok:
+                    fail(f"(h4) ring rank {rank}:\n{val}")
+                res[rank] = val
+        finally:
+            for p in procs:
+                p.join(10)
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+    if len(res) < 2:
+        fail(f"(h4) the ring ranks did not finish in {RING_TIMEOUT_S} s")
+    for rank in (0, 1):
+        for name, *_ in RING_CASES:
+            r = res[rank][name]
+            print(f"  (h4) rank {rank} {name} M=8 tp=2 (gloo, host-copied "
+                  f"ppermute): overlap_report {json.dumps(r['report'])} "
+                  f"hidden by {r['hidden_by']}; {r['ms']:.3f} ms a call "
+                  f"against the blocking schedule's {r['blocking_ms']:.3f} ms "
+                  f"({json.dumps(r['blocking_report'])}); outputs bit-equal: "
+                  f"{r['equal']} [{card}]", flush=True)
+            rep, rep_b = r["report"], r["blocking_report"]
+            if not (rep["overlapped"] == 1 and rep["blocking"] == 0
+                    and r["equal"]):
+                fail(f"(h4) rank {rank} {name}: not overlapped, or not the "
+                     "blocking schedule's bits")
+            if not (rep_b["blocking"] == 1 and rep_b["overlapped"] == 0):
+                fail(f"(h4) rank {rank} {name}: overlap_report does not read "
+                     "the blocking schedule as blocking")
+        print(f"  (h4) rank {rank} host-copied collectives "
+              f"{json.dumps(res[rank]['host_copies'])}", flush=True)
+    return res
+
+
+def codec_path(dev, card):
+    """(h5) The host codec: every K-quant tensor of the Q4_K_M file at
+    TinyLlama width decoded from its CPU bytes by ``native.py`` and by the
+    port's torch decode, and from CUDA bytes by the torch decode, bit for
+    bit; the three times (the file's bytes already read)."""
+    from quant_gemm_tpu_torch import native
+    from quant_gemm_tpu_torch.formats import kquants
+    from quant_gemm_tpu_torch.formats.gguf_file import GGUFFile
+
+    t0 = time.perf_counter()
+    if not native.k16_available():  # built here, outside the timed decodes
+        fail("(h5) the host codec is not available (no C++ compiler)")
+    t_build = time.perf_counter() - t0
+    secs = {"codec": 0.0, "torch_cpu": 0.0, "torch_card": 0.0}
+    n = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "tinyllama-1.1b-q4_k_m-random.gguf"
+        write_gguf_mix(path, "Q4_K_M", dev)
+        with GGUFFile(path) as f:
+            for name, info in f.tensors.items():
+                qt = info["qtype"]
+                if qt not in kquants.CODECS:
+                    continue
+                nbytes, decode, _ = kquants.CODECS[qt]
+                rows, k = info["shape"]
+                raw = torch.from_numpy(np.array(f.raw(name))).reshape(
+                    rows, k // kquants.QK_K, nbytes)
+                on_card = raw.to(dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                codec = getattr(native, f"{qt.lower()}_from_aos")(raw)
+                t1 = time.perf_counter()
+                cpu = decode(raw)
+                t2 = time.perf_counter()
+                card_out = decode(on_card)
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                secs["codec"] += t1 - t0
+                secs["torch_cpu"] += t2 - t1
+                secs["torch_card"] += t3 - t2
+                n += 1
+                for a, b, c in zip(codec, cpu, card_out):
+                    if not (torch.equal(a, b) and torch.equal(a, c.cpu())):
+                        fail(f"(h5) {name} ({qt}): the host codec and the "
+                             "torch decode differ")
+    flags = " ".join(native.library()[1])
+    print(f"  (h5) host codec ({flags}; ready in {t_build:.1f} s, built "
+          f"at its first use in this process): {n} K-quant tensors of the "
+          f"Q4_K_M file decoded from CPU bytes by the codec in "
+          f"{secs['codec']:.3f} s and by the torch decode in "
+          f"{secs['torch_cpu']:.3f} s ({torch.get_num_threads()} threads), "
+          f"from CUDA bytes by the torch decode in {secs['torch_card']:.3f}"
+          f" s; bit-equal [{card}]", flush=True)
+    return {"tensors": n, **secs}
+
+
+def specs_resolve():
+    """(h6) Every solution's entry point resolves to a callable."""
+    import json as js
+
+    from quant_gemm_tpu_torch.specs import build_specs
+
+    sols = sorted((build_specs.HERE / "solutions").glob("*.json"))
+    for p in sols:
+        s = js.loads(p.read_text())
+        if not callable(build_specs.resolve(s["entry_point"])):
+            fail(f"(h6) {p.name}: {s['entry_point']} is not callable")
+    print(f"  (h6) {len(sols)} solutions, every entry point callable",
+          flush=True)
+
+
+def slice17_path(dev, counters, prompts, reuse, kernel_rows):
+    """Slice 17: the gate, the harness, the trace, the overlapped rings,
+    the host codec and the specs.  Returns the traced Server's
+    launches."""
+    card = card_line()
+    t_start = time.perf_counter()
+
+    def mark(what):
+        print(f"[slice 17] + {what}: {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
+    gate(card)
+    mark("(h1)")
+    harness_rows(dev, card, kernel_rows)
+    mark("(h2)")
+    by_run = {RUN_S17: traced_replay(dev, card, counters, prompts, reuse)}
+    mark("(h3)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ring_path(dev, card)
+    mark("(h4)")
+    codec_path(dev, card)
+    mark("(h5)")
+    specs_resolve()
+    mark("(h6) (budget 60 s)")
+    return by_run
+
+
 KERNEL_INFO = {
     "gemm_exact": ("quant_gemm_tpu_torch/csrc/gemm_exact.cu",
                    "quant_gemm_tpu/kernels/gemm_exact.py:775"),
@@ -5212,6 +5574,17 @@ LAUNCH_RUN = {"gemm_exact_k16": "Q4_K_M bf16", "gemm_exact_fused": RUN_A,
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
+    from quant_gemm_tpu_torch.harness.profiling import ProfileError
+
+    try:
+        return run()
+    except ProfileError as e:
+        fail(str(e))
+
+
+def run() -> int:
+    from quant_gemm_tpu_torch.harness import aot
+    from quant_gemm_tpu_torch.harness.benchmark import DeviceTimer
     from quant_gemm_tpu_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5224,12 +5597,12 @@ def main() -> int:
     built = _build.build()
     print(f"kernel build: {built['seconds']:.1f} s "
           f"({', '.join(_build.source_names())})", flush=True)
-    for name, log in _build.BUILD_LOG.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}", flush=True)
+    for line in aot.format_report(aot.resource_report(
+            dict(_build.BUILD_LOG))).splitlines():
+        if not line.startswith(" "):  # a source's line; (h1) lists entries
+            print(f"  ptxas {line}", flush=True)
 
-    timer = Timer(dev)
+    timer = DeviceTimer(dev)
     t_phase = time.perf_counter()
 
     def phase_done(name):
@@ -5270,6 +5643,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_run.update(slice16_path(dev, counters, prompts, reuse))
     phase_done("slice 16 (QAT, tensor parallelism)")
+    torch.cuda.empty_cache()
+    by_run.update(slice17_path(dev, counters, prompts, reuse, rows))
+    phase_done("slice 17 (gate, harness, trace, rings, host codec, specs)")
 
     kernels = []
     for name, (src, rep) in KERNEL_INFO.items():

@@ -619,6 +619,28 @@ def dequantize_q3_k(t: Q3_KTensor) -> torch.Tensor:
     return t.scp.repeat_interleave(16, dim=-1) * t.qs.to(torch.float32)
 
 
+def dequantize_q2_k_bytes(raw: torch.Tensor) -> torch.Tensor:
+    """AoS u8 [N, K/256, 84] -> float32 [N, K], llama.cpp's
+    ``dequantize_row_q2_K``: ``d*sc*q - dmin*mn`` formed in float64 and
+    rounded once, as the JAX package's numpy does."""
+    t = from_bytes_q2_k(raw)
+    x = (t.d.double().repeat_interleave(QK_K, dim=-1)
+         * t.sc.double().repeat_interleave(16, dim=-1) * t.qs.double()
+         - t.dmin.double().repeat_interleave(QK_K, dim=-1)
+         * t.mn.double().repeat_interleave(16, dim=-1))
+    return x.to(torch.float32)
+
+
+def dequantize_q3_k_bytes(raw: torch.Tensor) -> torch.Tensor:
+    """AoS u8 [N, K/256, 110] -> float32 [N, K], llama.cpp's
+    ``dequantize_row_q3_K``: ``d*(sc - 32)*q'`` in float64, rounded
+    once."""
+    t = from_bytes_q3_k(raw)
+    return (t.d.double().repeat_interleave(QK_K, dim=-1)
+            * t.sc.double().repeat_interleave(16, dim=-1)
+            * t.qs.double()).to(torch.float32)
+
+
 # ---------------------------------------------------------------------------
 # the q6_K / q3_K / q2_K encoders (numpy host code, as in the JAX package)
 # ---------------------------------------------------------------------------
@@ -935,7 +957,8 @@ __all__ = ["QK_K", "NSB", "BLOCK_BYTES", "QK6_BLOCK_BYTES",
            "from_bytes_q5_k", "from_bytes_q6_k",
            "to_bytes_q6_k", "dequantize_q6_k", "from_bytes_q2_k",
            "to_bytes_q2_k", "from_bytes_q3_k", "to_bytes_q3_k",
-           "dequantize_q2_k", "dequantize_q3_k", "K16_TENSORS", "DEQUANT",
+           "dequantize_q2_k", "dequantize_q3_k", "dequantize_q2_k_bytes",
+           "dequantize_q3_k_bytes", "K16_TENSORS", "DEQUANT",
            "CODECS", "GGUF_TYPE", "random_blocks", "k16_qtype",
            "IQ4_NL_BLOCK_BYTES", "IQ4_XS_BLOCK_BYTES", "KVALUES_IQ4NL",
            "EffectiveQ80", "from_bytes_iq4_nl", "quantize_iq4_nl",

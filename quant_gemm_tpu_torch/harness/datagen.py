@@ -1,6 +1,7 @@
-"""Seeded data generation (numpy): uniform and normal, seed 42 by
-default.  Copies of the JAX package's ``harness/datagen.py`` functions, so
-that both packages draw the same inputs from a seed."""
+"""Seeded data generation (numpy): uniform and normal (and the Xavier /
+He initialisations on them), seed 42 by default.  Copies of the JAX
+package's ``harness/datagen.py`` functions, so that both packages draw
+the same inputs from a seed."""
 
 from __future__ import annotations
 
@@ -23,4 +24,14 @@ def normal(shape, mean=0.0, std=0.5, seed: int = DEFAULT_SEED) -> np.ndarray:
         np.float32)
 
 
-__all__ = ["uniform", "normal", "DEFAULT_SEED"]
+def xavier(shape, fan_in: int, fan_out: int,
+           seed: int = DEFAULT_SEED) -> np.ndarray:
+    limit = np.sqrt(6.0 / (fan_in + fan_out))
+    return uniform(shape, -limit, limit, seed)
+
+
+def he(shape, fan_in: int, seed: int = DEFAULT_SEED) -> np.ndarray:
+    return normal(shape, 0.0, np.sqrt(2.0 / fan_in), seed)
+
+
+__all__ = ["uniform", "normal", "xavier", "he", "DEFAULT_SEED"]

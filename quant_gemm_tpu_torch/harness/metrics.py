@@ -1,7 +1,8 @@
 """Error metrics for differential testing: a copy of the JAX package's
 ``harness/metrics.py::ErrorMetrics``.  ``nmse`` normalizes by
 ``mean(ref^2)`` (the kernels' thresholds), ``nmse_var`` by ``var(ref)``;
-both in float64 on numpy arrays."""
+both in float64 on numpy arrays.  ``NMSE_VS_FP32`` and
+``NMSE_KERNEL_VS_GOLDEN`` are its thresholds."""
 
 from __future__ import annotations
 
@@ -37,4 +38,18 @@ class ErrorMetrics:
         )
 
 
-__all__ = ["ErrorMetrics"]
+# Per-format NMSE thresholds against float32, and a kernel's against the
+# integer golden (float32 accumulation against the golden's float64):
+# the JAX package's values
+NMSE_VS_FP32 = {
+    "q4_0": 0.015,
+    "q4_1": 0.015,
+    "q5_0": 0.01,
+    "q5_1": 0.01,
+    "q8_0": 0.005,
+    "q8_1": 0.005,
+}
+NMSE_KERNEL_VS_GOLDEN = 1e-9
+
+
+__all__ = ["ErrorMetrics", "NMSE_VS_FP32", "NMSE_KERNEL_VS_GOLDEN"]

@@ -80,6 +80,39 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def compile_sources(names, out: dict, flags=NVCC_FLAGS, env=None,
+                    logs=None) -> dict:
+    """Compile ``csrc/<name>.cu`` to the path ``out[name]`` for each name,
+    one ``nvcc`` per source, all started together (each written to a
+    temporary file beside its path and renamed into place, so concurrent
+    processes never see half a library).  Puts the compiler's output (the
+    ``-Xptxas -v`` report) by name into ``logs`` (a new dict by default)
+    and returns it; raises with the output of each source that failed."""
+    nvcc = nvcc_path()
+    procs = []
+    for n in names:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=Path(out[n]).parent)
+        os.close(fd)
+        cmd = [nvcc, *flags, "-I", str(CSRC), "-o", tmp,
+               str(CSRC / f"{n}.cu")]
+        procs.append((n, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, env=env)))
+    logs = {} if logs is None else logs
+    failed = []
+    for n, tmp, p in procs:
+        log, _ = p.communicate()
+        logs[n] = log
+        if p.returncode != 0:
+            failed.append(f"--- {n}.cu (nvcc exit {p.returncode}) ---\n{log}")
+            os.unlink(tmp)
+        else:
+            os.replace(tmp, out[n])
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return logs
+
+
 def build(names=None) -> dict[str, float]:
     """Compile the named sources (default: all) that are not built yet,
     one ``nvcc`` per source, all started together.  Returns the wall
@@ -88,30 +121,10 @@ def build(names=None) -> dict[str, float]:
     todo = [n for n in names if not _lib_path(n).exists()]
     if not todo:
         return {"seconds": 0.0}
-    nvcc = nvcc_path()
+    nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    procs = []
-    for n in todo:
-        out = _lib_path(n)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-               str(CSRC / f"{n}.cu")]
-        procs.append((n, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    failed = []
-    for n, out, tmp, p in procs:
-        log, _ = p.communicate()
-        BUILD_LOG[n] = log
-        if p.returncode != 0:
-            failed.append(f"--- {n}.cu (nvcc exit {p.returncode}) ---\n{log}")
-            os.unlink(tmp)
-        else:
-            os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    compile_sources(todo, {n: _lib_path(n) for n in todo}, logs=BUILD_LOG)
     return {"seconds": time.perf_counter() - t0}
 
 
@@ -180,5 +193,6 @@ def stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-__all__ = ["build", "load", "function", "check", "check_aligned",
-           "aligned16", "source_names", "BUILD_DIR", "BUILD_LOG"]
+__all__ = ["build", "compile_sources", "load", "function", "check",
+           "check_aligned", "aligned16", "source_names", "BUILD_DIR",
+           "BUILD_LOG"]

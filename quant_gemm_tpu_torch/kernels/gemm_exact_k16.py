@@ -34,7 +34,7 @@ import torch
 
 from ..formats.blocks import QK, Q8_1Tensor
 from . import _build
-from .layout import PreparedK16, k16_planes
+from .layout import PreparedK16, k16_planes, prepare_k16
 
 MMAX = 12  # most activation rows the kernel takes
 
@@ -126,5 +126,10 @@ def gemm_exact_k16(w: PreparedK16, a: Q8_1Tensor) -> torch.Tensor:
 
 gemm_exact_k16.launches = 0
 
+# the JAX package's Q6_K-era names (``gemm_exact.py:1069-1070,1203``)
+PreparedQ6K = PreparedK16
+prepare_q6k = prepare_k16
+gemm_exact_q6k = gemm_exact_k16
+
 __all__ = ["gemm_exact_k16", "gemm_exact_k16_plain", "k16_block_terms",
-           "MMAX"]
+           "MMAX", "PreparedQ6K", "prepare_q6k", "gemm_exact_q6k"]

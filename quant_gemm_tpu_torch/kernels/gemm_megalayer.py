@@ -41,12 +41,15 @@ chunks prefetched into L2 before the barriers in front of it, ``xm``,
 wrapper raises where the card refuses the cooperative launch; it never
 falls back to the unfused chain.
 
-:data:`ENABLE_TAIL` is the JAX package's switch for K8, off by default
-as there (it measured a loss on the TPU, ``gemm_megalayer.py:68-75``);
-:func:`tail_supported` reads it per call.  The JAX package's other two
-switches (``ENABLED``, ``ENABLE_QKV``) serve its ``bench_serve.py
---mega`` only and are not ported: K2 is taken wherever
-:func:`supported` allows it.
+:data:`ENABLE_QKV` (K2, on) and :data:`ENABLE_TAIL` (K8, off, as in
+JAX: it measured a loss on the TPU, ``gemm_megalayer.py:68-75``) are the
+JAX package's switches, read per call by :func:`qkv_supported` and
+:func:`tail_supported` (JAX's ``ENABLED``, both fusions at once, is both
+set to False); with K2 off a
+decode step runs the unfused chain (``rms_norm`` -> Q8_1 -> K1).  A
+served model whose ``wqkv`` K2 cannot take (q8_0, per-16, a
+``SplitLinear``, dim % 512) prints one line to stderr per (qtype, dim),
+as JAX does.
 
 :func:`norm_qkv` and :func:`attn_tail` launch their kernels for CUDA
 tensors and run the plain versions for CPU tensors; ``.launches`` counts
@@ -54,6 +57,8 @@ kernel launches.
 """
 
 from __future__ import annotations
+
+import sys
 
 import torch
 
@@ -68,6 +73,7 @@ MMAX = 8  # rows the fused kernels take (the serving batch)
 #: the weight forms K2 takes (the JAX ``_supported_w`` formats)
 QKV_QTYPES = ("q4_0", "q4_1", "q4_k", "q5_0", "q5_1", "q5_k")
 
+ENABLE_QKV = True  # K2 norm_qkv, the JAX default
 ENABLE_TAIL = False  # K8 attn_tail, the JAX default
 
 
@@ -85,16 +91,45 @@ def supported(w, dim: int, m: int) -> bool:
             and w.k == dim and dim % 512 == 0 and m <= MMAX)
 
 
+_BYPASS_LOGGED: set = set()
+
+
+def qkv_supported(lyr: dict, cfg, m: int) -> bool:
+    """True when a decode step of ``m`` rows of this layer takes
+    :func:`norm_qkv` (JAX ``qkv_supported``): :data:`ENABLE_QKV`, and
+    :func:`supported` for its ``wqkv``.  With the
+    switches on and M <= 8, a ``wqkv`` that K2 cannot take prints the
+    bypass line to stderr once per (qtype, dim)."""
+    if not ENABLE_QKV or m > MMAX:
+        return False
+    w = lyr.get("wqkv")
+    ok = supported(w, cfg.dim, m)
+    if not ok:
+        key = (getattr(w, "qtype", None), cfg.dim)
+        if key not in _BYPASS_LOGGED:
+            _BYPASS_LOGGED.add(key)
+            print(f"megalayer: norm_qkv bypassed (wqkv qtype={key[0]}, "
+                  f"dim={cfg.dim}) — unfused dispatch path",
+                  file=sys.stderr, flush=True)
+    return ok
+
+
 def tail_supported(lyr: dict, cfg, m: int) -> bool:
     """True when a decode step of ``m`` rows of this layer can take
-    :func:`attn_tail` (the JAX rule: ENABLE_TAIL, M <= 8, dim and d_ff %
-    512 == 0, ``wo`` [dim, dim], ``wgu`` [2 d_ff, dim] and ``w_down``
-    [dim, d_ff] all q4_0)."""
+    :func:`attn_tail` (the JAX rule: ENABLE_TAIL, M <= 8, dim
+    and d_ff % 512 == 0, ``wo`` [dim, dim], ``wgu`` [2 d_ff, dim] and
+    ``w_down`` [dim, d_ff] all q4_0)."""
     dim, dff = cfg.dim, cfg.d_ff
     return (ENABLE_TAIL and m <= MMAX and dim % 512 == 0
             and dff % 512 == 0 and _q4_0(lyr.get("wo"), dim, dim)
             and _q4_0(lyr.get("wgu"), dim, 2 * dff)
             and _q4_0(lyr.get("w_down"), dff, dim))
+
+
+def layer_supported(lyr: dict, cfg, m: int) -> bool:
+    """True when both fusions take this layer's decode step (JAX's A/B
+    convenience)."""
+    return qkv_supported(lyr, cfg, m) and tail_supported(lyr, cfg, m)
 
 
 def _check(w: PreparedWeight, x: torch.Tensor, norm_w: torch.Tensor) -> None:
@@ -230,5 +265,6 @@ def attn_tail(attn: torch.Tensor, x: torch.Tensor, norm_w: torch.Tensor,
 attn_tail.launches = 0
 
 __all__ = ["norm_qkv", "norm_qkv_plain", "attn_tail", "attn_tail_plain",
-           "supported", "tail_supported", "ENABLE_TAIL", "MMAX",
-           "QKV_QTYPES"]
+           "supported", "qkv_supported", "tail_supported",
+           "layer_supported", "ENABLE_QKV", "ENABLE_TAIL",
+           "MMAX", "QKV_QTYPES"]

@@ -6,6 +6,7 @@ Convention: ``C[M, N] = A[M, K] @ W[N, K]^T``, ``w_q`` a planar SoA
 container of :mod:`..formats.blocks` (torch tensors), float32 products
 (TF32 off on a card: ``torch.backends.cuda.matmul.allow_tf32 = False``).
 
+* :func:`gemm_fp32` — the float32 baseline ``A @ W^T``;
 * :func:`gemm_wxa16` — dequantize, then matmul a float activation;
 * :func:`gemm_wxa8_scaled` — a Q8_1 activation's scales folded into its
   codes, one float32 matmul with the dequantized weight: the compensation
@@ -16,6 +17,9 @@ container of :mod:`..formats.blocks` (torch tensors), float32 products
 * :func:`gemm_wxa8_int` — exact per-block integer dots (float64, exact)
   and the float32 epilogue, materializing ``[M, N, K/32]``: a correctness
   oracle, not a serving path.
+
+Each also answers to the JAX package's name (``gemm_wxa16_xla`` and the
+others).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 
 from ..formats.blocks import QK, Q8_1Tensor
 from ..formats.quant import codes, dequantize, expand_scale
+from ..utils import matmul_f32
 
 
 def gemm_wxa16(w_q, a: torch.Tensor) -> torch.Tensor:
@@ -72,5 +77,19 @@ def gemm_wxa8_int(w_q, a_q: Q8_1Tensor) -> torch.Tensor:
     return terms.sum(dim=0)
 
 
-__all__ = ["gemm_wxa16", "gemm_wxa8_scaled", "gemm_wxa8_compensated",
-           "gemm_wxa8_int"]
+def gemm_fp32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The float32 baseline ``A @ W^T`` (TF32 off)."""
+    return matmul_f32(a, w)
+
+
+# the JAX package's names (``*_xla``: the rungs it leaves to XLA)
+gemm_fp32_xla = gemm_fp32
+gemm_wxa16_xla = gemm_wxa16
+gemm_wxa8_scaled_xla = gemm_wxa8_scaled
+gemm_wxa8_compensated_xla = gemm_wxa8_compensated
+gemm_wxa8_int_xla = gemm_wxa8_int
+
+__all__ = ["gemm_fp32", "gemm_wxa16", "gemm_wxa8_scaled",
+           "gemm_wxa8_compensated", "gemm_wxa8_int", "gemm_fp32_xla",
+           "gemm_wxa16_xla", "gemm_wxa8_scaled_xla",
+           "gemm_wxa8_compensated_xla", "gemm_wxa8_int_xla"]

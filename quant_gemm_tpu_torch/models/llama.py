@@ -515,7 +515,8 @@ class Step(NamedTuple):
 def routes(qparams: dict, cfg: LlamaConfig, b: int, t: int,
            act_mode: str = "q8_1", tp_ctx=None):
     """``(use_mega, use_mega_tail)`` of a call of ``t`` tokens for ``b``
-    slots: K2 (``norm_qkv``) on every layer or on none, as in JAX (a
+    slots: K2 (``norm_qkv``) on every layer or on none, as in JAX
+    (``gemm_megalayer.qkv_supported``: its ``ENABLE_QKV`` switch, and a
     q8_0, per-16, SplitLinear or LoRA'd wqkv anywhere turns it off for
     the whole model), and K8 (``attn_tail``) when every layer is
     ``tail_supported`` (which reads ``gemm_megalayer.ENABLE_TAIL``; a
@@ -526,8 +527,7 @@ def routes(qparams: dict, cfg: LlamaConfig, b: int, t: int,
     (JAX ``llama.py:637``)."""
     can_mega = act_mode == "q8_1" and t == 1
     use_mega = can_mega and all(
-        gemm_megalayer.supported(ly["wqkv"], cfg.dim, b)
-        for ly in qparams["layers"])
+        gemm_megalayer.qkv_supported(ly, cfg, b) for ly in qparams["layers"])
     use_mega_tail = can_mega and tp_ctx is None and all(
         gemm_megalayer.tail_supported(ly, cfg, b) for ly in qparams["layers"])
     return use_mega, use_mega_tail

@@ -88,13 +88,13 @@ def graph_key(kind: str, size, act_mode: str = "q8_1") -> tuple:
     """The key of a captured step: ``kind`` "decode" with its ``s_hi``
     or "chunk" with its length, its activation mode, and every module
     setting whose route a graph bakes in, read now:
-    ``registry.FUSED_DECODE`` and ``gemm_megalayer.ENABLE_TAIL`` (K6,
-    K8), ``registry.DECODE_M_MAX`` (K1/K7 against K4) and
-    ``llama.FLASH_PREFILL_T_MIN`` (K5 against the dense prefill
+    ``registry.FUSED_DECODE`` (K6), ``gemm_megalayer.ENABLE_QKV`` and
+    ``ENABLE_TAIL`` (K2, K8), ``registry.DECODE_M_MAX`` (K1/K7 against
+    K4) and ``llama.FLASH_PREFILL_T_MIN`` (K5 against the dense prefill
     attention)."""
     return (kind, size, act_mode, registry.FUSED_DECODE,
-            gemm_megalayer.ENABLE_TAIL, registry.DECODE_M_MAX,
-            llama.FLASH_PREFILL_T_MIN)
+            gemm_megalayer.ENABLE_QKV, gemm_megalayer.ENABLE_TAIL,
+            registry.DECODE_M_MAX, llama.FLASH_PREFILL_T_MIN)
 
 
 @dataclasses.dataclass

@@ -48,6 +48,10 @@ def silu_ref(x) -> np.ndarray:
     return x / (1.0 + np.exp(-x))
 
 
+def silu_mul_ref(x, gate) -> np.ndarray:
+    return silu_ref(x) * np.asarray(gate, np.float32)
+
+
 def gelu_ref(x) -> np.ndarray:
     x = np.asarray(x, np.float32)
     return (0.5 * x * (1.0 + _erf_vec(x / math.sqrt(2.0)))).astype(np.float32)
@@ -59,5 +63,6 @@ def gelu_quick_ref(x) -> np.ndarray:
         SQRT_2_OVER_PI * x * (1.0 + GELU_COEF_A * x * x)))
 
 
-__all__ = ["silu", "silu_mul", "gelu", "gelu_quick", "silu_ref", "gelu_ref",
-           "gelu_quick_ref", "GELU_COEF_A", "SQRT_2_OVER_PI"]
+__all__ = ["silu", "silu_mul", "gelu", "gelu_quick", "silu_ref",
+           "silu_mul_ref", "gelu_ref", "gelu_quick_ref", "GELU_COEF_A",
+           "SQRT_2_OVER_PI"]

@@ -19,7 +19,9 @@ rank holds only its own chunk of a weight:
 * :func:`shard_weight_ring`, :func:`gemm_col_parallel_ring` and
   :func:`gemm_row_parallel_ring`: JAX's ring schedule (``sharding.py:
   325-432``) with ``ppermute`` as ``batch_isend_irecv`` to the left
-  neighbour; quantized chunks take K1 (``gemm_exact``) and float chunks K4
+  neighbour, started before a step's chunk GEMM and waited for after it
+  (:func:`ppermute_start`), so the rotation runs under the GEMM;
+  quantized chunks take K1 (``gemm_exact``) and float chunks K4
   (``gemm_dequant``), as ``_ring_gemm`` picks;
 * :func:`quantize_q8_1_sharded`: each rank quantizes its rows (bit-equal
   to the whole quantize: the blocks are row-local);
@@ -32,7 +34,10 @@ The collectives (:func:`all_reduce`, :func:`all_gather`,
 the group's backend.  Gloo runs all-reduce, broadcast, all-gather and
 reduce-scatter on CUDA tensors itself (copying through the host inside);
 its point-to-point does not, so :func:`ppermute` takes an explicit copy to
-the host and back on a gloo group, counted in :data:`HOST_COPIES`.  Nothing else
+the host and back on a gloo group, counted in :data:`HOST_COPIES`.  Each
+collective is a ``torch.profiler`` range (``collective.<name>``;
+``ppermute.start#t`` / ``ppermute.wait#t`` and ``ring_gemm`` for the
+rings), which ``harness/aot.py::overlap_report`` classifies.  Nothing else
 changes a backend or a device: several ranks sharing one GPU run gloo
 (NCCL refuses two ranks on one device), one GPU per rank runs NCCL.
 """
@@ -41,11 +46,13 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from ..formats.blocks import QK, Q8_1Tensor
 from ..formats.quant import codes, pack_planar_4bit, pack_planar_bits
@@ -118,7 +125,8 @@ def all_reduce(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """The sum of ``x`` over ``mesh[axis]``, in place: ``x`` is
     overwritten and returned (pass a copy to keep it)."""
     if not _trivial(mesh, axis):
-        dist.all_reduce(x.detach(), group=mesh.groups[axis])
+        with record_function("collective.all_reduce"):
+            dist.all_reduce(x.detach(), group=mesh.groups[axis])
     return x
 
 
@@ -130,7 +138,8 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str,
         return x.detach().clone()
     x = x.detach().contiguous()
     parts = [torch.empty_like(x) for _ in range(mesh.shape[axis])]
-    dist.all_gather(parts, x, group=mesh.groups[axis])
+    with record_function("collective.all_gather"):
+        dist.all_gather(parts, x, group=mesh.groups[axis])
     return torch.cat(parts, dim=dim)
 
 
@@ -146,35 +155,80 @@ def reduce_scatter(x: torch.Tensor, mesh: Mesh, axis: str,
         return x.detach().clone()
     src = x.detach().movedim(dim, 0).contiguous()
     out = src.new_empty((src.shape[0] // n,) + src.shape[1:])
-    dist.reduce_scatter_tensor(out, src, group=mesh.groups[axis])
+    with record_function("collective.reduce_scatter"):
+        dist.reduce_scatter_tensor(out, src, group=mesh.groups[axis])
     return out.movedim(0, dim)
+
+
+class Permute:
+    """A started :func:`ppermute_start`: :meth:`wait` gives what the right
+    neighbour sent, on the device of what this rank sent."""
+
+    def __init__(self, x, reqs=(), outs=(), devs=(), keep=(), tag=None):
+        self._x = x  # the result itself on a one-rank axis
+        self._reqs, self._outs, self._devs = reqs, outs, devs
+        self._keep = keep  # the send buffers, alive until the wait
+        self.tag = tag
+
+    def wait(self):
+        if self.tag is None:
+            return self._x
+        with record_function(f"ppermute.wait#{self.tag}"):
+            for r in self._reqs:
+                r.wait()
+            outs = [o.to(d) for o, d in zip(self._outs, self._devs)]
+        self._keep = ()
+        if hasattr(self._x, "_fields"):
+            return type(self._x)(*outs)
+        return outs[0]
+
+
+_TAGS = itertools.count()
+
+
+def ppermute_start(x, mesh: Mesh, axis: str) -> Permute:
+    """Start sending ``x`` (a tensor or a block container of tensors) to
+    the left neighbour on ``mesh[axis]`` and receiving the right one's
+    (JAX ``ppermute`` with ``perm = [(i, (i - 1) % n)]``) and return at
+    once: work queued before :meth:`Permute.wait` runs under the
+    transfer.  On a gloo group a CUDA tensor is copied to the host here
+    (which waits for the work that wrote it) and back in the wait.  The
+    start and the wait are ``torch.profiler`` ranges ``ppermute.start#t``
+    and ``ppermute.wait#t`` of one tag t (:func:`harness.aot.
+    overlap_report` reads them)."""
+    n = mesh.shape[axis]
+    if _trivial(mesh, axis):
+        return Permute(x)
+    tag = next(_TAGS)
+    with record_function(f"ppermute.start#{tag}"):
+        group = mesh.groups[axis]
+        idx = mesh.index(axis)
+        left = dist.get_global_rank(group, (idx - 1) % n)
+        right = dist.get_global_rank(group, (idx + 1) % n)
+        gloo = dist.get_backend(group) == "gloo"
+        fields = tuple(x) if hasattr(x, "_fields") else (x,)
+        ops, srcs, outs, devs = [], [], [], []
+        for f in fields:
+            src = f.detach().contiguous()
+            devs.append(src.device)
+            if src.is_cuda and gloo:
+                HOST_COPIES["ppermute"] += 1
+                src = src.cpu()
+            out = torch.empty_like(src)
+            ops += [dist.P2POp(dist.isend, src, left, group),
+                    dist.P2POp(dist.irecv, out, right, group)]
+            srcs.append(src)
+            outs.append(out)
+        reqs = dist.batch_isend_irecv(ops)
+    return Permute(x, reqs, outs, devs, srcs, tag)
 
 
 def ppermute(x, mesh: Mesh, axis: str):
     """Each rank's ``x`` (a tensor or a block container of tensors) to its
     left neighbour on ``mesh[axis]`` (JAX ``ppermute`` with ``perm = [(i,
-    (i - 1) % n)]``): returns the right neighbour's."""
-    if hasattr(x, "_fields"):
-        return type(x)(*(ppermute(f, mesh, axis) for f in x))
-    n = mesh.shape[axis]
-    if _trivial(mesh, axis):
-        return x
-    group = mesh.groups[axis]
-    idx = mesh.index(axis)
-    left = dist.get_global_rank(group, (idx - 1) % n)
-    right = dist.get_global_rank(group, (idx + 1) % n)
-    src = x.detach().contiguous()
-    dev = src.device
-    if src.is_cuda and dist.get_backend(group) == "gloo":
-        HOST_COPIES["ppermute"] += 1
-        src = src.cpu()
-    out = torch.empty_like(src)
-    reqs = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, src, left, group),
-        dist.P2POp(dist.irecv, out, right, group)])
-    for r in reqs:
-        r.wait()
-    return out.to(dev)
+    (i - 1) % n)]``): returns the right neighbour's.  Blocking:
+    :func:`ppermute_start` and its wait."""
+    return ppermute_start(x, mesh, axis).wait()
 
 
 class _CopyTo(torch.autograd.Function):
@@ -410,21 +464,29 @@ def gemm_row_parallel(sw: ShardedWeight, act, mesh: Mesh, *,
 
 
 def _ring_gemm(w, chunk, quantized: bool, a_dtype, ops: registry.Ops):
-    if quantized:
-        return ops.gemm_exact(w, chunk)
-    return _k4(w, chunk, a_dtype, ops)
+    """One ring step's GEMM, the ``torch.profiler`` range ``ring_gemm``."""
+    with record_function("ring_gemm"):
+        if quantized:
+            return ops.gemm_exact(w, chunk)
+        return _k4(w, chunk, a_dtype, ops)
 
 
 def gemm_col_parallel_ring(sw: ShardedWeight, act, mesh: Mesh, *,
                            quantize_act: bool = True,
                            gather_output: bool = False, a_dtype=None,
-                           ops: registry.Ops = registry.KERNELS):
+                           ops: registry.Ops = registry.KERNELS,
+                           overlap: bool = True):
     """Column-parallel GEMM with the activation all-gather as a ring:
     the rank quantizes its K-chunk of ``act`` to Q8_1 once (with
     ``quantize_act``), then at step s multiplies the chunk it holds (that
-    of rank ``idx + s``) by its weight's matching K-chunk while passing
-    the chunk to the left.  Returns the rank's [M, N/tp] (the gathered
-    [M, N] with ``gather_output``)."""
+    of rank ``idx + s``) by its weight's matching K-chunk while the chunk
+    passes to the left: the rotation starts before the step's GEMM and is
+    waited for after it, so the transfer runs under the GEMM (JAX's
+    ``collective-permute-start`` / ``-done`` around the chunk GEMM).
+    ``overlap=False`` is the blocking schedule this one replaces (the
+    rotation after the GEMM), with the same sums: the yardstick of the
+    overlap.  Returns the rank's [M, N/tp] (the gathered [M, N] with
+    ``gather_output``)."""
     if sw.mode != "col_ring":
         raise ValueError(f"takes a 'col_ring' weight, not {sw.mode!r}")
     tp, idx = mesh.shape[sw.axis], mesh.index(sw.axis)
@@ -433,34 +495,48 @@ def gemm_col_parallel_ring(sw: ShardedWeight, act, mesh: Mesh, *,
         chunk = registry.quantize(chunk.to(torch.float32), ops)
     acc = None
     for s in range(tp):
+        last = s == tp - 1
+        rot = ppermute_start(chunk, mesh, sw.axis) \
+            if overlap and not last else None
         part = _ring_gemm(sw.chunks[(idx + s) % tp], chunk, quantize_act,
                           a_dtype, ops)
         acc = part if acc is None else acc + part
-        if s < tp - 1:
-            chunk = ppermute(chunk, mesh, sw.axis)
+        if not last:
+            chunk = rot.wait() if overlap else ppermute(chunk, mesh, sw.axis)
     return all_gather(acc, mesh, sw.axis, dim=1) if gather_output else acc
 
 
 def gemm_row_parallel_ring(sw: ShardedWeight, act, mesh: Mesh, *,
                            quantize_act: bool = True, a_dtype=None,
-                           ops: registry.Ops = registry.KERNELS):
+                           ops: registry.Ops = registry.KERNELS,
+                           overlap: bool = True):
     """Row-parallel GEMM with the reduce-scatter as a ring: at step s the
     rank adds its partial for output chunk ``(idx + s + 1) % tp`` to the
     accumulator from its right neighbour and passes it on; after ``tp``
-    steps it holds its own chunk summed.  Returns the rank's [M, N/tp]."""
+    steps it holds its own chunk summed.  The rotation of step s's sum
+    starts as soon as it is summed, and step s + 1's partial GEMM runs
+    before the wait, under the transfer; the sums keep the blocking
+    form's order (received + partial).  ``overlap=False`` waits for each
+    rotation before the next GEMM: the blocking schedule, the same sums.
+    Returns the rank's [M, N/tp]."""
     if sw.mode != "row_ring":
         raise ValueError(f"takes a 'row_ring' weight, not {sw.mode!r}")
     tp, idx = mesh.shape[sw.axis], mesh.index(sw.axis)
     aq = _local_k(sw, act, mesh)
     if quantize_act:
         aq = registry.quantize(aq.to(torch.float32), ops)
-    acc = None
+    acc = rot = None
     for s in range(tp):
         part = _ring_gemm(sw.chunks[(idx + s + 1) % tp], aq, quantize_act,
                           a_dtype, ops)
+        if rot is not None:
+            acc = rot.wait()
         acc = part if acc is None else acc + part
         if s < tp - 1:
-            acc = ppermute(acc, mesh, sw.axis)
+            if overlap:
+                rot = ppermute_start(acc, mesh, sw.axis)
+            else:
+                acc = ppermute(acc, mesh, sw.axis)
     return acc
 
 
@@ -478,8 +554,9 @@ def quantize_q8_1_sharded(x: torch.Tensor, mesh: Mesh,
 
 
 __all__ = ["Mesh", "make_mesh", "HOST_COPIES", "all_reduce",
-           "all_gather", "reduce_scatter", "ppermute", "copy_to",
-           "reduce_from", "gather_from", "megatron_chunk", "ShardedWeight",
-           "shard_weight", "shard_weight_ring", "gemm_col_parallel", "gemm_row_parallel",
+           "all_gather", "reduce_scatter", "ppermute", "ppermute_start",
+           "Permute", "copy_to", "reduce_from", "gather_from",
+           "megatron_chunk", "ShardedWeight", "shard_weight",
+           "shard_weight_ring", "gemm_col_parallel", "gemm_row_parallel",
            "gemm_col_parallel_ring", "gemm_row_parallel_ring",
            "quantize_q8_1_sharded"]

@@ -1,5 +1,6 @@
 """Numpy golden GEMMs: a copy of the JAX package's ``ref/gemm.py``
-(``gemm_fp32``, ``gemm_wxa16``, ``gemm_wxa8``) on the port's numpy
+(``gemm_fp32``, ``gemm_wxa16``, ``gemm_wxa8`` and its ``gemm_w4a8`` /
+``gemm_w8a8`` forms, the scalar ``vec_dot_*``) on the port's numpy
 containers (:mod:`..formats.numpy_ref`).
 
 Convention: ``C[M, N] = A[M, K] @ W[N, K]^T``.  ``gemm_wxa8``'s per-block
@@ -60,4 +61,49 @@ def gemm_wxa8(w_q, a_q: Q8_1Tensor) -> np.ndarray:
     return terms.sum(axis=-1).astype(np.float32)
 
 
-__all__ = ["gemm_fp32", "gemm_wxa16", "gemm_wxa8"]
+def gemm_w4a8(w_q, a_q: Q8_1Tensor) -> np.ndarray:
+    """The core W4A8 path (Q4_0 x Q8_1)."""
+    if w_q.spec.name != "q4_0":
+        raise ValueError(f"gemm_w4a8 takes q4_0 weights, not {w_q.spec.name}")
+    return gemm_wxa8(w_q, a_q)
+
+
+def gemm_w8a8(w_q, a_q: Q8_1Tensor) -> np.ndarray:
+    """Q8_0 x Q8_1 (no compensation needed)."""
+    if w_q.spec.name != "q8_0":
+        raise ValueError(f"gemm_w8a8 takes q8_0 weights, not {w_q.spec.name}")
+    return gemm_wxa8(w_q, a_q)
+
+
+def vec_dot_q4_0_q8_1(w_row, a_row) -> float:
+    """Scalar dot of one Q4_0 row with one Q8_1 row, llama.cpp's
+    ``vec_dot``: per-block float32 terms accumulated in float32, in block
+    order."""
+    qw = codes(w_row).reshape(-1, QK)
+    qa = codes(a_row).reshape(-1, QK)
+    d_w = np.asarray(w_row.d, np.float32).ravel()
+    d_a = np.asarray(a_row.d, np.float32).ravel()
+    s_a = np.asarray(a_row.s, np.float32).ravel()
+    total = np.float32(0.0)
+    for b in range(qw.shape[0]):
+        sumi = int((qa[b] * qw[b]).sum())
+        total = np.float32(total + d_w[b] * (d_a[b] * np.float32(sumi)
+                                             - np.float32(8.0) * s_a[b]))
+    return float(total)
+
+
+def vec_dot_q8_0_q8_1(w_row, a_row) -> float:
+    """Scalar Q8_0 x Q8_1 dot, float32 accumulation in block order."""
+    qw = codes(w_row).reshape(-1, QK)
+    qa = codes(a_row).reshape(-1, QK)
+    d_w = np.asarray(w_row.d, np.float32).ravel()
+    d_a = np.asarray(a_row.d, np.float32).ravel()
+    total = np.float32(0.0)
+    for b in range(qw.shape[0]):
+        sumi = int((qa[b] * qw[b]).sum())
+        total = np.float32(total + d_w[b] * d_a[b] * np.float32(sumi))
+    return float(total)
+
+
+__all__ = ["gemm_fp32", "gemm_wxa16", "gemm_wxa8", "gemm_w4a8", "gemm_w8a8",
+           "vec_dot_q4_0_q8_1", "vec_dot_q8_0_q8_1"]

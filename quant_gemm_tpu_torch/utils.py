@@ -11,6 +11,7 @@ Conventions are those of the JAX package (``docs/CONVENTIONS.md``):
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -57,4 +58,21 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         torch.backends.cuda.matmul.allow_tf32 = old
 
 
-__all__ = ["cdiv", "round_up", "F16_MAX", "resolve_device", "matmul_f32"]
+def round_nearest_even(x):
+    """Round half to even (``__float2int_rn``, ``np.rint``,
+    ``torch.round``), keeping ``x``'s type: a tensor stays a tensor."""
+    if isinstance(x, torch.Tensor):
+        return torch.round(x)
+    return np.rint(x)
+
+
+def f16(x):
+    """Cast to float16, the storage type of every block scale: a tensor
+    stays a tensor."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float16)
+    return np.asarray(x, dtype=np.float16)
+
+
+__all__ = ["cdiv", "round_up", "round_nearest_even", "f16", "F16_MAX",
+           "resolve_device", "matmul_f32"]

@@ -1687,3 +1687,74 @@ def test_speculative_rewind_at_batch_4(dev):
         if draft is qp:
             assert rate >= 0.9 * speculative.best_rate(64, 4), rate
     assert want.shape == got.shape
+
+
+# -- slice 17: the measuring tools on the card -------------------------------
+
+
+def test_benchmark_kernel_times_k1(weight, dev):
+    """``harness.benchmark.benchmark_kernel`` on K1 (M 8): a valid time,
+    the card's name, and a rate under the physical cap."""
+    from quant_gemm_tpu_torch.harness import benchmark as bm
+
+    a = tq.quantize_q8_1(_act(8, 171, dev))
+    nbytes = bm.weight_bytes("q4_0", N, K) + 8 * K * 9 // 8 + 8 * N * 4
+    r = bm.benchmark_kernel(gemm_exact, (weight, a), name="K1",
+                            flops=bm.gemm_flops(8, N, K),
+                            bytes_accessed=nbytes, device=dev)
+    assert r.valid and 0 < r.time_s < 1e-2, r
+    assert r.device == torch.cuda.get_device_name(dev)
+    assert r.gbps < bm.PHYS_MAX_GBPS, r.row()
+
+
+def test_aot_compile_sees_no_gpu():
+    """The deviceless gate builds every source with no GPU visible, and
+    its report names every source's entries."""
+    from quant_gemm_tpu_torch.harness import aot
+    from quant_gemm_tpu_torch.kernels import _build
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs the CUDA toolkit of a card's machine")
+    res = aot.aot_compile()
+    rows = aot.resource_report(res["logs"])
+    assert set(res["logs"]) == set(_build.source_names())
+    assert {r.source for r in rows} == set(_build.source_names())
+    assert all(r.registers > 0 for r in rows)
+
+
+def test_trace_names_k1(weight, dev, tmp_path):
+    import json
+
+    from quant_gemm_tpu_torch.harness import profiling
+
+    a = tq.quantize_q8_1(_act(8, 172, dev))
+    gemm_exact(weight, a)
+    with profiling.trace(str(tmp_path)) as path:
+        gemm_exact(weight, a)
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    assert any("gemm_exact_kernel" in n for n in names), names
+
+
+def test_decode_without_k2_bit_equal_on_exact_norms(dev, monkeypatch):
+    """A 1-layer decode step whose K2 input is exact (embedding rows of
+    +-1, eps 0, so RMSNorm is ``x * w``): with ``ENABLE_QKV`` off (the
+    unfused RMSNorm, quantize and K1) the logits equal the K2 step's bit
+    for bit."""
+    cfg = llama.LlamaConfig(vocab=64, dim=512, n_layers=1, n_heads=8,
+                            n_kv_heads=2, d_ff=1024, max_seq=64, eps=0.0)
+    params = llama.init_params(cfg, seed=9)
+    sign = np.random.default_rng(9).random((cfg.vocab, cfg.dim)) < 0.5
+    params["embed"] = np.where(sign, -1.0, 1.0).astype(np.float32)
+    qp = llama.quantize_params(params, device=dev)
+    cache = llama.KVCache.init(cfg, 2, device=dev)
+    llama.forward(qp, cfg, torch.ones(2, 8, dtype=torch.long, device=dev),
+                  cache)
+    tok = torch.tensor([[3], [5]], device=dev)
+    before = norm_qkv.launches
+    fused = llama.forward(qp, cfg, tok, cache.clone())[0]
+    assert norm_qkv.launches == before + 1
+    monkeypatch.setattr(gemm_megalayer, "ENABLE_QKV", False)
+    plain = llama.forward(qp, cfg, tok, cache.clone())[0]
+    assert norm_qkv.launches == before + 1
+    assert torch.equal(fused, plain)

@@ -348,3 +348,114 @@ def test_fused_decode_matches_jax(qparams, monkeypatch):
     got, want = lt.numpy(), np.asarray(lj)
     assert np.abs(got - want).max() <= LOGIT_TOL * np.abs(want).max()
     assert ((got - want) ** 2).sum() <= NMSE_TOL * (want ** 2).sum()
+
+
+# -- K2's switch (gemm_megalayer.ENABLE_QKV) ---------------------------------
+
+
+@pytest.mark.parametrize("enabled, qkv", [(True, True), (True, False),
+                                          (False, True)])
+def test_qkv_supported_follows_jax_switches(qparams, monkeypatch, enabled,
+                                            qkv):
+    """``qkv_supported`` and ``layer_supported`` give JAX's verdicts with
+    the same switches on the same layer (M 8 and 9), K8 on and off.  JAX's
+    ``ENABLED`` (both fusions) has no port switch: off, it is the port's
+    ``ENABLE_QKV`` and ``ENABLE_TAIL`` both off."""
+    params = jl.init_params(JCFG, seed=3)
+    jlyr = jl.quantize_params(params)["layers"][0]
+    tlyr = qparams["layers"][0]
+    assert jmega.ENABLED and gemm_megalayer.ENABLE_QKV  # JAX's defaults
+    monkeypatch.setattr(jmega, "ENABLED", enabled)
+    monkeypatch.setattr(jmega, "ENABLE_QKV", qkv)
+    monkeypatch.setattr(gemm_megalayer, "ENABLE_QKV", qkv and enabled)
+    for tail in (False, True):
+        monkeypatch.setattr(jmega, "ENABLE_TAIL", tail)
+        monkeypatch.setattr(gemm_megalayer, "ENABLE_TAIL", tail and enabled)
+        for m in (8, 9):
+            assert (gemm_megalayer.qkv_supported(tlyr, TCFG, m)
+                    == jmega.qkv_supported(jlyr, JCFG, m)
+                    == (enabled and qkv and m <= 8))
+            assert (gemm_megalayer.layer_supported(tlyr, TCFG, m)
+                    == jmega.layer_supported(jlyr, JCFG, m))
+
+
+def test_qkv_bypass_line_once_per_qtype_and_dim(monkeypatch, capsys):
+    """A wqkv K2 cannot take (q8_0) prints JAX's bypass line to stderr
+    once per (qtype, dim); switched off, nothing is printed."""
+    monkeypatch.setattr(gemm_megalayer, "_BYPASS_LOGGED", set())
+    w = layout.prepare(tq.quantize_q8_0(torch.from_numpy(_act(64, 60, DIM))))
+    lyr = {"wqkv": w}
+    assert not gemm_megalayer.qkv_supported(lyr, TCFG, 8)
+    assert not gemm_megalayer.qkv_supported(lyr, TCFG, 4)
+    err = capsys.readouterr().err
+    assert err.count("megalayer: norm_qkv bypassed (wqkv qtype=q8_0, "
+                     f"dim={DIM})") == 1
+    monkeypatch.setattr(gemm_megalayer, "_BYPASS_LOGGED", set())
+    monkeypatch.setattr(gemm_megalayer, "ENABLE_QKV", False)
+    assert not gemm_megalayer.qkv_supported(lyr, TCFG, 8)
+    assert capsys.readouterr().err == ""
+
+
+def test_decode_without_k2_is_the_unfused_chain(qparams, monkeypatch):
+    """With ENABLE_QKV off a decode step takes no K2: RMSNorm, one Q8_1
+    quantize and K1 on wqkv in every layer, and its logits equal the
+    default step's bit for bit (on the CPU K2's plain version is that
+    chain)."""
+    rng = np.random.default_rng(58)
+    _, cache = _prefilled(qparams, rng)
+    nt = torch.from_numpy(rng.integers(0, 256, (2, 1)).astype(np.int32))
+    rec = _Recorder()
+    base = tl.forward(qparams, TCFG, nt, cache.clone(), ops=rec.ops())[0]
+    assert rec.count("norm_qkv") == TCFG.n_layers
+    monkeypatch.setattr(gemm_megalayer, "ENABLE_QKV", False)
+    assert tl.routes(qparams, TCFG, 2, 1) == (False, False)
+    rec = _Recorder()
+    got = tl.forward(qparams, TCFG, nt, cache.clone(), ops=rec.ops())[0]
+    torch.testing.assert_close(got, base, rtol=0, atol=0)
+    assert rec.count("norm_qkv") == 0
+    assert rec.count("gemm_exact") == 1 + 4 * TCFG.n_layers
+
+
+def test_decode_without_k2_matches_jax(qparams, monkeypatch):
+    """JAX's decode with its ENABLE_QKV off (a jit traced so, no
+    ``norm_qkv`` reached) against the port's with the same switch."""
+    params = jl.init_params(JCFG, seed=3)
+    qj = jl.quantize_params(params)
+    rng = np.random.default_rng(59)
+    tokens, ct = _prefilled(qparams, rng)
+    _, cj = jl.jit_forward(qj, JCFG, jnp.asarray(tokens),
+                           jl.KVCache.init(JCFG, 2))
+    nt = rng.integers(0, 256, (2, 1)).astype(np.int32)
+    monkeypatch.setattr(jmega, "ENABLE_QKV", False)
+    monkeypatch.setattr(gemm_megalayer, "ENABLE_QKV", False)
+    traced = []
+    fn = jmega.norm_qkv
+
+    def spy(*a, **kw):
+        traced.append("norm_qkv")
+        return fn(*a, **kw)
+
+    monkeypatch.setattr(jmega, "norm_qkv", spy)
+    lj, _ = jax.jit(jl.forward, static_argnames=("cfg",))(
+        qj, JCFG, jnp.asarray(nt), cj)
+    assert traced == []
+    rec = _Recorder()
+    lt, _ = tl.forward(qparams, TCFG, torch.from_numpy(nt), ct,
+                       ops=rec.ops())
+    assert rec.count("norm_qkv") == 0
+    got, want = lt.numpy(), np.asarray(lj)
+    assert np.abs(got - want).max() <= LOGIT_TOL * np.abs(want).max()
+    assert ((got - want) ** 2).sum() <= NMSE_TOL * (want ** 2).sum()
+
+
+def test_graph_key_names_k2_switches(monkeypatch):
+    from quant_gemm_tpu_torch.models import serve
+
+    base = serve.graph_key("decode", 256)
+    monkeypatch.setattr(gemm_megalayer, "ENABLE_QKV", False)
+    no_qkv = serve.graph_key("decode", 256)
+    monkeypatch.setattr(gemm_megalayer, "ENABLE_TAIL", True)
+    k8_only = serve.graph_key("decode", 256)
+    monkeypatch.setattr(gemm_megalayer, "ENABLE_QKV", True)
+    both = serve.graph_key("decode", 256)
+    assert len({base, no_qkv, k8_only, both}) == 4

@@ -298,3 +298,52 @@ def absent_rank(rank, world, timeout_s):
         return report, time.monotonic() - t0
     time.sleep(timeout_s + 1)
     return None
+
+
+# ---------------------------------------------------------------------------
+# the ring GEMMs' overlap (tests/test_torch_ring_overlap.py)
+# ---------------------------------------------------------------------------
+
+RING_SHAPE = (4, 256, 1024)  # M, N, K
+
+
+def ring_overlap_rank(rank, world, qtypes):
+    """Each ring GEMM once under ``torch.profiler`` (CPU activity) with
+    its ``overlap_report``, beside the blocking schedule's outputs, for
+    each weight type; also one all-reduce's report.  Returns numpy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from quant_gemm_tpu_torch.formats.quant import QUANTIZE
+    from quant_gemm_tpu_torch.harness.aot import overlap_report
+    from quant_gemm_tpu_torch.parallel import sharding as sh
+
+    mesh = sh.make_mesh({"tp": world}, device="cpu")
+    m, n, k = RING_SHAPE
+    rng = np.random.default_rng(17)
+    a = torch.tensor(rng.standard_normal((m, k)).astype(np.float32))
+    w = torch.tensor(rng.standard_normal((n, k)).astype(np.float32))
+    out = {}
+    for qtype in qtypes:
+        w_q = QUANTIZE[qtype](w)
+        sw_col = sh.shard_weight_ring(w_q, mesh, mode="col")
+        sw_row = sh.shard_weight_ring(w_q, mesh, mode="row")
+        got = {}
+        rings = {"col_ring": lambda: sh.gemm_col_parallel_ring(
+                     sw_col, a, mesh),
+                 "row_ring": lambda: sh.gemm_row_parallel_ring(
+                     sw_row, a, mesh)}
+        for name, fn in rings.items():
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                y = fn()
+            got[name] = (y.numpy(), overlap_report(prof))
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            col = sh.gemm_col_parallel_ring(sw_col, a, mesh, overlap=False)
+            row = sh.gemm_row_parallel_ring(sw_row, a, mesh, overlap=False)
+        got["blocking"] = (col.numpy(), row.numpy(), overlap_report(prof))
+        got["gathered"] = sh.gemm_col_parallel_ring(
+            sw_col, a, mesh, gather_output=True).numpy()
+        out[qtype] = got
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        sh.all_reduce(torch.ones(4), mesh, "tp")
+    out["all_reduce"] = overlap_report(prof)
+    return out

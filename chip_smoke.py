@@ -1592,9 +1592,10 @@ def captured_pair(name, eager, captured, chunk_window=False):
               f"replays, {g.capture_s:.3f} s", flush=True)
     pre = [st["prefill_tokens"] / st["prefill_seconds"]
            for st in (st_c, st_e)]
-    med = [st["decode_step_ms_median"] for st in (st_c, st_e)]
-    print(f"    median decode step captured {med[0]:.3f} ms vs eager "
-          f"{med[1]:.3f} ms; prefill "
+    mean = [1e3 * st["decode_seconds"] / st["decode_steps"]
+            for st in (st_c, st_e)]
+    print(f"    mean decode step captured {mean[0]:.3f} ms vs eager "
+          f"{mean[1]:.3f} ms; prefill "
           f"captured {pre[0]:.1f} vs eager {pre[1]:.1f} tok/s (captured "
           "includes each key's first call and capture)", flush=True)
     dec = max((kg for kg in sc.graphs.items() if kg[0][0] == "decode"),
@@ -1642,7 +1643,8 @@ def serve_traffic(name, qp, cfg, dev, prompts, reuse, counters,
     pre = st["prefill_tokens"] / st["prefill_seconds"]
     dec = st["decode_tokens"] / st["decode_seconds"]
     print(f"    eager: prefill {pre:.1f} tok/s, decode {dec:.1f} tok/s, "
-          f"median decode step {st['decode_step_ms_median']:.3f} ms",
+          f"mean decode step "
+          f"{1e3 * st['decode_seconds'] / st['decode_steps']:.3f} ms",
           flush=True)
     print(f"    launches: {json.dumps(launches)}", flush=True)
     with graphs(True):
@@ -2363,7 +2365,8 @@ def mistral_path(dev, counters):
     print(f"    eager: prefill "
           f"{st['prefill_tokens'] / st['prefill_seconds']:.1f} tok/s, "
           f"decode {st['decode_tokens'] / st['decode_seconds']:.1f} "
-          f"tok/s, median decode step {st['decode_step_ms_median']:.3f} ms",
+          f"tok/s, mean decode step "
+          f"{1e3 * st['decode_seconds'] / st['decode_steps']:.3f} ms",
           flush=True)
     print(f"    per decode step: K2 {M_LAYERS}, K3 {M_LAYERS}, K1 "
           f"{3 * M_LAYERS + 1}, Q8_1 quantize {3 * M_LAYERS + 1}; per "
@@ -3117,8 +3120,9 @@ def qwen_http_run(label, qp, cfg, dev, tok, md, turns, counters):
           f"{st['prefill_tokens']} prefilled and "
           f"{st['cached_prompt_tokens']} reused, {st['generated_tokens']} "
           f"generated in {st['decode_steps']} decode steps, {wall:.2f} s "
-          f"wall; engine graphs {st['graphs']}, median decode step "
-          f"{st['decode_step_ms_median']:.3f} ms", flush=True)
+          f"wall; engine graphs {st['graphs']}, mean decode step "
+          f"{1e3 * st['decode_seconds'] / st['decode_steps']:.3f} ms",
+          flush=True)
     by_prompt = {tuple(p): (s_, rid) for s_, rid, p in trace}
     rid_of = []
     for i, ids in enumerate(want_ids):

@@ -1,0 +1,10 @@
+"""Share (%) of the traced stretch's wall time in which no device
+activity ran while the innermost open span of the program was
+``serve.prefill.chunk`` (a chunk's padding, upload and replay); each idle
+stretch split instant by instant among the spans over it."""
+
+from port_bench import spans
+
+
+def read(run):
+    return spans.idle_share(run, "serve.prefill.chunk")

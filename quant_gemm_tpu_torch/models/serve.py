@@ -58,19 +58,31 @@ chunks in ``"bf16"`` while decode stays ``"q8_1"`` (JAX ``serve.py:
 281-282``).  A graph's key names its mode, so a chunk graph of one mode
 never replays for the other.  :class:`Graphs` (the captures, their pool
 and their replays) also serves ``models/speculative.py``.
+
+The loop's work is in spans of :mod:`..tracing` (recorded inside a
+profiler window or after ``tracing.start()``): ``serve.step`` around
+:meth:`Server.step`; ``serve.admit`` around one request's admission, from
+the slot pick to its first token (with its ``rid``, ``slot`` and
+``reused`` prompt tokens), holding a ``serve.prefill.chunk`` per chunk
+(padding, upload, replay) and its ``serve.sample``; ``serve.decode``
+around the batched decode step, holding ``serve.decode.replay`` and
+``serve.sample`` (the sampler and its read-back).  Every
+:class:`Request` carries its times on ``tracing.now()``: ``t_submit``,
+``t_admit`` (slot picked), ``t_first`` (first token sampled), and
+``reused``, the prompt tokens taken from its slot's cache.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
-import statistics
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..kernels import gemm_megalayer, registry
 from ..utils import resolve_device, round_up
 from ..ops import attention
@@ -191,6 +203,12 @@ class Request:
     generated: list = dataclasses.field(default_factory=list)
     probs: list = dataclasses.field(default_factory=list)  # per-token top-N
     done: bool = False
+    # on :func:`tracing.now` (ns): queued, slot picked (before the
+    # prefill), first token sampled
+    t_submit: Optional[int] = None
+    t_admit: Optional[int] = None
+    t_first: Optional[int] = None
+    reused: int = 0  # prompt tokens taken from the slot's cache
 
     def np_rng(self):
         """The request's numpy generator for host-side (grammar)
@@ -354,8 +372,7 @@ class Server:
         self._history: list[list[int]] = [[] for _ in range(n_slots)]
         self._n_cached_tokens = 0
         self._prefill_s = 0.0
-        # the latest decode steps' host seconds (bounded for long runs)
-        self._step_s: collections.deque = collections.deque(maxlen=65536)
+        self._decode_s = 0.0
 
     # -- request lifecycle ---------------------------------------------------
 
@@ -380,7 +397,8 @@ class Server:
                     temperature=temperature, top_k=top_k, top_p=top_p,
                     min_p=min_p, repeat_penalty=repeat_penalty,
                     logit_bias=logit_bias, seed=seed, grammar=grammar,
-                    n_probs=int(n_probs), cache_prompt=bool(cache_prompt))
+                    n_probs=int(n_probs), cache_prompt=bool(cache_prompt),
+                    t_submit=tracing.now())
         self._next_rid += 1
         self.queue.append(r)
         return r.rid
@@ -408,20 +426,22 @@ class Server:
         """:meth:`Graphs.replay_launches` of this Server's graphs."""
         return self._graphs.replay_launches()
 
-    def _chunk(self, tokens: list, t: int, cache: llama.KVCache):
+    def _chunk(self, tokens: list, t: int, cache: llama.KVCache,
+               rid: int = -1):
         """One bucket-padded prefill chunk of ``tokens`` (length <= t) on
-        ``cache`` through the static [1, t] buffer; returns the logits of
-        its last real token."""
-        buf = self._chunk_tokens.get(t)
-        if buf is None:
-            buf = self._chunk_tokens[t] = torch.zeros(
-                1, t, dtype=torch.int64, device=self.device)
-        padded = np.zeros((1, t), np.int64)
-        padded[0, : len(tokens)] = tokens
-        buf.copy_(torch.from_numpy(padded))
-        key = graph_key("chunk", t, self.prefill_mode)
-        logits = self._run(key, self._forward(key, buf, cache))
-        return logits[0, len(tokens) - 1].clone()
+        ``cache`` through the static [1, t] buffer, for request ``rid``;
+        returns the logits of its last real token."""
+        with tracing.span("serve.prefill.chunk", rid):
+            buf = self._chunk_tokens.get(t)
+            if buf is None:
+                buf = self._chunk_tokens[t] = torch.zeros(
+                    1, t, dtype=torch.int64, device=self.device)
+            padded = np.zeros((1, t), np.int64)
+            padded[0, : len(tokens)] = tokens
+            buf.copy_(torch.from_numpy(padded))
+            key = graph_key("chunk", t, self.prefill_mode)
+            logits = self._run(key, self._forward(key, buf, cache))
+            return logits[0, len(tokens) - 1].clone()
 
     def _staging(self) -> llama.KVCache:
         if self._stage is None:
@@ -429,14 +449,16 @@ class Server:
                                              device=self.device)
         return self._stage
 
-    def _prefill(self, slot: int, prompt: list, start: int = 0):
+    def _prefill(self, slot: int, prompt: list, start: int = 0,
+                 rid: int = -1):
         """Chunked prefill of ``prompt[start:]`` into its slot, whose
         first ``start`` rows already hold the prompt's prefix, through
         the staging cache: the slot copied in where ``start`` > 0 (else
         the staging cache's rows from an earlier prefill stay, past
         ``pos`` and so masked, as a fresh cache's zeros are), the chunks
         run, and the staging cache copied into the slot, as JAX extracts
-        and inserts it.  Returns the last prompt position's logits."""
+        and inserts it (``rid``: the request's, for the chunks' spans).
+        Returns the last prompt position's logits."""
         c = self.cache
         one = slice(slot, slot + 1)
         slab = [t[:, one] for t in c.buffers()]
@@ -451,7 +473,7 @@ class Server:
             t = max(self.bucket, round_up(len(part), self.bucket))
             # the padded tail writes garbage past the real tokens; pos
             # advances only by the real length so the next chunk overwrites
-            last = self._chunk(part, t, c1)
+            last = self._chunk(part, t, c1, rid)
             c1.pos.fill_(off + len(part))
             off += len(part)
         for dst, src in zip(slab, c1.buffers()):
@@ -487,33 +509,40 @@ class Server:
         return best, (best_n if best_n >= self.bucket else 0)
 
     def _admit(self) -> None:
-        while self.queue:
-            r = self.queue[0]
-            s, reuse = self._pick_slot(r.prompt, r.cache_prompt)
-            if s is None:
-                return
-            self.queue.pop(0)
-            t0 = time.perf_counter()
-            last_logits = self._prefill(s, r.prompt, reuse)
-            self._hpos[s] = len(r.prompt)
-            self._n_cached_tokens += reuse
-            self._history[s] = list(r.prompt)
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(r.seed if r.seed is not None else r.rid)
-            self._gens[s] = gen
-            self._temps[s] = r.temperature
-            self._topk[s] = r.top_k
-            self._topp[s] = r.top_p
-            self._minp[s] = r.min_p
-            self._rpen[s] = r.repeat_penalty
-            self._bias_ids[s] = -1
-            self._bias_vals[s] = 0.0
-            for j, (tid, bv) in enumerate(sorted((r.logit_bias or {}).items())):
-                self._bias_ids[s, j] = int(tid)
-                self._bias_vals[s, j] = float(bv)
-            self._recent[s] = -1
-            tail = r.prompt[-PENALTY_WINDOW:]
-            self._recent[s, PENALTY_WINDOW - len(tail):] = tail
+        """Admit queued requests in order while a slot is free."""
+        while self.queue and None in self.slots:
+            r = self.queue.pop(0)
+            with tracing.span("serve.admit", r.rid) as sp:
+                s, reuse = self._pick_slot(r.prompt, r.cache_prompt)
+                sp.note(slot=s, reused=reuse)
+                self._admit_to(r, s, reuse)
+
+    def _admit_to(self, r: Request, s: int, reuse: int) -> None:
+        """Prefill ``r`` into the free slot ``s``, whose cache holds its
+        first ``reuse`` prompt tokens, and sample its first token."""
+        r.t_admit = tracing.now()
+        r.reused = reuse
+        last_logits = self._prefill(s, r.prompt, reuse, r.rid)
+        self._hpos[s] = len(r.prompt)
+        self._n_cached_tokens += reuse
+        self._history[s] = list(r.prompt)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(r.seed if r.seed is not None else r.rid)
+        self._gens[s] = gen
+        self._temps[s] = r.temperature
+        self._topk[s] = r.top_k
+        self._topp[s] = r.top_p
+        self._minp[s] = r.min_p
+        self._rpen[s] = r.repeat_penalty
+        self._bias_ids[s] = -1
+        self._bias_vals[s] = 0.0
+        for j, (tid, bv) in enumerate(sorted((r.logit_bias or {}).items())):
+            self._bias_ids[s, j] = int(tid)
+            self._bias_vals[s, j] = float(bv)
+        self._recent[s] = -1
+        tail = r.prompt[-PENALTY_WINDOW:]
+        self._recent[s, PENALTY_WINDOW - len(tail):] = tail
+        with tracing.span("serve.sample", r.rid):
             if r.n_probs or r.grammar is not None:
                 host = last_logits.cpu().numpy()
             if r.n_probs:
@@ -527,10 +556,10 @@ class Server:
                     r.grammar.accept(tok)
                 except ValueError:
                     # no token continues the grammar: finish empty
-                    self._prefill_s += time.perf_counter() - t0
+                    self._prefill_s += (tracing.now() - r.t_admit) / 1e9
                     r.done = True
                     self.finished[r.rid] = r
-                    continue
+                    return
             else:
                 sl = slice(s, s + 1)
                 tok = int(sampling.sample(
@@ -538,33 +567,43 @@ class Server:
                     self._topk[sl], self._topp[sl], self._minp[sl],
                     self._recent[sl], self._rpen[sl], self._bias_ids[sl],
                     self._bias_vals[sl])[0])
-            self._prefill_s += time.perf_counter() - t0
-            r.generated.append(tok)
-            self._n_prefill_tokens += len(r.prompt) - reuse
-            self._n_tokens += 1
-            if (len(r.generated) >= r.max_new
-                    or (self.eos_id is not None and tok == self.eos_id)):
-                r.done = True
-                self.finished[r.rid] = r
-                continue
-            self._pending_tok[s] = tok
-            self._recent[s] = np.roll(self._recent[s], -1)
-            self._recent[s, -1] = tok
-            self.slots[s] = r
+        r.t_first = tracing.now()
+        self._prefill_s += (r.t_first - r.t_admit) / 1e9
+        r.generated.append(tok)
+        self._n_prefill_tokens += len(r.prompt) - reuse
+        self._n_tokens += 1
+        if (len(r.generated) >= r.max_new
+                or (self.eos_id is not None and tok == self.eos_id)):
+            r.done = True
+            self.finished[r.rid] = r
+            return
+        self._pending_tok[s] = tok
+        self._recent[s] = np.roll(self._recent[s], -1)
+        self._recent[s, -1] = tok
+        self.slots[s] = r
 
     def step(self) -> dict[int, int]:
         """Admit queued requests, run one batched decode step; returns
         {request_id: new_token} for slots that produced a token."""
-        self._admit()
-        active = [s for s in range(self.n_slots) if self.slots[s] is not None]
-        if not active:
-            return {}
-        if self.context_shift and self._hpos.max() >= self.cfg.max_seq - 1:
-            llama.shift_context(self.cache, self.cfg, self._shift_keep,
-                                rope_cache=self._rope)
-            # every slot's rows moved: no prefix starts at position 0 now
-            self._history = [[] for _ in range(self.n_slots)]
-            self._hpos = self.cache.pos.cpu().numpy().astype(np.int64)
+        with tracing.span("serve.step"):
+            self._admit()
+            active = [s for s in range(self.n_slots)
+                      if self.slots[s] is not None]
+            if not active:
+                return {}
+            if (self.context_shift
+                    and self._hpos.max() >= self.cfg.max_seq - 1):
+                llama.shift_context(self.cache, self.cfg, self._shift_keep,
+                                    rope_cache=self._rope)
+                # every slot's rows moved: no prefix starts at position 0
+                self._history = [[] for _ in range(self.n_slots)]
+                self._hpos = self.cache.pos.cpu().numpy().astype(np.int64)
+            with tracing.span("serve.decode"):
+                return self._decode(active)
+
+    def _decode(self, active: list) -> dict[int, int]:
+        """One batched decode step of every slot; the tokens of the
+        ``active`` ones, by request id."""
         t0 = time.perf_counter()
         self._tokens.copy_(torch.from_numpy(self._pending_tok[:, None]))
         # K3's static bound from the batch's longest slot, capped by the
@@ -574,14 +613,16 @@ class Server:
             max_ctx = min(max_ctx, self.cfg.window)
         s_hi = attention.decode_s_hi(max_ctx)
         key = graph_key("decode", s_hi, self.act_mode)
-        logits = self._run(key, self._forward(key, self._tokens,
-                                              self.cache, s_hi))
-        nxt = sampling.sample(
-            logits[:, -1], self._gens, self._temps, self._topk, self._topp,
-            self._minp, self._recent, self._rpen, self._bias_ids,
-            self._bias_vals).cpu().numpy()
-        dead = self._host_sampled(active, logits, nxt)
-        self._step_s.append(time.perf_counter() - t0)
+        with tracing.span("serve.decode.replay"):
+            logits = self._run(key, self._forward(key, self._tokens,
+                                                  self.cache, s_hi))
+        with tracing.span("serve.sample"):
+            nxt = sampling.sample(
+                logits[:, -1], self._gens, self._temps, self._topk,
+                self._topp, self._minp, self._recent, self._rpen,
+                self._bias_ids, self._bias_vals).cpu().numpy()
+            dead = self._host_sampled(active, logits, nxt)
+        self._decode_s += time.perf_counter() - t0
         self._hpos += 1  # every slot's cache.pos advanced by one
         self._n_steps += 1
         self._n_tokens += len(active)
@@ -682,9 +723,7 @@ class Server:
             "decode_tokens": self._n_decode_tokens,
             "cached_prompt_tokens": self._n_cached_tokens,
             "prefill_seconds": self._prefill_s,
-            "decode_seconds": sum(self._step_s),
-            "decode_step_ms_median": (statistics.median(self._step_s) * 1e3
-                                      if self._step_s else 0.0),
+            "decode_seconds": self._decode_s,
         }
 
     def run_until_done(self, max_steps: int = 10_000) -> dict[int, list]:

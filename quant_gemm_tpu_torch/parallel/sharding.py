@@ -35,9 +35,10 @@ the group's backend.  Gloo runs all-reduce, broadcast, all-gather and
 reduce-scatter on CUDA tensors itself (copying through the host inside);
 its point-to-point does not, so :func:`ppermute` takes an explicit copy to
 the host and back on a gloo group, counted in :data:`HOST_COPIES`.  Each
-collective is a ``torch.profiler`` range (``collective.<name>``;
-``ppermute.start#t`` / ``ppermute.wait#t`` and ``ring_gemm`` for the
-rings), which ``harness/aot.py::overlap_report`` classifies.  Nothing else
+collective is a span of :mod:`..tracing`, so a ``torch.profiler`` range
+(``collective.<name>``; ``ppermute.start#t`` / ``ppermute.wait#t`` and
+``ring_gemm`` for the rings), which ``harness/aot.py::overlap_report``
+classifies.  Nothing else
 changes a backend or a device: several ranks sharing one GPU run gloo
 (NCCL refuses two ranks on one device), one GPU per rank runs NCCL.
 """
@@ -52,8 +53,8 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
+from .. import tracing
 from ..formats.blocks import QK, Q8_1Tensor
 from ..formats.quant import codes, pack_planar_4bit, pack_planar_bits
 from ..kernels import layout, registry
@@ -125,7 +126,7 @@ def all_reduce(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """The sum of ``x`` over ``mesh[axis]``, in place: ``x`` is
     overwritten and returned (pass a copy to keep it)."""
     if not _trivial(mesh, axis):
-        with record_function("collective.all_reduce"):
+        with tracing.span("collective.all_reduce"):
             dist.all_reduce(x.detach(), group=mesh.groups[axis])
     return x
 
@@ -138,7 +139,7 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str,
         return x.detach().clone()
     x = x.detach().contiguous()
     parts = [torch.empty_like(x) for _ in range(mesh.shape[axis])]
-    with record_function("collective.all_gather"):
+    with tracing.span("collective.all_gather"):
         dist.all_gather(parts, x, group=mesh.groups[axis])
     return torch.cat(parts, dim=dim)
 
@@ -155,7 +156,7 @@ def reduce_scatter(x: torch.Tensor, mesh: Mesh, axis: str,
         return x.detach().clone()
     src = x.detach().movedim(dim, 0).contiguous()
     out = src.new_empty((src.shape[0] // n,) + src.shape[1:])
-    with record_function("collective.reduce_scatter"):
+    with tracing.span("collective.reduce_scatter"):
         dist.reduce_scatter_tensor(out, src, group=mesh.groups[axis])
     return out.movedim(0, dim)
 
@@ -173,7 +174,7 @@ class Permute:
     def wait(self):
         if self.tag is None:
             return self._x
-        with record_function(f"ppermute.wait#{self.tag}"):
+        with tracing.span(f"ppermute.wait#{self.tag}"):
             for r in self._reqs:
                 r.wait()
             outs = [o.to(d) for o, d in zip(self._outs, self._devs)]
@@ -200,7 +201,7 @@ def ppermute_start(x, mesh: Mesh, axis: str) -> Permute:
     if _trivial(mesh, axis):
         return Permute(x)
     tag = next(_TAGS)
-    with record_function(f"ppermute.start#{tag}"):
+    with tracing.span(f"ppermute.start#{tag}"):
         group = mesh.groups[axis]
         idx = mesh.index(axis)
         left = dist.get_global_rank(group, (idx - 1) % n)
@@ -465,7 +466,7 @@ def gemm_row_parallel(sw: ShardedWeight, act, mesh: Mesh, *,
 
 def _ring_gemm(w, chunk, quantized: bool, a_dtype, ops: registry.Ops):
     """One ring step's GEMM, the ``torch.profiler`` range ``ring_gemm``."""
-    with record_function("ring_gemm"):
+    with tracing.span("ring_gemm"):
         if quantized:
             return ops.gemm_exact(w, chunk)
         return _k4(w, chunk, a_dtype, ops)

@@ -1516,6 +1516,23 @@ def chunks(prompts, reuse, chunk=128, bucket=16):
     return out
 
 
+def heads(prompts, reuse):
+    """The prefill chunks that run the head: a prompt's last, one per
+    prompt with tokens left past its reused prefix (the others run
+    none)."""
+    return sum(len(p) > r for p, r in zip(prompts, reuse))
+
+
+def check_heads(name, st, prompts, reuse, chunk, bucket):
+    """The Server's head counters hold to the traffic: ``heads`` chunks
+    ran the head on one row each, every other chunk ran none."""
+    n, h = len(chunks(prompts, reuse, chunk, bucket)), heads(prompts, reuse)
+    got = st["prefill_chunks_headless"], st["prefill_head_rows"]
+    if got != (n - h, h):
+        fail(f"{name}: {got[0]} chunks without the head and {got[1]} head "
+             f"rows, expected {n - h} and {h}")
+
+
 def drive(srv, prompts, max_new, counters):
     """Submit ``prompts`` to ``srv``, set every counter to 0 just before
     the run and read it just after: returns ({request id: generated
@@ -1602,7 +1619,10 @@ def captured_pair(name, eager, captured, chunk_window=False):
               key=lambda kg: kg[1].replays)
     device_breakdown(f"{name} captured decode replay (s_hi {dec[0][1]})",
                      dec[1].graph.replay, graph=True)
-    chunk = sc.graphs.get(("chunk", 128) + dec[0][2:])
+    # the chunk graph of 128 tokens with the head on its read row, else
+    # the one with none (a prompt's middle chunk)
+    chunk = sc.graphs.get(("chunk", 128) + dec[0][2:-1] + (1,)) \
+        or sc.graphs.get(("chunk", 128) + dec[0][2:-1] + (0,))
     if chunk_window and chunk is not None:
         device_breakdown(f"{name} captured chunk replay (128 tokens)",
                          chunk.graph.replay, graph=True)
@@ -1634,6 +1654,7 @@ def serve_traffic(name, qp, cfg, dev, prompts, reuse, counters,
     if st["cached_prompt_tokens"] != sum(reuse):
         fail(f"{name}: reused {st['cached_prompt_tokens']} cached "
              f"prompt tokens, expected {sum(reuse)}")
+    check_heads(name, st, prompts, reuse, srv.max_chunk, srv.bucket)
     print(f"  {name}: {len(prompts)} requests, {st['prefill_tokens']} "
           f"prompt tokens "
           f"prefilled and {st['cached_prompt_tokens']} reused from the "
@@ -1825,8 +1846,8 @@ def main_path(dev, counters, prompts, reuse):
           f"weights built on the card in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    n_chunks = chunks(prompts, reuse)
-    prefill = {"gemm_dequant": len(n_chunks) * (4 * LAYERS + 1),
+    n_chunks, n_heads = chunks(prompts, reuse), heads(prompts, reuse)
+    prefill = {"gemm_dequant": len(n_chunks) * 4 * LAYERS + n_heads,
                "flash_prefill": LAYERS * sum(t >= 64 for t in n_chunks),
                "gemm_exact_k16": 0}
     by_run = {}
@@ -2043,7 +2064,7 @@ def q4_k_m_path(dev, counters, prompts, reuse):
     if split != MORE_BITS or qp["lm_head"].qtype != "q6_k":
         fail(f"unexpected structure: SplitLinear wqkv in layers {split}")
 
-    n_chunks = chunks(prompts, reuse)
+    n_chunks, n_heads = chunks(prompts, reuse), heads(prompts, reuse)
     name = "Server(qp, cfg, n_slots=8) on the Q4_K_M file"
     launches, st, _ = serve_traffic(name, qp, cfg, dev, prompts, reuse,
                                     counters, chunk_window=True)
@@ -2051,19 +2072,21 @@ def q4_k_m_path(dev, counters, prompts, reuse):
     # split one; wo, wgu; w_down unless q6_K), 4 per layer; K7 on the
     # q6_K attn_v and ffn_down of the more-bits layers and the lm_head;
     # K3 per layer.  A prefill chunk: K4 on the same q4_K linears, the
-    # plain float32 matmul on the q6_K ones and the lm_head, K5 per layer
-    # for chunks of 64 or more tokens
+    # plain float32 matmul on the q6_K ones, and on the lm_head in a
+    # prompt's last chunk only, K5 per layer for chunks of 64 or more
+    # tokens
     steps, n_q6 = st["decode_steps"], 2 * len(MORE_BITS) + 1
     prefill = {"gemm_dequant": len(n_chunks) * 4 * LAYERS,
                "flash_prefill": LAYERS * sum(t >= 64 for t in n_chunks),
-               "k16_dequant_gemm": len(n_chunks) * n_q6}
+               "k16_dequant_gemm": len(n_chunks) * (n_q6 - 1) + n_heads}
     check_launches(name, launches, {
         "gemm_exact": steps * 4 * LAYERS, "gemm_exact_k16": steps * n_q6,
         "flash_decode": steps * LAYERS, "norm_qkv": 0,
         "gemm_exact_fused": 0, "attn_tail": 0, **prefill})
     print(f"    per decode step: K1 {4 * LAYERS}, K7 {n_q6}, K3 {LAYERS}, "
           f"K2 0; per prefill chunk: K4 {4 * LAYERS}, plain K16 matmul "
-          f"{n_q6}, K5 {LAYERS} at 64 tokens or more", flush=True)
+          f"{n_q6 - 1} (+1, the head, in a prompt's last), K5 {LAYERS} at "
+          "64 tokens or more", flush=True)
 
     rng = np.random.default_rng(2)
     toks = torch.as_tensor(rng.integers(0, VOCAB, (1, 128)), device=dev)
@@ -2089,14 +2112,15 @@ def q4_k_m_path(dev, counters, prompts, reuse):
     return {"Q4_K_M bf16": launches, RUN_C: fused}
 
 
-def route_launches(qp, steps, n_chunks, fused, k2):
+def route_launches(qp, steps, n_chunks, n_heads, fused, k2):
     """The launches of a run on ``qp`` worked out from its layers and the
     route rules: per decode step (8 rows), K2 for every layer's wqkv when
     the mix takes K2 (``k2``, ``FILE_MIXES``), else the wqkv's parts as
     GEMMs; each decode GEMM K7 on a per-16 weight, K6 with FUSED_DECODE on
     a ``gemm_exact.FUSED_QTYPES`` form, else K1; K3 per layer.  Per
     prefill chunk, K4 on every per-32 weight, the plain float32 matmul on
-    every per-16 one, K5 per layer at 64 tokens or more."""
+    every per-16 one, K5 per layer at 64 tokens or more; the lm_head's
+    GEMM only in the ``n_heads`` last chunks."""
     from quant_gemm_tpu_torch.kernels import layout
     from quant_gemm_tpu_torch.kernels.gemm_exact import FUSED_QTYPES
     from quant_gemm_tpu_torch.models import llama
@@ -2107,7 +2131,7 @@ def route_launches(qp, steps, n_chunks, fused, k2):
         return w.parts if isinstance(w, llama.SplitLinear) else (w,)
 
     gemms = [p for ly in layers for name in ("wqkv", "wo", "wgu", "w_down")
-             for p in parts(ly[name])] + [qp["lm_head"]]
+             for p in parts(ly[name])]
     decode = [p for ly in layers for name in ("wo", "wgu", "w_down")
               for p in parts(ly[name])] + [qp["lm_head"]]
     if not k2:
@@ -2116,6 +2140,7 @@ def route_launches(qp, steps, n_chunks, fused, k2):
     k6 = [fused and not k and w.qtype in FUSED_QTYPES
           for w, k in zip(decode, k16)]
     prefill_k16 = sum(isinstance(w, layout.PreparedK16) for w in gemms)
+    head_k16 = isinstance(qp["lm_head"], layout.PreparedK16)
     return {
         "norm_qkv": steps * len(layers) if k2 else 0,
         "flash_decode": steps * len(layers),
@@ -2123,8 +2148,9 @@ def route_launches(qp, steps, n_chunks, fused, k2):
         "gemm_exact_fused": steps * sum(k6),
         "gemm_exact": steps * (len(decode) - sum(k16) - sum(k6)),
         "attn_tail": 0,
-        "gemm_dequant": len(n_chunks) * (len(gemms) - prefill_k16),
-        "k16_dequant_gemm": len(n_chunks) * prefill_k16,
+        "gemm_dequant": (len(n_chunks) * (len(gemms) - prefill_k16)
+                         + n_heads * (not head_k16)),
+        "k16_dequant_gemm": len(n_chunks) * prefill_k16 + n_heads * head_k16,
         "flash_prefill": len(layers) * sum(t >= 64 for t in n_chunks),
     }
 
@@ -2168,7 +2194,7 @@ def formats_path(dev, counters, prompts, reuse):
     from quant_gemm_tpu_torch.models import gguf_loader, llama
 
     prompts, reuse = prompts[:8], reuse[:8]
-    n_chunks = chunks(prompts, reuse)
+    n_chunks, n_heads = chunks(prompts, reuse), heads(prompts, reuse)
     by_run, rng = {}, np.random.default_rng(4)
     for seed, mix in enumerate(FORMAT_FILES):
         with tempfile.TemporaryDirectory() as tmp:
@@ -2192,7 +2218,8 @@ def formats_path(dev, counters, prompts, reuse):
         launches, st, default = serve_traffic(name, qp, cfg, dev, prompts,
                                               reuse, counters)
         k2 = FILE_MIXES[mix]["k2"]
-        want = route_launches(qp, st["decode_steps"], n_chunks, False, k2)
+        want = route_launches(qp, st["decode_steps"], n_chunks, n_heads,
+                              False, k2)
         check_launches(name, launches, want)
         steps = st["decode_steps"]
         print(f"    per decode step: K2 {want['norm_qkv'] // steps}, K1 "
@@ -2211,8 +2238,8 @@ def formats_path(dev, counters, prompts, reuse):
                 fused, st, results = serve_traffic(
                     f"{run}: Server(qp, cfg, n_slots=8)", qp, cfg, dev,
                     prompts, reuse, counters)
-            want = route_launches(qp, st["decode_steps"], n_chunks, True,
-                                  k2)
+            want = route_launches(qp, st["decode_steps"], n_chunks,
+                                  n_heads, True, k2)
             check_launches(run, fused, want)
             if results != default:
                 fail(f"{run}: the transcripts differ from the default "
@@ -2353,10 +2380,12 @@ def mistral_path(dev, counters):
     check_launches(RUN_M1, launches, {
         "gemm_exact": steps * (3 * M_LAYERS + 1),
         "norm_qkv": steps * M_LAYERS, "flash_decode": steps * M_LAYERS,
-        "gemm_dequant": len(n_chunks) * (4 * M_LAYERS + 1),
+        "gemm_dequant": len(n_chunks) * 4 * M_LAYERS + len(prompts),
         "flash_prefill": M_LAYERS * sum(t >= 64 for t in n_chunks),
         "gemm_exact_fused": 0, "attn_tail": 0, "gemm_exact_k16": 0,
         "k16_dequant_gemm": 0})
+    check_heads(RUN_M1, st, prompts, [0] * len(prompts), srv.max_chunk,
+                srv.bucket)
     print(f"  (m1) Server(qp, cfg, n_slots=8) on the ring: 4 requests "
           f"(prompts {list(M_PROMPTS)}), {st['prefill_tokens']} prompt "
           f"tokens in {len(n_chunks)} chunks, {st['generated_tokens']} "
@@ -2504,7 +2533,7 @@ def mistral_shift(qp, dev, rng, counters):
         check_launches(f"(m3) context shift, graphs {on}", launches, {
             "gemm_exact": steps * (3 * M_LAYERS + 1),
             "norm_qkv": steps * M_LAYERS, "flash_decode": steps * M_LAYERS,
-            "gemm_dequant": len(n_chunks) * (4 * M_LAYERS + 1),
+            "gemm_dequant": len(n_chunks) * 4 * M_LAYERS + 1,
             "flash_prefill": M_LAYERS * sum(t >= 64 for t in n_chunks),
             "gemm_exact_fused": 0, "attn_tail": 0, "gemm_exact_k16": 0,
             "k16_dequant_gemm": 0})
@@ -3035,9 +3064,9 @@ def replay(name, qp, cfg, dev, trace, counters, captured):
         seen = []
         chunk = srv._chunk
 
-        def counted(tokens, t, cache):
+        def counted(tokens, t, cache, *rest, **kw):
             seen.append(t)
-            return chunk(tokens, t, cache)
+            return chunk(tokens, t, cache, *rest, **kw)
 
         srv._chunk = counted
         pending = sorted(trace, key=lambda e: (e[0], e[1]))
@@ -3144,7 +3173,8 @@ def qwen_http_run(label, qp, cfg, dev, tok, md, turns, counters):
           "one's deltas joined) equal the Server driven with the same "
           "admissions, eager and captured", flush=True)
     steps = srv.stats()["decode_steps"]
-    want = route_launches(qp, steps, seen, False,
+    # every admission prefills at least its last prompt token: one head
+    want = route_launches(qp, steps, seen, len(trace), False,
                           FILE_MIXES[label.split()[0]]["k2"])
     check_launches(f"{label} replay", launches, want)
     per = {k: v // steps for k, v in want.items()
@@ -3320,7 +3350,7 @@ def qwen_path(dev, counters):
             if res_f != default:
                 fail(f"{run}: the transcripts differ from the default run's")
             steps = srv_f.stats()["decode_steps"]
-            want = route_launches(qp, steps, seen, True, False)
+            want = route_launches(qp, steps, seen, len(trace), True, False)
             check_launches(run, fused, want)
             print(f"    {run}: per decode step K6 "
                   f"{want['gemm_exact_fused'] // steps} (iq4_xs), K1 "
@@ -3712,9 +3742,11 @@ def a16_path(dev, counters, prompts, reuse, qp, cfg):
     from quant_gemm_tpu_torch.models import llama
 
     prompts, reuse = prompts[:8], reuse[:8]
-    n_chunks = chunks(prompts, reuse)
+    n_chunks, n_heads = chunks(prompts, reuse), heads(prompts, reuse)
     L = LAYERS
     k5 = L * sum(t >= 64 for t in n_chunks)
+    # the chunks' K4 calls: four a layer, and the head in a prompt's last
+    k4 = len(n_chunks) * 4 * L + n_heads
     zeros = {"gemm_exact_fused": 0, "attn_tail": 0, "gemm_exact_k16": 0,
              "k16_dequant_gemm": 0}
     cfg_wd = cfg._replace(w_down_a16=True)
@@ -3724,26 +3756,25 @@ def a16_path(dev, counters, prompts, reuse, qp, cfg):
         (RUN_A16P, cfg, dict(prefill_a16=True), False, lambda s: {
             "gemm_exact": s * (3 * L + 1), "norm_qkv": s * L,
             "flash_decode": s * L, "quantize_q8_1": s * (3 * L + 1),
-            "gemm_dequant": len(n_chunks) * (4 * L + 1),
-            "quantize_fold_q8_1": 0}),
+            "gemm_dequant": k4, "quantize_fold_q8_1": 0}),
         # every GEMM of a decode step on K4 too; K2 off
         (RUN_A16, cfg, dict(act_mode="bf16"), False, lambda s: {
             "gemm_exact": 0, "norm_qkv": 0, "flash_decode": s * L,
             "quantize_q8_1": 0, "quantize_fold_q8_1": 0,
-            "gemm_dequant": len(n_chunks) * (4 * L + 1) + s * (4 * L + 1)}),
+            "gemm_dequant": k4 + s * (4 * L + 1)}),
         # w_down on K4 (bf16) at decode and in the chunks
         (RUN_WD, cfg_wd, {}, False, lambda s: {
             "gemm_exact": s * (2 * L + 1), "norm_qkv": s * L,
             "flash_decode": s * L, "quantize_q8_1": s * (2 * L + 1),
-            "gemm_dequant": len(n_chunks) * (4 * L + 1) + s * L,
-            "quantize_fold_q8_1": len(n_chunks) * (3 * L + 1)}),
+            "gemm_dequant": k4 + s * L,
+            "quantize_fold_q8_1": k4 - len(n_chunks) * L}),
         # K8 takes wo to the second residual at decode: w_down_a16 only
         # reaches the chunks
         (RUN_WDT, cfg_wd, {}, True, lambda s: {
             "attn_tail": s * L, "gemm_exact": s, "norm_qkv": s * L,
             "flash_decode": s * L, "quantize_q8_1": s,
-            "gemm_dequant": len(n_chunks) * (4 * L + 1),
-            "quantize_fold_q8_1": len(n_chunks) * (3 * L + 1)}),
+            "gemm_dequant": k4,
+            "quantize_fold_q8_1": k4 - len(n_chunks) * L}),
     ]
     by_run = {}
     for name, c, kw, tail, want in runs:
@@ -3852,7 +3883,7 @@ def lora_path(dev, counters, prompts, cfg):
         check_launches(RUN_LORA, launches, {
             "gemm_exact": steps * (4 * L + 1), "norm_qkv": 0,
             "attn_tail": 0, "flash_decode": steps * L,
-            "gemm_dequant": len(n_chunks) * (4 * L + 1),
+            "gemm_dequant": len(n_chunks) * 4 * L + 8,
             "flash_prefill": L * sum(t >= 64 for t in n_chunks),
             "gemm_exact_fused": 0, "gemm_exact_k16": 0})
         print(f"  {RUN_LORA}: build_engine(lora_path=) Server, 8 requests, "
@@ -4202,7 +4233,7 @@ def hf_path(dev, counters, prompts):
     check_launches(RUN_HF, launches, {
         "gemm_exact": steps * (3 * nl + 1), "norm_qkv": steps * nl,
         "flash_decode": steps * nl,
-        "gemm_dequant": len(n_chunks) * (4 * nl + 1),
+        "gemm_dequant": len(n_chunks) * 4 * nl + 8,
         "flash_prefill": nl * sum(t >= 64 for t in n_chunks),
         "gemm_exact_fused": 0, "attn_tail": 0, "gemm_exact_k16": 0})
     rng = np.random.default_rng(20)
@@ -4496,7 +4527,7 @@ def qat_serving(dev, trained, cfg, counters, prompts, reuse):
         "gemm_exact": steps * (3 * LAYERS + 1),
         "norm_qkv": steps * LAYERS, "flash_decode": steps * LAYERS,
         "gemm_exact_fused": 0, "attn_tail": 0,
-        "gemm_dequant": len(n_chunks) * (4 * LAYERS + 1),
+        "gemm_dequant": len(n_chunks) * 4 * LAYERS + heads(prompts, reuse),
         "flash_prefill": LAYERS * sum(t >= 64 for t in n_chunks),
         "gemm_exact_k16": 0})
     rng = np.random.default_rng(162)
@@ -5270,7 +5301,8 @@ def traced_replay(dev, card, counters, prompts, reuse):
     check_launches(RUN_S17, launches, {
         "gemm_exact": steps * (3 * LAYERS + 1), "norm_qkv": steps * LAYERS,
         "flash_decode": steps * LAYERS,
-        "gemm_dequant": len(n_chunks) * (4 * LAYERS + 1),
+        "gemm_dequant": (len(n_chunks) * 4 * LAYERS
+                         + heads(prompts[:8], reuse[:8])),
         "flash_prefill": LAYERS * sum(t >= 64 for t in n_chunks),
         "gemm_exact_fused": 0, "attn_tail": 0, "gemm_exact_k16": 0})
     dec = max((g for k, g in srv.graphs.items() if k[0] == "decode"),

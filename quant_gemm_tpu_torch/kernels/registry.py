@@ -78,7 +78,7 @@ pallas_fused_quant  K4 with ``fused_quant``: a float activation
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -169,10 +169,15 @@ def k16_dequant_gemm(w: PreparedK16, a: torch.Tensor) -> torch.Tensor:
 k16_dequant_gemm.calls = 0
 
 
-def dispatch(w, act, quantize_act: bool = False, ops: Ops = KERNELS):
+def dispatch(w, act, quantize_act: bool = False, ops: Ops = KERNELS,
+             route_m: Optional[int] = None):
     """``C[M, N] = act @ dequant(w)^T`` float32 through the slice's
-    kernels (or the plain versions with ``ops=PLAIN``)."""
+    kernels (or the plain versions with ``ops=PLAIN``).  ``route_m``: the
+    row count the route is chosen by, where it is not M (a prefill
+    chunk's head on the rows read, which keep the chunk's route)."""
     m = (act.qs if isinstance(act, Q8_1Tensor) else act).shape[0]
+    if route_m is not None:
+        m = route_m
     if isinstance(w, PreparedK16):
         a8 = quantize_act or isinstance(act, Q8_1Tensor)
         if m > DECODE_M_MAX or not a8:

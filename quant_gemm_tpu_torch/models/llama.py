@@ -54,7 +54,14 @@ hidden states into sequence embeddings (JAX ``embed``).
 
 :func:`forward` is :func:`begin`, :func:`layer` for each layer, :func:`end`
 and :func:`head`; a check can call the pieces to run the kernels and the
-plain versions from the same hidden state at every layer.  With
+plain versions from the same hidden state at every layer.  The head runs
+on every row by default; a caller that reads fewer rows names them
+(``out_rows``), and the final norm and ``lm_head`` run on those alone, as
+llama.cpp's ``inp_out_ids`` selects the output rows before its
+``result_norm`` and ``result_output``: the Server reads one row of a
+prompt's last chunk and none of the others, and the head (Qwen's tied
+[151936, 1536] q6_K, dequantized in float32 at prefill) is the widest
+GEMM of a chunk.  With
 ``tp_ctx`` (a reduce over the ranks, ``llama_tp.tp_context``) and the
 rank's local config the same loop runs one rank of Megatron tensor
 parallelism: the rank's heads, KV heads and FFN features on its weight
@@ -431,24 +438,27 @@ class _FloatLinear(NamedTuple):
     w: torch.Tensor
 
 
-def _linear(w, x: torch.Tensor, ops, act_mode: str = "q8_1") -> torch.Tensor:
+def _linear(w, x: torch.Tensor, ops, act_mode: str = "q8_1",
+            route_m: Optional[int] = None) -> torch.Tensor:
     """y[M, N] = x[M, K] @ W^T in ``act_mode`` (JAX ``_linear``):
     ``"q8_1"`` quantizes x to Q8_1 in dispatch (W4A8), ``"bf16"`` hands
     dispatch x in bf16 (W4A16), a :class:`_FloatLinear` is a float32
     matmul; a :class:`SplitLinear` runs one GEMM per part, concatenated on
     N; a :class:`~.lora.LoraLinear` adds its deltas to its base's
-    product."""
+    product.  ``route_m``: the row count that picks dispatch's route
+    (default: M)."""
     if isinstance(w, _FloatLinear):
         return matmul_f32(x, w.w)
     if isinstance(w, LoraLinear):
-        return apply_lora(w, _linear(w.inner, x, ops, act_mode), x)
+        return apply_lora(w, _linear(w.inner, x, ops, act_mode, route_m), x)
     if isinstance(w, SplitLinear):
-        return torch.cat([_linear(p, x, ops, act_mode) for p in w.parts],
-                         dim=-1)
+        return torch.cat([_linear(p, x, ops, act_mode, route_m)
+                          for p in w.parts], dim=-1)
     if act_mode == "q8_1":
         return registry.dispatch(w, x.to(torch.float32), quantize_act=True,
-                                 ops=ops)
-    return registry.dispatch(w, x.to(torch.bfloat16), ops=ops)
+                                 ops=ops, route_m=route_m)
+    return registry.dispatch(w, x.to(torch.bfloat16), ops=ops,
+                             route_m=route_m)
 
 
 def _attention(cfg: LlamaConfig, q, k_all, v_all, positions, ks=None,
@@ -681,24 +691,41 @@ def end(cache: KVCache, step: Step, current: list) -> None:
 
 
 def head(qparams: dict, cfg: LlamaConfig, x: torch.Tensor,
-         ops: registry.Ops = registry.KERNELS,
-         act_mode: str = "q8_1") -> torch.Tensor:
-    """Final norm and ``lm_head``: logits [B, T, vocab] float32."""
-    b, t, _ = x.shape
+         ops: registry.Ops = registry.KERNELS, act_mode: str = "q8_1",
+         rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Final norm and ``lm_head`` over the rows whose logits the caller
+    reads: every row of x [B, T, D] (``rows`` None; logits [B, T, vocab]
+    float32), or the rows ``rows`` (int64 [B, R]) names in each slot,
+    gathered before the norm as llama.cpp's ``inp_out_ids`` selects them
+    (logits [B, R, vocab]); R = 0 runs neither the norm nor the head.
+    Gathered rows keep the route of the call's B * T rows (a prefill
+    chunk's: the per-16 weights' float32 matmul, K4 on the per-32 ones),
+    so each row's numerics are those of the full call."""
+    b, t, d = x.shape
+    if rows is not None:
+        if rows.shape[1] == 0:
+            return x.new_empty((b, 0, cfg.vocab))
+        x = torch.gather(x, 1, rows[:, :, None].expand(-1, -1, d))
+    r = x.shape[1]
     x = rms_norm(x, qparams["final_norm"], cfg.eps)
-    logits = _linear(qparams["lm_head"], x.reshape(b * t, cfg.dim), ops,
-                     act_mode)
-    return logits.reshape(b, t, -1)
+    logits = _linear(qparams["lm_head"], x.reshape(b * r, d), ops, act_mode,
+                     route_m=b * t)
+    return logits.reshape(b, r, -1)
 
 
 def forward(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor,
             cache: KVCache, *, act_mode: str = "q8_1", rope_cache=None,
             ops: registry.Ops = registry.KERNELS,
-            s_hi: Optional[int] = None, route=None, tp_ctx=None):
+            s_hi: Optional[int] = None, route=None, tp_ctx=None,
+            out_rows: Optional[torch.Tensor] = None):
     """Run T tokens per slot (prefill when T > 1, decode when T = 1).
 
     Slots advance independently by their own ``cache.pos``.  Returns
     (logits [B, T, vocab] float32, cache), the cache updated in place.
+    ``out_rows`` (int64 [B, R]): the rows whose logits the caller reads;
+    the final norm and the head run on those alone (:func:`head`) and the
+    logits are [B, R, vocab], none at R = 0.  The layers and the cache
+    writes do not depend on it.
     ``ops`` selects the kernels (default) or, on purpose, their plain
     versions (``registry.PLAIN``).  ``s_hi``: every active slot's
     position is below it (JAX's ``attn_s_hi``; decode only).  ``route``:
@@ -715,7 +742,7 @@ def forward(qparams: dict, cfg: LlamaConfig, tokens: torch.Tensor,
         if kv is not None:
             current.append(kv)
     end(cache, step, current)
-    return head(qparams, cfg, x, ops, act_mode), cache
+    return head(qparams, cfg, x, ops, act_mode, out_rows), cache
 
 
 def float_params(params: dict, device="cuda") -> dict:

@@ -26,20 +26,28 @@ On the card each decode step and each prefill chunk is replayed from a
 CUDA graph, the counterpart of JAX's jitted ``_decode_step`` and
 ``_prefill_step`` (``quant_gemm_tpu/models/serve.py:47-81``): one graph
 per decode ``s_hi`` (256, 512 or None, as JAX compiles at most three
-``attn_s_hi`` programs) and one per chunk length, keyed also on the
-module settings that choose the route (:func:`graph_key`), all in one
-memory pool.  The
+``attn_s_hi`` programs) and per chunk length one whose head runs on the
+row the Server reads (a prompt's last chunk: the row of its last real
+token, read from a static index buffer, the static logits [1, 1, vocab])
+and, at ``max_chunk``, one with no head (a prompt's full middle chunks,
+whose logits nobody reads), as llama.cpp's ``inp_out_ids`` leaves out
+the rows it does not output; every key names also the module settings
+that choose the route (:func:`graph_key`), all in one memory pool.  The
 first call of a key runs eagerly on a side stream (the kernels' builds
 and occupancy queries happen there) and gives that step's result; then
 the key is captured and every later call replays it.  The graph reads
-its tokens from a static device buffer, writes the cache and
-``cache.pos`` in place and leaves its logits in a static output; sampling
+its tokens (and a chunk its head's row, in the same buffer and upload)
+from a static device buffer, writes the cache and ``cache.pos`` in place
+and leaves its logits in a static output; sampling
 stays eager after the replay (JAX samples inside its jit).  As JAX
 prefills a one-slot cache and inserts it (``serve.py:180-215``), the
 Server prefills into a one-slot staging cache: the slot is copied into
 it first where a reused prefix continues (JAX's extract), and the
 staging cache is copied into the slot after the last chunk (JAX's
-insert), so the chunk graphs never bake a slot's address in.
+insert), so the chunk graphs never bake a slot's address in.  Only
+the last chunk's head runs: ``stats()`` counts the chunks run without
+it (``prefill_chunks_headless``) and the rows it ran on
+(``prefill_head_rows``, one an admission).
 :data:`CUDA_GRAPHS` = False runs the steps eagerly on the card too (the
 counterpart of ``jax.disable_jit()``); on the CPU the Server always runs
 eagerly.  A capture that fails raises: nothing falls back to eager.
@@ -96,17 +104,20 @@ BIAS_SLOTS = 8  # sparse logit-bias entries per request
 CUDA_GRAPHS = True
 
 
-def graph_key(kind: str, size, act_mode: str = "q8_1") -> tuple:
+def graph_key(kind: str, size, act_mode: str = "q8_1",
+              head_rows: Optional[int] = None) -> tuple:
     """The key of a captured step: ``kind`` "decode" with its ``s_hi``
-    or "chunk" with its length, its activation mode, and every module
+    or "chunk" with its length, its activation mode, every module
     setting whose route a graph bakes in, read now:
     ``registry.FUSED_DECODE`` (K6), ``gemm_megalayer.ENABLE_QKV`` and
     ``ENABLE_TAIL`` (K2, K8), ``registry.DECODE_M_MAX`` (K1/K7 against
     K4) and ``llama.FLASH_PREFILL_T_MIN`` (K5 against the dense prefill
-    attention)."""
+    attention), and last the rows the head runs on per slot
+    (``head_rows``: None every row; a chunk 0 or 1, ``llama.forward``'s
+    ``out_rows``)."""
     return (kind, size, act_mode, registry.FUSED_DECODE,
             gemm_megalayer.ENABLE_QKV, gemm_megalayer.ENABLE_TAIL,
-            registry.DECODE_M_MAX, llama.FLASH_PREFILL_T_MIN)
+            registry.DECODE_M_MAX, llama.FLASH_PREFILL_T_MIN, head_rows)
 
 
 @dataclasses.dataclass
@@ -338,7 +349,8 @@ class Server:
                                         device=self.device)
         # the one-slot cache every prefill runs on, made at first use
         self._stage: Optional[llama.KVCache] = None
-        # static device buffers the steps read their tokens from
+        # static device buffers the steps read their tokens from; a
+        # chunk's [1, t + 1] holds its tokens, then the row its head reads
         self._tokens = torch.zeros(n_slots, 1, dtype=torch.int64,
                                    device=self.device)
         self._chunk_tokens: dict[int, torch.Tensor] = {}
@@ -367,6 +379,8 @@ class Server:
         self._n_tokens = 0
         self._n_decode_tokens = 0
         self._n_prefill_tokens = 0
+        self._n_headless = 0  # prefill chunks run without the head
+        self._n_head_rows = 0  # rows the head ran on in prefill
         # prompt-prefix cache: per slot, the tokens its cache rows
         # currently hold from position 0
         self._history: list[list[int]] = [[] for _ in range(n_slots)]
@@ -406,10 +420,11 @@ class Server:
     # -- the steps, eager or replayed ----------------------------------------
 
     def _forward(self, key: tuple, tokens: torch.Tensor,
-                 cache: llama.KVCache, s_hi=None):
+                 cache: llama.KVCache, s_hi=None, out_rows=None):
         """The step of ``key`` as a call: the forward of the static
         ``tokens`` on ``cache`` in the key's activation mode, with its
-        routes decided once per key; returns the logits."""
+        routes decided once per key, the head on the static ``out_rows``
+        (None: every row); returns the logits."""
         mode = key[2]
         route = self._routes.get(key)
         if route is None:
@@ -417,7 +432,8 @@ class Server:
                 self.qparams, self.cfg, *tokens.shape, act_mode=mode)
         return lambda: llama.forward(
             self.qparams, self.cfg, tokens, cache, act_mode=mode,
-            rope_cache=self._rope, s_hi=s_hi, route=route)[0]
+            rope_cache=self._rope, s_hi=s_hi, route=route,
+            out_rows=out_rows)[0]
 
     def _run(self, key: tuple, fn) -> torch.Tensor:
         return self._graphs.run(key, fn)
@@ -427,21 +443,31 @@ class Server:
         return self._graphs.replay_launches()
 
     def _chunk(self, tokens: list, t: int, cache: llama.KVCache,
-               rid: int = -1):
+               rid: int = -1, last: bool = True):
         """One bucket-padded prefill chunk of ``tokens`` (length <= t) on
-        ``cache`` through the static [1, t] buffer, for request ``rid``;
-        returns the logits of its last real token."""
+        ``cache`` through the static [1, t + 1] buffer (the tokens, then
+        the index of the last real one), for request ``rid``.  A
+        prompt's ``last`` chunk runs the head on that row alone and
+        returns its logits; any other chunk runs no head (its logits are
+        never read) and returns None."""
         with tracing.span("serve.prefill.chunk", rid):
             buf = self._chunk_tokens.get(t)
             if buf is None:
                 buf = self._chunk_tokens[t] = torch.zeros(
-                    1, t, dtype=torch.int64, device=self.device)
-            padded = np.zeros((1, t), np.int64)
+                    1, t + 1, dtype=torch.int64, device=self.device)
+            padded = np.zeros((1, t + 1), np.int64)
             padded[0, : len(tokens)] = tokens
+            padded[0, t] = len(tokens) - 1
             buf.copy_(torch.from_numpy(padded))
-            key = graph_key("chunk", t, self.prefill_mode)
-            logits = self._run(key, self._forward(key, buf, cache))
-            return logits[0, len(tokens) - 1].clone()
+            rows = buf[:, t:] if last else buf[:, :0]
+            key = graph_key("chunk", t, self.prefill_mode, rows.shape[1])
+            logits = self._run(key, self._forward(key, buf[:, :t], cache,
+                                                  out_rows=rows))
+            if not last:
+                self._n_headless += 1
+                return None
+            self._n_head_rows += 1
+            return logits[0, 0].clone()
 
     def _staging(self) -> llama.KVCache:
         if self._stage is None:
@@ -458,7 +484,8 @@ class Server:
         ``pos`` and so masked, as a fresh cache's zeros are), the chunks
         run, and the staging cache copied into the slot, as JAX extracts
         and inserts it (``rid``: the request's, for the chunks' spans).
-        Returns the last prompt position's logits."""
+        Every chunk but the last is ``max_chunk`` tokens long and runs no
+        head.  Returns the last prompt position's logits."""
         c = self.cache
         one = slice(slot, slot + 1)
         slab = [t[:, one] for t in c.buffers()]
@@ -473,7 +500,8 @@ class Server:
             t = max(self.bucket, round_up(len(part), self.bucket))
             # the padded tail writes garbage past the real tokens; pos
             # advances only by the real length so the next chunk overwrites
-            last = self._chunk(part, t, c1, rid)
+            last = self._chunk(part, t, c1, rid,
+                               last=off + len(part) == len(prompt))
             c1.pos.fill_(off + len(part))
             off += len(part)
         for dst, src in zip(slab, c1.buffers()):
@@ -702,9 +730,12 @@ class Server:
         return False
 
     def stats(self) -> dict:
-        """Serving counters, plus host-clock seconds spent in prefill
-        (admission, first token included) and in decode steps; both end
-        in a device-to-host read, so they cover the device work.  The
+        """Serving counters (``prefill_chunks_headless``: prefill chunks
+        run without the head; ``prefill_head_rows``: rows the head ran on
+        in prefill, one an admission), plus host-clock seconds spent in
+        prefill (admission, first token included) and in decode steps;
+        both end in a device-to-host read, so they cover the device
+        work.  The
         graphs' first calls and captures are inside those seconds;
         ``capture_seconds`` is their sum."""
         return {
@@ -715,6 +746,8 @@ class Server:
             "decode_steps": self._n_steps,
             "generated_tokens": self._n_tokens,
             "prefill_tokens": self._n_prefill_tokens,
+            "prefill_chunks_headless": self._n_headless,
+            "prefill_head_rows": self._n_head_rows,
             "active_slots": sum(s is not None for s in self.slots),
             "queued": len(self.queue),
             "finished": len(self.finished),

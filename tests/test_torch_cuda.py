@@ -1290,8 +1290,10 @@ def test_server_captured_equals_eager(dev, monkeypatch, qtype, ring):
             assert g.launches["gemm_exact"] == \
                 g.launches["quantize_q8_1"] == 3 * layers + 1
         else:
+            # the head's K4 on a prompt's last chunk; a middle one has none
             assert g.launches["gemm_dequant"] == \
-                g.launches["quantize_fold_q8_1"] == 4 * layers + 1
+                g.launches["quantize_fold_q8_1"] == \
+                4 * layers + (key[-1] != 0)
 
 
 # --- K4's float32 operands as three bf16 pieces; K9/K10 on the row plan ---
@@ -1577,6 +1579,58 @@ def test_qwen_server_captured_equals_eager_with_bias(dev, monkeypatch):
     assert decode and all(g.launches["norm_qkv"] == 2
                           and g.launches["gemm_exact_k16"] == 1
                           for g in decode)
+
+
+@pytest.mark.parametrize("head", ["q6_k", "q4_0"])
+def test_qwen_server_runs_the_head_on_the_read_row(dev, monkeypatch, head):
+    """Prompts of 300, 150 and 100 tokens (3, 2 and 1 chunks of at most
+    128) prefilled by a Qwen-width Server replaying CUDA graphs: the
+    no-head chunk key captured once and replayed for the other middle
+    chunks; the head's GEMM once a prompt, not once a chunk (the per-16
+    ``k16_dequant_gemm``, or K4 beside the layers' four, counted through
+    ``replay_launches``); each prompt's last-row logits those of an eager
+    run of the same chunks with the head on every row: K4's row bit for
+    bit (151936 rows are 2374 tiles, which fill the card without a K split
+    at one row as at 128: each row sums in one order), the per-16
+    float32 matmul's (cuBLAS at M 1 sums in its own order) ``max|delta|
+    <= 1e-5 * max|logits|``, with the same argmax."""
+    qp, cfg = _qwen_model(dev)
+    if head == "q4_0":
+        qp["lm_head"] = llama.init_qparams(
+            cfg._replace(n_layers=0), seed=7, device=dev)["lm_head"]
+    monkeypatch.setattr(serve, "CUDA_GRAPHS", True)
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist()
+               for n in (300, 150, 100)]
+    srv = serve.Server(qp, cfg, n_slots=2, device=dev)
+    before = registry.counters()
+    got = [srv._prefill(0, p) for p in prompts]
+    ran = {k: v - before[k] + srv.replay_launches().get(k, 0)
+           for k, v in registry.counters().items()}
+    chunks = 3 + 2 + 1
+    heads = {"q6_k": ran["k16_dequant_gemm"],
+             "q4_0": ran["gemm_dequant"] - 4 * cfg.n_layers * chunks}
+    assert heads[head] == len(prompts)
+    headless = {k: g for k, g in srv.graphs.items() if k[-1] == 0}
+    assert list(headless) == [serve.graph_key("chunk", 128, "q8_1", 0)]
+    g = next(iter(headless.values()))
+    assert g.replays == 2 and "k16_dequant_gemm" not in g.launches
+    assert g.launches["gemm_dequant"] == 4 * cfg.n_layers
+    st = srv.stats()
+    assert (st["prefill_chunks_headless"], st["prefill_head_rows"]) == (3, 3)
+    for p, row in zip(prompts, got):
+        cache = llama.KVCache.init(cfg, 1, device=dev)
+        for off in range(0, len(p), 128):
+            part = p[off: off + 128]
+            padded = torch.zeros(1, -(-len(part) // 16) * 16,
+                                 dtype=torch.int64, device=dev)
+            padded[0, : len(part)] = torch.tensor(part)
+            logits, _ = llama.forward(qp, cfg, padded, cache)
+            cache.pos.fill_(off + len(part))
+        want = logits[0, len(part) - 1]
+        assert (row - want).abs().max() <= 1e-5 * want.abs().max()
+        assert row.argmax() == want.argmax()
+        assert torch.equal(row, want) or head == "q6_k"
 
 
 # -- slice 15: W4A16 decode, LoRA routes, the speculative rewind -------------

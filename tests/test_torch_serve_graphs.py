@@ -119,8 +119,9 @@ def _rows(k, scale=None):
 
 def _view_prefill(srv, slot, prompt, start):
     """``prompt[start:]`` prefilled as ``srv`` chunks it, straight on a
-    view of the slot in ``srv.cache`` (no staging cache); returns the
-    last prompt position's logits."""
+    view of the slot in ``srv.cache`` (no staging cache), the head on the
+    rows the Server reads (none of a middle chunk, the last real token of
+    the last); returns the last prompt position's logits."""
     c, one = srv.cache, slice(slot, slot + 1)
     view = tl.KVCache(
         c.k[:, one], c.v[:, one], torch.full((1,), start, dtype=torch.int32),
@@ -131,9 +132,12 @@ def _view_prefill(srv, slot, prompt, start):
         t = max(srv.bucket, round_up(len(part), srv.bucket))
         padded = torch.zeros(1, t, dtype=torch.int64)
         padded[0, : len(part)] = torch.tensor(part)
+        rows = (torch.tensor([[len(part) - 1]])
+                if off + len(part) == len(prompt)
+                else torch.zeros(1, 0, dtype=torch.int64))
         logits, _ = tl.forward(srv.qparams, srv.cfg, padded, view,
-                               rope_cache=srv._rope)
-        last = logits[0, len(part) - 1]
+                               rope_cache=srv._rope, out_rows=rows)
+        last = logits[0, -1] if rows.numel() else None
         view.pos.fill_(off + len(part))
         off += len(part)
     c.pos[slot] = len(prompt)

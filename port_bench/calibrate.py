@@ -32,14 +32,13 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     import torch
 
-    from port_bench import check, harness, weights
+    from port_bench import check, harness
 
     if not torch.cuda.is_available():
         harness.log("no CUDA device")
         return 2
     device = torch.device("cuda", 0)
     cell = harness.cell(args.workload)
-    arch = harness.reference_arch(cell.config)
     for seed in (int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()
         run, model, state = harness.serve(cell, seed, args.seconds, False,
@@ -49,7 +48,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         reqs = check.sample(run, seed)
         t = time.perf_counter()
-        gaps = check.gaps(arch, weights.ReferenceWeights(model), reqs,
+        gaps = check.gaps(harness.reference(cell, model), reqs,
                           bits=4 if args.control else None)
         line = {"seed": seed, "requests": len(gaps),
                 "served": sum(g["served"] for g in gaps),

@@ -6,26 +6,25 @@ request with the longest sequence (prompt and served tokens), the one
 that took the most prompt tokens from a slot's cache (where any did),
 then others in an order drawn from the seed until ``check.served_tokens``
 served tokens or ``check.max_requests`` requests (the mix's keys).  The
-reference (``reference/model.py``, float32, TF32 off, on the same blocks
-drawn again from the seed) runs once over each sampled prompt followed by
-its served tokens; at each served token it reads by how much that
-token's logit lies below the reference's best there.  The largest such
-gap over the sample, ``logit_gap_max``, is compared with the cell's
-limit (``limits/<cell>.json``).
+reference (the architecture's ``reference``: float32, TF32 off, on the
+same blocks drawn again from the seed; llama's is ``reference/model.py``)
+runs once over each sampled prompt followed by its served tokens; at each
+served token it reads by how much that token's logit lies below the
+reference's best there.  The largest such gap over the sample,
+``logit_gap_max``, is compared with the cell's limit
+(``limits/<cell>.json``).
 
-The control (:func:`control_gap`) puts the reference in the program's
-place at the precision below the configuration's: 4-bit activations
-instead of the W4A8 int8 (``act_bits=4``); at each position of the same
-prompts and tokens it reads the gap of the token that the control puts
-first.
+The control (:func:`gaps` with ``bits``) puts the reference in the
+program's place at the precision below the configuration's: 4-bit
+activations instead of the W4A8 int8 (``bits=4``); at each position of
+the same prompts and tokens it reads the gap of the token that the
+control puts first.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-
-from .reference import model as ref
 
 
 def sample(run, seed: int) -> list:
@@ -59,12 +58,13 @@ def _sequences(reqs: list):
     return seqs, rows
 
 
-def gaps(arch, weights, reqs: list, bits=None) -> list:
-    """Per request: the float32 reference's logits at its served positions
-    [n, vocab], and (with ``bits``) the control's argmax there."""
+def gaps(logits, reqs: list, bits=None) -> list:
+    """Per request, the gaps of its served tokens below the float32
+    reference's best (and with ``bits``, of the control's first tokens);
+    ``logits``: the cell's ``harness.reference``."""
     seqs, rows = _sequences(reqs)
-    base = ref.logits(arch, weights, seqs, rows)
-    ctrl = ref.logits(arch, weights, seqs, rows, bits=bits) if bits else None
+    base = logits(seqs, rows)
+    ctrl = logits(seqs, rows, bits=bits) if bits else None
     out = []
     for i, r in enumerate(reqs):
         lg = base[i]

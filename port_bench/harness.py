@@ -4,23 +4,46 @@ A cell of ``BENCHMARK.json`` names a configuration (``configs/<name>.json``)
 and a traffic mix (``traffic/<name>.json``); its metrics are the entries of
 ``BENCHMARK.json`` that it reports, each read by ``metrics/<name>.py``
 (a function ``read(run)`` returning a number, or None where it finds
-nothing to read).  Nothing here names a cell, a configuration, a mix or a
-metric: a later cell adds files and entries only.
+nothing to read).  A configuration names its architecture under ``arch``,
+whose module is ``archs/<arch>.py``.  Nothing here names a cell, a
+configuration, a mix, a metric or an architecture: a later cell adds
+files and entries only.
 
-The system under test is ``quant_gemm_tpu_torch.models.serve.Server``,
-driven through ``submit`` and ``step`` by closed-loop clients
-(``traffic.py``).  Set-up draws the weights on the card from the seed
-(``weights.py``), builds the Server, warms every step shape the mix can
-reach (each prefill chunk length, and decode steps at contexts from the
-mix's shortest prompt up to its longest context, capped by the window),
-and runs the mix until ``lead_in_finished`` requests have finished.  The
-window then runs whole ``step`` calls for ``--seconds``.  A token's time
-is when the ``step`` call that produced it returned.
+An architecture's module keeps this interface:
+
+- ``program(config, seed, device)``: (the weights' model, the program's
+  params, the program's config), the weights drawn on the card from the
+  seed;
+- ``server(params, program_config, served, device)``: the Server, built
+  through the program's normal entry point (``served``: the configuration's
+  ``served`` object);
+- ``shapes(config)``: an object with ``vocab`` and ``window`` (0: none)
+  and the work counts (``work.Work``) ``decode_step(contexts)``,
+  ``prefill_chunk(start, n, last)``, ``decode_gemms(m)`` and
+  ``chunk_gemms(n, last)``; counts come from shapes and the traffic
+  served, never from which kernel ran;
+- ``reference(config, model)``: ``logits(seqs, rows, bits=None)``, the
+  plain float32 reference over the same seeded blocks (``check.gaps``): a
+  function of ``reference/``, or a ``functools.partial`` of one over plain
+  values and objects of this package's modules (:func:`reference` refuses
+  anything else);
+- optionally ``KERNEL_GROUPS``: (label, key) pairs that ``trace.group``
+  tries after its own groups and before its fallbacks.
+
+The system under test is the program's Server, driven through ``submit``
+and ``step`` by closed-loop clients (``traffic.py``).  Set-up draws the
+weights on the card from the seed, builds the Server, warms every step
+shape the mix can reach (each prefill chunk length, and decode steps at
+contexts from the mix's shortest prompt up to its longest context, capped
+by the window), and runs the mix until ``lead_in_finished`` requests have
+finished.  The window then runs whole ``step`` calls for ``--seconds``.  A
+token's time is when the ``step`` call that produced it returned.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib.util
 import json
 import math
@@ -32,7 +55,6 @@ from typing import Optional
 import numpy as np
 
 from . import traffic as traffic_mod
-from . import work
 
 ROOT = Path(__file__).resolve().parent
 CHECKOUT = ROOT.parent
@@ -60,6 +82,7 @@ def spec(root: Path = CHECKOUT) -> dict:
 class Cell:
     name: str
     config: dict
+    arch: object  # the module archs/<config's arch>.py
     mix: dict
     limits: dict
     end_to_end: list  # the BENCHMARK.json entries this cell reports
@@ -80,62 +103,79 @@ def cell(name: str, root: Path = ROOT, bench: Optional[dict] = None) -> Cell:
     if not found:
         raise SystemExit(f"no workload {name!r} in BENCHMARK.json")
     w = found[0]
-    config = load_json(root / "configs" / f"{w['config']}.json")
+    config_path = root / "configs" / f"{w['config']}.json"
+    config = load_json(config_path)
+    arch = architecture(config, config_path, root)
     mix = traffic_mod.load(w["traffic"], root)
     limits_path = root / "limits" / f"{name}.json"
     limits = load_json(limits_path) if limits_path.exists() else {}
     e2e = [m for m in bench["end_to_end"] if _reports(m, name, set())]
     names = {m["name"] for m in e2e}
     per = [m for m in bench["per_layer"] if _reports(m, name, names)]
-    return Cell(name, config, mix, limits, e2e, per)
+    return Cell(name, config, arch, mix, limits, e2e, per)
+
+
+def _load(path: Path, name: str):
+    sp = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(sp)
+    # registered first, as an import would be: dataclasses look their
+    # module up by name
+    sys.modules[name] = mod
+    sp.loader.exec_module(mod)
+    return mod
+
+
+def _module_name(kind: str, name: str) -> str:
+    return f"port_bench_{kind}_{name.replace('.', '_').replace('-', '_')}"
+
+
+def architecture(config: dict, path: Path, root: Path = ROOT):
+    """``archs/<arch>.py`` under ``root`` of the configuration file at
+    ``path``, which names it under ``arch``."""
+    if "arch" not in config:
+        raise SystemExit(f"{path} names no architecture: it needs an "
+                         f"\"arch\" key, the name of {root / 'archs'}"
+                         "/<arch>.py")
+    file = root / "archs" / f"{config['arch']}.py"
+    if not file.is_file():
+        raise SystemExit(f"{path} names the architecture "
+                         f"{config['arch']!r}, and {file} does not exist")
+    return _load(file, _module_name("arch", config["arch"]))
 
 
 def reader(metric: str, root: Path = ROOT):
     """``metrics/<metric>.py``'s ``read``."""
-    path = root / "metrics" / f"{metric}.py"
-    sp = importlib.util.spec_from_file_location(
-        f"port_bench_metric_{metric.replace('.', '_').replace('-', '_')}",
-        path)
-    mod = importlib.util.module_from_spec(sp)
-    sp.loader.exec_module(mod)
-    return mod.read
+    return _load(root / "metrics" / f"{metric}.py",
+                 _module_name("metric", metric)).read
 
 
-# ---------------------------------------------------------------------------
-# the program's configuration
-# ---------------------------------------------------------------------------
-
-
-def llama_config(config: dict):
-    """The program's ``LlamaConfig`` of a configuration file."""
-    from quant_gemm_tpu_torch.models import llama
-
-    p, s = config["published"], config["served"]
-    heads = int(p["num_attention_heads"])
-    hd = int(p.get("head_dim") or p["hidden_size"] // heads)
-    return llama.LlamaConfig(
-        vocab=int(p["vocab_size"]), dim=int(p["hidden_size"]),
-        n_layers=int(p["num_hidden_layers"]), n_heads=heads,
-        n_kv_heads=int(p["num_key_value_heads"]),
-        d_ff=int(p["intermediate_size"]),
-        max_seq=int(p["max_position_embeddings"]),
-        rope_base=float(p["rope_theta"]), eps=float(p["rms_norm_eps"]),
-        window=int(s["window"]), ring=bool(s["ring"]),
-        ring_chunk=int(s.get("ring_chunk", 256)),
-        head_dim_override=(hd if hd != int(p["hidden_size"]) // heads
-                           else 0))
-
-
-def reference_arch(config: dict):
-    from .reference.model import Arch
-
-    sh = work.shapes(config)
-    p = config["published"]
-    return Arch(dim=sh.dim, n_layers=sh.n_layers, n_heads=sh.n_heads,
-                n_kv=sh.n_kv, head_dim=sh.head_dim, d_ff=sh.d_ff,
-                vocab=sh.vocab, eps=float(p["rms_norm_eps"]),
-                rope_theta=float(p["rope_theta"]), window=sh.window,
-                qkv_bias=sh.qkv_bias)
+def reference(cell_: Cell, model):
+    """The cell's plain reference: its architecture's ``reference(config,
+    model)``, refused unless it is a function of ``reference/``, whose
+    modules import nothing of the program, bound to nothing but plain
+    values and objects of this package's modules, so that nothing the
+    program made reaches it."""
+    fn = cell_.arch.reference(cell_.config, model)
+    inner, bound = fn, []
+    while isinstance(inner, functools.partial):
+        bound += [*inner.args, *inner.keywords.values()]
+        inner = inner.func
+    home = ROOT / "reference"
+    code = getattr(inner, "__code__", None)
+    if code is None or home not in Path(code.co_filename).resolve().parents:
+        raise SystemExit(f"{cell_.name}: the reference of architecture "
+                         f"{cell_.config['arch']!r} is {inner!r}, which is "
+                         f"not a function of {home}")
+    for value in bound:
+        module = type(value).__module__
+        if not (isinstance(value, (bool, int, float, str, type(None)))
+                or module == "port_bench"
+                or module.startswith("port_bench.")):
+            raise SystemExit(f"{cell_.name}: the reference of architecture "
+                             f"{cell_.config['arch']!r} is bound to a "
+                             f"{module}.{type(value).__qualname__}, which "
+                             "is neither a plain value nor of port_bench")
+    return fn
 
 
 # ---------------------------------------------------------------------------
@@ -422,7 +462,7 @@ class Run:
     """What a run measured, as the metric readers see it."""
 
     cell: Cell
-    shapes: work.Shapes
+    shapes: object  # the architecture's shapes(config): the work counts
     seed: int
     setup_s: float
     t_open: float
@@ -471,16 +511,13 @@ class Run:
 
 def serve(cell_: Cell, seed: int, seconds: float, traced: bool, device,
           t_start: float) -> tuple:
-    """Set up, run the window; returns (Run, the Model of the weights, the
+    """Set up, run the window; returns (Run, the weights' model, the
     Server's state to free)."""
     import torch
 
-    from quant_gemm_tpu_torch.models import serve as serve_mod
-
     from . import trace as trace_mod
-    from . import weights
 
-    config, mix = cell_.config, cell_.mix
+    config, mix, arch = cell_.config, cell_.mix, cell_.arch
     phases, t = {}, t_start
 
     def phase(name):
@@ -491,22 +528,18 @@ def serve(cell_: Cell, seed: int, seconds: float, traced: bool, device,
 
     info = {"setup_phases_s": phases}
     phase("start")
-    model = weights.Model(config, seed, device)
-    qparams = weights.program_params(model)
+    model, params, program_config = arch.program(config, seed, device)
     phase("weights")
-    s = config["served"]
-    cfg = llama_config(config)
-    server = serve_mod.Server(qparams, cfg, n_slots=int(s["n_slots"]),
-                              prefill_bucket=int(s["prefill_bucket"]),
-                              cache_qtype=s["cache_qtype"], device=device)
-    sh = work.shapes(config)
+    server = arch.server(params, program_config, config["served"], device)
+    sh = arch.shapes(config)
     tr = traffic_mod.Traffic(mix, seed, sh.vocab)
     loop = Loop(server, mix, tr, sh.window)
     phase("server")
     info["warmed"] = warm(loop, mix, sh.vocab, seed, sh.window)
     graphs_warm = len(server.graphs)
     phase("warm")
-    stretch = trace_mod.Stretch(device) if traced else None
+    stretch = trace_mod.Stretch(
+        device, getattr(arch, "KERNEL_GROUPS", ())) if traced else None
     phase("profiler")
     loop.start_clients()
     lead = int(mix["lead_in_finished"])
@@ -551,7 +584,7 @@ def serve(cell_: Cell, seed: int, seconds: float, traced: bool, device,
               loop.steps[first:last], loop.requests, stats_open,
               stats_close, stats_trace, stretch, server.max_chunk, info,
               trace_steps)
-    return run, model, (server, qparams, loop)
+    return run, model, (server, params, loop)
 
 
 def _read_stretch(loop: Loop, stretch, steps: list, info: dict) -> list:
@@ -612,7 +645,7 @@ def failed(run: Run) -> tuple:
     return att, fail
 
 
-__all__ = ["Cell", "cell", "reader", "spec", "llama_config",
-           "reference_arch", "Request", "Step", "Loop", "warm",
+__all__ = ["Cell", "cell", "architecture", "reader", "spec", "Request",
+           "Step", "Loop", "warm",
            "copy_probe", "card_info", "forbidden_modules", "Run", "serve",
            "metrics", "failed", "FORBIDDEN", "log"]

@@ -51,7 +51,7 @@ def result(args, device, t_start=T_START, cell=None) -> dict:
     (said on standard error)."""
     import torch
 
-    from port_bench import check, harness, weights
+    from port_bench import check, harness
 
     cell = cell or harness.cell(args.workload)
     traced = bool(args.trace)
@@ -103,8 +103,7 @@ def result(args, device, t_start=T_START, cell=None) -> dict:
         torch.cuda.empty_cache()
     t = time.perf_counter()
     reqs = check.sample(run, args.seed)
-    gaps = check.gaps(harness.reference_arch(cell.config),
-                      weights.ReferenceWeights(model), reqs) if reqs else []
+    gaps = check.gaps(harness.reference(cell, model), reqs) if reqs else []
     harness.log(f"reference over {len(reqs)} requests "
                 f"({sum(g['served'] for g in gaps)} served tokens) in "
                 f"{time.perf_counter() - t:.2f} s: {json.dumps(gaps)}")

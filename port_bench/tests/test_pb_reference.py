@@ -10,7 +10,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from port_bench import harness, weights
+from port_bench import weights
 from port_bench.reference import blocks, model as ref
 
 from . import tiny
@@ -60,7 +60,7 @@ def test_reference_matches_the_programs_float32_forward(tmp_path):
 
     cell, model, seq = _setup(tmp_path)
     rw = weights.ReferenceWeights(model)
-    arch = harness.reference_arch(cell.config)
+    arch = cell.arch.reference_arch(cell.config)
     want = ref.logits(arch, rw, [seq], [list(range(len(seq)))])[0]
     layers = []
     for i in range(arch.n_layers):
@@ -71,7 +71,7 @@ def test_reference_matches_the_programs_float32_forward(tmp_path):
                       | {"w_gate": w["w_gate"], "w_up": w["w_up"]})
     params = {"embed": rw.embed(torch.arange(512)), "layers": layers,
               "final_norm": rw.final_norm(), "lm_head": rw.head()}
-    cfg = harness.llama_config(cell.config)
+    cfg = cell.arch.llama_config(cell.config)
     cache = llama.KVCache.init(cfg, 1, device="cpu")
     got = llama.forward_float(params, cfg, torch.tensor([seq]), cache)[0][0]
     # the same float32 model but for the program's bf16 cache (k and v
@@ -87,11 +87,11 @@ def test_reference_against_the_served_w4a8_path(tmp_path):
     from quant_gemm_tpu_torch.models import llama
 
     cell, model, seq = _setup(tmp_path, seed=9)
-    arch = harness.reference_arch(cell.config)
+    arch = cell.arch.reference_arch(cell.config)
     want = ref.logits(arch, weights.ReferenceWeights(model), [seq],
                       [list(range(len(seq)))])[0]
     qp = weights.program_params(model)
-    cfg = harness.llama_config(cell.config)
+    cfg = cell.arch.llama_config(cell.config)
     cache = llama.KVCache.init(cfg, 1, device="cpu")
     got = llama.forward(qp, cfg, torch.tensor([seq]), cache)[0][0]
     # Q8_1 activations round each linear map's input by about 0.5% of its

@@ -12,7 +12,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from port_bench import check, harness, weights
+from port_bench import check, harness
 
 from . import tiny
 
@@ -100,13 +100,12 @@ def test_control_is_not_correct(tmp_path):
     """The control at the tiny size, on three seeds: its widest gap is
     over the limit on each, the program's under it."""
     cell = tiny.cell(tmp_path)
-    arch = harness.reference_arch(cell.config)
     for seed in (2 ** 31 + 1, 2 ** 31 + 2, 2 ** 31 + 3):
         run, model, state = harness.serve(cell, seed, 2.0, False,
                                           torch.device("cpu"), 0.0)
         del state
         reqs = check.sample(run, seed)
-        g = check.gaps(arch, weights.ReferenceWeights(model), reqs, bits=4)
+        g = check.gaps(harness.reference(cell, model), reqs, bits=4)
         prog = max(x["gap_max"] for x in g)
         ctl = max(x["control_gap_max"] for x in g)
         print(json.dumps({"seed": seed, "gap_max": prog,

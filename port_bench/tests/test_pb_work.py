@@ -1,17 +1,22 @@
 """The yardstick's bytes and operations against counts worked by hand,
-one shape per configuration, and every metric file's use of them."""
+one shape per configuration, counted through the architecture's module
+that the configuration names, and every metric file's use of them."""
 
 import pytest
 
-from port_bench import harness, work
+from port_bench import harness
 
 MISTRAL = harness.cell("mistral-7b.chat-decode")
 QWEN = harness.cell("qwen2.5-1.5b.rag-prefill")
 
 
+def _shapes(cell):
+    return cell.arch.shapes(cell.config)
+
+
 def test_mistral_decode_step_by_hand():
-    sh = work.shapes(MISTRAL.config)
-    w = work.decode_step(sh, [100] * 8)
+    sh = _shapes(MISTRAL)
+    w = sh.decode_step([100] * 8)
     # q4_0 layers: (6144 + 4096 + 28672) x 4096 + 4096 x 14336 weights,
     # 18 bytes a 32; the q6_K head 32000 x 4096, 210 bytes a 256
     layer = (6144 * 4096 + 4096 * 4096 + 28672 * 4096 + 4096 * 14336)
@@ -28,8 +33,8 @@ def test_mistral_decode_step_by_hand():
 
 
 def test_qwen_prefill_chunk_by_hand():
-    sh = work.shapes(QWEN.config)
-    w = work.prefill_chunk(sh, 0, 128, last=True)
+    sh = _shapes(QWEN)
+    w = sh.prefill_chunk(0, 128, last=True)
     layer = 2048 * 1536 + 1536 * 1536 + 17920 * 1536 + 1536 * 8960
     assert layer == 46_792_704
     weights = 28 * layer // 32 * 18 + 151936 * 1536 // 256 * 210
@@ -46,26 +51,26 @@ def test_qwen_prefill_chunk_by_hand():
 
 
 def test_window_caps_the_attended_tokens():
-    sh = work.shapes(MISTRAL.config)
+    sh = _shapes(MISTRAL)
     assert sh.attended(0) == 1 and sh.attended(4095) == 4096
     assert sh.attended(10_000) == 4096
-    w = work.prefill_chunk(sh, 8000, 128, last=False)
+    w = sh.prefill_chunk(8000, 128, last=False)
     # positions 3905 .. 8127 read once, the head not run
     kv_token = 32 * 2 * 8 * 128 * 2
-    assert w.nbytes - work.gemms(sh, 128, 0, io=False).nbytes == (
+    assert w.nbytes - sh.gemms(128, 0, io=False).nbytes == (
         sh.small_bytes() + (8128 - 3905) * kv_token + 128 * kv_token
         + 128 * 4096 * 2)
 
 
 def test_kernel_bounds_count_inputs_and_outputs():
-    sh = work.shapes(QWEN.config)
+    sh = _shapes(QWEN)
     m = 8
-    g = work.decode_gemms(sh, m)
-    plain = work.gemms(sh, m, m, io=False)
+    g = sh.decode_gemms(m)
+    plain = sh.gemms(m, m, io=False)
     io = sum(m * k * 36 / 32 + m * n * 4 for n, k in sh.linears) * 28 \
         + m * 1536 * 36 / 32 + m * 151936 * 4
     assert g.nbytes - plain.nbytes == pytest.approx(io)
-    c = work.chunk_gemms(sh, 100, last=False)
+    c = sh.chunk_gemms(100, last=False)
     assert c.ops["int8"] == 2 * 100 * 28 * (2048 * 1536 + 1536 * 1536
                                             + 17920 * 1536 + 1536 * 8960)
 

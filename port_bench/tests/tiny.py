@@ -1,13 +1,15 @@
 """A tiny cell for the CPU tests: a two-layer qwen2-shaped model (QKV
 biases, tied q6_K head, head size 128) under a sessions mix, written into
-a temporary folder beside copies of nothing else, and a run of it on the
-CPU through the same code as a run on the card."""
+a temporary folder beside a copy of the architectures' modules and
+nothing else, and a run of it on the CPU through the same code as a run
+on the card."""
 
 from __future__ import annotations
 
 import argparse
 import copy
 import json
+import shutil
 import time
 from pathlib import Path
 
@@ -17,6 +19,7 @@ from port_bench import harness, run
 
 CONFIG = {
     "source": "a test shape",
+    "arch": "llama",
     "published": {"hidden_size": 256, "intermediate_size": 512,
                   "num_hidden_layers": 2, "num_attention_heads": 2,
                   "num_key_value_heads": 1, "vocab_size": 512,
@@ -47,6 +50,9 @@ def write(root: Path, config=None, mix=None) -> dict:
     object that holds it besides the repository's cells."""
     for sub in ("configs", "traffic", "limits"):
         (root / sub).mkdir(parents=True, exist_ok=True)
+    shutil.copytree(harness.ROOT / "archs", root / "archs",
+                    ignore=shutil.ignore_patterns("__pycache__"),
+                    dirs_exist_ok=True)
     (root / "configs" / "tiny.json").write_text(json.dumps(config or CONFIG))
     (root / "traffic" / "sessions.json").write_text(json.dumps(mix or MIX))
     (root / "limits" / f"{CELL}.json").write_text(
@@ -66,9 +72,11 @@ def cell(root: Path) -> harness.Cell:
 
 
 def run_tiny(root: Path, seed: int = 2 ** 31 + 11, seconds: float = 2.0,
-             trace: int = 0) -> dict:
-    """One run of the tiny cell on the CPU: the result object."""
-    args = argparse.Namespace(workload=CELL, seed=seed, seconds=seconds,
-                              trace=trace)
+             trace: int = 0, cell_=None) -> dict:
+    """One run on the CPU of the tiny cell, or of ``cell_`` (a
+    ``harness.Cell``): the result object."""
+    cell_ = cell_ or cell(root)
+    args = argparse.Namespace(workload=cell_.name, seed=seed,
+                              seconds=seconds, trace=trace)
     return run.result(args, torch.device("cpu"), time.perf_counter(),
-                      cell(root))
+                      cell_)

@@ -21,7 +21,10 @@ the run then takes another stretch (``harness._read_stretch``).
 
 :data:`KERNEL_GROUPS` names device kernels as the port's
 ``harness/profiling.py`` does (a copy, so that a change to the program
-cannot move the names the breakdown reads).
+cannot move the names the breakdown reads).  An architecture's module may
+add groups of its own (its ``KERNEL_GROUPS``): they are tried after
+these, so that no label of these changes, and before the fallbacks
+(library matmul, copies, other), so that a new kernel gets its own.
 """
 
 from __future__ import annotations
@@ -60,9 +63,10 @@ HOST_LABELS = {"port_bench.client": "client loop",
                None: "outside the benchmark's spans"}
 
 
-def group(name: str) -> str:
-    """The :data:`KERNEL_GROUPS` label of a device activity's name."""
-    for label, key in KERNEL_GROUPS:
+def group(name: str, extra=()) -> str:
+    """The label of a device activity's name: its :data:`KERNEL_GROUPS` or
+    ``extra`` group's, else a fallback."""
+    for label, key in (*KERNEL_GROUPS, *extra):
         if key in name:
             return label
     low = name.lower()
@@ -139,12 +143,14 @@ class Stretch:
     """Start and stop the profiler around a stretch of whole steps; after
     :meth:`stop`, its reading: ``activities`` [(start_ns, end_ns, name,
     span)], ``t0_ns`` / ``t1_ns`` (the stretch on the profiler's clock),
-    ``lead_lost``, ``unattributed``."""
+    ``lead_lost``, ``unattributed``.  ``groups``: the architecture's
+    kernel groups, besides :data:`KERNEL_GROUPS`."""
 
-    def __init__(self, device):
+    def __init__(self, device, groups=()):
         import torch
 
         self.device = device
+        self.groups = tuple(groups)
         self.cuda = device.type == "cuda"
         self.started = self.running = False
         self._lead = None
@@ -302,7 +308,7 @@ class Stretch:
         by: dict = {}
         for s, e, name, _ in self.activities:
             if e > self.t0_ns and s < self.t1_ns:
-                g = group(name)
+                g = group(name, self.groups)
                 by[g] = by.get(g, 0) + (e - s)
         return [[k, v / 1e9] for k, v in
                 sorted(by.items(), key=lambda kv: -kv[1])[:top]]

@@ -38,7 +38,9 @@ _Q6_K_RMS = math.sqrt((64 ** 2 - 1) / 12 + 0.25) * math.sqrt(
     (256 ** 2 - 1) / 12 + 0.25)
 
 
-def _generator(seed: int, name: str, device) -> torch.Generator:
+def generator(seed: int, name: str, device) -> torch.Generator:
+    """The ``torch.Generator`` that draws the tensor ``name`` under
+    ``seed``: the same seed and name give the same bytes."""
     h = hashlib.sha256(f"{int(seed)}/{name}".encode()).digest()
     return torch.Generator(device=device).manual_seed(
         int.from_bytes(h[:8], "little") & 0x7FFFFFFFFFFFFFFF)
@@ -122,7 +124,7 @@ class Model:
         return self.types["layers"]
 
     def tensor(self, name: str) -> torch.Tensor:
-        g = _generator(self.seed, name, self.device)
+        g = generator(self.seed, name, self.device)
         shape = self.shape(name)
         if len(shape) == 1:
             if name.endswith(".bias"):
@@ -225,4 +227,5 @@ class ReferenceWeights:
         return self._f32(self.m.head_name())
 
 
-__all__ = ["draw", "Model", "program_params", "ReferenceWeights"]
+__all__ = ["generator", "draw", "Model", "program_params",
+           "ReferenceWeights"]
